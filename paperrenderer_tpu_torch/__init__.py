@@ -1,0 +1,51 @@
+"""paperrenderer_tpu_torch — the PyTorch + CUDA port of paperrenderer_tpu.
+
+Same scene API as the JAX package (RenderEngine / Scene / Model /
+ModelInstance / Material / Camera / RenderPass), written in PyTorch; each
+Pallas kernel of the JAX package becomes a hand-written Hopper kernel under
+``csrc/``, built at first use. Every tensor lives on an explicit ``device``
+(``Scene``/``RenderEngine``/``RenderPass``); on a CPU tensor each kernel
+wrapper runs its plain PyTorch version instead.
+
+Ported so far: the static raster frame, ``RenderPass.render(cam)``.
+"""
+
+import torch as _torch
+
+# Geometry math cannot tolerate TF32-truncated products: vertex transforms,
+# camera unprojection and edge setup all involve cancellation.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.set_float32_matmul_precision("highest")
+
+from .core import (  # noqa: E402
+    Camera,
+    CameraMatrices,
+    GeometryArena,
+    Material,
+    MaterialInstance,
+    MaterialMesh,
+    MaterialRegistry,
+    Model,
+    ModelInstance,
+    RenderEngine,
+    Scene,
+    make_cube,
+    make_icosphere,
+    make_plane,
+    make_torus,
+    make_uv_sphere,
+)
+from .render import RenderPass  # noqa: E402
+from .utils import Logger, LogType, StatisticsTracker, Timer  # noqa: E402
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Camera", "CameraMatrices", "GeometryArena", "RenderEngine",
+    "Material", "MaterialInstance", "MaterialMesh", "MaterialRegistry",
+    "Model", "ModelInstance", "RenderPass", "Scene",
+    "make_cube", "make_icosphere", "make_plane", "make_torus", "make_uv_sphere",
+    "Logger", "LogType", "StatisticsTracker", "Timer",
+    "__version__",
+]

@@ -1,0 +1,114 @@
+"""The repository's benchmark scenes, built through the port's public API.
+
+Exact copies of ``examples/render_scene.py::build_example_scene`` (config 1:
+~4.1k triangles) and ``examples/render_dynamic.py::build_dynamic_scene``
+(config 2: 10k instances, half 12-triangle cubes and half 80-triangle
+icospheres, ~460k triangles) — same meshes, materials, transforms, lights,
+camera and seed — with an explicit ``device``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .core import (
+    Camera, Material, MaterialRegistry, Model, ModelInstance, RenderEngine,
+    Scene, make_cube, make_icosphere, make_plane, make_torus, make_uv_sphere,
+)
+from .ops.shading import Lights
+from .render import RenderPass
+
+
+def build_example_scene(width: int = 512, height: int = 512, device="cpu"):
+    """The bundled example scene; returns (RenderPass, Camera)."""
+    scene = Scene(device=device)
+    registry = MaterialRegistry()
+
+    ground = Model.from_mesh(scene.arena, *make_plane(size=30.0), name="ground")
+    sphere = Model.from_mesh(
+        scene.arena, *make_uv_sphere(radius=1.0, rings=24, sectors=32),
+        name="sphere")
+    cube = Model.from_mesh(scene.arena, *make_cube(size=1.4), name="cube")
+    torus = Model.from_mesh(
+        scene.arena, *make_torus(major=0.9, minor=0.32, rings=32, sides=16),
+        name="torus")
+
+    gray = Material("gray", albedo=(0.55, 0.55, 0.6), roughness=0.9)
+    red = Material("red", albedo=(0.9, 0.12, 0.1), roughness=0.35, metallic=0.0)
+    gold = Material("gold", albedo=(1.0, 0.77, 0.34), roughness=0.3, metallic=1.0)
+    blue = Material("blue", albedo=(0.15, 0.3, 0.9), roughness=0.15)
+    glow = Material("glow", albedo=(0.1, 0.1, 0.1), emissive=(2.0, 1.2, 0.2))
+
+    lights = Lights.make(
+        [
+            {"position": (4.0, -4.0, 6.0), "color": (120.0, 115.0, 100.0),
+             "bounds": 60.0, "radius": 0.3},
+            {"position": (-5.0, -2.0, 3.0), "color": (25.0, 35.0, 60.0),
+             "bounds": 40.0},
+        ],
+        ambient=(0.6, 0.7, 1.0, 0.08),
+    )
+
+    rp = RenderPass(scene, registry, width=width, height=height, lights=lights)
+
+    g = ModelInstance(ground)
+    rp.add_instance(g, {0: gray.instance()})
+
+    s = ModelInstance(sphere)
+    s.set_transform(pos=(0.0, 0.0, 1.0))
+    rp.add_instance(s, {0: red.instance()})
+
+    c = ModelInstance(cube)
+    c.set_transform(pos=(2.4, 1.2, 0.7), quat=(0.924, 0.0, 0.0, 0.383))
+    rp.add_instance(c, {0: gold.instance()})
+
+    t = ModelInstance(torus)
+    t.set_transform(pos=(-2.2, 0.8, 0.5), quat=(0.793, 0.61, 0.0, 0.0))
+    rp.add_instance(t, {0: blue.instance()})
+
+    s2 = ModelInstance(sphere)
+    s2.set_transform(pos=(-1.0, -2.0, 0.35), scale=0.35)
+    rp.add_instance(s2, {0: glow.instance()})
+
+    cam = Camera(yfov_deg=55.0, aspect=width / height, near=0.1, far=200.0)
+    cam.look_at((0.0, -7.5, 3.6), (0.0, 0.0, 0.8), up=(0, 0, 1))
+    return rp, cam
+
+
+def build_dynamic_scene(n_instances: int, width: int, height: int,
+                        seed: int = 0, device="cpu"):
+    """The instanced grid of config 2 (and 5); returns (engine, pass, camera)."""
+    eng = RenderEngine(device=device, device_check=False)
+    cube = Model.from_mesh(eng.scene.arena, *make_cube(size=0.5), name="cube")
+    ball = Model.from_mesh(
+        eng.scene.arena, *make_icosphere(radius=0.3, subdivisions=1),
+        name="ball")
+
+    rp = eng.create_render_pass(
+        width=width, height=height,
+        lights=Lights.make(
+            [{"position": (0.0, -30.0, 60.0), "color": (5000.0, 4800.0, 4500.0),
+              "bounds": 500.0}],
+            ambient=(0.7, 0.8, 1.0, 0.15),
+        ),
+    )
+    mats = [
+        Material("a", albedo=(0.9, 0.2, 0.15), roughness=0.5),
+        Material("b", albedo=(0.2, 0.5, 0.9), roughness=0.4),
+        Material("c", albedo=(0.95, 0.8, 0.3), roughness=0.3, metallic=1.0),
+        Material("d", albedo=(0.3, 0.85, 0.4), roughness=0.7),
+    ]
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil(np.sqrt(n_instances)))
+    spacing = 1.2
+    for k in range(n_instances):
+        model = cube if k % 2 == 0 else ball
+        inst = ModelInstance(model)
+        x = (k % side - side / 2) * spacing
+        y = (k // side - side / 2) * spacing + 40.0
+        z = rng.uniform(0.0, 2.0)
+        inst.set_transform(pos=(x, y, z))
+        rp.add_instance(inst, {0: mats[k % 4].instance()})
+    cam = Camera(yfov_deg=70.0, aspect=width / height, near=0.1, far=500.0)
+    cam.look_at((0.0, -side * 0.35, side * 0.35), (0.0, 40.0, 0.0), up=(0, 0, 1))
+    return eng, rp, cam

@@ -1,0 +1,143 @@
+"""The PyTorch port's static raster frame end to end, on the CPU.
+
+``RenderPass.render`` of the port's scenes is held to the pinned goldens
+with tests/test_golden_images.py's bands (mean |diff| <= 0.004 and at most
+0.2% of pixels off by > 0.06; the goldens come from the JAX package's XLA
+path, so an exact match is not expected), and to the JAX package's own
+render of the same scene (mean |diff| <= 0.004).
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from paperrenderer_tpu_torch import (
+    Camera, Material, MaterialRegistry, Model, ModelInstance, RenderPass, Scene,
+    make_cube,
+)
+from paperrenderer_tpu_torch.io import read_image, write_png
+from paperrenderer_tpu_torch.scenes import build_dynamic_scene, build_example_scene
+
+GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
+GOLDENS = sorted(f[:-4] for f in os.listdir(GOLDEN_DIR) if f.endswith(".png"))
+
+
+def _bands(img, ref, mean_tol=0.004, frac_tol=0.002, pix_thresh=0.06):
+    img = np.asarray(img, np.float32)
+    assert img.shape == ref.shape, (img.shape, ref.shape)
+    diff = np.abs(img - ref).max(axis=-1)
+    assert diff.mean() <= mean_tol, diff.mean()
+    assert (diff > pix_thresh).mean() <= frac_tol, (diff > pix_thresh).mean()
+
+
+def _golden(name):
+    return read_image(os.path.join(GOLDEN_DIR, f"{name}.png")).astype(np.float32) / 255.0
+
+
+def test_example_scene_golden_and_jax():
+    from examples.render_scene import build_example_scene as build_jax
+
+    rp, cam = build_example_scene(128, 128)
+    ldr, aux = rp.render(cam)
+    assert ldr.shape == (128, 128, 3) and torch.isfinite(ldr).all()
+    _bands(ldr.numpy(), _golden("raster_example"))
+    rpj, camj = build_jax(128, 128)
+    ldr_j, aux_j = rpj.render(camj)
+    assert np.abs(ldr.numpy() - np.asarray(ldr_j)).max(axis=-1).mean() <= 0.004
+    assert int(aux["visible_count"]) == int(aux_j["visible_count"]) == 5
+    assert int(aux["total_tris"]) == int(aux_j["total_tris"])
+    assert abs(float(aux["coverage"]) - float(aux_j["coverage"])) <= 1e-3
+
+
+def test_dynamic_scene_reduced_matches_jax():
+    """Config 2's scene at 400 instances and 256x128 (the full size is
+    10k instances at 1920x1080, run on the card by chip_smoke.py)."""
+    from examples.render_dynamic import build_dynamic_scene as build_jax
+
+    _, rp, cam = build_dynamic_scene(400, 256, 128)
+    ldr, aux = rp.render(cam)
+    _, rpj, camj = build_jax(400, 256, 128)
+    ldr_j, aux_j = rpj.render(camj)
+    _bands(ldr.numpy(), np.asarray(ldr_j))
+    assert int(aux["visible_count"]) == int(aux_j["visible_count"])
+    assert int(aux["total_tris"]) == int(aux_j["total_tris"])
+    assert float(aux["coverage"]) > 0
+
+
+def test_demand_jump_renders_complete():
+    """Pair buffers are sized from each frame's own demand: a camera move
+    that multiplies the demand renders the very next frame complete — the
+    same image as a fresh pass that never saw the far camera."""
+    def scene():
+        # three cubes: few groups, so the demand follows their screen size
+        rp = RenderPass(Scene(), MaterialRegistry(), width=128, height=128)
+        cube = Model.from_mesh(rp.scene.arena, *make_cube(1.0))
+        for k in range(3):
+            inst = ModelInstance(cube)
+            inst.set_transform(pos=(1.2 * k - 1.2, 0.0, 0.5))
+            rp.add_instance(inst, {0: Material(str(k)).instance()})
+        return rp, Camera(yfov_deg=60.0, near=0.1, far=500.0)
+
+    near_eye = ((0.0, -2.5, 1.5), (0.0, 0.0, 0.5))
+    rp, cam = scene()
+    cam.look_at((0.0, -80.0, 40.0), (0.0, 0.0, 0.5))
+    _, far = rp.render(cam)
+    cam.look_at(*near_eye)
+    ldr, near = rp.render(cam)
+    assert near["required_work"] >= 4 * far["required_work"]
+    rp2, cam2 = scene()
+    cam2.look_at(*near_eye)
+    ldr2, fresh = rp2.render(cam2)
+    assert fresh["required_work"] == near["required_work"]
+    torch.testing.assert_close(ldr, ldr2, rtol=0, atol=0)
+
+
+def test_render_after_topology_and_transform_change():
+    """Adding an instance bumps the scene version and rebuilds the static
+    mapping; moving one re-uploads only its row. Both show in the frame."""
+    rp, cam = build_example_scene(64, 64)
+    _, a0 = rp.render(cam)
+    cube = Model.from_mesh(rp.scene.arena, *make_cube(1.0))
+    inst = ModelInstance(cube)
+    inst.set_transform(pos=(0.0, -3.0, 1.0))
+    rp.add_instance(inst, {0: Material("m", albedo=(0.2, 0.9, 0.2)).instance()})
+    _, a1 = rp.render(cam)
+    assert int(a1["total_tris"]) == int(a0["total_tris"]) + 12
+    inst.set_transform(pos=(0.0, -30.0, 1.0))    # behind the camera
+    _, a2 = rp.render(cam)
+    assert int(a2["visible_count"]) == int(a1["visible_count"]) - 1
+
+
+@pytest.mark.parametrize("case", ["draw_list", "supersample", "translucent",
+                                  "texture"])
+def test_unported_paths_raise(case):
+    rp, cam = build_example_scene(32, 32)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        if case == "draw_list":
+            rp.render(cam, static_path=False)
+        elif case == "supersample":
+            rp.supersample = 2
+            rp.render(cam)
+        elif case == "translucent":
+            rp.translucent_layers = 1
+            rp.render(cam)
+        else:
+            tex = np.zeros((4, 4, 3), np.uint8)
+            rp.materials.register(Material("t", base_texture=tex))
+
+
+@pytest.mark.parametrize("name", GOLDENS)
+def test_png_reader_matches_jax_reader(name, tmp_path):
+    """The port's zlib PNG codec reads every golden as the JAX package's
+    PIL-based reader does, and round-trips through write_png."""
+    from paperrenderer_tpu.io.image import read_image as read_pil
+
+    path = os.path.join(GOLDEN_DIR, f"{name}.png")
+    img = read_image(path)
+    np.testing.assert_array_equal(img, read_pil(path))
+    out = tmp_path / "rt.png"
+    write_png(str(out), img)
+    np.testing.assert_array_equal(read_image(str(out)), img)
+    np.testing.assert_array_equal(read_pil(str(out)), img)

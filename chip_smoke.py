@@ -3,30 +3,47 @@
 
 Phases, each reported as one JSON line:
   device   the card (nvidia-smi name and power limit), torch and CUDA versions;
-  build    every CUDA kernel of the static raster frame, built from csrc/;
-  compare  each kernel against its plain PyTorch version on the inputs the
-           main path gives it at config 1, config 2 and a ragged image size
-           (bitwise equality), both timed with CUDA events;
+  build    every CUDA kernel (csrc/raster_exact.cu, csrc/trace.cu), one nvcc
+           per source, all started together; ptxas registers/spills/smem;
+  compare  the raster kernel against its plain PyTorch version on the inputs
+           the main path gives it at config 1, config 2 and a ragged image
+           size (bitwise equality), both timed with CUDA events;
+  compare_trace  the traversal kernels against their plain versions on the
+           wavefronts of the 1920x1080 RT frame (bitwise): K7 closest and any
+           hit on primary rays, K8 on primary and reflection rays, K9 on the
+           shadow+AO bundle without and with the resolve sample; kernel and
+           plain ms, rays, mismatches, and the box/leaf visits of the walk;
   config1  the example scene through RenderPass.render at 512x512 and
            128x128, held to tests/goldens/raster_512.png and
            raster_example.png with the golden bands; median frame time;
   config2  10k instances at 1920x1080: median frame time over 20 frames,
            counts, and a reduced copy of the scene checked against the CPU;
-  launches every kernel of the path was launched by the config1/config2
-           frames (launch counters reset just before them);
-  sync     cost of the frame's one device-to-host read (the pair count):
-           frame time as is vs. with the count supplied.
+  rt_frame the RT scene through RayTraceRender.render: 128x128 held to
+           tests/goldens/rt_example.png with the golden bands, 96x64 on the
+           card against the CPU, and at 1920x1080 the median frame time
+           (fuse_bounce off and on), config 3's primary Mrays/s through K7
+           and its TLAS-assemble ms;
+  rt_grid10k  config 2's 10k-instance grid mirrored into a RayTraceRender:
+           K7 primary Mrays/s at 1920x1080 on the flat layout, and K7
+           against its plain version on every 64th ray (bitwise);
+  launches every kernel was launched by the main-path phases (raster:
+           config1/config2; traversal: rt_frame and rt_grid10k), with the
+           launch counters reset just before each and read just after;
+  sync     cost of the raster frame's one device-to-host read (the pair
+           count): frame time as is vs. with the count supplied.
 
 Usage: python3 chip_smoke.py            (all phases; needs one CUDA card)
        python3 chip_smoke.py --profile  (also a torch.profiler breakdown of
-                                         both configs by stage, with the
-                                         tables written to chiprun_out/)
+                                         configs 1, 2 and the 1080p RT frame
+                                         by stage, with the tables written
+                                         to chiprun_out/)
 Exit code 0 only when every phase passed; the last line of stdout is then
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 this script, it exits 2 and prints no result.
 """
 
 import argparse
+import dataclasses
 import functools
 import json
 import os
@@ -35,12 +52,34 @@ import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDENS = os.path.join(HERE, "tests", "goldens")
+TRACE_CU = "paperrenderer_tpu_torch/csrc/trace.cu"
 KERNELS = [dict(name="raster_exact", route="cuda",
                 source="paperrenderer_tpu_torch/csrc/raster_exact.cu",
-                replaces="paperrenderer_tpu/ops/raster_exact.py:231")]
+                replaces="paperrenderer_tpu/ops/raster_exact.py:231"),
+           dict(name="trace_scene", route="cuda", source=TRACE_CU,
+                replaces="paperrenderer_tpu/ops/trace_kernel.py:228"),
+           dict(name="trace_resolve", route="cuda", source=TRACE_CU,
+                replaces="paperrenderer_tpu/ops/trace_kernel.py:506"),
+           dict(name="trace_bundle", route="cuda", source=TRACE_CU,
+                replaces="paperrenderer_tpu/ops/trace_kernel.py:1012")]
+
+# Least-time bounds (published H100 SXM peaks):
+# bytes at the HBM rate, FP32 operations at the published FP32 peak.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# FP32 operations (add/sub/mul/div/min/max) of the plain versions, counted
+# from their expressions:
+RASTER_OPS_PER_CANDIDATE = 22   # 5 planes x (2 mul + 2 add) + 2 mul (depth)
+SLAB_OPS_PER_BOX_ROW = 49       # 3 div + 2 x (6 sub, 6 mul, 6 min/max,
+#                                 4 min/max reductions, 1 max)
+MT_OPS_PER_LEAF = 8 * 46        # 8 x (two crosses 18, four dots 20, 3 sub,
+#                                 3 mul, 1 div, 1 add)
+INST_OPS = 33                   # origin 3 x 6, direction 3 x 5
+RESOLVE_OPS = 42                # w0 2, normal 15 + 15, uv 10
 
 
 def emit(**fields):
@@ -120,11 +159,286 @@ def compare_raster(rp, cam, reps=20):
     end.record()
     torch.cuda.synchronize()
     counts = (b.cell_start[1:] - b.cell_start[:-1])
+    bound_ms, bound_by = raster_bound(b, w, h)
     return dict(bitwise=bool(bitwise), max_abs_err=err,
+                bound_ms=bound_ms, bound_by=bound_by,
                 tid_mismatch=int((t_k != t_p).sum()),
                 ms=start.elapsed_time(end) / reps, plain_ms=plain_ms,
                 n_pairs=b.n_pairs, max_list=int(counts.max()),
                 coverage=float((t_k >= 0).float().mean()))
+
+
+def raster_bound(b, width, height):
+    """(bound ms, bound_by) of K1 on these bins: each input read once and
+    the depth/tid planes written once, against every (pixel, triangle)
+    candidate's FP32 operations."""
+    nbytes = (b.cell_start.numel() + b.cell_groups.numel()) * 4 \
+        + b.coef.numel() * 4 + width * height * 8
+    ops = b.n_pairs * 8 * 256 * RASTER_OPS_PER_CANDIDATE
+    return bound(nbytes, ops)
+
+
+def bound(nbytes, ops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timed(fn, reps):
+    """Mean ms of `fn()` over `reps` launches after 2 warm-up calls (CUDA
+    events around the whole run)."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    """(result, ms) of one call, CUDA events around it."""
+    import torch
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def same_bits(a, b):
+    """Bitwise equality of two tensors of one dtype."""
+    import torch
+
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def rec_check(rk, rp):
+    """Kernel vs plain HitRecord2: (bitwise, mismatching rays, max |t|)."""
+    import torch
+
+    diff = ((rk.t.view(torch.int32) != rp.t.view(torch.int32))
+            | (rk.prim != rp.prim) | (rk.inst != rp.inst)
+            | (rk.bary.view(torch.int32) != rp.bary.view(torch.int32)).any(-1))
+    both = rk.hit & rp.hit
+    err = float((rk.t[both] - rp.t[both]).abs().max()) if both.any() else 0.0
+    return int(diff.sum()) == 0, int(diff.sum()), err
+
+
+def walk_bytes(scene, n_rays, per_ray_bytes):
+    """Bytes a traversal must move: the scene tables once, and each ray's
+    inputs and outputs once."""
+    tables = sum(t.numel() * t.element_size() for t in (
+        scene.nodes, scene.codes, scene.leaf_rows, scene.leaf_prim))
+    return tables + n_rays * per_ray_bytes
+
+
+def walk_ops(counts, n_resolved=0):
+    return (counts.get("box", 0) * SLAB_OPS_PER_BOX_ROW
+            + counts.get("leaf", 0) * MT_OPS_PER_LEAF
+            + counts.get("inst", 0) * INST_OPS + n_resolved * RESOLVE_OPS)
+
+
+def rt_wavefronts(rt, cam):
+    """The tracer and the wavefronts of one RT frame, built exactly as
+    RayTraceRender.render and ops.trace.trace_frame build them."""
+    import torch
+    from paperrenderer_tpu_torch.ops import accel as ACC
+    from paperrenderer_tpu_torch.ops import trace as TR
+    from paperrenderer_tpu_torch.utils import random as rnd
+
+    instances = rt.scene.flush()
+    blasset, meta = rt.accel.blas()
+    slots, masks, table, inst_mask, opaque, lights, _ = rt._device_inputs(
+        instances.capacity)
+    cam = cam.matrices.to(rt.device)
+    scene, roots = ACC.assemble_scene(
+        blasset, meta, instances, rt.accel.inst_blas(instances.capacity),
+        masks, rt.accel.tri_attr(), inst_mask=inst_mask, inst_opaque=opaque)
+    ctx = ACC.SceneTracer(scene, slots, table, root_code=roots[0],
+                          stack_size=rt.accel.stack_size(instances.capacity))
+    w, h, p = rt.width, rt.height, rt.params
+    o, d = TR.raygen(cam, w, h, tile_order=TR.pick_tile(w, h))
+    r = o.shape[0]
+    far = torch.full((r,), 1000.0, device=o.device)
+    surf = ctx.trace_resolve(o, d, far, cull_mask=p.cull_mask)
+    key = rnd.fold_in(rt._key, 1)
+    refl_key = rnd.fold_in(key, 7)
+    origin = surf.world_pos + surf.normal * 5e-3
+    dirs, caps, actives, _ = TR._occlusion_samples(
+        surf, lights, key, max(1, p.shadow_samples))
+    ao_ds, ao_caps = TR._ao_samples(surf, key, p.ao_samples, p.ao_radius)
+    rdir = TR._reflection_dir(surf, table, cam.cam_pos, refl_key, 0)
+    return dict(ctx=ctx, o=o.contiguous(), d=d, far=far, surf=surf,
+                origin=origin, dirs=dirs, caps=caps, actives=actives,
+                ao_ds=ao_ds, ao_caps=ao_caps, rdir=rdir, slots=slots,
+                cull=p.cull_mask, roots=roots)
+
+
+def compare_trace(rt, cam, reps=10):
+    """K7/K8/K9 vs their plain versions on the 1080p RT frame's wavefronts:
+    bitwise checks, kernel ms (CUDA events), plain ms (one call), the walk's
+    visits (from the plain version) and the least-time bound."""
+    import torch
+    from paperrenderer_tpu_torch.ops import trace_kernel as TK
+
+    wf = rt_wavefronts(rt, cam)
+    ctx, sc = wf["ctx"], wf["ctx"].scene
+    walk = dict(root_code=ctx.root_code, stack_size=ctx.stack_size,
+                cull_mask=wf["cull"])
+    o, r = wf["o"], wf["o"].shape[0]
+    res_bytes = sum(t.numel() * t.element_size()
+                    for t in (sc.tri_attr, sc.inv_rows, wf["slots"]))
+    out = {}
+
+    def walk_case(name, kernel, plain, check, per_ray_bytes, resolved=0,
+                  extra_bytes=0):
+        counts = {}
+        got = kernel()
+        ref, plain_ms = timed_once(lambda: plain(counts))
+        ok, mism, err = check(got, ref)
+        b, by = bound(walk_bytes(sc, r, per_ray_bytes) + extra_bytes,
+                      walk_ops(counts, resolved))
+        out[name] = dict(bitwise=ok, mismatches=mism, max_abs_err=err,
+                         rays=r, ms=timed(kernel, reps), plain_ms=plain_ms,
+                         visits=counts, bound_ms=b, bound_by=by)
+
+    # K7 closest / any hit on the primary rays, and closest on the second
+    # TLAS with a cull mask that only the cube's instance mask meets
+    def hit_flags(a, b):   # any hit: the hit flag is the contract
+        mism = int((a.hit != b.hit).sum())
+        return mism == 0, mism, rec_check(a, b)[2]
+
+    for name, any_hit, w in (
+            ("k7_closest_primary", False, walk),
+            ("k7_any_primary", True, walk),
+            ("k7_closest_tlas1_cull2", False,
+             dict(walk, root_code=wf["roots"][1], cull_mask=0x02))):
+        walk_case(
+            name,
+            lambda any_hit=any_hit, w=w: TK.trace_scene_kernel(
+                sc, o, wf["d"], wf["far"], any_hit=any_hit, **w),
+            lambda counts, any_hit=any_hit, w=w: TK.trace_scene(
+                sc, o, wf["d"], wf["far"], any_hit=any_hit, t_min=TK.T_MIN,
+                counts=counts, **w),
+            hit_flags if any_hit else rec_check, 48)
+
+    def resolve_check(a, b):
+        ok, mism, err = rec_check(a[0], b[0])
+        same = all(same_bits(x, y) for x, y in zip(a[1], b[1]))
+        return ok and same, mism + (0 if same else 1), err
+
+    # K8 on the primary rays and on the reflection wavefront
+    surf = wf["surf"]
+    for name, ro, rd, act in (
+            ("k8_primary", o, wf["d"], None),
+            ("k8_reflection", wf["origin"].contiguous(), wf["rdir"], surf.valid)):
+        walk_case(
+            name,
+            lambda ro=ro, rd=rd, act=act: TK.trace_resolve_kernel(
+                sc, wf["slots"], ro, rd, wf["far"], active=act, **walk),
+            lambda counts, ro=ro, rd=rd, act=act: TK.trace_resolve_plain(
+                sc, wf["slots"], ro, rd, wf["far"], active=act,
+                counts=counts, **walk),
+            resolve_check, 48 + 24, resolved=r, extra_bytes=res_bytes)
+
+    # K9: the primary-side shadow+AO bundle, without and with the bounce
+    n_s, n_a = len(wf["dirs"]), len(wf["ao_ds"])
+    acts = [surf.valid] * n_a
+    for name, rs in (("k9_shadow_ao", None),
+                     ("k9_shadow_ao_resolve",
+                      (wf["slots"], wf["rdir"], wf["far"], surf.valid))):
+        args = (sc, wf["origin"], wf["dirs"], wf["caps"], wf["actives"],
+                wf["ao_ds"], wf["ao_caps"], acts)
+
+        def bundle_check(a, b):
+            ok = same_bits(a[0], b[0]) and all(
+                same_bits(x, y) for x, y in zip(a[1], b[1]))
+            mism = int((a[0] != b[0]).sum()) + sum(
+                int((x != y).sum()) for x, y in zip(a[1], b[1]))
+            err = max([float((x - y).abs().max()) for x, y in zip(a[1], b[1])]
+                      or [0.0])
+            if a[2] is not None:
+                ok2, m2, e2 = resolve_check(a[2], b[2])
+                ok, mism, err = ok and ok2, mism + m2, max(err, e2)
+            return ok, mism, err
+
+        per_ray = 12 + 4 + (n_s + n_a) * 17 + n_a * 4 + (
+            0 if rs is None else 17 + 44)
+        walk_case(name,
+                  lambda args=args, rs=rs: TK.trace_bundle_kernel(
+                      *args, resolve=rs, **walk),
+                  lambda counts, args=args, rs=rs: TK.trace_bundle_plain(
+                      *args, resolve=rs, counts=counts, **walk),
+                  bundle_check, per_ray, resolved=0 if rs is None else r,
+                  extra_bytes=0 if rs is None else res_bytes)
+    out["ok"] = all(v["bitwise"] for v in out.values())
+    return out
+
+
+def primary_rays_mrays(rt, cam, reps=10, check_every=0):
+    """Config 3's primary-ray traversal: SceneTracer.trace (K7, closest hit)
+    on the RT pass's primary rays. Returns Mrays/s and kernel ms (CUDA
+    events), the TLAS-assemble ms (host clock, synchronized), and with
+    `check_every` the kernel against its plain version on every n-th ray."""
+    import torch
+    from paperrenderer_tpu_torch.ops import accel as ACC
+    from paperrenderer_tpu_torch.ops import trace as TR
+    from paperrenderer_tpu_torch.ops import trace_kernel as TK
+
+    instances = rt.scene.flush()
+    blasset, meta = rt.accel.blas()
+    slots, masks, table, inst_mask, opaque, _, _ = rt._device_inputs(
+        instances.capacity)
+    inst_blas, tri_attr = rt.accel.inst_blas(instances.capacity), rt.accel.tri_attr()
+
+    def assemble():
+        return ACC.assemble_scene(blasset, meta, instances, inst_blas, masks,
+                                  tri_attr, inst_mask=inst_mask,
+                                  inst_opaque=opaque)
+
+    assemble_times = []
+    for _ in range(reps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scene, roots = assemble()
+        torch.cuda.synchronize()
+        assemble_times.append((time.perf_counter() - t0) * 1e3)
+    ctx = ACC.SceneTracer(scene, slots, table, root_code=roots[0],
+                          stack_size=rt.accel.stack_size(instances.capacity))
+    c = cam.matrices.to(rt.device)
+    o, d = TR.raygen(c, rt.width, rt.height,
+                     tile_order=TR.pick_tile(rt.width, rt.height))
+    o = o.contiguous()
+    r = o.shape[0]
+    far = torch.full((r,), 1000.0, device=o.device)
+    rec = ctx.trace(o, d, far)
+    ms = timed(lambda: ctx.trace(o, d, far), reps)
+    out = dict(rays=r, kernel_ms=ms, mrays_per_s=r / ms / 1e3,
+               hit_fraction=float(rec.hit.float().mean()),
+               tlas_assemble_ms=statistics.median(assemble_times[2:]),
+               instances=len(rt.scene.instances),
+               stack_size=ctx.stack_size)
+    if check_every:
+        sel = torch.arange(0, r, check_every, device=o.device)
+        ref = TK.trace_scene(scene, o[sel], d[sel], far[sel],
+                             root_code=ctx.root_code, stack_size=ctx.stack_size)
+        sub_rec = ACC.HitRecord2(rec.t[sel], rec.prim[sel], rec.inst[sel],
+                                 rec.bary[sel])
+        ok, mism, err = rec_check(sub_rec, ref)
+        out.update(subset_rays=int(sel.numel()), subset_bitwise=ok,
+                   subset_mismatches=mism, subset_max_abs_err=err)
+    return out
 
 
 def sync_cost(rp, cam, frames=20, rounds=4):
@@ -164,20 +478,36 @@ def sync_cost(rp, cam, frames=20, rounds=4):
                 sync_cost_ms_per_round=diffs, runs=runs)
 
 
-def profile_frames(rp, cam, out_path, frames=5):
-    """torch.profiler over `frames` frames: the device's busy share of the
-    window (kernel time only), and host and device ms per frame of each
-    stage of the frame (labelled by wrapping the stage functions)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+def raster_stages():
     from paperrenderer_tpu_torch.ops import raster_exact as RE
     from paperrenderer_tpu_torch.render import renderpass as RP
 
-    stages = [(RP, "expand_static"), (RP, "attach_cull"),
-              (RE, "triangle_coefficients"), (RE, "bin_groups"),
-              (RE, "rasterize_bins"), (RP, "resolve_gbuffer_pairs"),
-              (RP, "shade_gbuffer"), (RP, "tonemap")]
+    return [(RP, "expand_static"), (RP, "attach_cull"),
+            (RE, "triangle_coefficients"), (RE, "bin_groups"),
+            (RE, "rasterize_bins"), (RP, "resolve_gbuffer_pairs"),
+            (RP, "shade_gbuffer"), (RP, "tonemap")]
+
+
+def rt_stages():
+    """The RT frame's stages; `reflections` includes the shadow_and_ao and
+    shade_surfaces calls made for its bounce hits (listed again under their
+    own names, so those rows count both the primary and the bounce side)."""
+    from paperrenderer_tpu_torch.ops import accel as ACC
+    from paperrenderer_tpu_torch.ops import trace as TR
+    from paperrenderer_tpu_torch.render import raytrace as RT
+
+    return [(ACC, "assemble_scene"), (TR, "raygen"),
+            (ACC.SceneTracer, "trace_resolve"), (TR, "shadow_and_ao"),
+            (TR, "reflections"), (TR, "shade_surfaces"), (RT, "tonemap")]
+
+
+def profile_frames(render, stages, out_path, frames=5):
+    """torch.profiler over `frames` calls of `render()`: the device's busy
+    share of the window (kernel time only), and host and device ms per frame
+    of each stage (labelled by wrapping the stage functions)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     def labelled(fn, name):
         @functools.wraps(fn)
@@ -190,13 +520,13 @@ def profile_frames(rp, cam, out_path, frames=5):
     for (mod, name), fn in zip(stages, originals):
         setattr(mod, name, labelled(fn, name))
     try:
-        rp.render(cam)
+        render()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(frames):
-                rp.render(cam)
+                render()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
@@ -280,15 +610,23 @@ def main():
 
     import paperrenderer_tpu_torch  # noqa: F401  (sets the precision flags)
     from paperrenderer_tpu_torch.ops import raster_exact as RE
-    from paperrenderer_tpu_torch.scenes import build_dynamic_scene, build_example_scene
+    from paperrenderer_tpu_torch.ops import trace_kernel as TK
+    from paperrenderer_tpu_torch.scenes import (
+        build_dynamic_scene, build_example_scene, build_rt_scene)
     from paperrenderer_tpu_torch.utils import cuda_build
 
     def build():
-        cuda_build.load_library("raster_exact")
-        info = cuda_build.BUILD_INFO["raster_exact"]
-        ptxas = [l.strip() for l in info["log"].splitlines() if "ptxas" in l]
-        return dict(kernel="raster_exact", build_seconds=info["seconds"],
-                    cached=info["seconds"] == 0.0, ptxas=ptxas)
+        libs = ("raster_exact", "trace")
+        with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
+            list(pool.map(cuda_build.load_library, libs))
+        out = {}
+        for name in libs:
+            info = cuda_build.BUILD_INFO[name]
+            out[name] = dict(
+                build_seconds=info["seconds"], cached=info["seconds"] == 0.0,
+                ptxas=[l.strip() for l in info["log"].splitlines()
+                       if "ptxas" in l or "spill" in l])
+        return out
 
     phase("build", build)
 
@@ -311,6 +649,23 @@ def main():
         return out
 
     phase("compare", compare)
+
+    rt_scenes = {}
+
+    def rt_1080():
+        """The RT scene at 1080p with a second TLAS holding the sphere (mask
+        0x01) and the cube (mask 0x02, force opaque) with their materials.
+        Frames trace TLAS 0, which the extra rows leave unchanged."""
+        if "rt" not in rt_scenes:
+            _, rt, cam = build_rt_scene(1920, 1080, device="cuda")
+            k = rt.add_tlas()
+            sphere, cube = rt.scene.instances[1:3]
+            rt.add_instance(sphere, tlas=k, mask=0x01)
+            rt.add_instance(cube, tlas=k, mask=0x02, force_opaque=True)
+            rt_scenes["rt"] = (rt, cam)
+        return rt_scenes["rt"]
+
+    phase("compare_trace", lambda: compare_trace(*rt_1080()))
 
     RE.LAUNCHES["raster_exact"] = 0     # count only the main path's launches
 
@@ -352,23 +707,92 @@ def main():
     phase("config1", config1)
     phase("config2", config2)
     launches = dict(RE.LAUNCHES)
-    phase("launches", lambda: dict(ok=all(n > 0 for n in launches.values()),
-                                   counts=launches))
+
+    def rt_frame():
+        rt, cam = rt_1080()
+        _, rt128, cam128 = build_rt_scene(128, 128, device="cuda")
+        ok128, mean128, frac128 = bands(rt128.render(cam128)[0].cpu().numpy(),
+                                        golden("rt_example"))
+        small = [build_rt_scene(96, 64, device=dev) for dev in ("cuda", "cpu")]
+        ok_s, mean_s, frac_s = bands(
+            small[0][1].render(small[0][2])[0].cpu().numpy(),
+            small[1][1].render(small[1][2])[0].numpy())
+        ldr, aux = rt.render(cam)
+        finite = (bool(torch.isfinite(aux["hdr"]).all())
+                  and tuple(ldr.shape) == (1080, 1920, 3))
+        ms = frame_ms(rt, cam, frames=10, warmup=2)
+        _, rt_f, cam_f = build_rt_scene(1920, 1080, device="cuda")
+        rt_f.params = dataclasses.replace(rt_f.params, fuse_bounce=True)
+        ms_fused = frame_ms(rt_f, cam_f, frames=10, warmup=2)
+        prim = primary_rays_mrays(rt, cam)
+        return dict(ok=ok128 and ok_s and finite,
+                    golden128=dict(mean=mean128, frac=frac128, ok=ok128),
+                    card_vs_cpu_96x64=dict(mean=mean_s, frac=frac_s, ok=ok_s),
+                    frame_ms_1080p=ms, frame_ms_1080p_fuse_bounce=ms_fused,
+                    config3=prim)
+
+    def rt_grid10k():
+        eng, rp, cam = build_dynamic_scene(10_000, 1920, 1080, device="cuda")
+        rt = eng.create_ray_trace_render(width=1920, height=1080,
+                                         lights=rp.lights)
+        rt.add_instances_from(rp)
+        prim = primary_rays_mrays(rt, cam, check_every=64)
+        return dict(ok=prim["subset_bitwise"], **prim)
+
+    rt_launches = {}
+    for name, fn in (("rt_frame", rt_frame), ("rt_grid10k", rt_grid10k)):
+        for k in TK.LAUNCHES:           # count only this path's launches
+            TK.LAUNCHES[k] = 0
+        phase(name, fn)
+        rt_launches[name] = dict(TK.LAUNCHES)
+    launches.update({k: rt_launches["rt_frame"][k] for k in TK.LAUNCHES})
+    phase("launches", lambda: dict(
+        ok=(RE.LAUNCHES["raster_exact"] > 0
+            and all(n > 0 for n in rt_launches["rt_frame"].values())
+            and rt_launches["rt_grid10k"]["trace_scene"] > 0),
+        raster=dict(RE.LAUNCHES), **rt_launches))
     phase("sync", lambda: {f"config{c}": sync_cost(*get(c)) for c in (1, 2)})
     if args.profile:
+        out_dir = os.path.join(HERE, "chiprun_out")
         for c in (1, 2):
-            phase(f"profile{c}", lambda c=c: profile_frames(*get(c), os.path.join(
-                HERE, "chiprun_out", f"profile_config{c}.txt")))
+            phase(f"profile{c}", lambda c=c: profile_frames(
+                functools.partial(get(c)[0].render, get(c)[1]),
+                raster_stages(),
+                os.path.join(out_dir, f"profile_config{c}.txt")))
+        phase("profile_rt", lambda: profile_frames(
+            functools.partial(rt_1080()[0].render, rt_1080()[1]), rt_stages(),
+            os.path.join(out_dir, "profile_rt_1080p.txt")))
 
     cmp = results.get("compare", {})
     cmp1, cmp2 = cmp.get("config1", {}), cmp.get("config2", {})
-    emit(kernels=[dict(
-        k, launches=launches.get(k["name"], 0),
-        max_abs_err=max(cmp.get(c, {}).get("max_abs_err", float("nan"))
-                        for c in ("config1", "config2", "ragged")),
-        ms=cmp2.get("ms"), plain_ms=cmp2.get("plain_ms"),
-        ms_config1=cmp1.get("ms"), plain_ms_config1=cmp1.get("plain_ms"))
-        for k in KERNELS])
+    ct = results.get("compare_trace", {})
+    # the wavefront each traversal kernel is timed on (all cases in the
+    # compare_trace line)
+    timed_on = dict(trace_scene="k7_closest_primary",
+                    trace_resolve="k8_primary", trace_bundle="k9_shadow_ao")
+    rows = []
+    for k in KERNELS:
+        if k["name"] == "raster_exact":
+            row = dict(
+                max_abs_err=max(cmp.get(c, {}).get("max_abs_err", float("nan"))
+                                for c in ("config1", "config2", "ragged")),
+                ms=cmp2.get("ms"), plain_ms=cmp2.get("plain_ms"),
+                bound_ms=cmp2.get("bound_ms"), bound_by=cmp2.get("bound_by"),
+                ms_config1=cmp1.get("ms"), plain_ms_config1=cmp1.get("plain_ms"))
+        else:
+            names = [c for c in ct if c.startswith(
+                {"trace_scene": "k7", "trace_resolve": "k8",
+                 "trace_bundle": "k9"}[k["name"]])]
+            case = ct.get(timed_on[k["name"]], {})
+            row = dict(
+                max_abs_err=max([ct[c].get("max_abs_err", float("nan"))
+                                 for c in names] or [float("nan")]),
+                ms=case.get("ms"), plain_ms=case.get("plain_ms"),
+                bound_ms=case.get("bound_ms"), bound_by=case.get("bound_by"),
+                timed_on=timed_on[k["name"]])
+        rows.append(dict(k, launches=launches.get(k["name"], 0),
+                         library_ms=None, **row))
+    emit(kernels=rows)
     print(smi, flush=True)
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)

@@ -4,10 +4,12 @@ Same scene API as the JAX package (RenderEngine / Scene / Model /
 ModelInstance / Material / Camera / RenderPass), written in PyTorch; each
 Pallas kernel of the JAX package becomes a hand-written Hopper kernel under
 ``csrc/``, built at first use. Every tensor lives on an explicit ``device``
-(``Scene``/``RenderEngine``/``RenderPass``); on a CPU tensor each kernel
-wrapper runs its plain PyTorch version instead.
+(``Scene``/``RenderEngine``/``RenderPass``), the card unless the caller
+asks for the CPU; on a CPU tensor each kernel wrapper runs its plain
+PyTorch version instead.
 
-Ported so far: the static raster frame, ``RenderPass.render(cam)``.
+Ported so far: the static raster frame, ``RenderPass.render(cam)``, and the
+ray-traced frame, ``RayTraceRender.render(cam)``.
 """
 
 import torch as _torch
@@ -36,7 +38,7 @@ from .core import (  # noqa: E402
     make_torus,
     make_uv_sphere,
 )
-from .render import RenderPass  # noqa: E402
+from .render import RayTraceRender, RenderPass  # noqa: E402
 from .utils import Logger, LogType, StatisticsTracker, Timer  # noqa: E402
 
 __version__ = "0.1.0"
@@ -44,7 +46,7 @@ __version__ = "0.1.0"
 __all__ = [
     "Camera", "CameraMatrices", "GeometryArena", "RenderEngine",
     "Material", "MaterialInstance", "MaterialMesh", "MaterialRegistry",
-    "Model", "ModelInstance", "RenderPass", "Scene",
+    "Model", "ModelInstance", "RayTraceRender", "RenderPass", "Scene",
     "make_cube", "make_icosphere", "make_plane", "make_torus", "make_uv_sphere",
     "Logger", "LogType", "StatisticsTracker", "Timer",
     "__version__",

@@ -18,6 +18,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..utils.device import require_device
 from ..utils.logging import Logger
 from ..utils.stats import StatisticsTracker, TimeStatisticInterval, Timer
 from .geometry import GeometryArena
@@ -31,7 +32,7 @@ class RenderEngine:
     def __init__(
         self,
         *,
-        device="cpu",
+        device="cuda",
         log_callback: Optional[Callable] = None,
         device_check: bool = True,
     ):
@@ -44,6 +45,7 @@ class RenderEngine:
         self._last_frame_time = time.perf_counter()
         self.delta_time = 0.0
         if device_check:
+            require_device(self.device)
             name = (torch.cuda.get_device_name(self.device)
                     if self.device.type == "cuda" else self.device.type)
             self.logger.info(f"RenderEngine initialized on {name}")
@@ -71,3 +73,8 @@ class RenderEngine:
         from ..render.renderpass import RenderPass
 
         return RenderPass(self.scene, self.materials, **kwargs)
+
+    def create_ray_trace_render(self, **kwargs):
+        from ..render.raytrace import RayTraceRender
+
+        return RayTraceRender(self.scene, self.materials, **kwargs)

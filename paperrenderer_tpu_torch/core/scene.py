@@ -20,6 +20,7 @@ from typing import List, Optional, Set
 import numpy as np
 import torch
 
+from ..utils.device import require_device
 from .geometry import GeometryArena
 from .model import Model, ModelInstance
 
@@ -70,9 +71,10 @@ def _grow(n: int, floor: int = INSTANCE_FLOOR) -> int:
 class Scene:
     """Host-side registry; owns the geometry arena, model tables, instances.
 
-    ``device`` is where ``flush()`` and ``tables()`` put their tensors."""
+    ``device`` is where ``flush()`` and ``tables()`` put their tensors: the
+    card unless the caller asks for the CPU."""
 
-    def __init__(self, arena: Optional[GeometryArena] = None, *, device="cpu"):
+    def __init__(self, arena: Optional[GeometryArena] = None, *, device="cuda"):
         self.device = torch.device(device)
         self.arena = arena or GeometryArena()
         self.models: List[Model] = []
@@ -128,7 +130,8 @@ class Scene:
                         v_off.append(mm.handle.vertex_offset)
                         v_cnt.append(mm.handle.vertex_count)
                         slot.append(mm.material_slot)
-            dev = lambda a: torch.from_numpy(a).to(self.device)
+            device = require_device(self.device)
+            dev = lambda a: torch.from_numpy(a).to(device)
             as_i32 = lambda xs: dev(np.asarray(xs or [0], np.int32))
             self._tables = SceneTables(
                 model_aabb_min=dev(aabb_min),
@@ -222,6 +225,7 @@ class Scene:
         Full rebuild on growth, dirty rows only otherwise — reference:
         rebuildInstancesbuffer vs per-row staging writes."""
         if self._device is None or self._full_upload:
+            require_device(self.device)
             cols = self._host_rows(range(self._capacity))
             self._device = InstanceArrays(
                 *(torch.from_numpy(c).to(self.device) for c in cols))

@@ -82,3 +82,18 @@ def apply_mat34(m: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     stays in exact f32 elementwise arithmetic on every device."""
     return (m[..., :, 0] * pts[..., None, 0] + m[..., :, 1] * pts[..., None, 1]
             + m[..., :, 2] * pts[..., None, 2] + m[..., :, 3])
+
+
+def transform_aabb(m: torch.Tensor, aabb_min: torch.Tensor,
+                   aabb_max: torch.Tensor):
+    """AABBs through 3x4 matrices: the AABB of the 8 transformed corners, in
+    Arvo's centre/extent form (Common.glsl:123-152). ``m [..., 3, 4]``,
+    aabbs ``[..., 3]``; returns (min, max)."""
+    a = m[..., :, :3]
+    center = (aabb_min + aabb_max) * 0.5
+    extent = (aabb_max - aabb_min) * 0.5
+    new_center = apply_mat34(m, center)
+    new_extent = (a[..., :, 0].abs() * extent[..., None, 0]
+                  + a[..., :, 1].abs() * extent[..., None, 1]
+                  + a[..., :, 2].abs() * extent[..., None, 2])
+    return new_center - new_extent, new_center + new_extent

@@ -1,0 +1,800 @@
+"""Two-level acceleration structure: per-model BLASes built once on the host,
+a TLAS over the instances built every frame, and the traversal.
+
+PyTorch counterpart of ``paperrenderer_tpu/ops/accel.py`` on its flat
+(resident) layout. Both levels live in ONE node table ``f32[*, 12]`` (two
+child boxes per row) with a parallel ``i32[*, 2]`` table of tagged child
+codes:
+
+    bit 30        object-space flag (the row's boxes are in BLAS space)
+    bits 29..28   type: 0 = box row, 1 = BLAS leaf, 2 = instance
+    bits 27..0    payload (row index / leaf row / instance row)
+
+Popping an instance code reads that instance's inverse TRS (stored as a node
+row), moves the ray into object space and pushes the BLAS root. The object-
+space direction is not normalized, so ``t`` is shared by both spaces. A
+BLAS leaf holds K = 8 triangles as (vertex a, edge b-a, edge c-a) plus uvs
+in one 120-float row.
+
+Row layout of a frame: [static BLAS rows | instance rows | TLAS 0 | TLAS 1
+...]; each TLAS has its own root code (``add_tlas``).
+
+Not ported: animated (unique-geometry) BLASes and their refit/re-split
+(ROADMAP Queue 1 item 7), the big-model BLAS chunking and the paged layout
+(item 11; on the card the flat layout of any model stays one BLAS).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core.scene import InstanceArrays
+from ..core.transforms import quat_to_mat3, transform_aabb, trs_to_mat34
+from .bvh import moller_trumbore_edges, morton_codes
+from .trace import SurfaceHits
+
+K = 8                      # triangles per BLAS leaf
+LEAF_ROW = K * 15          # 120: K*9 positions + K*6 uvs
+_UV = K * 9                # 72: offset of the uvs in a leaf row
+
+TYPE_BOX = 0
+TYPE_LEAF = 1
+TYPE_INST = 2
+OBJ_FLAG = 1 << 30
+_TYPE_SHIFT = 28
+_PAYLOAD_MASK = (1 << 28) - 1
+
+INST_ID_MASK = 0x007FFFFF    # self-id bits of the instance record word
+INST_OPAQUE_BIT = 1 << 23    # force-opaque flag; bits 24-31: 8-bit mask
+
+
+def _code(typ: int, payload, obj: bool = False):
+    return ((typ << _TYPE_SHIFT) | (OBJ_FLAG if obj else 0)) | payload
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1)).bit_length() if n > 1 else 1
+
+
+# ---------------------------------------------------------------------------
+# BLAS build (host numpy: models are immutable and registered rarely)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _BLASBuild:
+    """One BLAS's host-side build products (before the row-offset fixup)."""
+
+    num_leaves: int
+    leaf_rows: np.ndarray    # f32[L, 120] positions (a, e1, e2) + uvs
+    leaf_prim: np.ndarray    # i32[L, K] tagged prim ids ((slot<<24)|tri, -1 pad)
+    root_min: np.ndarray     # f32[3] the whole BLAS's box
+    root_max: np.ndarray
+    depth: int
+    node_rows: np.ndarray    # f32[L-1, 12] child boxes
+    child_kind: np.ndarray   # i8[L-1, 2] 0 = box child, 1 = leaf child
+    child_idx: np.ndarray    # i32[L-1, 2] local child indices
+
+
+def _sah_leaf_arrays(leaves, vs, uvs, prim_tagged):
+    """Pack per-leaf triangle id lists into the [L, K*...] leaf tables."""
+    l = len(leaves)
+    pos9 = np.zeros((l * K, 9), np.float32)
+    uv6 = np.zeros((l * K, 6), np.float32)
+    prim = np.full(l * K, -1, np.int32)
+    for li, ids in enumerate(leaves):
+        n = len(ids)
+        s = li * K
+        pos9[s:s + n] = vs[ids]
+        uv6[s:s + n] = uvs[ids]
+        prim[s:s + n] = prim_tagged[ids]
+    rows = np.zeros((l, LEAF_ROW), np.float32)
+    # leaf rows store (a, e1=b-a, e2=c-a): Möller-Trumbore takes the edges
+    pos9[:, 3:6] -= pos9[:, 0:3]
+    pos9[:, 6:9] -= pos9[:, 0:3]
+    rows[:, :_UV] = pos9.reshape(l, K * 9)
+    rows[:, _UV:] = uv6.reshape(l, K * 6)
+    return rows, prim.reshape(l, K)
+
+
+def _build_blas_host_sah(v0, v1, v2, uv0, uv1, uv2, prim_tagged, *,
+                         bins: int = 16,
+                         depth_cap: int = 48) -> _BLASBuild:
+    """Top-down binned-SAH BLAS with explicit topology (the GPU driver's
+    PREFER_FAST_TRACE quality, AccelerationStructure.cpp:218-271): at each
+    node 16 centroid bins per axis, split minimizing SA(L)*N_L + SA(R)*N_R;
+    a median-count split on degenerate extents and past ``depth_cap``.
+    Leaves hold up to K triangles."""
+    t = v0.shape[0]
+    centroid = ((v0 + v1 + v2) / 3.0).astype(np.float32)
+    tri_min = np.minimum(np.minimum(v0, v1), v2).astype(np.float32)
+    tri_max = np.maximum(np.maximum(v0, v1), v2).astype(np.float32)
+    vs = np.concatenate([v0, v1, v2], axis=-1).astype(np.float32)
+    uvs = np.concatenate([uv0, uv1, uv2], axis=-1).astype(np.float32)
+
+    leaves: List[np.ndarray] = []
+    nodes: List[list] = []       # [kind0, idx0, kind1, idx1] (preorder)
+    node_box: List[tuple] = []   # (lo, hi) per node, same order
+    max_depth = [1]
+
+    def area(lo, hi):
+        d = np.maximum(hi - lo, 0.0)
+        return d[0] * d[1] + d[1] * d[2] + d[2] * d[0]
+
+    def build(ids, depth):
+        """-> (kind, idx); kind 1 = leaf, 0 = box node."""
+        max_depth[0] = max(max_depth[0], depth)
+        lo = tri_min[ids].min(axis=0)
+        hi = tri_max[ids].max(axis=0)
+        if len(ids) <= K:
+            leaves.append(ids)
+            return 1, len(leaves) - 1
+        c = centroid[ids]
+        split = None
+        if depth < depth_cap:
+            best_cost = np.inf
+            for ax in range(3):
+                cl, ch = c[:, ax].min(), c[:, ax].max()
+                if ch <= cl:
+                    continue
+                b = np.minimum(
+                    ((c[:, ax] - cl) * (bins / (ch - cl))).astype(np.int64),
+                    bins - 1)
+                cnt = np.bincount(b, minlength=bins)
+                blo = np.full((bins, 3), np.inf, np.float32)
+                bhi = np.full((bins, 3), -np.inf, np.float32)
+                np.minimum.at(blo, b, tri_min[ids])
+                np.maximum.at(bhi, b, tri_max[ids])
+                plo = np.minimum.accumulate(blo, axis=0)
+                phi = np.maximum.accumulate(bhi, axis=0)
+                slo = np.minimum.accumulate(blo[::-1], axis=0)[::-1]
+                shi = np.maximum.accumulate(bhi[::-1], axis=0)[::-1]
+                pcnt = np.cumsum(cnt)
+                for i in range(bins - 1):
+                    nl = pcnt[i]
+                    nr = len(ids) - nl
+                    if nl == 0 or nr == 0:
+                        continue
+                    cost = (area(plo[i], phi[i]) * nl
+                            + area(slo[i + 1], shi[i + 1]) * nr)
+                    if cost < best_cost:
+                        best_cost = cost
+                        split = (ax, cl, ch, i)
+        if split is not None:
+            ax, cl, ch, i = split
+            b = np.minimum(
+                ((c[:, ax] - cl) * (bins / (ch - cl))).astype(np.int64),
+                bins - 1)
+            mask = b <= i
+            left, right = ids[mask], ids[~mask]
+        else:
+            ax = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
+            half = len(ids) // 2
+            part = np.argpartition(c[:, ax], half - 1)
+            left, right = ids[part[:half]], ids[part[half:]]
+        me = len(nodes)
+        nodes.append(None)
+        node_box.append((lo, hi))
+        k0, i0 = build(left, depth + 1)
+        k1, i1 = build(right, depth + 1)
+        nodes[me] = [k0, i0, k1, i1]
+        return 0, me
+
+    old_limit = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(old_limit, depth_cap * 4 + 10000))
+    try:
+        build(np.arange(t, dtype=np.int64), 1)
+    finally:
+        sys.setrecursionlimit(old_limit)
+
+    rows, prim = _sah_leaf_arrays(leaves, vs, uvs, prim_tagged)
+    l = len(leaves)
+    nn = len(nodes)
+    node_rows = np.zeros((nn, 12), np.float32)
+    child_kind = np.zeros((nn, 2), np.int8)
+    child_idx = np.zeros((nn, 2), np.int32)
+    leaf_lo = np.zeros((l, 3), np.float32)
+    leaf_hi = np.zeros((l, 3), np.float32)
+    for li, ids in enumerate(leaves):
+        leaf_lo[li] = tri_min[ids].min(axis=0)
+        leaf_hi[li] = tri_max[ids].max(axis=0)
+    for ni, (k0, i0, k1, i1) in enumerate(nodes):
+        b0 = (leaf_lo[i0], leaf_hi[i0]) if k0 else node_box[i0]
+        b1 = (leaf_lo[i1], leaf_hi[i1]) if k1 else node_box[i1]
+        node_rows[ni] = np.concatenate([b0[0], b0[1], b1[0], b1[1]])
+        child_kind[ni] = (k0, k1)
+        child_idx[ni] = (i0, i1)
+    root = node_box[0] if nn else (leaf_lo[0], leaf_hi[0])
+    return _BLASBuild(
+        num_leaves=l, leaf_rows=rows, leaf_prim=prim, root_min=root[0],
+        root_max=root[1], depth=max_depth[0], node_rows=node_rows,
+        child_kind=child_kind, child_idx=child_idx)
+
+
+def _emit_blas_node_rows(b: _BLASBuild, node_off: int,
+                         leaf_off: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Internal node rows (f32[L-1, 12] child boxes, i32[L-1, 2] child codes)
+    with the codes at global row offsets."""
+    if b.num_leaves <= 1:
+        return np.zeros((0, 12), np.float32), np.zeros((0, 2), np.int32)
+    codes = np.where(
+        b.child_kind == 1,
+        _code(TYPE_LEAF, leaf_off + b.child_idx, obj=True),
+        _code(TYPE_BOX, node_off + b.child_idx, obj=True),
+    ).astype(np.int32)
+    return b.node_rows, codes
+
+
+@dataclasses.dataclass(frozen=True)
+class BLASSet:
+    """All models' BLASes packed on one device. Row offsets are baked into
+    the child codes, so the tables concatenate directly into a frame's node
+    table (BLAS rows first)."""
+
+    nodes: torch.Tensor      # f32[NB, 12] internal rows (child boxes)
+    codes: torch.Tensor      # i32[NB, 2] child codes
+    leaf_rows: torch.Tensor  # f32[LB, 120] positions + uvs
+    leaf_prim: torch.Tensor  # i32[LB, K] tagged prim ids
+    root_min: torch.Tensor   # f32[B, 3] object-space root AABBs
+    root_max: torch.Tensor   # f32[B, 3]
+    root_code: torch.Tensor  # i32[B]
+
+
+@dataclasses.dataclass
+class BLASSetMeta:
+    """Host-side facts about a BLASSet (static across frames)."""
+
+    blas_of_model: np.ndarray   # i32[M] model id -> blas id
+    max_depth: int
+    num_static_nodes: int
+
+
+def build_blas_set(scene, device="cuda") -> Tuple[BLASSet, BLASSetMeta]:
+    """One SAH BLAS per model over its LOD-0 triangles in object space
+    (reference: queueBLAS at model creation, Model.cpp:59-74; geometry is
+    always LOD 0, AccelerationStructure.cpp:335-377)."""
+    arena = scene.arena
+    builds: List[_BLASBuild] = []
+    blas_of_model = np.zeros(max(1, len(scene.models)), np.int32)
+
+    def model_tris(model):
+        parts = [[] for _ in range(7)]
+        for mm in model.lods[0].meshes:
+            h = mm.handle
+            # tagged prim id = (slot << 24) | arena tri id in one i32
+            if not (0 <= mm.material_slot < 128):
+                raise ValueError(
+                    f"material slot {mm.material_slot} out of the tagged-prim "
+                    "range [0, 128)")
+            if h.tri_offset + h.tri_count >= (1 << 24):
+                raise ValueError("geometry arena exceeds 2^24 triangles — "
+                                 "tagged prim ids cannot address it")
+            idx = arena._idx[h.tri_offset:h.tri_offset + h.tri_count]
+            tri_ids = np.arange(h.tri_offset, h.tri_offset + h.tri_count)
+            for j in range(3):
+                parts[j].append(arena._pos[idx[:, j]])
+                parts[3 + j].append(arena._uv[idx[:, j]])
+            parts[6].append((np.int32(mm.material_slot) << 24)
+                            | tri_ids.astype(np.int32))
+        return [np.concatenate(p, axis=0) for p in parts]
+
+    for model in scene.models:
+        blas_of_model[model.model_id] = len(builds)
+        builds.append(_build_blas_host_sah(*model_tris(model)))
+
+    node_rows = [np.zeros((0, 12), np.float32)]
+    node_codes = [np.zeros((0, 2), np.int32)]
+    leaf_rows = [np.zeros((0, LEAF_ROW), np.float32)]
+    leaf_prims = [np.zeros((0, K), np.int32)]
+    root_min = np.zeros((len(builds), 3), np.float32)
+    root_max = np.zeros((len(builds), 3), np.float32)
+    root_code = np.zeros(len(builds), np.int32)
+    no = lo = 0
+    for bi, b in enumerate(builds):
+        rows, codes = _emit_blas_node_rows(b, no, lo)
+        node_rows.append(rows)
+        node_codes.append(codes)
+        leaf_rows.append(b.leaf_rows)
+        leaf_prims.append(b.leaf_prim)
+        root_min[bi] = np.where(np.isfinite(b.root_min), b.root_min, 0.0)
+        root_max[bi] = np.where(np.isfinite(b.root_max), b.root_max, 0.0)
+        root_code[bi] = (_code(TYPE_BOX, no, obj=True) if b.num_leaves > 1
+                         else _code(TYPE_LEAF, lo, obj=True))
+        no += max(b.num_leaves - 1, 0)
+        lo += b.num_leaves
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    blasset = BLASSet(
+        nodes=t(np.concatenate(node_rows)), codes=t(np.concatenate(node_codes)),
+        leaf_rows=t(np.concatenate(leaf_rows)),
+        leaf_prim=t(np.concatenate(leaf_prims)),
+        root_min=t(root_min), root_max=t(root_max), root_code=t(root_code))
+    meta = BLASSetMeta(
+        blas_of_model=blas_of_model,
+        max_depth=max((b.depth for b in builds), default=0),
+        num_static_nodes=no)
+    return blasset, meta
+
+
+def build_tri_attr(scene, device="cuda") -> torch.Tensor:
+    """Arena-wide object-space attribute rows f32[Ta, 16]: [n0 n1 n2 (9) |
+    uv0 uv1 uv2 (6) | material slot (1)], one row read per resolved hit
+    (the hitcommon.glsl getHitInfo analogue)."""
+    arena = scene.arena
+    idx = arena._idx
+    ta = idx.shape[0]
+    out = np.zeros((ta, 16), np.float32)
+    out[:, 0:9] = arena._nrm[idx].reshape(ta, 9)
+    out[:, 9:15] = arena._uv[idx].reshape(ta, 6)
+    for model in scene.models:
+        for lod in model.lods:
+            for mm in lod.meshes:
+                h = mm.handle
+                out[h.tri_offset:h.tri_offset + h.tri_count, 15] = mm.material_slot
+    return torch.from_numpy(out).to(device)
+
+
+def required_stack_size(meta: BLASSetMeta, capacity: int) -> int:
+    """Traversal stack bound: one pending far child per level of each tree +
+    one instance entry + slack, rounded up to a multiple of 8."""
+    d1 = max(1, _next_pow2(capacity).bit_length() - 1)
+    return -(-(d1 + meta.max_depth + 8) // 8) * 8
+
+
+# ---------------------------------------------------------------------------
+# Per frame: TLAS build + node table assembly (device tensors)
+# ---------------------------------------------------------------------------
+
+def build_tlas_rows(
+    instances: InstanceArrays,
+    inst_blas: torch.Tensor,   # i32[N] blas id per instance slot
+    root_min: torch.Tensor,    # f32[B, 3] per-blas object root AABBs
+    root_max: torch.Tensor,
+    mask: torch.Tensor,        # bool[N] membership in this TLAS
+    *,
+    node_offset: int,          # global row offset of this TLAS's rows
+    inst_offset: int,          # global row offset of the instance rows
+):
+    """TLAS over instance world AABBs -> (node rows f32[Lt-1, 12], child
+    codes i32[Lt-1, 2]). The TLASInstBuild.comp +
+    TOP_LEVEL build analogue: O(N) matrix/AABB math and one morton sort.
+    Leaves are single instances; a leaf pop goes straight to the instance
+    switch."""
+    n = instances.capacity
+    l = _next_pow2(n)
+    dev = instances.pos.device
+    inf = float("inf")
+    alive = instances.alive & mask
+    mats = trs_to_mat34(instances.pos, instances.scale, instances.quat)
+    bid = torch.clamp(inst_blas, 0, root_min.shape[0] - 1).long()
+    wlo, whi = transform_aabb(mats, root_min[bid], root_max[bid])
+
+    blo = torch.where(alive[:, None], wlo, inf)
+    bhi = torch.where(alive[:, None], whi, -inf)
+    centroid = torch.where(alive[:, None], (wlo + whi) * 0.5, 0.0)
+    codes = morton_codes(centroid, blo.amin(dim=0), bhi.amax(dim=0))
+    codes = torch.where(alive, codes, 0xFFFFFFFF)
+    order = torch.argsort(codes, stable=True)
+
+    perm = torch.full((l,), -1, dtype=torch.int64, device=dev)
+    perm[:n] = torch.where(alive[order], order, -1)
+    leaf_min = torch.full((l, 3), inf, device=dev)
+    leaf_max = torch.full((l, 3), -inf, device=dev)
+    leaf_min[:n] = blo[order]
+    leaf_max[:n] = bhi[order]
+    levels_min, levels_max = [leaf_min], [leaf_max]
+    while levels_min[0].shape[0] > 1:
+        cm, cx = levels_min[0], levels_max[0]
+        levels_min.insert(0, torch.minimum(cm[0::2], cm[1::2]))
+        levels_max.insert(0, torch.maximum(cx[0::2], cx[1::2]))
+    node_min = torch.cat(levels_min)
+    node_max = torch.cat(levels_max)
+
+    c0 = torch.arange(1, 2 * l - 1, 2, device=dev)
+    c1 = c0 + 1
+
+    def codes_of(c):
+        leaf_k = torch.clamp(c - (l - 1), min=0)
+        inst = torch.clamp(perm[leaf_k], min=0) + inst_offset
+        return torch.where(c < l - 1, _code(TYPE_BOX, 0) + node_offset + c,
+                           _code(TYPE_INST, 0) + inst).to(torch.int32)
+
+    rows = torch.cat([
+        torch.nan_to_num(node_min[c0], posinf=1e30),
+        torch.nan_to_num(node_max[c0], neginf=-1e30),
+        torch.nan_to_num(node_min[c1], posinf=1e30),
+        torch.nan_to_num(node_max[c1], neginf=-1e30),
+    ], dim=-1)
+    # dead leaves/subtrees: min > max on every axis, which the slab test
+    # rejects explicitly
+    for lo_col in (0, 6):
+        box_lo, box_hi = rows[:, lo_col:lo_col + 3], rows[:, lo_col + 3:lo_col + 6]
+        dead = box_hi < box_lo
+        rows[:, lo_col:lo_col + 3] = torch.where(dead, 1e30, box_lo)
+        rows[:, lo_col + 3:lo_col + 6] = torch.where(dead, -1e30, box_hi)
+    return rows, torch.stack([codes_of(c0), codes_of(c1)], dim=-1)
+
+
+def make_instance_rows(
+    instances: InstanceArrays,
+    inst_blas: torch.Tensor,     # i32[N]
+    root_code: torch.Tensor,     # i32[B]
+    inst_mask: Optional[torch.Tensor] = None,    # i32[N] 8-bit, default 0xFF
+    inst_opaque: Optional[torch.Tensor] = None,  # bool[N] force-opaque
+):
+    """Instance rows: (inverse 3x4 f32[N, 12], codes i32[N, 2] = [BLAS root
+    code, instance record word]). The record word packs [mask:8 |
+    force_opaque:1 | self id:23], the reference's
+    ``AccelerationStructureInstanceData`` (RayTrace.h:19-35): traversal skips
+    an instance whose ``mask & cull_mask == 0``."""
+    rot = quat_to_mat3(instances.quat)
+    scale = instances.scale
+    # M = T R S  ->  M^-1 = S^-1 R^T T^-1
+    inv_s = 1.0 / torch.clamp(scale.abs(), min=1e-12) * torch.sign(
+        torch.where(scale == 0.0, 1.0, scale))
+    a_inv = rot.transpose(-1, -2) * inv_s[:, :, None]
+    pos = instances.pos
+    t_inv = -(a_inv[:, :, 0] * pos[:, None, 0] + a_inv[:, :, 1] * pos[:, None, 1]
+              + a_inv[:, :, 2] * pos[:, None, 2])
+    n = pos.shape[0]
+    if n > INST_ID_MASK + 1:
+        raise ValueError("instance capacity exceeds the 23-bit instance id")
+    inv12 = torch.cat([a_inv, t_inv[:, :, None]], dim=-1).reshape(n, 12)
+    dev = pos.device
+    rec = torch.arange(n, dtype=torch.int64, device=dev)
+    m8 = (torch.full((n,), 0xFF, dtype=torch.int64, device=dev)
+          if inst_mask is None else inst_mask.to(torch.int64) & 0xFF)
+    rec = rec | (m8 << 24)
+    if inst_opaque is not None:
+        rec = rec | torch.where(inst_opaque, INST_OPAQUE_BIT, 0)
+    rec = torch.where(rec >= 1 << 31, rec - (1 << 32), rec).to(torch.int32)
+    bid = torch.clamp(inst_blas, 0, root_code.shape[0] - 1).long()
+    return inv12, torch.stack([root_code[bid], rec], dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class RTScene:
+    """One frame's traversal scene (all tensors on one device)."""
+
+    nodes: torch.Tensor      # f32[*, 12]: [blas | instance | tlas...] rows
+    codes: torch.Tensor      # i32[*, 2]: child codes / [root, record] per row
+    leaf_rows: torch.Tensor  # f32[*, 120]: leaf positions + uvs
+    leaf_prim: torch.Tensor  # i32[*, K]: tagged prim ids per leaf
+    inv_rows: torch.Tensor   # f32[N, 12] inverse matrices (world normal =
+    #                          (M^-1)^T n_obj, hitcommon.glsl:128)
+    tri_attr: torch.Tensor   # f32[Ta, 16] obj normals(9) + uv(6) + slot(1)
+
+
+def assemble_scene(
+    blasset: BLASSet,
+    meta: BLASSetMeta,
+    instances: InstanceArrays,
+    inst_blas: torch.Tensor,
+    tlas_masks: Sequence[torch.Tensor],
+    tri_attr: torch.Tensor,
+    *,
+    inst_mask: Optional[torch.Tensor] = None,
+    inst_opaque: Optional[torch.Tensor] = None,
+) -> Tuple[RTScene, List[int]]:
+    """This frame's node table: [static BLAS | instance rows | TLAS 0 |
+    TLAS 1 ...]. Returns (scene, [root code per TLAS])."""
+    n = instances.capacity
+    inst_off = meta.num_static_nodes
+    tlas_off = inst_off + n
+    tlas_rows, tlas_codes, root_codes = [], [], []
+    for mask in tlas_masks:
+        rows, codes = build_tlas_rows(
+            instances, inst_blas, blasset.root_min, blasset.root_max, mask,
+            node_offset=tlas_off, inst_offset=inst_off)
+        tlas_rows.append(rows)
+        tlas_codes.append(codes)
+        root_codes.append(_code(TYPE_BOX, tlas_off))
+        tlas_off += rows.shape[0]
+    inst_rows, inst_codes = make_instance_rows(
+        instances, inst_blas, blasset.root_code, inst_mask=inst_mask,
+        inst_opaque=inst_opaque)
+    scene = RTScene(
+        nodes=torch.cat([blasset.nodes, inst_rows] + tlas_rows),
+        codes=torch.cat([blasset.codes, inst_codes] + tlas_codes),
+        leaf_rows=blasset.leaf_rows, leaf_prim=blasset.leaf_prim,
+        inv_rows=inst_rows, tri_attr=tri_attr)
+    return scene, root_codes
+
+
+# ---------------------------------------------------------------------------
+# Two-level traversal: the plain PyTorch version of the traversal kernels
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class HitRecord2:
+    t: torch.Tensor      # f32[R], inf on a miss
+    prim: torch.Tensor   # i32[R] arena triangle id, -1 on a miss
+    inst: torch.Tensor   # i32[R] instance slot, -1 on a miss
+    bary: torch.Tensor   # f32[R, 2]
+
+    @property
+    def hit(self) -> torch.Tensor:
+        return self.prim >= 0
+
+
+def _slab2(o, inv_d, t_max, bmin0, bmax0, bmin1, bmax1):
+    """Slab-test two child boxes -> (hit0, hit1, tn0, tn1). Dead children
+    are inverted boxes (min > max), rejected on axis 0."""
+    def one(bmin, bmax):
+        t0 = (bmin - o) * inv_d
+        t1 = (bmax - o) * inv_d
+        tn = torch.minimum(t0, t1).amax(dim=-1)
+        tf = torch.maximum(t0, t1).amin(dim=-1)
+        hit = (tf >= torch.clamp(tn, min=0.0)) & (tn <= t_max)
+        return hit & (bmin[:, 0] <= bmax[:, 0]), tn
+
+    h0, tn0 = one(bmin0, bmax0)
+    h1, tn1 = one(bmin1, bmax1)
+    return h0, h1, tn0, tn1
+
+
+def trace_scene(
+    scene: RTScene,
+    ray_o: torch.Tensor,    # f32[R, 3] world
+    ray_d: torch.Tensor,    # f32[R, 3] world
+    t_max,                  # f32[R] or a number
+    *,
+    root_code: int,
+    stack_size: int,
+    t_min: float = 1e-3,
+    any_hit: bool = False,
+    active: Optional[torch.Tensor] = None,
+    cull_mask: int = 0xFF,
+    counts: Optional[dict] = None,
+) -> HitRecord2:
+    """Two-level traversal, the plain version of the traversal kernels
+    (``csrc/trace.cu``) and the port of ``accel.trace_scene``.
+
+    Each ray runs the same pop/push machine as the kernel's thread: pop a
+    code; an instance code moves the ray to object space and pushes the BLAS
+    root when its mask meets ``cull_mask``; a box row slab-tests both
+    children and pushes the far hit child, then the near one (``tn0 <= tn1``
+    picks child 0 as near); a leaf tests its K triangles, keeps the first of
+    the closest candidates with ``t < best_t``, and with ``any_hit`` ends
+    the walk. Rays are processed in lockstep steps; a step handles each code
+    type only on the rays that popped it, and finished rays leave the
+    working set. ``counts`` (optional) accumulates the box, leaf and
+    instance pops."""
+    r = ray_o.shape[0]
+    dev = ray_o.device
+    nn = scene.nodes.shape[0]
+    nl = scene.leaf_rows.shape[0]
+    s = stack_size
+    t_cap = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
+    best_t = t_cap.expand(r).clone()
+    best_prim = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    best_inst = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    best_bary = torch.zeros((r, 2), dtype=torch.float32, device=dev)
+
+    w = (torch.arange(r, device=dev) if active is None
+         else torch.nonzero(active).flatten())
+    m = w.shape[0]
+    o, d = ray_o[w], ray_d[w]
+    bt, bp, bi, bb = best_t[w], best_prim[w], best_inst[w], best_bary[w]
+    oo, do = o.clone(), d.clone()
+    ci = torch.zeros((m,), dtype=torch.int32, device=dev)
+    # column s is a trash slot: a push past the stack bound is dropped
+    stack = torch.zeros((m, s + 1), dtype=torch.int32, device=dev)
+    stack[:, 0] = root_code
+    sp = torch.ones((m,), dtype=torch.int64, device=dev)
+
+    def push(rows, val, do_push):
+        rows, val = rows[do_push], val[do_push]
+        top = sp[rows]
+        stack[rows, torch.clamp(top, max=s)] = val
+        sp[rows] = top + 1
+
+    while m:
+        top = sp - 1
+        code = torch.where(
+            top < s, stack.gather(1, torch.clamp(top, max=s)[:, None])[:, 0], 0)
+        sp = top
+        typ = (code >> _TYPE_SHIFT) & 3
+        payload = code & _PAYLOAD_MASK
+        ii = torch.nonzero(typ == TYPE_INST).flatten()
+        ib = torch.nonzero(typ == TYPE_BOX).flatten()
+        il = torch.nonzero(typ == TYPE_LEAF).flatten()
+        if counts is not None:
+            for key, idx in (("box", ib), ("leaf", il), ("inst", ii)):
+                counts[key] = counts.get(key, 0) + int(idx.shape[0])
+
+        if ii.numel():   # instance switch: world ray -> object ray
+            p = torch.clamp(payload[ii], 0, nn - 1).long()
+            inv, cpair = scene.nodes[p], scene.codes[p]
+            wo, wd = o[ii], d[ii]
+            oo[ii] = torch.stack(
+                [inv[:, 4 * k] * wo[:, 0] + inv[:, 4 * k + 1] * wo[:, 1]
+                 + inv[:, 4 * k + 2] * wo[:, 2] + inv[:, 4 * k + 3]
+                 for k in range(3)], dim=-1)
+            do[ii] = torch.stack(
+                [inv[:, 4 * k] * wd[:, 0] + inv[:, 4 * k + 1] * wd[:, 1]
+                 + inv[:, 4 * k + 2] * wd[:, 2] for k in range(3)], dim=-1)
+            ci[ii] = cpair[:, 1]
+            push(ii, cpair[:, 0], ((cpair[:, 1] >> 24) & cull_mask) != 0)
+
+        if ib.numel():   # box row: slab-test both children in its space
+            p = torch.clamp(payload[ib], 0, nn - 1).long()
+            row, cpair = scene.nodes[p], scene.codes[p]
+            use_obj = (((code[ib] >> 30) & 1) == 1)[:, None]
+            ot = torch.where(use_obj, oo[ib], o[ib])
+            dt = torch.where(use_obj, do[ib], d[ib])
+            inv_d = 1.0 / torch.where(dt.abs() < 1e-12, 1e-12, dt)
+            h0, h1, tn0, tn1 = _slab2(ot, inv_d, bt[ib], row[:, 0:3],
+                                      row[:, 3:6], row[:, 6:9], row[:, 9:12])
+            first0 = tn0 <= tn1
+            c0, c1 = cpair[:, 0], cpair[:, 1]
+            push(ib, torch.where(first0, c1, c0), torch.where(first0, h1, h0))
+            push(ib, torch.where(first0, c0, c1), torch.where(first0, h0, h1))
+
+        if il.numel():   # leaf: K triangle tests
+            p = torch.clamp(payload[il], 0, nl - 1).long()
+            tri = scene.leaf_rows[p, :_UV].reshape(-1, K, 9)
+            prim_tag = scene.leaf_prim[p]
+            t, u, v, hit = moller_trumbore_edges(
+                oo[il][:, None, :], do[il][:, None, :],
+                tri[..., 0:3], tri[..., 3:6], tri[..., 6:9], t_min=t_min)
+            cand = hit & (prim_tag >= 0) & (t < bt[il][:, None])
+            t_m = torch.where(cand, t, float("inf"))
+            k = torch.argmin(t_m, dim=1, keepdim=True)
+            win = cand.any(dim=1)
+            wl = il[win]
+            bt[wl] = t_m.gather(1, k)[:, 0][win]
+            bp[wl] = (prim_tag.gather(1, k)[:, 0] & 0x00FFFFFF)[win]
+            bi[wl] = ci[wl] & INST_ID_MASK
+            bb[wl] = torch.stack([u.gather(1, k)[:, 0], v.gather(1, k)[:, 0]],
+                                 dim=-1)[win]
+            if any_hit:
+                sp[wl] = 0
+
+        done = sp <= 0
+        if bool(done.any()):
+            wd_ = w[done]
+            best_t[wd_], best_prim[wd_] = bt[done], bp[done]
+            best_inst[wd_], best_bary[wd_] = bi[done], bb[done]
+            keep = ~done
+            w, o, d, oo, do, ci = w[keep], o[keep], d[keep], oo[keep], do[keep], ci[keep]
+            bt, bp, bi, bb = bt[keep], bp[keep], bi[keep], bb[keep]
+            stack, sp = stack[keep], sp[keep]
+            m = w.shape[0]
+
+    miss = best_prim < 0
+    return HitRecord2(t=torch.where(miss, float("inf"), best_t),
+                      prim=best_prim,
+                      inst=torch.where(miss, -1, best_inst),
+                      bary=best_bary)
+
+
+def resolve_attrs(scene: RTScene, slot_materials: torch.Tensor,
+                  rec: HitRecord2):
+    """Hit attributes from ONE object-space attribute row and the instance's
+    inverse matrix: (uv f32[R, 2], world normal f32[R, 3] before
+    normalization, material i32[R]). The plain version of the resolve step
+    of the traversal kernel's resolve entry."""
+    pid = torch.clamp(rec.prim, min=0).long()
+    iid = torch.clamp(rec.inst, 0, scene.inv_rows.shape[0] - 1).long()
+    u, v = rec.bary[:, 0], rec.bary[:, 1]
+    w0 = 1.0 - u - v
+    attr = scene.tri_attr[pid]
+    inv = scene.inv_rows[iid]
+    n_obj = (w0[:, None] * attr[:, 0:3] + u[:, None] * attr[:, 3:6]
+             + v[:, None] * attr[:, 6:9])
+    # world normal = (M^-1)^T n_obj (hitcommon.glsl:128)
+    normal = torch.stack(
+        [inv[:, k] * n_obj[:, 0] + inv[:, k + 4] * n_obj[:, 1]
+         + inv[:, k + 8] * n_obj[:, 2] for k in range(3)], dim=-1)
+    uv = (w0[:, None] * attr[:, 9:11] + u[:, None] * attr[:, 11:13]
+          + v[:, None] * attr[:, 13:15])
+    slot = torch.clamp(attr[:, 15].to(torch.int64), 0,
+                       slot_materials.shape[1] - 1)
+    mat = slot_materials[iid, slot]
+    return uv, normal, torch.where(rec.hit, mat, 0).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Tracer context: the (trace, resolve) protocol of the lighting passes
+# ---------------------------------------------------------------------------
+
+class SceneTracer:
+    """Two-level tracer and attribute resolver bound to one frame's RTScene.
+    Every method goes through a traversal kernel wrapper
+    (``ops/trace_kernel.py``): the CUDA kernel on a CUDA scene, its plain
+    version on a CPU scene."""
+
+    leaf_cutout = False   # the any-hit alpha test is not ported (item 9)
+
+    def __init__(self, scene: RTScene, slot_materials: torch.Tensor,
+                 materials, *, root_code: int, stack_size: int):
+        self.scene = scene
+        self.slot_materials = slot_materials
+        self.materials = materials
+        self.root_code = root_code
+        self.stack_size = stack_size
+
+    def _walk(self):
+        return dict(root_code=self.root_code, stack_size=self.stack_size)
+
+    def trace(self, o, d, t_max, *, any_hit=False, active=None,
+              cull_mask: int = 0xFF) -> HitRecord2:
+        from .trace_kernel import trace_scene_kernel
+
+        return trace_scene_kernel(self.scene, o, d, t_max, any_hit=any_hit,
+                                  active=active, cull_mask=cull_mask,
+                                  **self._walk())
+
+    def resolve(self, rec: HitRecord2, ray_o, ray_d):
+        """Interpolated hit attributes (hitcommon.glsl getHitInfo)."""
+        return surface_hits(rec, resolve_attrs(self.scene, self.slot_materials,
+                                               rec), ray_o, ray_d)
+
+    def trace_resolve(self, o, d, t_max, *, active=None,
+                      cull_mask: int = 0xFF):
+        """Closest hit + attribute resolve in one kernel -> SurfaceHits."""
+        from .trace_kernel import trace_resolve_kernel
+
+        rec, attrs = trace_resolve_kernel(
+            self.scene, self.slot_materials, o, d, t_max, active=active,
+            cull_mask=cull_mask, **self._walk())
+        return surface_hits(rec, attrs, o, d)
+
+    def trace_shadow_ao_bundle(self, o, dirs, t_caps, ao_dirs, ao_caps, *,
+                               occ_actives=None, ao_actives=None,
+                               cull_mask: int = 0xFF):
+        """Origin-shared any-hit occlusion samples and closest-t AO samples
+        in one kernel -> (bits i32[R], AO t per sample). Bit s is set where
+        occlusion sample s is occluded or inactive; an AO t is its cap on a
+        miss and -3e38 on an inactive ray."""
+        from .trace_kernel import trace_bundle_kernel
+
+        bits, ao_ts, _ = trace_bundle_kernel(
+            self.scene, o, dirs, t_caps, occ_actives, ao_dirs, ao_caps,
+            ao_actives, cull_mask=cull_mask, **self._walk())
+        return bits, ao_ts
+
+    def trace_shadow_ao_resolve_bundle(self, o, dirs, t_caps, ao_dirs,
+                                       ao_caps, rs_d, rs_cap, *,
+                                       occ_actives=None, ao_actives=None,
+                                       rs_active=None, cull_mask: int = 0xFF):
+        """The bundle plus one closest-hit + resolve sample (the 1-bounce
+        reflection ray) -> (bits, AO t per sample, SurfaceHits)."""
+        from .trace_kernel import trace_bundle_kernel
+
+        bits, ao_ts, (rec, attrs) = trace_bundle_kernel(
+            self.scene, o, dirs, t_caps, occ_actives, ao_dirs, ao_caps,
+            ao_actives, resolve=(self.slot_materials, rs_d, rs_cap, rs_active),
+            cull_mask=cull_mask, **self._walk())
+        return bits, ao_ts, surface_hits(rec, attrs, o, rs_d)
+
+
+def surface_hits(rec: HitRecord2, attrs, ray_o, ray_d):
+    """(hit record, resolved attributes) -> SurfaceHits: world position from
+    the ray equation, the normal normalized and faced toward the ray."""
+    uv, n, material = attrs
+    hit = rec.hit
+    t = torch.where(hit, rec.t, 0.0)
+    n = n / torch.clamp(torch.linalg.vector_norm(n, dim=-1, keepdim=True),
+                        min=1e-12)
+    facing = (n * ray_d).sum(dim=-1) < 0.0
+    n = torch.where(facing[:, None], n, -n)
+    return SurfaceHits(world_pos=ray_o + t[:, None] * ray_d, normal=n, uv=uv,
+                       material=material, valid=hit, t=rec.t)
+
+
+def make_scene_tracer(blasset, meta, instances, inst_blas, masks, tri_attr,
+                      slot_materials, materials, *, tlas_index: int,
+                      stack_size: int, inst_mask=None,
+                      inst_opaque=None) -> SceneTracer:
+    """Assemble this frame's flat scene and return its tracer."""
+    rt_scene, roots = assemble_scene(
+        blasset, meta, instances, inst_blas, list(masks), tri_attr,
+        inst_mask=inst_mask, inst_opaque=inst_opaque)
+    return SceneTracer(rt_scene, slot_materials, materials,
+                       root_code=roots[tlas_index], stack_size=stack_size)

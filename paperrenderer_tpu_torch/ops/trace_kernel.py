@@ -1,0 +1,308 @@
+"""Wrappers of the traversal kernels (``csrc/trace.cu``) and their plain
+PyTorch versions.
+
+  * ``trace_scene_kernel``   K7: closest or any hit -> HitRecord2
+  * ``trace_resolve_kernel`` K8: closest hit + resolved uv/normal/material
+  * ``trace_bundle_kernel``  K9: origin-shared occlusion samples (bitmask),
+    AO samples (closest t) and optionally one closest + resolve sample
+
+On a CUDA tensor each wrapper launches its kernel (built at first use) and
+counts the launch in ``LAUNCHES``; on a CPU tensor it runs the plain
+version: ``accel.trace_scene`` (K7), ``trace_scene`` then
+``accel.resolve_attrs`` (K8), one ``trace_scene`` per sample (K9). There is
+no other fallback: a build or launch failure raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import torch
+
+from ..utils.cuda_build import load_library
+from .accel import HitRecord2, RTScene, resolve_attrs, trace_scene
+
+# launches of each kernel wrapper, counted where the kernel is launched
+LAUNCHES = {"trace_scene": 0, "trace_resolve": 0, "trace_bundle": 0}
+
+T_MIN = 1e-3
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SCENE_ARGS = [_P] * 4 + [_I] * 5 + [_F]
+_RESOLVE_ARGS = [_P] * 3 + [_I] * 2
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+_LIB = []
+
+
+def _lib():
+    """The built ``csrc/trace.cu`` with its C signatures declared."""
+    if not _LIB:
+        lib = load_library("trace")
+        lib.trace_stack_max.restype = _I
+        lib.trace_launch.argtypes = (
+            _SCENE_ARGS + [_I] + [_P] * 4 + [_I] + [_P] * 4 + [_P])
+        lib.trace_resolve_launch.argtypes = (
+            _SCENE_ARGS + _RESOLVE_ARGS + [_P] * 4 + [_I] + [_P] * 7 + [_P])
+        lib.trace_bundle_launch.argtypes = (
+            _SCENE_ARGS + _RESOLVE_ARGS + [_P, _I] + [_P] * 3 + [_I]
+            + [_P] * 3 + [_I] + [_P] * 3 + [_P] * 9 + [_P])
+        for fn in (lib.trace_launch, lib.trace_resolve_launch,
+                   lib.trace_bundle_launch):
+            fn.restype = _I
+        _LIB.append(lib)
+    return _LIB[0]
+
+
+def _check(name: str, t: torch.Tensor, dtype, device, shape=None):
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dtype} tensor on "
+                         f"{device}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+
+
+def _scene_args(lib, scene: RTScene, root_code: int, stack_size: int,
+                cull_mask: int):
+    dev = scene.nodes.device
+    if stack_size > lib.trace_stack_max():
+        raise ValueError(f"scene needs a traversal stack of {stack_size}; "
+                         f"csrc/trace.cu holds {lib.trace_stack_max()}")
+    _check("nodes", scene.nodes, torch.float32, dev)
+    _check("codes", scene.codes, torch.int32, dev, (scene.nodes.shape[0], 2))
+    _check("leaf_rows", scene.leaf_rows, torch.float32, dev)
+    _check("leaf_prim", scene.leaf_prim, torch.int32, dev,
+           (scene.leaf_rows.shape[0], 8))
+    return (scene.nodes.data_ptr(), scene.codes.data_ptr(),
+            scene.leaf_rows.data_ptr(), scene.leaf_prim.data_ptr(),
+            scene.nodes.shape[0], scene.leaf_rows.shape[0], root_code,
+            stack_size, cull_mask & 0xFF, T_MIN)
+
+
+def _resolve_args(scene: RTScene, slot_materials: torch.Tensor):
+    dev = scene.nodes.device
+    n = scene.inv_rows.shape[0]
+    _check("tri_attr", scene.tri_attr, torch.float32, dev)
+    _check("inv_rows", scene.inv_rows, torch.float32, dev, (n, 12))
+    _check("slot_materials", slot_materials, torch.int32, dev)
+    if slot_materials.shape[0] != n:
+        raise ValueError("slot_materials must have one row per instance")
+    return (scene.tri_attr.data_ptr(), scene.inv_rows.data_ptr(),
+            slot_materials.data_ptr(), n, slot_materials.shape[1])
+
+
+def _rays(o, d, t_max, active):
+    """Ray tensors as the kernels take them: f32[R, 3] o/d, f32[R] t_max,
+    u8[R] active (or None)."""
+    dev, r = o.device, o.shape[0]
+    o = o.contiguous()
+    d = d.contiguous()
+    t = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(r)
+    act = None if active is None else active.to(torch.uint8).contiguous()
+    for name, x, dtype, shape in (("ray_o", o, torch.float32, (r, 3)),
+                                  ("ray_d", d, torch.float32, (r, 3))):
+        _check(name, x, dtype, dev, shape)
+    return o, d, t.contiguous(), act
+
+
+def _hit_outputs(r, dev):
+    return (torch.empty(r, dtype=torch.float32, device=dev),
+            torch.empty(r, dtype=torch.int32, device=dev),
+            torch.empty(r, dtype=torch.int32, device=dev),
+            torch.empty((r, 2), dtype=torch.float32, device=dev))
+
+
+def _resolve_outputs(r, dev):
+    return (torch.empty((r, 2), dtype=torch.float32, device=dev),
+            torch.empty((r, 3), dtype=torch.float32, device=dev),
+            torch.empty(r, dtype=torch.int32, device=dev))
+
+
+def _raise_on(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _device(x: torch.Tensor, name: str) -> str:
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return x.device.type
+
+
+# ---------------------------------------------------------------------------
+# K7
+# ---------------------------------------------------------------------------
+
+def trace_scene_kernel(scene: RTScene, o, d, t_max, *, root_code: int,
+                       stack_size: int, any_hit: bool = False,
+                       active=None, cull_mask: int = 0xFF) -> HitRecord2:
+    """Two-level traversal (closest or any hit): kernel K7 on CUDA tensors,
+    ``accel.trace_scene`` on CPU tensors."""
+    if _device(o, "trace_scene") == "cpu":
+        return trace_scene(scene, o, d, t_max, root_code=root_code,
+                           stack_size=stack_size, t_min=T_MIN,
+                           any_hit=any_hit, active=active,
+                           cull_mask=cull_mask)
+    lib = _lib()
+    o, d, t, act = _rays(o, d, t_max, active)
+    r = o.shape[0]
+    out = _hit_outputs(r, o.device)
+    rc = lib.trace_launch(
+        *_scene_args(lib, scene, root_code, stack_size, cull_mask),
+        int(any_hit), o.data_ptr(), d.data_ptr(), t.data_ptr(), _ptr(act), r,
+        *(x.data_ptr() for x in out),
+        torch.cuda.current_stream(o.device).cuda_stream)
+    _raise_on(rc, "trace_scene")
+    return HitRecord2(*out)
+
+
+# ---------------------------------------------------------------------------
+# K8
+# ---------------------------------------------------------------------------
+
+def trace_resolve_plain(scene: RTScene, slot_materials, o, d, t_max, *,
+                        root_code: int, stack_size: int, active=None,
+                        cull_mask: int = 0xFF, counts=None):
+    """Plain version of K8: closest hit, then ``accel.resolve_attrs``.
+    Returns (HitRecord2, (uv, unnormalized world normal, material))."""
+    rec = trace_scene(scene, o, d, t_max, root_code=root_code,
+                      stack_size=stack_size, t_min=T_MIN, active=active,
+                      cull_mask=cull_mask, counts=counts)
+    return rec, resolve_attrs(scene, slot_materials, rec)
+
+
+def trace_resolve_kernel(scene: RTScene, slot_materials, o, d, t_max, *,
+                         root_code: int, stack_size: int, active=None,
+                         cull_mask: int = 0xFF):
+    """Closest hit + resolve: kernel K8 on CUDA tensors, its plain version
+    on CPU tensors. Returns (HitRecord2, (uv, normal, material))."""
+    if _device(o, "trace_resolve") == "cpu":
+        return trace_resolve_plain(scene, slot_materials, o, d, t_max,
+                                   root_code=root_code, stack_size=stack_size,
+                                   active=active, cull_mask=cull_mask)
+    lib = _lib()
+    o, d, t, act = _rays(o, d, t_max, active)
+    r = o.shape[0]
+    hit_out = _hit_outputs(r, o.device)
+    res_out = _resolve_outputs(r, o.device)
+    rc = lib.trace_resolve_launch(
+        *_scene_args(lib, scene, root_code, stack_size, cull_mask),
+        *_resolve_args(scene, slot_materials),
+        o.data_ptr(), d.data_ptr(), t.data_ptr(), _ptr(act), r,
+        *(x.data_ptr() for x in hit_out + res_out),
+        torch.cuda.current_stream(o.device).cuda_stream)
+    _raise_on(rc, "trace_resolve")
+    return HitRecord2(*hit_out), res_out
+
+
+# ---------------------------------------------------------------------------
+# K9
+# ---------------------------------------------------------------------------
+
+def trace_bundle_plain(scene: RTScene, o, dirs: Sequence, caps: Sequence,
+                       occ_actives, ao_dirs: Sequence, ao_caps: Sequence,
+                       ao_actives, *, root_code: int, stack_size: int,
+                       resolve=None, cull_mask: int = 0xFF, counts=None):
+    """Plain version of K9: one any-hit trace per occlusion sample (bit s
+    set where sample s is occluded or inactive), one closest-hit trace per
+    AO sample (t = its cap on a miss, -3e38 where inactive) and, with
+    ``resolve = (slot_materials, dir, cap, active)``, one closest-hit +
+    resolve trace. Returns (bits i32[R], AO t tuple, resolved or None)."""
+    r = o.shape[0]
+    walk = dict(root_code=root_code, stack_size=stack_size, t_min=T_MIN,
+                cull_mask=cull_mask, counts=counts)
+    bits = torch.zeros(r, dtype=torch.int32, device=o.device)
+    for s, (d, tc) in enumerate(zip(dirs, caps)):
+        act = None if occ_actives is None else occ_actives[s]
+        rec = trace_scene(scene, o, d, tc, any_hit=True, active=act, **walk)
+        occ = rec.hit if act is None else (rec.hit | ~act)
+        bits = bits | (occ.to(torch.int32) << s)
+    ao_ts = []
+    for j, (d, tc) in enumerate(zip(ao_dirs, ao_caps)):
+        act = None if ao_actives is None else ao_actives[j]
+        cap = torch.as_tensor(tc, dtype=torch.float32, device=o.device).expand(r)
+        rec = trace_scene(scene, o, d, cap, active=act, **walk)
+        t = torch.where(rec.hit, rec.t, cap)
+        if act is not None:
+            t = torch.where(act, t, -3e38)
+        ao_ts.append(t)
+    resolved = None
+    if resolve is not None:
+        smat, rs_d, rs_cap, rs_active = resolve
+        resolved = trace_resolve_plain(
+            scene, smat, o, rs_d, rs_cap, root_code=root_code,
+            stack_size=stack_size, active=rs_active, cull_mask=cull_mask,
+            counts=counts)
+    return bits, tuple(ao_ts), resolved
+
+
+def _stack_samples(dirs, caps, actives, r, dev):
+    n = len(dirs)
+    if n == 0:
+        return None, None, None
+    d = torch.stack([x.to(torch.float32) for x in dirs]).contiguous()
+    c = torch.stack([torch.as_tensor(x, dtype=torch.float32, device=dev)
+                     .expand(r) for x in caps]).contiguous()
+    if actives is None:
+        a = torch.ones((n, r), dtype=torch.uint8, device=dev)
+    else:
+        a = torch.stack([torch.ones(r, dtype=torch.bool, device=dev)
+                         if x is None else x for x in actives]
+                        ).to(torch.uint8).contiguous()
+    return d, c, a
+
+
+def trace_bundle_kernel(scene: RTScene, o, dirs: Sequence, caps: Sequence,
+                        occ_actives, ao_dirs: Sequence, ao_caps: Sequence,
+                        ao_actives, *, root_code: int, stack_size: int,
+                        resolve=None, cull_mask: int = 0xFF):
+    """Origin-shared sample bundle: kernel K9 on CUDA tensors,
+    ``trace_bundle_plain`` on CPU tensors (same arguments and results)."""
+    if len(dirs) > 30:
+        raise ValueError("at most 30 occlusion samples fit the i32 bitmask")
+    if _device(o, "trace_bundle") == "cpu":
+        return trace_bundle_plain(scene, o, dirs, caps, occ_actives, ao_dirs,
+                                  ao_caps, ao_actives, root_code=root_code,
+                                  stack_size=stack_size, resolve=resolve,
+                                  cull_mask=cull_mask)
+    lib = _lib()
+    dev, r = o.device, o.shape[0]
+    o = o.contiguous()
+    _check("origin", o, torch.float32, dev, (r, 3))
+    occ = _stack_samples(dirs, caps, occ_actives, r, dev)
+    ao = _stack_samples(ao_dirs, ao_caps, ao_actives, r, dev)
+    bits = torch.empty(r, dtype=torch.int32, device=dev)
+    ao_t = torch.empty((len(ao_dirs), r), dtype=torch.float32, device=dev)
+    smat = scene.codes.new_zeros((scene.inv_rows.shape[0], 1))
+    rs_in = (None, None, None)
+    hit_out = res_out = None
+    if resolve is not None:
+        smat, rs_d, rs_cap, rs_active = resolve
+        _, rs_d, rs_cap, rs_act = _rays(o, rs_d, rs_cap, rs_active)
+        if rs_act is None:
+            rs_act = torch.ones(r, dtype=torch.uint8, device=dev)
+        rs_in = (rs_d, rs_cap, rs_act)
+        hit_out = _hit_outputs(r, dev)
+        res_out = _resolve_outputs(r, dev)
+    outs = (hit_out + res_out) if hit_out is not None else (None,) * 7
+    rc = lib.trace_bundle_launch(
+        *_scene_args(lib, scene, root_code, stack_size, cull_mask),
+        *_resolve_args(scene, smat), o.data_ptr(), r,
+        _ptr(occ[0]), _ptr(occ[1]), _ptr(occ[2]), len(dirs),
+        _ptr(ao[0]), _ptr(ao[1]), _ptr(ao[2]), len(ao_dirs),
+        *(_ptr(x) for x in rs_in), bits.data_ptr(), ao_t.data_ptr(),
+        *(_ptr(x) for x in outs),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "trace_bundle")
+    resolved = None
+    if hit_out is not None:
+        resolved = (HitRecord2(*hit_out), res_out)
+    return bits, tuple(ao_t.unbind(0)), resolved

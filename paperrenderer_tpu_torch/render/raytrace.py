@@ -1,0 +1,283 @@
+"""RayTraceRender: the ray-traced render path.
+
+PyTorch counterpart of ``paperrenderer_tpu/render/raytrace.py`` on its
+two-level path (reference RayTrace.h:37-99):
+
+  * **BLAS** per model, built once at first use over LOD-0 object-space
+    triangles (Model.cpp:59-74) and cached (``AccelCache``);
+  * **TLAS** per frame per pass over the instances' world AABBs, the
+    ``TLAS::updateTLAS`` analogue (AccelerationStructure.cpp:618-650);
+  * **several TLASes** (RayTrace.h:50-56, ``add_tlas``) share the BLAS rows
+    and are appended as extra node-row blocks with their own roots;
+  * per-instance 8-bit visibility masks and force-opaque flags.
+
+The frame traces on the scene's device: the traversal kernels of
+``csrc/trace.cu`` on the card, their plain versions on the CPU.
+
+Not ported yet, refused with ``NotImplementedError``: animation
+(``animate``/``anim_resplit``, ROADMAP Queue 1 item 7), half-rate
+reflections and the leaf any-hit cutout (item 9); textured materials are
+refused by the registry (item 4). ``compact_secondary``, ``compact_refl``
+and ``packet_pack`` are TPU scheduling knobs that leave every result
+unchanged: they are accepted and ignored.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.camera import Camera, CameraMatrices
+from ..core.material import SHADE_LEAF, MaterialInstance, MaterialRegistry
+from ..core.model import ModelInstance
+from ..core.scene import InstanceArrays, Scene
+from ..ops import accel as ACC
+from ..ops.shading import Lights
+from ..ops.tonemap import TonemapParams, tonemap
+from ..ops.trace import RTParams, trace_frame
+from ..utils import random as rnd
+from ..utils.device import require_device
+
+
+class AccelCache:
+    """The scene's BLAS set and per-topology device inputs, rebuilt only
+    when models (BLAS) or the instance set (``inst_blas``) change — the
+    AccelerationStructureBuilder analogue."""
+
+    def __init__(self, scene: Scene):
+        self.scene = scene
+        self._blas_key = self._blas = None
+        self._inst_key = self._inst_blas = None
+        self._attr_key = self._tri_attr = None
+
+    def _blas_signature(self):
+        return (len(self.scene.models), self.scene.arena.revision)
+
+    def blas(self):
+        """(BLASSet on the scene's device, BLASSetMeta)."""
+        k = self._blas_signature()
+        if k != self._blas_key:
+            self._blas = ACC.build_blas_set(self.scene, self.scene.device)
+            self._blas_key = k
+        return self._blas
+
+    def inst_blas(self, capacity: int) -> torch.Tensor:
+        k = (self.scene.version, capacity, self._blas_signature())
+        if k != self._inst_key:
+            _, meta = self.blas()
+            arr = np.zeros(capacity, np.int32)
+            for inst in self.scene.instances:
+                arr[inst.index] = meta.blas_of_model[inst.model.model_id]
+            self._inst_blas = torch.from_numpy(arr).to(self.scene.device)
+            self._inst_key = k
+        return self._inst_blas
+
+    def tri_attr(self) -> torch.Tensor:
+        k = (self.scene.arena.revision, len(self.scene.models))
+        if k != self._attr_key:
+            self._tri_attr = ACC.build_tri_attr(self.scene, self.scene.device)
+            self._attr_key = k
+        return self._tri_attr
+
+    def stack_size(self, capacity: int) -> int:
+        _, meta = self.blas()
+        return ACC.required_stack_size(meta, capacity)
+
+
+def render_frame_rt(blasset, meta, instances: InstanceArrays, inst_blas,
+                    masks, tri_attr, materials, lights: Lights,
+                    camera: CameraMatrices, slot_materials, tonemap_params,
+                    key, inst_mask=None, inst_opaque=None, *, width: int,
+                    height: int, stack_size: int, params: RTParams,
+                    tlas_index: int = 0):
+    """One ray-traced frame (the JAX package's ``make_rt_frame`` body):
+    assemble this frame's TLAS, trace, tonemap. Returns (ldr f32[H, W, 3],
+    {"hdr": f32[H, W, 3]})."""
+    ctx = ACC.make_scene_tracer(
+        blasset, meta, instances, inst_blas, masks, tri_attr, slot_materials,
+        materials, tlas_index=tlas_index, stack_size=stack_size,
+        inst_mask=inst_mask, inst_opaque=inst_opaque)
+    hdr = trace_frame(ctx, materials, lights, camera, key, width=width,
+                      height=height, params=params)
+    return tonemap(hdr, tonemap_params), {"hdr": hdr}
+
+
+class RayTraceRender:
+    """Host-side RT pass (reference RayTrace.h:37-99). ``add_tlas()`` mirrors
+    ``addNewTLAS`` (RayTrace.cpp:159-170); ``render(camera, tlas=i)``
+    traces against TLAS ``i``. Every tensor lives on the scene's device."""
+
+    def __init__(
+        self,
+        scene: Scene,
+        materials: MaterialRegistry,
+        *,
+        width: int = 512,
+        height: int = 512,
+        lights: Optional[Lights] = None,
+        tonemap_params: Optional[TonemapParams] = None,
+        shadow_samples: int = 1,
+        reflection_samples: int = 1,
+        ao_samples: int = 1,
+        ao_radius: float = 2.0,
+        seed: int = 0,
+        animate=None,
+        anim_resplit: bool = False,
+        reflection_half_rate: bool = False,
+        fuse_bounce: bool = False,
+        cull_mask: int = 0xFF,
+        shadow_cull_mask: int = 0xFF,
+        compact_secondary: bool = False,   # TPU scheduling knobs: results
+        compact_refl: bool = False,        # are the same either way, so
+        packet_pack: Optional[int] = None,  # they are accepted and ignored
+    ):
+        if animate is not None or anim_resplit:
+            raise NotImplementedError(
+                "animated (unique-geometry) instances are not ported yet "
+                "(ROADMAP Queue 1 item 7)")
+        if reflection_half_rate:
+            raise NotImplementedError(
+                "half-rate reflections are not ported yet (ROADMAP Queue 1 "
+                "item 9)")
+        self.scene = scene
+        self.materials = materials
+        self.device = scene.device
+        self.width = width
+        self.height = height
+        self.lights = lights or Lights.make(
+            [{"position": (3.0, -4.0, 5.0), "color": (40.0, 40.0, 40.0),
+              "bounds": 100.0}])
+        self.tonemap_params = tonemap_params or TonemapParams.default()
+        self.params = RTParams(
+            shadow_samples=shadow_samples,
+            reflection_samples=reflection_samples, ao_samples=ao_samples,
+            ao_radius=ao_radius, cull_mask=int(cull_mask) & 0xFF,
+            shadow_cull_mask=int(shadow_cull_mask) & 0xFF,
+            fuse_bounce=fuse_bounce)
+        self._key = rnd.prng_key(seed)
+        self._frame = 0
+        # per-TLAS instance sets: index -> {slot: material id}
+        self._tlas_bindings: List[Dict[int, Dict[int, int]]] = [{}]
+        self._inst_masks: Dict[int, int] = {}
+        self._inst_opaque: set = set()
+        self.accel = AccelCache(scene)
+        self._cache_dirty = True
+        self._cached_capacity = -1
+        self._cached = None
+
+    # -- TLAS management (addNewTLAS parity) ---------------------------------
+    def add_tlas(self) -> int:
+        self._tlas_bindings.append({})
+        self._cache_dirty = True
+        return len(self._tlas_bindings) - 1
+
+    @property
+    def num_tlas(self) -> int:
+        return len(self._tlas_bindings)
+
+    def add_instance(self, instance: ModelInstance,
+                     materials: Optional[Dict[int, MaterialInstance]] = None,
+                     tlas: int = 0, *, mask: int = 0xFF,
+                     force_opaque: bool = False) -> None:
+        """Register an instance in TLAS ``tlas`` with its 8-bit visibility
+        ``mask`` (a trace sees it only when ``mask & cull_mask != 0``) and
+        force-opaque flag (AccelerationStructureInstanceData, RayTrace.h:19-35)."""
+        if instance.index < 0:
+            self.scene.add_instance(instance)
+        self._tlas_bindings[tlas][instance.index] = {
+            slot: self.materials.register(mat)
+            for slot, mat in (materials or {}).items()}
+        self._inst_masks[instance.index] = int(mask) & 0xFF
+        if force_opaque:
+            self._inst_opaque.add(instance.index)
+        else:
+            self._inst_opaque.discard(instance.index)
+        self._cache_dirty = True
+
+    def add_instances_from(self, render_pass, tlas: int = 0) -> None:
+        """Adopt a RenderPass's instances and material bindings (the
+        reference example's raster <-> RT switch renders one scene through
+        either pipeline, GuiRender.cpp:79-87). Both must share one
+        MaterialRegistry."""
+        if render_pass.materials is not self.materials:
+            raise ValueError("renders must share a MaterialRegistry")
+        for idx, binds in render_pass._bindings.items():
+            self._tlas_bindings[tlas][idx] = dict(binds)
+        self._cache_dirty = True
+
+    def remove_instance(self, instance: ModelInstance,
+                        tlas: Optional[int] = None) -> None:
+        sets = (self._tlas_bindings if tlas is None
+                else [self._tlas_bindings[tlas]])
+        for b in sets:
+            b.pop(instance.index, None)
+        if not any(instance.index in b for b in self._tlas_bindings):
+            self._inst_masks.pop(instance.index, None)
+            self._inst_opaque.discard(instance.index)
+        self._cache_dirty = True
+
+    def set_instance_mask(self, instance: ModelInstance, mask: int) -> None:
+        self._inst_masks[instance.index] = int(mask) & 0xFF
+        self._cache_dirty = True
+
+    def invalidate(self) -> None:
+        """Force re-upload of material tables after live edits."""
+        self._cache_dirty = True
+
+    # -- device inputs --------------------------------------------------------
+    def _device_inputs(self, capacity: int):
+        """(slot materials i32[N, S], TLAS masks, MaterialTable, instance
+        masks i32[N], force-opaque bool[N], lights, tonemap params)."""
+        if self._cache_dirty or capacity != self._cached_capacity:
+            if any(row["shading_model"] == SHADE_LEAF
+                   for row in self.materials.rows()):
+                raise NotImplementedError(
+                    "the any-hit leaf cutout is not ported yet (ROADMAP "
+                    "Queue 1 item 9)")
+            s = max(1, self.scene.max_slots)
+            slots = np.zeros((capacity, s), np.int32)
+            masks = []
+            for binds_by_inst in self._tlas_bindings:
+                m = np.zeros(capacity, bool)
+                for idx, binds in binds_by_inst.items():
+                    if 0 <= idx < capacity:
+                        m[idx] = True
+                        for slot, mid in binds.items():
+                            if slot < s:
+                                slots[idx, slot] = mid
+                masks.append(m)
+            inst_mask = np.full(capacity, 0xFF, np.int32)
+            for idx, v in self._inst_masks.items():
+                if 0 <= idx < capacity:
+                    inst_mask[idx] = v
+            opaque = np.zeros(capacity, bool)
+            for idx in self._inst_opaque:
+                if 0 <= idx < capacity:
+                    opaque[idx] = True
+            dev = lambda a: torch.from_numpy(a).to(self.device)
+            self._cached = (dev(slots), tuple(dev(m) for m in masks),
+                            self.materials.table(self.device), dev(inst_mask),
+                            dev(opaque), self.lights.to(self.device),
+                            self.tonemap_params.to(self.device))
+            self._cached_capacity = capacity
+            self._cache_dirty = False
+        return self._cached
+
+    def render(self, camera: Camera | CameraMatrices, *, tlas: int = 0):
+        """Trace one frame; returns (ldr f32[H, W, 3], {"hdr": ...})."""
+        require_device(self.device)
+        cam = camera.matrices if isinstance(camera, Camera) else camera
+        instances = self.scene.flush()
+        blasset, meta = self.accel.blas()
+        slots, masks, table, inst_mask, opaque, lights, tm = (
+            self._device_inputs(instances.capacity))
+        self._frame += 1
+        return render_frame_rt(
+            blasset, meta, instances, self.accel.inst_blas(instances.capacity),
+            masks, self.accel.tri_attr(), table, lights, cam.to(self.device),
+            slots, tm, rnd.fold_in(self._key, self._frame), inst_mask, opaque,
+            width=self.width, height=self.height,
+            stack_size=self.accel.stack_size(instances.capacity),
+            params=self.params, tlas_index=tlas)

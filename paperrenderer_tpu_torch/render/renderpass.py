@@ -32,6 +32,7 @@ from ..ops.raster_exact import rasterize_exact, resolve_gbuffer_pairs
 from ..ops.shading import Lights, shade_gbuffer
 from ..ops.static_batch import StaticMapping, build_static_mapping, expand_static
 from ..ops.tonemap import TonemapParams, tonemap
+from ..utils.device import require_device
 from ..utils.stats import Timer
 
 
@@ -92,7 +93,8 @@ class RenderPass:
     ):
         self.scene = scene
         self.materials = materials
-        self.device = torch.device(device) if device is not None else scene.device
+        self.device = require_device(device if device is not None
+                                     else scene.device)
         self.width = width
         self.height = height
         self.do_culling = do_culling

@@ -1,10 +1,12 @@
 """The repository's benchmark scenes, built through the port's public API.
 
 Exact copies of ``examples/render_scene.py::build_example_scene`` (config 1:
-~4.1k triangles) and ``examples/render_dynamic.py::build_dynamic_scene``
+~4.1k triangles), ``examples/render_dynamic.py::build_dynamic_scene``
 (config 2: 10k instances, half 12-triangle cubes and half 80-triangle
-icospheres, ~460k triangles) — same meshes, materials, transforms, lights,
-camera and seed — with an explicit ``device``.
+icospheres, ~460k triangles) and ``examples/render_rt.py::build_rt_scene``
+(the ray-traced frame of config 3: a plane, a sphere and a mirror cube) —
+same meshes, materials, transforms, lights, camera and seed — with a
+``device`` that defaults to the card.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from .ops.shading import Lights
 from .render import RenderPass
 
 
-def build_example_scene(width: int = 512, height: int = 512, device="cpu"):
+def build_example_scene(width: int = 512, height: int = 512, device="cuda"):
     """The bundled example scene; returns (RenderPass, Camera)."""
     scene = Scene(device=device)
     registry = MaterialRegistry()
@@ -76,7 +78,7 @@ def build_example_scene(width: int = 512, height: int = 512, device="cpu"):
 
 
 def build_dynamic_scene(n_instances: int, width: int, height: int,
-                        seed: int = 0, device="cpu"):
+                        seed: int = 0, device="cuda"):
     """The instanced grid of config 2 (and 5); returns (engine, pass, camera)."""
     eng = RenderEngine(device=device, device_check=False)
     cube = Model.from_mesh(eng.scene.arena, *make_cube(size=0.5), name="cube")
@@ -112,3 +114,38 @@ def build_dynamic_scene(n_instances: int, width: int, height: int,
     cam = Camera(yfov_deg=70.0, aspect=width / height, near=0.1, far=500.0)
     cam.look_at((0.0, -side * 0.35, side * 0.35), (0.0, 40.0, 0.0), up=(0, 0, 1))
     return eng, rp, cam
+
+
+def build_rt_scene(width: int = 192, height: int = 192, device="cuda"):
+    """The ray-traced example scene (2 shadow samples, 1 AO sample, 1
+    reflection); returns (engine, RayTraceRender, camera)."""
+    eng = RenderEngine(device=device, device_check=False)
+    ground = Model.from_mesh(eng.scene.arena, *make_plane(size=30.0))
+    sphere = Model.from_mesh(
+        eng.scene.arena, *make_uv_sphere(radius=1.0, rings=16, sectors=24))
+    cube = Model.from_mesh(eng.scene.arena, *make_cube(size=1.4))
+
+    rt = eng.create_ray_trace_render(
+        width=width, height=height,
+        lights=Lights.make(
+            [{"position": (4.0, -4.0, 7.0), "color": (160.0, 150.0, 130.0),
+              "bounds": 60.0, "radius": 0.4}],
+            ambient=(0.6, 0.7, 1.0, 0.3),
+        ),
+        shadow_samples=2, reflection_samples=1, ao_samples=1, ao_radius=2.0,
+    )
+    white = Material("white", albedo=(0.75, 0.75, 0.78), roughness=0.9)
+    red = Material("red", albedo=(0.85, 0.1, 0.08), roughness=0.3)
+    gold = Material("gold", albedo=(1.0, 0.78, 0.35), roughness=0.15,
+                    metallic=1.0)
+    g = ModelInstance(ground)
+    rt.add_instance(g, {0: white.instance()})
+    s = ModelInstance(sphere)
+    s.set_transform(pos=(-0.9, 0.3, 1.0))
+    rt.add_instance(s, {0: red.instance()})
+    c = ModelInstance(cube)
+    c.set_transform(pos=(1.5, 0.8, 0.7), quat=(0.924, 0.0, 0.0, 0.383))
+    rt.add_instance(c, {0: gold.instance()})
+    cam = Camera(yfov_deg=55.0, aspect=width / height, near=0.1, far=200.0)
+    cam.look_at((0.0, -6.5, 3.2), (0.0, 0.0, 0.7), up=(0, 0, 1))
+    return eng, rt, cam

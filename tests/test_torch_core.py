@@ -113,7 +113,7 @@ def _snapshot(arrays):
 
 def test_scene_flush_matches():
     sj, j0, j1 = _build_scene(J, use_native=False)
-    st, t0, t1 = _build_scene(T)
+    st, t0, t1 = _build_scene(T, device="cpu")
     assert st.version == sj.version and st.count == sj.count
     for a, b in ((j0, t0), (j1, t1)):
         assert b["pos"].shape[0] == a["pos"].shape[0] == 256
@@ -130,7 +130,7 @@ def test_static_mapping_matches():
     from paperrenderer_tpu_torch.scenes import build_dynamic_scene as build_t
 
     _, rpj, _ = build_j(60, 64, 64)
-    _, rpt, _ = build_t(60, 64, 64)
+    _, rpt, _ = build_t(60, 64, 64, device="cpu")
     mj = JS.build_static_mapping(rpj.scene)
     mt = TS.build_static_mapping(rpt.scene)
     for f in dataclasses.fields(mt):
@@ -161,7 +161,7 @@ def test_arena_compaction_matches():
         return scene, handles, refill
 
     sj, hj, rj = build(J, use_native=False)
-    st, ht, rt = build(T)
+    st, ht, rt = build(T, device="cpu")
     assert ht == hj and (rt.vertex_offset, rt.tri_offset) == (
         rj.vertex_offset, rj.tri_offset)
     a, b = sj.arena, st.arena

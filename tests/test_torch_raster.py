@@ -56,7 +56,7 @@ def _port(kind, obj):
         v = getattr(obj, f.name)
         if v is not None and not isinstance(v, tuple):
             arrays[f.name] = np.asarray(v)
-    return from_numpy(kind, arrays)
+    return from_numpy(kind, arrays, device="cpu")
 
 
 def _draw_batch(scene, cam):

@@ -39,7 +39,7 @@ def _golden(name):
 def test_example_scene_golden_and_jax():
     from examples.render_scene import build_example_scene as build_jax
 
-    rp, cam = build_example_scene(128, 128)
+    rp, cam = build_example_scene(128, 128, device="cpu")
     ldr, aux = rp.render(cam)
     assert ldr.shape == (128, 128, 3) and torch.isfinite(ldr).all()
     _bands(ldr.numpy(), _golden("raster_example"))
@@ -56,7 +56,7 @@ def test_dynamic_scene_reduced_matches_jax():
     10k instances at 1920x1080, run on the card by chip_smoke.py)."""
     from examples.render_dynamic import build_dynamic_scene as build_jax
 
-    _, rp, cam = build_dynamic_scene(400, 256, 128)
+    _, rp, cam = build_dynamic_scene(400, 256, 128, device="cpu")
     ldr, aux = rp.render(cam)
     _, rpj, camj = build_jax(400, 256, 128)
     ldr_j, aux_j = rpj.render(camj)
@@ -72,7 +72,7 @@ def test_demand_jump_renders_complete():
     same image as a fresh pass that never saw the far camera."""
     def scene():
         # three cubes: few groups, so the demand follows their screen size
-        rp = RenderPass(Scene(), MaterialRegistry(), width=128, height=128)
+        rp = RenderPass(Scene(device="cpu"), MaterialRegistry(), width=128, height=128)
         cube = Model.from_mesh(rp.scene.arena, *make_cube(1.0))
         for k in range(3):
             inst = ModelInstance(cube)
@@ -97,7 +97,7 @@ def test_demand_jump_renders_complete():
 def test_render_after_topology_and_transform_change():
     """Adding an instance bumps the scene version and rebuilds the static
     mapping; moving one re-uploads only its row. Both show in the frame."""
-    rp, cam = build_example_scene(64, 64)
+    rp, cam = build_example_scene(64, 64, device="cpu")
     _, a0 = rp.render(cam)
     cube = Model.from_mesh(rp.scene.arena, *make_cube(1.0))
     inst = ModelInstance(cube)
@@ -113,7 +113,7 @@ def test_render_after_topology_and_transform_change():
 @pytest.mark.parametrize("case", ["draw_list", "supersample", "translucent",
                                   "texture"])
 def test_unported_paths_raise(case):
-    rp, cam = build_example_scene(32, 32)
+    rp, cam = build_example_scene(32, 32, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         if case == "draw_list":
             rp.render(cam, static_path=False)

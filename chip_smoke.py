@@ -8,6 +8,13 @@ Phases, each reported as one JSON line:
   compare  the raster kernel against its plain PyTorch version on the inputs
            the main path gives it at config 1, config 2 and a ragged image
            size (bitwise equality), both timed with CUDA events;
+  compare_keyed  the keyed raster kernels against their plain versions at
+           1920x1080 (bitwise): on config 2's triangles K3 (8x32 cells), K4
+           (8x128 cells), K2 on a two-layer depth-peel chain built from
+           K3's own output, and K4's peel form on the chain's first window;
+           on the translucent grid K2's first two peel layers with the
+           frame's own bins and windows (ceiling: the opaque depth's key);
+           kernel and plain ms, candidates, bound;
   compare_trace  the traversal kernels against their plain versions on the
            wavefronts of the 1920x1080 RT frame (bitwise): K7 closest and any
            hit on primary rays, K8 on primary and reflection rays, K9 on the
@@ -18,6 +25,20 @@ Phases, each reported as one JSON line:
            raster_example.png with the golden bands; median frame time;
   config2  10k instances at 1920x1080: median frame time over 20 frames,
            counts, and a reduced copy of the scene checked against the CPU;
+  translucent  config 2's grid with one instance in four a 50% glass and one
+           in sixteen a leaf cutout (scenes.build_translucent_grid), four
+           peel layers: median frame time, finite output that differs from
+           the opaque frame, and a 256x128 copy on the card against the CPU
+           with the golden bands;
+  supersample  supersample=2: the 128x128 example scene held to
+           tests/goldens/raster_supersample2.png with the golden bands, and
+           the median frame time of config 1 (512x512) and config 2
+           (1920x1080) at twice the resolution on each axis;
+  keyed_entry  config 2's triangles through rasterize_exact(crossz=False)
+           (K3), rasterize_exact(quarter=False) (K4) and both with a depth
+           window (K2, K4's peel form): K3 covers what the default path (K1)
+           covers, with K1's exact depth in K3's key bucket; K4 finds K3's
+           depth, and K4's peel form K2's, except on <= 1e-5 of the pixels;
   rt_frame the RT scene through RayTraceRender.render: 128x128 held to
            tests/goldens/rt_example.png with the golden bands, 96x64 on the
            card against the CPU, and at 1920x1080 the median frame time
@@ -26,17 +47,22 @@ Phases, each reported as one JSON line:
   rt_grid10k  config 2's 10k-instance grid mirrored into a RayTraceRender:
            K7 primary Mrays/s at 1920x1080 on the flat layout, and K7
            against its plain version on every 64th ray (bitwise);
-  launches every kernel was launched by the main-path phases (raster:
-           config1/config2; traversal: rt_frame and rt_grid10k), with the
-           launch counters reset just before each and read just after;
+  launches every kernel was launched by the phases of its path (K1: config1,
+           config2, translucent, supersample; K2: translucent, keyed_entry;
+           K3/K4: keyed_entry; traversal: rt_frame and rt_grid10k), with the
+           launch counters reset just before each and read just after; the
+           kernels line counts K1/K2 from the frame phases, K3/K4 from
+           keyed_entry, K7-K9 from rt_frame;
   sync     cost of the raster frame's one device-to-host read (the pair
            count): frame time as is vs. with the count supplied.
 
 Usage: python3 chip_smoke.py            (all phases; needs one CUDA card)
        python3 chip_smoke.py --profile  (also a torch.profiler breakdown of
-                                         configs 1, 2 and the 1080p RT frame
-                                         by stage, with the tables written
-                                         to chiprun_out/)
+                                         configs 1, 2, the translucent grid,
+                                         config 2 at supersample=2 and the
+                                         1080p RT frame by stage,
+                                         with the tables written to
+                                         chiprun_out/)
 Exit code 0 only when every phase passed; the last line of stdout is then
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 this script, it exits 2 and prints no result.
@@ -57,9 +83,15 @@ from concurrent.futures import ThreadPoolExecutor
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDENS = os.path.join(HERE, "tests", "goldens")
 TRACE_CU = "paperrenderer_tpu_torch/csrc/trace.cu"
-KERNELS = [dict(name="raster_exact", route="cuda",
-                source="paperrenderer_tpu_torch/csrc/raster_exact.cu",
+RASTER_CU = "paperrenderer_tpu_torch/csrc/raster_exact.cu"
+KERNELS = [dict(name="raster_exact", route="cuda", source=RASTER_CU,
                 replaces="paperrenderer_tpu/ops/raster_exact.py:231"),
+           dict(name="raster_peel", route="cuda", source=RASTER_CU,
+                replaces="paperrenderer_tpu/ops/raster_exact.py:231"),
+           dict(name="raster_keyed", route="cuda", source=RASTER_CU,
+                replaces="paperrenderer_tpu/ops/raster_exact.py:231"),
+           dict(name="raster_classic", route="cuda", source=RASTER_CU,
+                replaces="paperrenderer_tpu/ops/raster_exact.py:116"),
            dict(name="trace_scene", route="cuda", source=TRACE_CU,
                 replaces="paperrenderer_tpu/ops/trace_kernel.py:228"),
            dict(name="trace_resolve", route="cuda", source=TRACE_CU,
@@ -74,6 +106,8 @@ FP32_OPS_PER_S = 67e12
 # FP32 operations (add/sub/mul/div/min/max) of the plain versions, counted
 # from their expressions:
 RASTER_OPS_PER_CANDIDATE = 22   # 5 planes x (2 mul + 2 add) + 2 mul (depth)
+KEYED_OPS_PER_CANDIDATE = 20    # 5 planes x (2 mul + 2 add); the divide of
+#                                 the few covering candidates is left out
 SLAB_OPS_PER_BOX_ROW = 49       # 3 div + 2 x (6 sub, 6 mul, 6 min/max,
 #                                 4 min/max reductions, 1 max)
 MT_OPS_PER_LEAF = 8 * 46        # 8 x (two crosses 18, four dots 20, 3 sub,
@@ -117,16 +151,22 @@ def frame_ms(rp, cam, frames=20, warmup=5):
     return statistics.median(times)
 
 
-def kernel_inputs(rp, cam):
-    """The raster kernel's inputs exactly as RenderPass.render builds them."""
+def frame_batch(rp, cam):
+    """The triangle batch RenderPass.render rasterizes (opaque frame)."""
     from paperrenderer_tpu_torch.ops.raster import attach_cull
-    from paperrenderer_tpu_torch.ops.raster_exact import bin_triangles
     from paperrenderer_tpu_torch.ops.static_batch import expand_static
 
     mapping, inst, tables, mats, cm, slots, vis = rp.frame_inputs(cam)
     batch, _ = expand_static(mapping, inst, tables, cm, slots, vis,
                              do_culling=rp.do_culling)
-    return bin_triangles(attach_cull(batch, mats), rp.width, rp.height)
+    return attach_cull(batch, mats)
+
+
+def kernel_inputs(rp, cam):
+    """The raster kernel's inputs exactly as RenderPass.render builds them."""
+    from paperrenderer_tpu_torch.ops.raster_exact import bin_triangles
+
+    return bin_triangles(frame_batch(rp, cam), rp.width, rp.height)
 
 
 def compare_raster(rp, cam, reps=20):
@@ -176,6 +216,87 @@ def raster_bound(b, width, height):
         + b.coef.numel() * 4 + width * height * 8
     ops = b.n_pairs * 8 * 256 * RASTER_OPS_PER_CANDIDATE
     return bound(nbytes, ops)
+
+
+def compare_keyed(rp, cam, rp_t, cam_t, reps=20):
+    """K3, K4 and K2 against their plain versions, bitwise.
+
+    On config 2's triangles: K3 and K4 on the frame's 8x32 and 8x128 bins,
+    K2 on the 8x32 bins in a two-layer peel chain (each layer's floor is the
+    previous layer's key, starting from K3's depth; no ceiling), and K4's
+    peel form on the 8x128 bins in the chain's first window. On the
+    translucent grid (`rp_t`): K2 on the first two peel layers exactly as
+    composite_translucency runs them, on the non-opaque set's bins with the
+    opaque depth's key as the ceiling.
+
+    Kernel ms (CUDA events), plain ms (one call), and the bound. The bound
+    counts the work the function needs: every (pixel, triangle) candidate
+    of the 8x32 bins, also for K4, whose 8x128 cells evaluate ~3x as many."""
+    import torch
+    from paperrenderer_tpu_torch.ops import raster_exact as RE
+    from paperrenderer_tpu_torch.ops.translucency import non_opaque_mask
+
+    w, h = rp.width, rp.height
+    out = {}
+
+    def candidates(b):
+        return b.n_pairs * RE.GROUP * RE.CELL_H * b.cell_w
+
+    def case(name, b, needed, window=None):
+        args = (b.cell_start, b.cell_groups, b.coef, w, h)
+        kw = dict(cell_w=b.cell_w, keyed=True, window=window)
+        d_k, t_k = RE.rasterize_bins(*args, **kw)      # the wrapper's kernel
+        (d_p, t_p), plain_ms = timed_once(
+            lambda: RE.rasterize_bins_plain(*args, **kw))
+        both = (t_k >= 0) & (t_p >= 0)
+        # inputs read once (+ the window planes), depth and tid written once
+        nbytes = ((b.cell_start.numel() + b.cell_groups.numel()
+                   + b.coef.numel()) * 4 + w * h * (16 if window else 8))
+        b_ms, b_by = bound(nbytes, candidates(needed) * KEYED_OPS_PER_CANDIDATE)
+        out[name] = dict(
+            bitwise=same_bits(d_k, d_p) and torch.equal(t_k, t_p),
+            max_abs_err=(float((d_k[both] - d_p[both]).abs().max())
+                         if both.any() else 0.0),
+            tid_mismatch=int((t_k != t_p).sum()),
+            ms=timed(lambda: RE.rasterize_bins(*args, **kw), reps),
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            n_pairs=b.n_pairs, candidates_evaluated=candidates(b),
+            candidates_needed=candidates(needed),
+            coverage=float((t_k >= 0).float().mean()),
+            finite_ceiling=(window is not None and bool(
+                (window[1] != RE.SENTINEL).any())))
+        return d_k
+
+    batch = frame_batch(rp, cam)
+    bins = RE.bin_triangles(batch, w, h)
+    tiles = RE.bin_triangles(batch, w, h, RE.TILE_W)
+    depth = case("k3", bins, bins)
+    case("k4", tiles, bins)
+    ceil = torch.full((h, w), RE.SENTINEL, dtype=torch.int32, device=depth.device)
+    for layer in (1, 2):
+        window = (RE.depth_to_key(depth), ceil)
+        depth = case(f"k2_layer{layer}", bins, bins, window)
+        if layer == 1:
+            case("k4_peel", tiles, bins, window)
+
+    # the translucent frame's own K2 inputs, built as render_frame_static
+    # and composite_translucency build them
+    full = frame_batch(rp_t, cam_t)
+    mats = rp_t.frame_inputs(cam_t)[3]
+    clear = non_opaque_mask(mats, full.material)
+    opaque_depth, _, _, _ = RE.rasterize_exact(
+        dataclasses.replace(full, valid=full.valid & ~clear), w, h)
+    peel_bins = RE.bin_triangles(
+        dataclasses.replace(full, valid=full.valid & clear), w, h)
+    floor = torch.full((h, w), torch.iinfo(torch.int32).min + 1,
+                       dtype=torch.int32, device=opaque_depth.device)
+    ceil = RE.depth_to_key(opaque_depth)
+    for layer in (1, 2):
+        depth = case(f"k2_translucent_layer{layer}", peel_bins, peel_bins,
+                     (floor, ceil))
+        floor = RE.depth_to_key(depth)
+    out["ok"] = all(v["bitwise"] for v in out.values())
+    return out
 
 
 def bound(nbytes, ops):
@@ -479,13 +600,16 @@ def sync_cost(rp, cam, frames=20, rounds=4):
 
 
 def raster_stages():
+    """The raster frame's stages; `composite_translucency` holds the peel
+    layers' binning, K2 launches, resolves, shading and blend."""
     from paperrenderer_tpu_torch.ops import raster_exact as RE
     from paperrenderer_tpu_torch.render import renderpass as RP
 
     return [(RP, "expand_static"), (RP, "attach_cull"),
             (RE, "triangle_coefficients"), (RE, "bin_groups"),
             (RE, "rasterize_bins"), (RP, "resolve_gbuffer_pairs"),
-            (RP, "shade_gbuffer"), (RP, "tonemap")]
+            (RP, "shade_gbuffer"), (RP, "composite_translucency"),
+            (RP, "tonemap")]
 
 
 def rt_stages():
@@ -612,7 +736,8 @@ def main():
     from paperrenderer_tpu_torch.ops import raster_exact as RE
     from paperrenderer_tpu_torch.ops import trace_kernel as TK
     from paperrenderer_tpu_torch.scenes import (
-        build_dynamic_scene, build_example_scene, build_rt_scene)
+        build_dynamic_scene, build_example_scene, build_rt_scene,
+        build_translucent_grid)
     from paperrenderer_tpu_torch.utils import cuda_build
 
     def build():
@@ -634,11 +759,16 @@ def main():
 
     def get(cfg):
         if cfg not in scenes:
-            if cfg == 1:
+            if cfg in (1, "ss_config1"):
                 scenes[cfg] = build_example_scene(512, 512, device="cuda")
+            elif cfg == "translucent":
+                scenes[cfg] = build_translucent_grid(
+                    10_000, 1920, 1080, device="cuda")[1:]
             else:
                 _, rp, cam = build_dynamic_scene(10_000, 1920, 1080, device="cuda")
                 scenes[cfg] = (rp, cam)
+            if str(cfg).startswith("ss_"):
+                scenes[cfg][0].supersample = 2
         return scenes[cfg]
 
     def compare():
@@ -649,6 +779,7 @@ def main():
         return out
 
     phase("compare", compare)
+    phase("compare_keyed", lambda: compare_keyed(*get(2), *get("translucent")))
 
     rt_scenes = {}
 
@@ -666,8 +797,6 @@ def main():
         return rt_scenes["rt"]
 
     phase("compare_trace", lambda: compare_trace(*rt_1080()))
-
-    RE.LAUNCHES["raster_exact"] = 0     # count only the main path's launches
 
     def config1():
         rp, cam = get(1)
@@ -704,9 +833,103 @@ def main():
                     required_work=aux["required_work"],
                     reduced_vs_cpu=dict(mean=mean_s, frac=frac_s, ok=ok_s))
 
-    phase("config1", config1)
-    phase("config2", config2)
-    launches = dict(RE.LAUNCHES)
+    def translucent():
+        rp, cam = get("translucent")
+        ldr, aux = rp.render(cam)
+        finite = bool(torch.isfinite(ldr).all()) and tuple(ldr.shape) == (1080, 1920, 3)
+        opaque = get(2)[0].render(get(2)[1])[0]
+        changed = float(((ldr - opaque).abs().amax(dim=-1) > 1e-3).float().mean())
+        # a reduced copy of the scene, card vs the plain CPU path
+        small = [build_translucent_grid(400, 256, 128, device=dev)
+                 for dev in ("cuda", "cpu")]
+        ok_s, mean_s, frac_s = bands(
+            small[0][1].render(small[0][2])[0].cpu().numpy(),
+            small[1][1].render(small[1][2])[0].numpy())
+        return dict(ok=finite and changed > 0 and ok_s,
+                    frame_ms=frame_ms(rp, cam, warmup=3),
+                    layers=rp.translucent_layers, changed_vs_opaque=changed,
+                    total_tris=int(aux["total_tris"]),
+                    coverage=float(aux["coverage"]),
+                    required_work=aux["required_work"],
+                    reduced_vs_cpu=dict(mean=mean_s, frac=frac_s, ok=ok_s))
+
+    def supersample():
+        """supersample=2: the 128x128 example scene against its golden, and
+        the frame time of config 1 (512x512 out, 1024x1024 raster) and of
+        config 2 (1920x1080 out, 3840x2160 raster)."""
+        rp, cam = build_example_scene(128, 128, device="cuda")
+        rp.supersample = 2
+        ldr, _ = rp.render(cam)
+        ok, mean, frac = bands(ldr.cpu().numpy(), golden("raster_supersample2"))
+        finite = bool(torch.isfinite(ldr).all()) and tuple(ldr.shape) == (128, 128, 3)
+        out = dict(golden=dict(mean=mean, frac=frac, ok=ok))
+        for cfg, shape in (("ss_config1", (512, 512, 3)),
+                           ("ss_config2", (1080, 1920, 3))):
+            rp, cam = get(cfg)
+            ldr, aux = rp.render(cam)
+            finite &= (bool(torch.isfinite(ldr).all())
+                       and tuple(ldr.shape) == shape)
+            out[cfg] = dict(frame_ms=frame_ms(rp, cam, warmup=3),
+                            raster=[rp.width * 2, rp.height * 2],
+                            coverage=float(aux["coverage"]),
+                            required_work=aux["required_work"])
+        return dict(ok=ok and finite, **out)
+
+    def keyed_entry():
+        """Config 2's triangles through the keyed forms of rasterize_exact.
+        K1 and K3 share the 8x32 bins, so they cover the same pixels, and
+        K1's exact depth lies in K3's key bucket except where the
+        cross-multiplied compare and the divided keys round a near-tie
+        apart (<= 1e-4 of the covered pixels). K3 and K4 find the same
+        smallest key except on <= 1e-5 of the pixels: a near-degenerate
+        sliver's f32 edge rows can accept pixels outside its screen box, and
+        the two cell widths cull those at different distances. The same
+        holds between K2 and K4's peel form in the window behind K3's
+        depth."""
+        rp, cam = get(2)
+        batch, w, h = frame_batch(rp, cam), rp.width, rp.height
+        d1, t1, _, _ = RE.rasterize_exact(batch, w, h)
+        d3, t3, _, req3 = RE.rasterize_exact(batch, w, h, crossz=False)
+        d4, t4, _, req4 = RE.rasterize_exact(batch, w, h, quarter=False)
+        window = (RE.depth_to_key(d3), torch.full_like(t3, RE.SENTINEL))
+        d2, t2, _, _ = RE.rasterize_exact(batch, w, h, depth_window=window)
+        d4p, t4p, _, _ = RE.rasterize_exact(batch, w, h, quarter=False,
+                                            depth_window=window)
+        cov = t1 >= 0
+        k1_k3_cov = bool(torch.equal(cov, t3 >= 0))
+        off = int((RE.depth_to_key(d1)[cov] != d3.view(torch.int32)[cov]).sum())
+        n_cov = int(cov.sum())
+        k3_k4_off = int((d3.view(torch.int32) != d4.view(torch.int32)).sum())
+        peel_off = int((d2.view(torch.int32) != d4p.view(torch.int32)).sum())
+        return dict(ok=k1_k3_cov and off <= 1e-4 * n_cov
+                    and k3_k4_off <= 1e-5 * w * h and peel_off <= 1e-5 * w * h
+                    and bool((t2 >= 0).any()),
+                    k1_k3_same_coverage=k1_k3_cov, k1_outside_k3_bucket=off,
+                    covered=n_cov, k3_k4_depth_mismatch=k3_k4_off,
+                    k3_k4_coverage_mismatch=int(((t3 >= 0) != (t4 >= 0)).sum()),
+                    k3_k4_tid_mismatch=int((t3 != t4).sum()),
+                    peel_covered=int((t2 >= 0).sum()),
+                    k2_k4peel_depth_mismatch=peel_off,
+                    k2_k4peel_tid_mismatch=int((t2 != t4p).sum()),
+                    pairs_k3=req3, pairs_k4=req4)
+
+    # count only each path's own launches: each phase's counts start at 0
+    raster_launches = {}
+    for name, fn in (("config1", config1), ("config2", config2),
+                     ("translucent", translucent), ("supersample", supersample),
+                     ("keyed_entry", keyed_entry)):
+        for k in RE.LAUNCHES:
+            RE.LAUNCHES[k] = 0
+        phase(name, fn)
+        raster_launches[name] = dict(RE.LAUNCHES)
+    # the kernels line's launches: K1 and K2 from the raster frames, K3 and
+    # K4 from rasterize_exact's keyed forms (no frame runs them)
+    frame_phases = ("config1", "config2", "translucent", "supersample")
+    launch_path = dict(raster_exact=frame_phases, raster_peel=frame_phases,
+                       raster_keyed=("keyed_entry",),
+                       raster_classic=("keyed_entry",))
+    launches = {k: sum(raster_launches.get(p, {}).get(k, 0) for p in ps)
+                for k, ps in launch_path.items()}
 
     def rt_frame():
         rt, cam = rt_1080()
@@ -746,15 +969,22 @@ def main():
         phase(name, fn)
         rt_launches[name] = dict(TK.LAUNCHES)
     launches.update({k: rt_launches["rt_frame"][k] for k in TK.LAUNCHES})
+    launch_path.update({k: ("rt_frame",) for k in TK.LAUNCHES})
+    raster_needs = dict(config1=["raster_exact"], config2=["raster_exact"],
+                        translucent=["raster_exact", "raster_peel"],
+                        supersample=["raster_exact"],
+                        keyed_entry=["raster_peel", "raster_keyed",
+                                     "raster_classic"])
     phase("launches", lambda: dict(
-        ok=(RE.LAUNCHES["raster_exact"] > 0
+        ok=(all(raster_launches.get(p, {}).get(k, 0) > 0
+                for p, ks in raster_needs.items() for k in ks)
             and all(n > 0 for n in rt_launches["rt_frame"].values())
             and rt_launches["rt_grid10k"]["trace_scene"] > 0),
-        raster=dict(RE.LAUNCHES), **rt_launches))
+        **raster_launches, **rt_launches))
     phase("sync", lambda: {f"config{c}": sync_cost(*get(c)) for c in (1, 2)})
     if args.profile:
         out_dir = os.path.join(HERE, "chiprun_out")
-        for c in (1, 2):
+        for c in (1, 2, "translucent", "ss_config2"):
             phase(f"profile{c}", lambda c=c: profile_frames(
                 functools.partial(get(c)[0].render, get(c)[1]),
                 raster_stages(),
@@ -765,6 +995,12 @@ def main():
 
     cmp = results.get("compare", {})
     cmp1, cmp2 = cmp.get("config1", {}), cmp.get("config2", {})
+    ck = results.get("compare_keyed", {})
+    # the compare_keyed cases of each keyed kernel; the first is timed
+    keyed_cases = dict(raster_peel=["k2_translucent_layer1",
+                                    "k2_translucent_layer2", "k2_layer1",
+                                    "k2_layer2"],
+                       raster_keyed=["k3"], raster_classic=["k4", "k4_peel"])
     ct = results.get("compare_trace", {})
     # the wavefront each traversal kernel is timed on (all cases in the
     # compare_trace line)
@@ -779,6 +1015,16 @@ def main():
                 ms=cmp2.get("ms"), plain_ms=cmp2.get("plain_ms"),
                 bound_ms=cmp2.get("bound_ms"), bound_by=cmp2.get("bound_by"),
                 ms_config1=cmp1.get("ms"), plain_ms_config1=cmp1.get("plain_ms"))
+        elif k["name"] in keyed_cases:
+            names = keyed_cases[k["name"]]
+            case = ck.get(names[0], {})
+            row = dict(
+                max_abs_err=max(ck.get(c, {}).get("max_abs_err", float("nan"))
+                                for c in names),
+                ms=case.get("ms"), plain_ms=case.get("plain_ms"),
+                bound_ms=case.get("bound_ms"), bound_by=case.get("bound_by"),
+                timed_on=names[0])
+            row.update({"ms_" + c: ck.get(c, {}).get("ms") for c in names[1:]})
         else:
             names = [c for c in ct if c.startswith(
                 {"trace_scene": "k7", "trace_resolve": "k8",
@@ -790,7 +1036,11 @@ def main():
                 ms=case.get("ms"), plain_ms=case.get("plain_ms"),
                 bound_ms=case.get("bound_ms"), bound_by=case.get("bound_by"),
                 timed_on=timed_on[k["name"]])
+        if k["name"] in RE.LAUNCHES:
+            row["launches_keyed_entry"] = raster_launches.get(
+                "keyed_entry", {}).get(k["name"], 0)
         rows.append(dict(k, launches=launches.get(k["name"], 0),
+                         launches_from=list(launch_path[k["name"]]),
                          library_ms=None, **row))
     emit(kernels=rows)
     print(smi, flush=True)

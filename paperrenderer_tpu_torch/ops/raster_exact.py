@@ -1,18 +1,26 @@
-"""Triangle-exact binned rasterizer: binning, the kernel wrapper and its
+"""Triangle-exact binned rasterizer: binning, the kernel wrappers and their
 plain PyTorch version, and the pair-space G-buffer resolve.
 
-PyTorch counterpart of ``paperrenderer_tpu/ops/raster_exact.py`` on its
-default path (quarter kernel, cross-multiplied depth). Per frame:
+PyTorch counterpart of ``paperrenderer_tpu/ops/raster_exact.py``. Per frame:
 
   1. ``triangle_coefficients`` -> packed per-triangle rows (``pack_attr_coef``);
   2. ``bin_groups``: the screen AABB of each 8-triangle group -> its span of
-     8x32-pixel cells (``_bin_spans``); one (group, cell) pair per covered
-     cell, expanded with ``repeat_interleave`` and ordered by ONE stable sort
-     on the cell, so every cell's list is in ascending group order;
-  3. ``rasterize_bins``: the nearest covering triangle per pixel — the CUDA
-     kernel ``csrc/raster_exact.cu`` on a CUDA tensor, the plain version on
-     a CPU tensor;
+     8 x ``cell_w``-pixel cells (``_bin_spans``); one (group, cell) pair per
+     covered cell, expanded with ``repeat_interleave`` and ordered by ONE
+     stable sort on the cell, so every cell's list is in ascending group
+     order;
+  3. ``rasterize_bins``: the nearest covering triangle per pixel — a CUDA
+     kernel of ``csrc/raster_exact.cu`` on a CUDA tensor, the plain version
+     on a CPU tensor;
   4. ``resolve_gbuffer_pairs``: one packed row gather per pixel.
+
+Two depth schemes, as in the JAX package. The default opaque path (its
+quarter kernel with ``crossz``) carries the exact (zn, wn) pair and compares
+by cross-multiplication: kernel K1 on 8x32 cells. The KEYED scheme compares
+quantized depth keys, ``bits(zn / wn) & KEY_MASK``, and returns the
+quantized depth: K3 (8x32 cells, ``crossz=False``), K4 (8x128 cells, the
+classic ``quarter=False`` kernel) and K2, K3 inside a per-pixel (floor,
+ceil) key window (``depth_window``, the depth peel of sorted translucency).
 
 Capacity: eager PyTorch has dynamic shapes, so the pair buffers are sized
 exactly from this frame's pair count — one host read per frame
@@ -33,22 +41,29 @@ from ..utils.cuda_build import load_library
 from .raster import GBuffer, TriangleBatch, triangle_coefficients
 
 GROUP = 8      # triangles per bin entry
-CELL_H = 8     # bin cell = one kernel block = 8 x 32 pixels
-CELL_W = 32
+CELL_H = 8     # bin cell = one kernel block = 8 x CELL_W pixels
+CELL_W = 32    # the quarter kernels' cell width (K1, K2, K3)
+TILE_W = 128   # the classic kernel's cell width (K4)
 ROW = 32       # packed row: 15 coef + global id + 9 normal + 6 uv + material
+# Depth keys: accepted depths are nonnegative, so their f32 bits sort
+# directly as int32; the key drops the low 7 mantissa bits (the TPU kernels
+# carried a 128-lane id there). SENTINEL = int32 max never wins a min.
+SENTINEL = 0x7FFFFFFF
+KEY_MASK = ~(128 - 1)
 
 # launches of each kernel wrapper, counted where the kernel is launched
-LAUNCHES = {"raster_exact": 0}
+LAUNCHES = {"raster_exact": 0, "raster_peel": 0, "raster_keyed": 0,
+            "raster_classic": 0}
 
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def grid_cells(width: int, height: int) -> Tuple[int, int]:
-    """(n_bx, n_by): the 8x32 bin-cell grid covering a width x height image
-    (ragged right/bottom cells are masked by the rasterizers)."""
-    return -(-width // CELL_W), -(-height // CELL_H)
+def grid_cells(width: int, height: int, cell_w: int = CELL_W) -> Tuple[int, int]:
+    """(n_bx, n_by): the 8 x ``cell_w`` bin-cell grid covering a width x
+    height image (ragged right/bottom cells are masked by the rasterizers)."""
+    return -(-width // cell_w), -(-height // CELL_H)
 
 
 def pack_attr_coef(batch: TriangleBatch, coeffs: torch.Tensor) -> torch.Tensor:
@@ -69,11 +84,11 @@ def pack_attr_coef(batch: TriangleBatch, coeffs: torch.Tensor) -> torch.Tensor:
     )
 
 
-def _bin_spans(ok, lo, hi, t_pad, width, height):
+def _bin_spans(ok, lo, hi, t_pad, width, height, cell_w):
     """Group screen AABBs -> inclusive bin-cell spans. Returns (gx0, gx1,
     gy0, gy1, count) over GROUP-packed triangles; ``count`` is the group's
     pair count (0 for a dead group or one whose AABB misses the image)."""
-    n_bx, n_by = grid_cells(width, height)
+    n_bx, n_by = grid_cells(width, height, cell_w)
     t = ok.shape[0]
     lo_m = torch.where(ok[:, None], lo, float("inf"))
     hi_m = torch.where(ok[:, None], hi, float("-inf"))
@@ -92,8 +107,8 @@ def _bin_spans(ok, lo, hi, t_pad, width, height):
         # clamp in float before the int cast: far-off AABBs reach ~1e30
         return torch.clamp(torch.floor(v / size), 0, n - 1).to(torch.int64)
 
-    gx0 = cell_of(glo[:, 0], CELL_W, n_bx)
-    gx1 = torch.maximum(cell_of(ghi[:, 0], CELL_W, n_bx), gx0)
+    gx0 = cell_of(glo[:, 0], cell_w, n_bx)
+    gx1 = torch.maximum(cell_of(ghi[:, 0], cell_w, n_bx), gx0)
     gy0 = cell_of(glo[:, 1], CELL_H, n_by)
     gy1 = torch.maximum(cell_of(ghi[:, 1], CELL_H, n_by), gy0)
     count = torch.where(alive, (gx1 - gx0 + 1) * (gy1 - gy0 + 1), 0)
@@ -101,18 +116,19 @@ def _bin_spans(ok, lo, hi, t_pad, width, height):
 
 
 def bin_groups(ok, lo, hi, t_pad: int, width: int, height: int,
-               n_pairs: Optional[int] = None):
-    """(group, cell) pairs sorted by cell.
+               n_pairs: Optional[int] = None, cell_w: int = CELL_W):
+    """(group, cell) pairs sorted by cell, over 8 x ``cell_w`` cells.
 
     Returns ``cell_start`` i32[n_cells + 1] (cell c's list is
     ``cell_groups[cell_start[c]:cell_start[c + 1]]``), ``cell_groups``
     i32[n_pairs] in ascending group order within each cell, and ``n_pairs``
     — read from the device (the frame's one device-to-host read) unless the
     caller passes the count it already knows, e.g. for an unchanged frame."""
-    n_bx, n_by = grid_cells(width, height)
+    n_bx, n_by = grid_cells(width, height, cell_w)
     n_cells = n_bx * n_by
     dev = lo.device
-    gx0, gx1, gy0, gy1, count = _bin_spans(ok, lo, hi, t_pad, width, height)
+    gx0, gx1, gy0, gy1, count = _bin_spans(ok, lo, hi, t_pad, width, height,
+                                           cell_w)
     ends = torch.cumsum(count, 0)
     if n_pairs is None:
         n_pairs = int(ends[-1]) if ends.numel() else 0
@@ -132,39 +148,70 @@ def bin_groups(ok, lo, hi, t_pad: int, width: int, height: int,
     return cell_start, cell_groups, n_pairs
 
 
+def depth_to_key(z: torch.Tensor) -> torch.Tensor:
+    """f32 depth -> masked sortable depth key (the kernels' encoding); used
+    to chain depth-peeling windows."""
+    return z.to(torch.float32).contiguous().view(torch.int32) & KEY_MASK
+
+
+def _unpack_depth(key: torch.Tensor, covered: torch.Tensor) -> torch.Tensor:
+    """Invert the depth key: the quantized depth, +inf where not covered."""
+    z = (key & KEY_MASK).view(torch.float32)
+    return torch.where(covered, z, torch.full_like(z, float("inf")))
+
+
 def rasterize_bins_plain(cell_start, cell_groups, coef, width: int,
-                         height: int):
-    """Plain PyTorch version of the ``raster_exact`` kernel.
+                         height: int, *, cell_w: int = CELL_W,
+                         keyed: bool = False, window=None):
+    """Plain PyTorch version of the raster kernels (K1; keyed: K3/K4, and K2
+    with ``window``).
 
     Walks list rank k = 0..max_len-1 and, within each group, triangles
     0..7, vectorised over the pixels of every cell whose list is longer
     than k (cells are kept sorted by list length, so those are a prefix);
     every pixel sees its candidates in the kernel's order, with the same
-    per-operation rounding and the same strict cross-multiplied compare.
+    per-operation rounding and the same strict compare: cross-multiplied
+    (zn, wn), or with ``keyed`` the masked key of the IEEE quotient zn / wn,
+    kept only inside ``window`` = (floor, ceil) i32[H, W] when given.
     Returns (depth f32[H, W], tid i32[H, W])."""
-    n_bx, n_by = grid_cells(width, height)
+    n_bx, n_by = grid_cells(width, height, cell_w)
     n_cells = n_bx * n_by
     dev = coef.device
-    counts = (cell_start[1:] - cell_start[:-1]).long()
-    counts, order = torch.sort(counts, descending=True, stable=True)
+    lens = (cell_start[1:] - cell_start[:-1]).long()
+    lens, order = torch.sort(lens, descending=True, stable=True)
     starts = cell_start[:-1].long()[order]
     # active[k]: number of cells whose list is longer than k
-    host_counts = counts.cpu().numpy()
-    max_len = int(host_counts[0]) if n_cells else 0
-    active = np.searchsorted(-host_counts, -np.arange(max_len), side="left")
-    lane = torch.arange(CELL_W * CELL_H, device=dev)
-    px = ((order % n_bx)[:, None] * CELL_W + lane % CELL_W).float() + 0.5
-    py = ((order // n_bx)[:, None] * CELL_H + lane // CELL_W).float() + 0.5
-    zb = torch.ones_like(px)
-    wb = torch.zeros_like(px)
+    host_lens = lens.cpu().numpy()
+    max_len = int(host_lens[0]) if n_cells else 0
+    active = np.searchsorted(-host_lens, -np.arange(max_len), side="left")
+
+    def cells(img):  # [H, W] -> [n_cells, 8 * cell_w] in sorted cell order
+        img = torch.nn.functional.pad(
+            img, (0, n_bx * cell_w - width, 0, n_by * CELL_H - height))
+        img = img.reshape(n_by, CELL_H, n_bx, cell_w).permute(0, 2, 1, 3)
+        return img.reshape(n_cells, CELL_H * cell_w)[order]
+
+    lane = torch.arange(cell_w * CELL_H, device=dev)
+    px = ((order % n_bx)[:, None] * cell_w + lane % cell_w).float() + 0.5
+    py = ((order // n_bx)[:, None] * CELL_H + lane // cell_w).float() + 0.5
+    if keyed:
+        kb = torch.full(px.shape, SENTINEL, dtype=torch.int32, device=dev)
+        if window is not None:
+            floor, ceil = (cells(p) for p in window)
+    else:
+        zb = torch.ones_like(px)
+        wb = torch.zeros_like(px)
     best = torch.full(px.shape, -1, dtype=torch.int32, device=dev)
     rows = coef.reshape(-1, GROUP, 16)
     for k in range(max_len):
         a = int(active[k])
         g = cell_groups[starts[:a] + k].long()
         grows = rows[g]                                      # [a, 8, 16]
-        pxa, pya = px[:a], py[:a]
-        zba, wba, besta = zb[:a], wb[:a], best[:a]
+        pxa, pya, besta = px[:a], py[:a], best[:a]
+        if keyed:
+            kba = kb[:a]
+        else:
+            zba, wba = zb[:a], wb[:a]
         for c in range(GROUP):
             r = grows[:, c]
             col = lambda i: r[:, i:i + 1]
@@ -175,63 +222,127 @@ def rasterize_bins_plain(cell_start, cell_groups, coef, width: int,
             wn = col(12) * pxa + col(13) * pya + col(14)
             accept = ((e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0)
                       & (wn > 1e-12) & (zn >= 0.0))
-            win = accept & (zn * wba < zba * wn)
-            zba = torch.where(win, zn, zba)
-            wba = torch.where(win, wn, wba)
-            besta = torch.where(win, (g * GROUP + c).to(torch.int32)[:, None],
-                                besta)
-        zb[:a], wb[:a], best[:a] = zba, wba, besta
-    depth = torch.where(best >= 0, zb / torch.clamp(wb, min=1e-30),
-                        torch.full_like(zb, float("inf")))
+            ids = (g * GROUP + c).to(torch.int32)[:, None]
+            if keyed:
+                key = (zn / torch.where(accept, wn, 1.0)).view(torch.int32) \
+                    & KEY_MASK
+                if window is not None:
+                    accept = accept & (key > floor[:a]) & (key < ceil[:a])
+                win = accept & (key < kba)
+                kba = torch.where(win, key, kba)
+            else:
+                win = accept & (zn * wba < zba * wn)
+                zba = torch.where(win, zn, zba)
+                wba = torch.where(win, wn, wba)
+            besta = torch.where(win, ids, besta)
+        best[:a] = besta
+        if keyed:
+            kb[:a] = kba
+        else:
+            zb[:a], wb[:a] = zba, wba
+    if keyed:
+        depth = _unpack_depth(kb, best >= 0)
+    else:
+        depth = torch.where(best >= 0, zb / torch.clamp(wb, min=1e-30),
+                            torch.full_like(zb, float("inf")))
 
-    def image(v):  # [n_cells, 256] in sorted cell order -> [H, W]
+    def image(v):  # [n_cells, 8 * cell_w] in sorted cell order -> [H, W]
         v = torch.empty_like(v).index_copy_(0, order, v)
-        v = v.reshape(n_by, n_bx, CELL_H, CELL_W).permute(0, 2, 1, 3)
-        return v.reshape(n_by * CELL_H, n_bx * CELL_W)[:height, :width]
+        v = v.reshape(n_by, n_bx, CELL_H, cell_w).permute(0, 2, 1, 3)
+        return v.reshape(n_by * CELL_H, n_bx * cell_w)[:height, :width]
 
     return image(depth).contiguous(), image(best).contiguous()
 
 
-def _launch_kernel(cell_start, cell_groups, coef, width, height):
-    for name, t, dtype in (("cell_start", cell_start, torch.int32),
-                           ("cell_groups", cell_groups, torch.int32),
-                           ("coef", coef, torch.float32)):
+def _kernel_name(cell_w: int, keyed: bool, window) -> str:
+    """The LAUNCHES key of the kernel that a call selects."""
+    if not keyed:
+        return "raster_exact"
+    if cell_w == TILE_W:
+        return "raster_classic"
+    return "raster_keyed" if window is None else "raster_peel"
+
+
+_LIB = []
+
+
+def _lib():
+    """The built ``csrc/raster_exact.cu`` with its C signatures declared."""
+    if not _LIB:
+        lib = load_library("raster_exact")
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.raster_exact_launch.argtypes = [P] * 3 + [I] * 4 + [P] * 3
+        lib.raster_keyed_launch.argtypes = [P] * 3 + [I] * 5 + [P] * 5
+        lib.raster_exact_launch.restype = I
+        lib.raster_keyed_launch.restype = I
+        _LIB.append(lib)
+    return _LIB[0]
+
+
+def _launch_kernel(cell_start, cell_groups, coef, width, height, cell_w,
+                   keyed, window):
+    name = _kernel_name(cell_w, keyed, window)
+    planes = [("cell_start", cell_start, torch.int32),
+              ("cell_groups", cell_groups, torch.int32),
+              ("coef", coef, torch.float32)]
+    if window is not None:
+        planes += [("floor", window[0], torch.int32),
+                   ("ceil", window[1], torch.int32)]
+    for what, t, dtype in planes:
         if t.device != coef.device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"raster_exact: {name} must be a contiguous "
+            raise ValueError(f"{name}: {what} must be a contiguous "
                              f"{dtype} tensor on {coef.device}")
-    n_bx, n_by = grid_cells(width, height)
+    if window is not None and any(p.shape != (height, width) for p in window):
+        raise ValueError(f"{name}: the window planes must be [{height}, {width}]")
+    if cell_w not in (CELL_W, TILE_W) or (cell_w != CELL_W and not keyed):
+        raise ValueError(f"{name}: no kernel for {cell_w}-pixel cells")
+    n_bx, n_by = grid_cells(width, height, cell_w)
     if coef.dim() != 2 or coef.shape[1] != 16 or coef.shape[0] % GROUP:
-        raise ValueError(f"raster_exact: coef must be [8k, 16], got {tuple(coef.shape)}")
+        raise ValueError(f"{name}: coef must be [8k, 16], got {tuple(coef.shape)}")
     if cell_start.shape != (n_bx * n_by + 1,):
-        raise ValueError("raster_exact: cell_start does not match the image grid")
-    lib = load_library("raster_exact")
-    fn = lib.raster_exact_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
+        raise ValueError(f"{name}: cell_start does not match the image grid")
+    lib = _lib()
     depth = torch.empty((height, width), dtype=torch.float32, device=coef.device)
     tid = torch.empty((height, width), dtype=torch.int32, device=coef.device)
     stream = torch.cuda.current_stream(coef.device).cuda_stream
-    rc = fn(cell_start.data_ptr(), cell_groups.data_ptr(), coef.data_ptr(),
-            width, height, n_bx, n_bx * n_by, depth.data_ptr(), tid.data_ptr(),
-            stream)
+    head = (cell_start.data_ptr(), cell_groups.data_ptr(), coef.data_ptr(),
+            width, height, n_bx, n_bx * n_by)
+    if keyed:
+        fl, ce = (None, None) if window is None else (
+            window[0].data_ptr(), window[1].data_ptr())
+        rc = lib.raster_keyed_launch(*head, cell_w, fl, ce, depth.data_ptr(),
+                                     tid.data_ptr(), stream)
+    else:
+        rc = lib.raster_exact_launch(*head, depth.data_ptr(), tid.data_ptr(),
+                                     stream)
     if rc != 0:
-        raise RuntimeError(f"raster_exact kernel launch failed: CUDA error {rc}")
-    LAUNCHES["raster_exact"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
     return depth, tid
 
 
-def rasterize_bins(cell_start, cell_groups, coef, width: int, height: int):
+def rasterize_bins(cell_start, cell_groups, coef, width: int, height: int,
+                   *, cell_w: int = CELL_W, keyed: bool = False, window=None):
     """Nearest covering triangle per pixel over binned groups.
 
     ``coef`` f32[T_pad, 16]: rows of (e0, e1, e2, zn, wn) coefficients;
-    ``cell_start``/``cell_groups`` from ``bin_groups``. Returns (depth
-    f32[H, W], +inf where empty; tid i32[H, W], global triangle id, -1 where
-    empty). A CUDA tensor launches ``csrc/raster_exact.cu``; a CPU tensor
-    runs ``rasterize_bins_plain``."""
+    ``cell_start``/``cell_groups`` from ``bin_groups`` at the same
+    ``cell_w``. Default: the exact cross-multiplied compare (K1, 8x32
+    cells). ``keyed``: the quantized-key compare, K3 on 8x32 cells or K4 on
+    8x128; with ``window`` = (floor, ceil) i32[H, W] keys, K2 (or K4's peel
+    form), which keeps only keys strictly inside the window. Returns (depth
+    f32[H, W], +inf where empty and quantized when keyed; tid i32[H, W],
+    global triangle id, -1 where empty). A CUDA tensor launches the kernel
+    of ``csrc/raster_exact.cu``; a CPU tensor runs ``rasterize_bins_plain``."""
+    if window is not None and not keyed:
+        raise ValueError("a depth window needs the keyed compare")
     if coef.device.type == "cuda":
-        return _launch_kernel(cell_start, cell_groups, coef, width, height)
+        return _launch_kernel(cell_start, cell_groups, coef, width, height,
+                              cell_w, keyed, window)
     if coef.device.type == "cpu":
-        return rasterize_bins_plain(cell_start, cell_groups, coef, width, height)
+        return rasterize_bins_plain(cell_start, cell_groups, coef, width,
+                                    height, cell_w=cell_w, keyed=keyed,
+                                    window=window)
     raise ValueError(f"raster_exact: unsupported device {coef.device}")
 
 
@@ -243,9 +354,11 @@ class BinnedFrame(NamedTuple):
     cell_start: torch.Tensor   # i32[n_cells + 1]
     cell_groups: torch.Tensor  # i32[n_pairs]
     n_pairs: int
+    cell_w: int
 
 
-def bin_triangles(batch: TriangleBatch, width: int, height: int) -> BinnedFrame:
+def bin_triangles(batch: TriangleBatch, width: int, height: int,
+                  cell_w: int = CELL_W) -> BinnedFrame:
     """Triangle setup + binning: the raster kernel's inputs for ``batch``."""
     coeffs, ok, (lo, hi) = triangle_coefficients(batch, width, height)
     t = batch.capacity
@@ -255,19 +368,32 @@ def bin_triangles(batch: TriangleBatch, width: int, height: int) -> BinnedFrame:
         pad = table.new_zeros((t_pad - t, ROW))
         pad[:, 2] = -1.0                                  # dead: e0 < 0
         table = torch.cat([table, pad])
-    cell_start, cell_groups, n_pairs = bin_groups(ok, lo, hi, t_pad, width,
-                                                  height)
+    cell_start, cell_groups, n_pairs = bin_groups(
+        ok, lo, hi, t_pad, width, height, cell_w=cell_w)
     return BinnedFrame(table, table[:, :16].contiguous(), cell_start,
-                       cell_groups, n_pairs)
+                       cell_groups, n_pairs, cell_w)
 
 
-def rasterize_exact(batch: TriangleBatch, width: int, height: int):
+def rasterize_exact(batch: TriangleBatch, width: int, height: int, *,
+                    depth_window=None, quarter: Optional[bool] = None,
+                    crossz: Optional[bool] = None):
     """Exact-binned raster. Returns (depth f32[H,W], tid i32[H,W] global
     triangle ids, attr_table f32[T_pad, 32], required int — this frame's
-    (group, cell) pair count)."""
-    b = bin_triangles(batch, width, height)
+    (group, cell) pair count).
+
+    ``quarter`` (default True) bins to 8x32 cells, else to the classic
+    8x128 tiles. ``crossz`` (default True) keeps the exact cross-multiplied
+    depth; it applies only on the quarter path without a window (the JAX
+    rule), otherwise depth is the quantized key. ``depth_window`` =
+    (floor, ceil) i32[H, W] keys peels: each pixel's nearest fragment
+    strictly inside the window."""
+    quarter = True if quarter is None else quarter
+    crossz = (True if crossz is None else crossz) and quarter \
+        and depth_window is None
+    b = bin_triangles(batch, width, height, CELL_W if quarter else TILE_W)
     depth, tid = rasterize_bins(b.cell_start, b.cell_groups, b.coef, width,
-                                height)
+                                height, cell_w=b.cell_w, keyed=not crossz,
+                                window=depth_window)
     return depth, tid, b.table, b.n_pairs
 
 

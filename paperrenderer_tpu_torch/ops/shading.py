@@ -81,6 +81,16 @@ def _schlick_ggx(a_dot_b, roughness):
     return ab / (ab * (1.0 - k) + k)
 
 
+def leaf_alpha(uv: torch.Tensor) -> torch.Tensor:
+    """Procedural leaf cutout (example leaf.glsl getAlpha): a lens-shaped
+    region around v=0.5 whose half-width follows a parabola in u. Returns
+    1.0 inside the leaf, 0.0 outside."""
+    x = uv[..., 0]
+    y = uv[..., 1] - 0.5
+    curve = (-((1.0 - 2.0 * x) ** 2) + 1.0) * 0.2
+    return torch.where(y.abs() < curve, 1.0, 0.0)
+
+
 def _attenuate(dist, bounds):
     win = torch.clamp(1.0 - (dist / torch.clamp(bounds, min=1e-6)) ** 4,
                       0.0, 1.0) ** 2

@@ -5,19 +5,21 @@ static path (reference RenderPass.h:103-134, RenderPass.cpp:444-742). One
 frame is a sequence of tensor ops on the pass's device:
 
     Scene.flush -> expand_static (transform, cull + LOD masks)
-      -> attach_cull -> rasterize_exact (setup, binning, raster kernel)
-      -> resolve_gbuffer_pairs -> shade_gbuffer -> tonemap
+      -> attach_cull -> rasterize_exact (setup, binning, raster kernel K1)
+      -> resolve_gbuffer_pairs -> shade_gbuffer
+      [-> composite_translucency: depth peel (K2 per layer), blend]
+      [-> supersample box resolve] -> tonemap
 
 Pair buffers are sized from each frame's own pair count, so a frame is
 always complete (no capacity to outgrow); see ``ops.raster_exact``.
 
 Not ported yet, and refused with ``NotImplementedError``: the draw-list path
-``static_path=False`` (ROADMAP Queue 1 item 6), ``supersample > 1`` and
-textures (item 4), ``translucent_layers > 0`` (item 5).
+``static_path=False`` (ROADMAP Queue 1 item 6) and textures (item 4).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
@@ -32,6 +34,7 @@ from ..ops.raster_exact import rasterize_exact, resolve_gbuffer_pairs
 from ..ops.shading import Lights, shade_gbuffer
 from ..ops.static_batch import StaticMapping, build_static_mapping, expand_static
 from ..ops.tonemap import TonemapParams, tonemap
+from ..ops.translucency import composite_translucency, non_opaque_mask
 from ..utils.device import require_device
 from ..utils.stats import Timer
 
@@ -50,16 +53,49 @@ def render_frame_static(
     width: int,
     height: int,
     do_culling: bool = True,
+    translucent_layers: int = 0,
+    supersample: int = 1,
 ):
-    """The static raster frame. Returns (ldr f32[H, W, 3], aux dict)."""
+    """The static raster frame. Returns (ldr f32[H, W, 3], aux dict).
+
+    ``translucent_layers > 0`` adds the sorted-translucency pass (depth
+    peeling + back-to-front blend) over SHADE_TRANSLUCENT and SHADE_LEAF
+    materials; the opaque pass then leaves those triangles out.
+
+    ``supersample`` = s rasterizes and shades at s x s the resolution and
+    box-filters the HDR image before tonemapping (the analogue of the
+    reference's MSAA sample count, RenderPass.h:61); ``aux["depth"]`` keeps
+    the top-left sample of each s x s cell."""
+    ss = max(1, int(supersample))
     batch, inst_visible = expand_static(
         mapping, instances, tables, camera, slot_materials, instance_visible,
         do_culling=do_culling,
     )
     batch = attach_cull(batch, materials)
-    depth, tid, attr_table, required = rasterize_exact(batch, width, height)
+    full_batch = batch
+    if translucent_layers > 0:
+        # the opaque pass must not z-write translucent/cutout geometry
+        batch = dataclasses.replace(
+            batch, valid=batch.valid & ~non_opaque_mask(materials, batch.material))
+    depth, tid, attr_table, required = rasterize_exact(
+        batch, width * ss, height * ss)
     gbuf = resolve_gbuffer_pairs(attr_table, depth, tid, camera)
     hdr = shade_gbuffer(gbuf, materials, lights, camera.cam_pos)
+    if translucent_layers > 0:
+        hdr, peel_required = composite_translucency(
+            hdr, depth, full_batch, materials, lights, camera,
+            layers=translucent_layers)
+        required = max(required, peel_required)
+    if ss > 1:
+        # box filter in the JAX package's order: strided slices summed
+        # row-major, then scaled
+        acc = hdr[0::ss, 0::ss]
+        for i in range(ss):
+            for j in range(ss):
+                if i or j:
+                    acc = acc + hdr[i::ss, j::ss]
+        hdr = acc * (1.0 / (ss * ss))
+        depth = depth[::ss, ::ss]
     ldr = tonemap(hdr, tonemap_params)
     aux = {
         "visible_count": inst_visible.sum(),
@@ -197,18 +233,14 @@ class RenderPass:
             raise NotImplementedError(
                 "the draw-list raster path is not ported yet (ROADMAP Queue 1 "
                 "item 6)")
-        if self.supersample > 1:
-            raise NotImplementedError(
-                "supersampling is not ported yet (ROADMAP Queue 1 item 4)")
-        if self.translucent_layers > 0:
-            raise NotImplementedError(
-                "sorted translucency is not ported yet (ROADMAP Queue 1 item 5)")
         mapping, instances, tables, materials, cam, slots, visible = (
             self.frame_inputs(camera))
         return render_frame_static(
             mapping, instances, tables, materials, self.lights, cam, slots,
             visible, self.tonemap_params,
             width=self.width, height=self.height, do_culling=self.do_culling,
+            translucent_layers=self.translucent_layers,
+            supersample=self.supersample,
         )
 
     def frame_inputs(self, camera: Camera | CameraMatrices):

@@ -6,7 +6,8 @@ Exact copies of ``examples/render_scene.py::build_example_scene`` (config 1:
 icospheres, ~460k triangles) and ``examples/render_rt.py::build_rt_scene``
 (the ray-traced frame of config 3: a plane, a sphere and a mirror cube) —
 same meshes, materials, transforms, lights, camera and seed — with a
-``device`` that defaults to the card.
+``device`` that defaults to the card. ``build_translucent_grid`` is config
+2's grid with glass and leaf instances, drawn through sorted translucency.
 """
 
 from __future__ import annotations
@@ -14,8 +15,9 @@ from __future__ import annotations
 import numpy as np
 
 from .core import (
-    Camera, Material, MaterialRegistry, Model, ModelInstance, RenderEngine,
-    Scene, make_cube, make_icosphere, make_plane, make_torus, make_uv_sphere,
+    SHADE_LEAF, SHADE_TRANSLUCENT, Camera, Material, MaterialRegistry, Model,
+    ModelInstance, RenderEngine, Scene, make_cube, make_icosphere, make_plane,
+    make_torus, make_uv_sphere,
 )
 from .ops.shading import Lights
 from .render import RenderPass
@@ -113,6 +115,28 @@ def build_dynamic_scene(n_instances: int, width: int, height: int,
         rp.add_instance(inst, {0: mats[k % 4].instance()})
     cam = Camera(yfov_deg=70.0, aspect=width / height, near=0.1, far=500.0)
     cam.look_at((0.0, -side * 0.35, side * 0.35), (0.0, 40.0, 0.0), up=(0, 0, 1))
+    return eng, rp, cam
+
+
+def build_translucent_grid(n_instances: int, width: int, height: int,
+                           layers: int = 4, seed: int = 0, device="cuda"):
+    """Config 2's grid with one instance in four rebound to a 50% glass
+    (SHADE_TRANSLUCENT) and one in sixteen to a leaf cutout (SHADE_LEAF),
+    cubes and icospheres among both, drawn with ``layers`` depth-peel
+    layers; returns (engine, pass, camera)."""
+    eng, rp, cam = build_dynamic_scene(n_instances, width, height, seed=seed,
+                                       device=device)
+    glass = Material("glass", albedo=(0.6, 0.8, 0.95), roughness=0.1,
+                     alpha=0.5, shading_model=SHADE_TRANSLUCENT).instance()
+    leaf = Material("leaf", albedo=(0.25, 0.7, 0.2), roughness=0.6,
+                    shading_model=SHADE_LEAF).instance()
+    for inst in rp.scene.instances:
+        # even indices are cubes, odd ones icospheres
+        if inst.index % 32 in (2, 19):
+            rp.add_instance(inst, {0: leaf})
+        elif inst.index % 8 in (0, 5):
+            rp.add_instance(inst, {0: glass})
+    rp.translucent_layers = layers
     return eng, rp, cam
 
 

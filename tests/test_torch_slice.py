@@ -17,8 +17,10 @@ from paperrenderer_tpu_torch import (
     Camera, Material, MaterialRegistry, Model, ModelInstance, RenderPass, Scene,
     make_cube,
 )
+from paperrenderer_tpu_torch.core import SHADE_TRANSLUCENT
 from paperrenderer_tpu_torch.io import read_image, write_png
-from paperrenderer_tpu_torch.scenes import build_dynamic_scene, build_example_scene
+from paperrenderer_tpu_torch.scenes import (
+    build_dynamic_scene, build_example_scene, build_translucent_grid)
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 GOLDENS = sorted(f[:-4] for f in os.listdir(GOLDEN_DIR) if f.endswith(".png"))
@@ -110,22 +112,64 @@ def test_render_after_topology_and_transform_change():
     assert int(a2["visible_count"]) == int(a1["visible_count"]) - 1
 
 
-@pytest.mark.parametrize("case", ["draw_list", "supersample", "translucent",
-                                  "texture"])
+@pytest.mark.parametrize("case", ["draw_list", "texture"])
 def test_unported_paths_raise(case):
     rp, cam = build_example_scene(32, 32, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         if case == "draw_list":
             rp.render(cam, static_path=False)
-        elif case == "supersample":
-            rp.supersample = 2
-            rp.render(cam)
-        elif case == "translucent":
-            rp.translucent_layers = 1
-            rp.render(cam)
         else:
             tex = np.zeros((4, 4, 3), np.uint8)
             rp.materials.register(Material("t", base_texture=tex))
+
+
+def test_supersample_is_box_filtered_frame():
+    """supersample=2 at 32x32 is the 64x64 frame's HDR box-filtered in 2x2
+    cells (strided slices summed in row-major order, then halved twice)."""
+    rp, cam = build_example_scene(64, 64, device="cpu")
+    _, big = rp.render(cam)
+    rp.resize(32, 32)
+    rp.supersample = 2
+    ldr, aux = rp.render(cam)
+    h = big["hdr"]
+    want = (h[0::2, 0::2] + h[0::2, 1::2] + h[1::2, 0::2] + h[1::2, 1::2]) * 0.25
+    torch.testing.assert_close(aux["hdr"], want, rtol=0, atol=0)
+    torch.testing.assert_close(aux["depth"], big["depth"][::2, ::2], rtol=0, atol=0)
+    assert ldr.shape == (32, 32, 3) and torch.isfinite(ldr).all()
+
+
+def test_translucent_layers_render():
+    """The example scene's sphere rebound to a 50% red glass: the opaque
+    pass leaves its triangles out, two peel layers blend it back in (a
+    closed mesh with no culling gives two layers), and only pixels the
+    sphere covers change."""
+    rp, cam = build_example_scene(64, 64, device="cpu")
+    ldr0, aux0 = rp.render(cam)
+    sphere = rp.scene.instances[1]
+    rp.add_instance(sphere, {0: Material(
+        "glass", albedo=(0.9, 0.1, 0.1), alpha=0.5,
+        shading_model=SHADE_TRANSLUCENT).instance()})
+    rp.translucent_layers = 2
+    ldr, aux = rp.render(cam)
+    assert torch.isfinite(ldr).all()
+    assert int(aux["total_tris"]) < int(aux0["total_tris"])
+    changed = (ldr - ldr0).abs().amax(dim=-1) > 1e-3
+    assert 0.01 < float(changed.float().mean()) < 0.5
+
+
+def test_translucent_grid_renders():
+    """build_translucent_grid at 400 instances and 128x64 (the card runs
+    10k at 1920x1080): the glass and leaf instances leave the opaque pass,
+    and the peeled layers change part of the frame."""
+    _, rp, cam = build_translucent_grid(400, 128, 64, device="cpu")
+    ldr, aux = rp.render(cam)
+    _, rp0, cam0 = build_dynamic_scene(400, 128, 64, device="cpu")
+    ldr0, aux0 = rp0.render(cam0)
+    assert torch.isfinite(ldr).all()
+    assert int(aux["total_tris"]) < int(aux0["total_tris"])
+    changed = (ldr - ldr0).abs().amax(dim=-1) > 1e-3
+    covered = float(aux0["coverage"]) * 128 * 64
+    assert 0.1 * covered < int(changed.sum()) < 0.9 * covered
 
 
 @pytest.mark.parametrize("name", GOLDENS)

@@ -15,6 +15,12 @@ Phases, each reported as one JSON line:
            on the translucent grid K2's first two peel layers with the
            frame's own bins and windows (ceiling: the opaque depth's key);
            kernel and plain ms, candidates, bound;
+  compare_tiles  the tile kernels against their plain versions on the
+           draw-list batches (bitwise): K5 at config 1, config 2 and a ragged
+           image size; K6 at config 2 on the morton-sorted batch and on the
+           batch as it comes (presorted form), each also against K5 on the
+           same setup; K6's required work against a numpy count of the
+           (tile, chunk) pairs; kernel and plain ms, pairs, candidates, bound;
   compare_trace  the traversal kernels against their plain versions on the
            wavefronts of the 1920x1080 RT frame (bitwise): K7 closest and any
            hit on primary rays, K8 on primary and reflection rays, K9 on the
@@ -39,6 +45,12 @@ Phases, each reported as one JSON line:
            window (K2, K4's peel form): K3 covers what the default path (K1)
            covers, with K1's exact depth in K3's key bucket; K4 finds K3's
            depth, and K4's peel form K2's, except on <= 1e-5 of the pixels;
+  draw_list  RenderPass.render(cam, static_path=False), the draw-list frame
+           (preprocess, triangle batch, K5): config 1 at 512x512 and 128x128
+           held to the raster goldens; config 2 at 1920x1080: median frame
+           time, draw/visible/triangle counts (total_tris equal to the static
+           frame's), the frame against the static frame with the golden
+           bands; a reduced copy (400 instances, 256x128) against the CPU;
   rt_frame the RT scene through RayTraceRender.render: 128x128 held to
            tests/goldens/rt_example.png with the golden bands, 96x64 on the
            card against the CPU, and at 1920x1080 the median frame time
@@ -49,18 +61,20 @@ Phases, each reported as one JSON line:
            against its plain version on every 64th ray (bitwise);
   launches every kernel was launched by the phases of its path (K1: config1,
            config2, translucent, supersample; K2: translucent, keyed_entry;
-           K3/K4: keyed_entry; traversal: rt_frame and rt_grid10k), with the
-           launch counters reset just before each and read just after; the
-           kernels line counts K1/K2 from the frame phases, K3/K4 from
-           keyed_entry, K7-K9 from rt_frame;
+           K3/K4: keyed_entry; K5: draw_list; K6: compare_tiles; traversal:
+           rt_frame and rt_grid10k), with the launch counters reset just
+           before each and read just after; the kernels line counts K1/K2
+           from the frame phases, K3/K4 from keyed_entry, K5 from draw_list,
+           K6 from compare_tiles (no frame runs it), K7-K9 from rt_frame;
   sync     cost of the raster frame's one device-to-host read (the pair
            count): frame time as is vs. with the count supplied.
 
 Usage: python3 chip_smoke.py            (all phases; needs one CUDA card)
        python3 chip_smoke.py --profile  (also a torch.profiler breakdown of
                                          configs 1, 2, the translucent grid,
-                                         config 2 at supersample=2 and the
-                                         1080p RT frame by stage,
+                                         config 2 at supersample=2, config
+                                         2's draw-list frame and the 1080p
+                                         RT frame by stage,
                                          with the tables written to
                                          chiprun_out/)
 Exit code 0 only when every phase passed; the last line of stdout is then
@@ -84,6 +98,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDENS = os.path.join(HERE, "tests", "goldens")
 TRACE_CU = "paperrenderer_tpu_torch/csrc/trace.cu"
 RASTER_CU = "paperrenderer_tpu_torch/csrc/raster_exact.cu"
+TILES_CU = "paperrenderer_tpu_torch/csrc/raster_tiles.cu"
 KERNELS = [dict(name="raster_exact", route="cuda", source=RASTER_CU,
                 replaces="paperrenderer_tpu/ops/raster_exact.py:231"),
            dict(name="raster_peel", route="cuda", source=RASTER_CU,
@@ -92,6 +107,10 @@ KERNELS = [dict(name="raster_exact", route="cuda", source=RASTER_CU,
                 replaces="paperrenderer_tpu/ops/raster_exact.py:231"),
            dict(name="raster_classic", route="cuda", source=RASTER_CU,
                 replaces="paperrenderer_tpu/ops/raster_exact.py:116"),
+           dict(name="raster_tiles", route="cuda", source=TILES_CU,
+                replaces="paperrenderer_tpu/ops/raster_pallas.py:47"),
+           dict(name="raster_tiles_binned", route="cuda", source=TILES_CU,
+                replaces="paperrenderer_tpu/ops/raster_pallas.py:215"),
            dict(name="trace_scene", route="cuda", source=TRACE_CU,
                 replaces="paperrenderer_tpu/ops/trace_kernel.py:228"),
            dict(name="trace_resolve", route="cuda", source=TRACE_CU,
@@ -108,6 +127,9 @@ FP32_OPS_PER_S = 67e12
 RASTER_OPS_PER_CANDIDATE = 22   # 5 planes x (2 mul + 2 add) + 2 mul (depth)
 KEYED_OPS_PER_CANDIDATE = 20    # 5 planes x (2 mul + 2 add); the divide of
 #                                 the few covering candidates is left out
+TILE_OPS_PER_CANDIDATE = 20     # 5 planes x (2 mul + 2 add); the depth
+#                                 divide, esum and the 2 bary divides of the
+#                                 few covering candidates are left out
 SLAB_OPS_PER_BOX_ROW = 49       # 3 div + 2 x (6 sub, 6 mul, 6 min/max,
 #                                 4 min/max reductions, 1 max)
 MT_OPS_PER_LEAF = 8 * 46        # 8 x (two crosses 18, four dots 20, 3 sub,
@@ -135,17 +157,18 @@ def golden(name):
     return read_image(os.path.join(GOLDENS, f"{name}.png")).astype("float32") / 255.0
 
 
-def frame_ms(rp, cam, frames=20, warmup=5):
-    """Median wall time of one synchronized frame (ms)."""
+def frame_ms(rp, cam, frames=20, warmup=5, **kw):
+    """Median wall time of one synchronized frame (ms); `kw` goes to
+    render."""
     import torch
 
     for _ in range(warmup):
-        rp.render(cam)
+        rp.render(cam, **kw)
     torch.cuda.synchronize()
     times = []
     for _ in range(frames):
         t0 = time.perf_counter()
-        rp.render(cam)
+        rp.render(cam, **kw)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
@@ -216,6 +239,107 @@ def raster_bound(b, width, height):
         + b.coef.numel() * 4 + width * height * 8
     ops = b.n_pairs * 8 * 256 * RASTER_OPS_PER_CANDIDATE
     return bound(nbytes, ops)
+
+
+def draw_list_batch(rp, cam):
+    """The triangle batch of RenderPass.render(cam, static_path=False): the
+    function render_frame builds it with, on the pass's own inputs."""
+    from paperrenderer_tpu_torch.render.renderpass import draw_list_batch
+
+    return draw_list_batch(**rp.draw_list_inputs(cam))[1]
+
+
+def pair_count_numpy(chunk_aabb, width, height):
+    """The (tile, chunk) overlap count from the chunk boxes on the host: the
+    kernels' inclusive compares against every 8 x 128 tile rect in float32
+    numpy (an independent count of the list K6 walks)."""
+    import numpy as np
+
+    b = chunk_aabb.cpu().numpy()
+    n_tx, n_ty = -(-width // 128), -(-height // 8)
+    tx0 = (np.arange(n_tx) * 128).astype(np.float32)
+    ty0 = (np.arange(n_ty) * 8).astype(np.float32)
+    in_x = (b[None, :, 0] <= tx0[:, None] + np.float32(128)) \
+        & (b[None, :, 2] >= tx0[:, None])                     # [n_tx, K]
+    in_y = (b[None, :, 1] <= ty0[:, None] + np.float32(8)) \
+        & (b[None, :, 3] >= ty0[:, None])                     # [n_ty, K]
+    return int((in_y[:, None, :] & in_x[None, :, :]).sum())
+
+
+def compare_tiles(cases, reps=10):
+    """K5 and K6 against their plain versions on the draw-list batches;
+    bitwise checks, kernel ms (CUDA events), plain ms (one call), pairs,
+    candidates and the least-time bound. `cases`: name -> (RenderPass,
+    camera); K6 runs on config2 only."""
+    import torch
+    from paperrenderer_tpu_torch.ops import raster_pallas as TP
+    from paperrenderer_tpu_torch.ops.raster import triangle_coefficients
+
+    out = {}
+
+    def check(got, ref):
+        (dk, tk, bk), (dp, tp, bp) = got, ref
+        both = (tk >= 0) & (tp >= 0)
+        err = max(float((dk[both] - dp[both]).abs().max()) if both.any() else 0.0,
+                  float((bk - bp).abs().max()) if bk.numel() else 0.0)
+        return (same_bits(dk, dp) and torch.equal(tk, tp)
+                and same_bits(bk, bp)), int((tk != tp).sum()), err
+
+    def case(name, f, w, h, lists):
+        tile_start, tile_chunks, n_pairs = lists
+        if name.startswith("k6"):
+            args = (f.coef, tile_start, tile_chunks, w, h)
+            kernel, plain = TP.rasterize_chunk_lists, TP.rasterize_chunk_lists_plain
+            extra = (tile_start.numel() + tile_chunks.numel()) * 4
+        else:
+            args = (f.coef, f.chunk_aabb, w, h)
+            kernel, plain = TP.rasterize_chunks, TP.rasterize_chunks_plain
+            extra = f.chunk_aabb.numel() * 4
+        got = kernel(*args)
+        ref, plain_ms = timed_once(lambda: plain(*args))
+        ok, mism, err = check(got, ref)
+        cand = n_pairs * TP.CHUNK * TP.TILE_H * TP.TILE_W
+        b_ms, b_by = bound(f.coef.numel() * 4 + extra + w * h * 16,
+                           cand * TILE_OPS_PER_CANDIDATE)
+        out[name] = dict(bitwise=ok, tid_mismatch=mism, max_abs_err=err,
+                         ms=timed(lambda: kernel(*args), reps),
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         n_pairs=n_pairs, candidates=cand,
+                         chunks=f.chunk_aabb.shape[0],
+                         coverage=float((got[1] >= 0).float().mean()))
+        return got
+
+    for name, (rp, cam) in cases.items():
+        w, h = rp.width, rp.height
+        batch = draw_list_batch(rp, cam)
+        coeffs, ok, (lo, hi) = triangle_coefficients(batch, w, h)
+        f = TP.tile_setup(coeffs, ok, lo, hi, w, h)
+        lists = TP.tile_lists(f.chunk_aabb, w, h)
+        k5 = case(f"k5_{name}", f, w, h, lists)
+        if name != "config2":
+            continue
+        k6 = case("k6_config2", f, w, h, lists)
+        out["k6_config2"]["equals_k5"] = check(k6, k5)[0]
+        fp = TP.tile_setup(coeffs, ok, lo, hi, w, h, presorted=True)
+        lp = TP.tile_lists(fp.chunk_aabb, w, h)
+        k5p = TP.rasterize_chunks(fp.coef, fp.chunk_aabb, w, h)
+        k6p = case("k6_config2_presorted", fp, w, h, lp)
+        out["k6_config2_presorted"]["equals_k5"] = check(k6p, k5p)[0]
+        # required work: the wrapper's against the host count
+        n_tiles = lists[0].numel() - 1
+        req = TP.rasterize_tiles_binned(batch, w, h)[3]
+        req_pre = TP.rasterize_tiles_binned(batch, w, h, presorted=True)[3]
+        out["required"] = dict(
+            k6=req, numpy=n_tiles + pair_count_numpy(f.chunk_aabb, w, h),
+            k6_presorted=req_pre,
+            numpy_presorted=n_tiles + pair_count_numpy(fp.chunk_aabb, w, h))
+    req = out.get("required", {})
+    out["ok"] = (all(v["bitwise"] for k, v in out.items() if k != "required")
+                 and all(out[k]["equals_k5"] for k in (
+                     "k6_config2", "k6_config2_presorted"))
+                 and req.get("k6") == req.get("numpy")
+                 and req.get("k6_presorted") == req.get("numpy_presorted"))
+    return out
 
 
 def compare_keyed(rp, cam, rp_t, cam_t, reps=20):
@@ -612,6 +736,19 @@ def raster_stages():
             (RP, "tonemap")]
 
 
+def draw_list_stages():
+    """The draw-list frame's stages; `triangle_coefficients` and
+    `tile_setup` (the morton sort, packing and chunk boxes) are the setup of
+    K5, `rasterize_chunks` its launch."""
+    from paperrenderer_tpu_torch.ops import raster_pallas as TPL
+    from paperrenderer_tpu_torch.render import renderpass as RP
+
+    return [(RP, "preprocess_instances"), (RP, "build_triangle_batch"),
+            (RP, "attach_cull"), (TPL, "triangle_coefficients"),
+            (TPL, "tile_setup"), (TPL, "rasterize_chunks"),
+            (RP, "resolve_gbuffer"), (RP, "shade_gbuffer"), (RP, "tonemap")]
+
+
 def rt_stages():
     """The RT frame's stages; `reflections` includes the shadow_and_ao and
     shade_surfaces calls made for its bounce hits (listed again under their
@@ -734,6 +871,7 @@ def main():
 
     import paperrenderer_tpu_torch  # noqa: F401  (sets the precision flags)
     from paperrenderer_tpu_torch.ops import raster_exact as RE
+    from paperrenderer_tpu_torch.ops import raster_pallas as TPL
     from paperrenderer_tpu_torch.ops import trace_kernel as TK
     from paperrenderer_tpu_torch.scenes import (
         build_dynamic_scene, build_example_scene, build_rt_scene,
@@ -741,7 +879,7 @@ def main():
     from paperrenderer_tpu_torch.utils import cuda_build
 
     def build():
-        libs = ("raster_exact", "trace")
+        libs = ("raster_exact", "trace", "raster_tiles")
         with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
             list(pool.map(cuda_build.load_library, libs))
         out = {}
@@ -778,8 +916,24 @@ def main():
         out["ok"] = all(v["bitwise"] for v in out.values())
         return out
 
+    # count only each path's own launches: each phase's counts start at 0
+    raster_counters = (RE.LAUNCHES, TPL.LAUNCHES)
+    raster_launches = {}
+
+    def counted(name, fn):
+        for counter in raster_counters:
+            for k in counter:
+                counter[k] = 0
+        phase(name, fn)
+        raster_launches[name] = {k: v for counter in raster_counters
+                                 for k, v in counter.items()}
+
     phase("compare", compare)
     phase("compare_keyed", lambda: compare_keyed(*get(2), *get("translucent")))
+    counted("compare_tiles", lambda: compare_tiles(dict(
+        config1=get(1), config2=get(2),
+        # ragged right and bottom tiles (200 = 1.56 x 128, 150 = 18.75 x 8)
+        ragged=build_example_scene(200, 150, device="cuda"))))
 
     rt_scenes = {}
 
@@ -913,21 +1067,58 @@ def main():
                     k2_k4peel_tid_mismatch=int((t2 != t4p).sum()),
                     pairs_k3=req3, pairs_k4=req4)
 
-    # count only each path's own launches: each phase's counts start at 0
-    raster_launches = {}
+    def draw_list():
+        """The draw-list frame: config 1 against the goldens, config 2's
+        frame time and counts against the static frame, and a reduced copy
+        of config 2 on the card against the CPU."""
+        out, ok = {}, True
+        for cfg, size, name in ((1, 512, "raster_512"),
+                                (None, 128, "raster_example")):
+            rp, cam = get(cfg) if cfg else build_example_scene(
+                size, size, device="cuda")
+            ldr, aux = rp.render(cam, static_path=False)
+            good, mean, frac = bands(ldr.cpu().numpy(), golden(name))
+            ok &= good and bool(torch.isfinite(ldr).all())
+            out[f"golden{size}"] = dict(mean=mean, frac=frac, ok=good)
+        out["config1_frame_ms"] = frame_ms(*get(1), static_path=False)
+        rp, cam = get(2)
+        ldr, aux = rp.render(cam, static_path=False)
+        ldr_s, aux_s = rp.render(cam)
+        good, mean, frac = bands(ldr.cpu().numpy(), ldr_s.cpu().numpy())
+        same_tris = int(aux["total_tris"]) == int(aux_s["total_tris"])
+        ok &= (good and same_tris and bool(torch.isfinite(ldr).all())
+               and tuple(ldr.shape) == (1080, 1920, 3))
+        small = [build_dynamic_scene(400, 256, 128, device=dev)
+                 for dev in ("cuda", "cpu")]
+        ok_s, mean_s, frac_s = bands(
+            small[0][1].render(small[0][2], static_path=False)[0].cpu().numpy(),
+            small[1][1].render(small[1][2], static_path=False)[0].numpy())
+        return dict(ok=ok and ok_s, **out,
+                    config2=dict(
+                        frame_ms=frame_ms(rp, cam, warmup=3, static_path=False),
+                        visible_count=int(aux["visible_count"]),
+                        draw_count=int(aux["draw_count"]),
+                        total_tris=int(aux["total_tris"]),
+                        static_total_tris=int(aux_s["total_tris"]),
+                        tri_capacity=rp._required_tri_capacity(),
+                        coverage=float(aux["coverage"]),
+                        static_coverage=float(aux_s["coverage"]),
+                        vs_static=dict(mean=mean, frac=frac, ok=good)),
+                    reduced_vs_cpu=dict(mean=mean_s, frac=frac_s, ok=ok_s))
+
     for name, fn in (("config1", config1), ("config2", config2),
                      ("translucent", translucent), ("supersample", supersample),
-                     ("keyed_entry", keyed_entry)):
-        for k in RE.LAUNCHES:
-            RE.LAUNCHES[k] = 0
-        phase(name, fn)
-        raster_launches[name] = dict(RE.LAUNCHES)
+                     ("keyed_entry", keyed_entry), ("draw_list", draw_list)):
+        counted(name, fn)
     # the kernels line's launches: K1 and K2 from the raster frames, K3 and
-    # K4 from rasterize_exact's keyed forms (no frame runs them)
+    # K4 from rasterize_exact's keyed forms (no frame runs them), K5 from
+    # the draw-list frames, K6 from compare_tiles (no frame runs it)
     frame_phases = ("config1", "config2", "translucent", "supersample")
     launch_path = dict(raster_exact=frame_phases, raster_peel=frame_phases,
                        raster_keyed=("keyed_entry",),
-                       raster_classic=("keyed_entry",))
+                       raster_classic=("keyed_entry",),
+                       raster_tiles=("draw_list",),
+                       raster_tiles_binned=("compare_tiles",))
     launches = {k: sum(raster_launches.get(p, {}).get(k, 0) for p in ps)
                 for k, ps in launch_path.items()}
 
@@ -974,7 +1165,9 @@ def main():
                         translucent=["raster_exact", "raster_peel"],
                         supersample=["raster_exact"],
                         keyed_entry=["raster_peel", "raster_keyed",
-                                     "raster_classic"])
+                                     "raster_classic"],
+                        draw_list=["raster_tiles"],
+                        compare_tiles=["raster_tiles_binned"])
     phase("launches", lambda: dict(
         ok=(all(raster_launches.get(p, {}).get(k, 0) > 0
                 for p, ks in raster_needs.items() for k in ks)
@@ -989,6 +1182,10 @@ def main():
                 functools.partial(get(c)[0].render, get(c)[1]),
                 raster_stages(),
                 os.path.join(out_dir, f"profile_config{c}.txt")))
+        phase("profile_draw_list", lambda: profile_frames(
+            functools.partial(get(2)[0].render, get(2)[1], static_path=False),
+            draw_list_stages(),
+            os.path.join(out_dir, "profile_config2_draw_list.txt")))
         phase("profile_rt", lambda: profile_frames(
             functools.partial(rt_1080()[0].render, rt_1080()[1]), rt_stages(),
             os.path.join(out_dir, "profile_rt_1080p.txt")))
@@ -1001,6 +1198,11 @@ def main():
                                     "k2_translucent_layer2", "k2_layer1",
                                     "k2_layer2"],
                        raster_keyed=["k3"], raster_classic=["k4", "k4_peel"])
+    ctl = results.get("compare_tiles", {})
+    # the compare_tiles cases of each tile kernel; the first is timed
+    tile_cases = dict(raster_tiles=["k5_config2", "k5_config1", "k5_ragged"],
+                      raster_tiles_binned=["k6_config2",
+                                           "k6_config2_presorted"])
     ct = results.get("compare_trace", {})
     # the wavefront each traversal kernel is timed on (all cases in the
     # compare_trace line)
@@ -1015,16 +1217,17 @@ def main():
                 ms=cmp2.get("ms"), plain_ms=cmp2.get("plain_ms"),
                 bound_ms=cmp2.get("bound_ms"), bound_by=cmp2.get("bound_by"),
                 ms_config1=cmp1.get("ms"), plain_ms_config1=cmp1.get("plain_ms"))
-        elif k["name"] in keyed_cases:
-            names = keyed_cases[k["name"]]
-            case = ck.get(names[0], {})
+        elif k["name"] in keyed_cases or k["name"] in tile_cases:
+            names, ck_ = ((keyed_cases[k["name"]], ck) if k["name"] in keyed_cases
+                          else (tile_cases[k["name"]], ctl))
+            case = ck_.get(names[0], {})
             row = dict(
-                max_abs_err=max(ck.get(c, {}).get("max_abs_err", float("nan"))
+                max_abs_err=max(ck_.get(c, {}).get("max_abs_err", float("nan"))
                                 for c in names),
                 ms=case.get("ms"), plain_ms=case.get("plain_ms"),
                 bound_ms=case.get("bound_ms"), bound_by=case.get("bound_by"),
                 timed_on=names[0])
-            row.update({"ms_" + c: ck.get(c, {}).get("ms") for c in names[1:]})
+            row.update({"ms_" + c: ck_.get(c, {}).get("ms") for c in names[1:]})
         else:
             names = [c for c in ct if c.startswith(
                 {"trace_scene": "k7", "trace_resolve": "k8",

@@ -8,8 +8,9 @@ Pallas kernel of the JAX package becomes a hand-written Hopper kernel under
 asks for the CPU; on a CPU tensor each kernel wrapper runs its plain
 PyTorch version instead.
 
-Ported so far: the static raster frame, ``RenderPass.render(cam)``, and the
-ray-traced frame, ``RayTraceRender.render(cam)``.
+Ported so far: the static raster frame, ``RenderPass.render(cam)``, the
+draw-list raster frame, ``RenderPass.render(cam, static_path=False)``, and
+the ray-traced frame, ``RayTraceRender.render(cam)``.
 """
 
 import torch as _torch

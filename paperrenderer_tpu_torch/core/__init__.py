@@ -2,6 +2,7 @@ from .camera import Camera, CameraMatrices, look_at, orthographic, perspective
 from .engine import RenderEngine
 from .geometry import (
     GeometryArena,
+    GeometryArrays,
     MeshHandle,
     make_cube,
     make_icosphere,
@@ -26,7 +27,7 @@ from . import transforms
 __all__ = [
     "Camera", "CameraMatrices", "look_at", "orthographic", "perspective",
     "RenderEngine",
-    "GeometryArena", "MeshHandle",
+    "GeometryArena", "GeometryArrays", "MeshHandle",
     "make_cube", "make_icosphere", "make_plane", "make_torus", "make_uv_sphere",
     "Material", "MaterialInstance", "MaterialRegistry", "MaterialTable",
     "SHADE_PBR", "SHADE_LEAF", "SHADE_EMISSIVE", "SHADE_TRANSLUCENT",

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..utils.device import require_device
-from .geometry import GeometryArena
+from .geometry import GeometryArena, GeometryArrays
 from .model import Model, ModelInstance
 
 GROWTH = 1.4          # PaperRenderer.h:70
@@ -148,6 +148,10 @@ class Scene:
             )
             self._tables_dirty = False
         return self._tables
+
+    def geometry(self) -> GeometryArrays:
+        """The geometry arena's device view on the scene's device."""
+        return self.arena.device_arrays(require_device(self.device))
 
     def compact_geometry(self) -> None:
         """Compact the arena and fix up every model's mesh handles off the

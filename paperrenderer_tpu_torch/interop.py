@@ -19,9 +19,11 @@ import numpy as np
 import torch
 
 from .core.camera import CameraMatrices
+from .core.geometry import GeometryArrays
 from .core.material import MaterialTable
 from .core.scene import InstanceArrays, SceneTables
 from .ops.accel import BLASSet, HitRecord2, RTScene
+from .ops.preprocess import PreprocessResult
 from .ops.raster import TriangleBatch
 from .ops.shading import Lights
 from .ops.static_batch import StaticMapping
@@ -30,7 +32,8 @@ from .utils.device import require_device
 
 KINDS = {cls.__name__: cls for cls in (
     CameraMatrices, InstanceArrays, SceneTables, StaticMapping, TriangleBatch,
-    MaterialTable, Lights, TonemapParams, RTScene, BLASSet, HitRecord2)}
+    MaterialTable, Lights, TonemapParams, RTScene, BLASSet, HitRecord2,
+    GeometryArrays, PreprocessResult)}
 
 
 def from_numpy(kind: str, arrays: Dict[str, np.ndarray], device="cuda"):

@@ -25,7 +25,7 @@ from ..core.camera import CameraMatrices
 from ..core.scene import InstanceArrays, Scene, SceneTables
 from ..core.transforms import trs_to_mat34
 from .preprocess import frustum_cull, select_lod
-from .raster import TriangleBatch
+from .raster import TriangleBatch, transform_triangles
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,21 +177,11 @@ def expand_static(
     r = mapping.run_id.long()
     vals = seed[torch.where(r >= 0, r, seed.shape[0] - 1)]         # [T, 14]
 
-    m = vals[:, :12].reshape(-1, 3, 4)
     tri_valid = mapping.valid & (vals[:, 12] > 0.5)
     material = vals[:, 13].to(torch.int32)
-    world = (m[:, None, :, 0] * mapping.v_obj[..., 0, None]
-             + m[:, None, :, 1] * mapping.v_obj[..., 1, None]
-             + m[:, None, :, 2] * mapping.v_obj[..., 2, None]
-             + m[:, None, :, 3])                                   # [T, 3, 3]
-    n_world = (m[:, None, :, 0] * mapping.n_obj[..., 0, None]
-               + m[:, None, :, 1] * mapping.n_obj[..., 1, None]
-               + m[:, None, :, 2] * mapping.n_obj[..., 2, None])
-    n_world = n_world / torch.clamp(
-        torch.linalg.vector_norm(n_world, dim=-1, keepdim=True), min=1e-12)
-    vp = camera.view_proj
-    clip = (vp[:, 0] * world[..., 0, None] + vp[:, 1] * world[..., 1, None]
-            + vp[:, 2] * world[..., 2, None] + vp[:, 3])           # [T, 3, 4]
+    world, n_world, clip = transform_triangles(
+        vals[:, :12].reshape(-1, 3, 4), mapping.v_obj, mapping.n_obj,
+        camera.view_proj)
     batch = TriangleBatch(
         clip=clip, world=world, normal=n_world, uv=mapping.uv,
         material=material, valid=tri_valid,

@@ -1,5 +1,5 @@
 from .raytrace import RayTraceRender, render_frame_rt
-from .renderpass import RenderPass, render_frame_static
+from .renderpass import RenderPass, render_frame, render_frame_static
 
-__all__ = ["RayTraceRender", "RenderPass", "render_frame_rt",
+__all__ = ["RayTraceRender", "RenderPass", "render_frame", "render_frame_rt",
            "render_frame_static"]

@@ -112,15 +112,40 @@ def test_render_after_topology_and_transform_change():
     assert int(a2["visible_count"]) == int(a1["visible_count"]) - 1
 
 
-@pytest.mark.parametrize("case", ["draw_list", "texture"])
+@pytest.mark.parametrize("case", ["texture"])
 def test_unported_paths_raise(case):
     rp, cam = build_example_scene(32, 32, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        if case == "draw_list":
-            rp.render(cam, static_path=False)
-        else:
-            tex = np.zeros((4, 4, 3), np.uint8)
-            rp.materials.register(Material("t", base_texture=tex))
+        tex = np.zeros((4, 4, 3), np.uint8)
+        rp.materials.register(Material("t", base_texture=tex))
+
+
+def test_supersample_draw_list_path():
+    """The draw-list frame renders, and supersample applies on it too
+    (tests/test_raster.py::test_supersample_draw_list_path): a rotated cube
+    at 64x64, once plain and once at supersample=2, gives frames of the same
+    shape and mean brightness whose edges differ."""
+    def build(ss):
+        rp = RenderPass(Scene(device="cpu"), MaterialRegistry(), width=64,
+                        height=64, supersample=ss)
+        cube = Model.from_mesh(rp.scene.arena, *make_cube(size=1.4))
+        inst = ModelInstance(cube)
+        inst.set_transform(quat=(0.92, 0.2, 0.3, 0.1))
+        rp.add_instance(inst, {0: Material(
+            f"d{ss}", albedo=(0.8, 0.2, 0.2)).instance()})
+        cam = Camera(yfov_deg=60.0, aspect=1.0, near=0.1, far=100.0)
+        cam.look_at((0.0, -3.0, 0.0), (0.0, 0.0, 0.0), up=(0, 0, 1))
+        ldr, aux = rp.render(cam, static_path=False)
+        return ldr.numpy(), aux
+
+    img1, aux1 = build(1)
+    img2, aux2 = build(2)
+    assert img2.shape == img1.shape == (64, 64, 3)
+    assert aux2["depth"].shape == aux1["depth"].shape == (64, 64)
+    assert int(aux1["draw_count"]) == int(aux2["draw_count"]) == 1
+    assert 0.1 < float(aux1["coverage"]) < 0.9
+    assert abs(img2.mean() - img1.mean()) < 0.01
+    assert (np.abs(img2 - img1).max(axis=-1) > 0.05).any()
 
 
 def test_supersample_is_box_filtered_frame():

@@ -3,8 +3,9 @@
 
 Phases, each reported as one JSON line:
   device   the card (nvidia-smi name and power limit), torch and CUDA versions;
-  build    every CUDA kernel (csrc/raster_exact.cu, csrc/trace.cu), one nvcc
-           per source, all started together; ptxas registers/spills/smem;
+  build    every CUDA kernel (csrc/raster_exact.cu, csrc/raster_tiles.cu,
+           csrc/trace.cu), one nvcc per source, all started together; ptxas
+           registers/spills/smem;
   compare  the raster kernel against its plain PyTorch version on the inputs
            the main path gives it at config 1, config 2 and a ragged image
            size (bitwise equality), both timed with CUDA events;
@@ -59,13 +60,33 @@ Phases, each reported as one JSON line:
   rt_grid10k  config 2's 10k-instance grid mirrored into a RayTraceRender:
            K7 primary Mrays/s at 1920x1080 on the flat layout, and K7
            against its plain version on every 64th ray (bitwise);
+  compare_paged  the paged traversal kernels against their plain versions
+           (bitwise) on the main path's wavefronts: K11 on the 10k crowd's
+           primary rays and K10 any hit on its shadow rays (1024x1024), K10
+           on config 2's grid at 1920x1080 with K7 on the flat layout of the
+           same rays beside it, K10 and K11 on the big model's primary rays;
+           kernel and plain ms, rays, mismatches, visits, bound;
+  crowd    the 10k crowd through RayTraceRender.render at 1024x1024 (paged
+           by prefer_paged): median frame ms, Mrays/s with the nominal 2WH
+           rays and with the live rays; the 600-instance crowd at 128x128
+           held to tests/goldens/crowd_paged.png through the paged and the
+           routed (flat) frame; 96x64 paged on the card against the CPU;
+  hybrid   HybridRender: the 128x128 example held to
+           tests/goldens/hybrid_example.png; config 4 at 1920x1080 (flat:
+           K1, K9, K8) and config 2's grid at 1920x1080 (paged: K1, K10,
+           K11): median frame ms and one frame's launches; a reduced copy of
+           each on the card against the CPU;
+  big_model  a 224 x 224 uv sphere (100,352 triangles, BLAS chunks) among
+           cubes in a RayTraceRender at 1920x1080: BLAS build seconds, chunk
+           count, primary Mrays/s through K11, median frame ms;
   launches every kernel was launched by the phases of its path (K1: config1,
            config2, translucent, supersample; K2: translucent, keyed_entry;
            K3/K4: keyed_entry; K5: draw_list; K6: compare_tiles; traversal:
            rt_frame and rt_grid10k), with the launch counters reset just
            before each and read just after; the kernels line counts K1/K2
            from the frame phases, K3/K4 from keyed_entry, K5 from draw_list,
-           K6 from compare_tiles (no frame runs it), K7-K9 from rt_frame;
+           K6 from compare_tiles (no frame runs it), K7-K9 from rt_frame,
+           K10/K11 from crowd, hybrid and big_model;
   sync     cost of the raster frame's one device-to-host read (the pair
            count): frame time as is vs. with the count supplied.
 
@@ -73,8 +94,9 @@ Usage: python3 chip_smoke.py            (all phases; needs one CUDA card)
        python3 chip_smoke.py --profile  (also a torch.profiler breakdown of
                                          configs 1, 2, the translucent grid,
                                          config 2 at supersample=2, config
-                                         2's draw-list frame and the 1080p
-                                         RT frame by stage,
+                                         2's draw-list frame, the 1080p
+                                         RT frame, the crowd frame and the
+                                         1080p hybrid frames by stage,
                                          with the tables written to
                                          chiprun_out/)
 Exit code 0 only when every phase passed; the last line of stdout is then
@@ -116,7 +138,11 @@ KERNELS = [dict(name="raster_exact", route="cuda", source=RASTER_CU,
            dict(name="trace_resolve", route="cuda", source=TRACE_CU,
                 replaces="paperrenderer_tpu/ops/trace_kernel.py:506"),
            dict(name="trace_bundle", route="cuda", source=TRACE_CU,
-                replaces="paperrenderer_tpu/ops/trace_kernel.py:1012")]
+                replaces="paperrenderer_tpu/ops/trace_kernel.py:1012"),
+           dict(name="trace_scene_paged", route="cuda", source=TRACE_CU,
+                replaces="paperrenderer_tpu/ops/trace_paged.py:214"),
+           dict(name="trace_resolve_paged", route="cuda", source=TRACE_CU,
+                replaces="paperrenderer_tpu/ops/trace_paged.py:575")]
 
 # Least-time bounds (published H100 SXM peaks):
 # bytes at the HBM rate, FP32 operations at the published FP32 peak.
@@ -480,6 +506,19 @@ def rec_check(rk, rp):
     return int(diff.sum()) == 0, int(diff.sum()), err
 
 
+def hit_flags(a, b):
+    """Any-hit records: the hit flag is the contract."""
+    mism = int((a.hit != b.hit).sum())
+    return mism == 0, mism, rec_check(a, b)[2]
+
+
+def resolve_check(a, b):
+    """Kernel vs plain (HitRecord2, (uv, normal, material))."""
+    ok, mism, err = rec_check(a[0], b[0])
+    same = all(same_bits(x, y) for x, y in zip(a[1], b[1]))
+    return ok and same, mism + (0 if same else 1), err
+
+
 def walk_bytes(scene, n_rays, per_ray_bytes):
     """Bytes a traversal must move: the scene tables once, and each ray's
     inputs and outputs once."""
@@ -560,10 +599,6 @@ def compare_trace(rt, cam, reps=10):
 
     # K7 closest / any hit on the primary rays, and closest on the second
     # TLAS with a cull mask that only the cube's instance mask meets
-    def hit_flags(a, b):   # any hit: the hit flag is the contract
-        mism = int((a.hit != b.hit).sum())
-        return mism == 0, mism, rec_check(a, b)[2]
-
     for name, any_hit, w in (
             ("k7_closest_primary", False, walk),
             ("k7_any_primary", True, walk),
@@ -577,11 +612,6 @@ def compare_trace(rt, cam, reps=10):
                 sc, o, wf["d"], wf["far"], any_hit=any_hit, t_min=TK.T_MIN,
                 counts=counts, **w),
             hit_flags if any_hit else rec_check, 48)
-
-    def resolve_check(a, b):
-        ok, mism, err = rec_check(a[0], b[0])
-        same = all(same_bits(x, y) for x, y in zip(a[1], b[1]))
-        return ok and same, mism + (0 if same else 1), err
 
     # K8 on the primary rays and on the reflection wavefront
     surf = wf["surf"]
@@ -686,6 +716,146 @@ def primary_rays_mrays(rt, cam, reps=10, check_every=0):
     return out
 
 
+def paged_bytes(scene, n_rays, per_ray_bytes, resolve=False):
+    """Bytes a paged traversal must move: its tables once (+ the resolve
+    tables), each ray's inputs and outputs once."""
+    tables = [scene.static_nodes, scene.static_codes, scene.leaf_rows,
+              scene.leaf_prim, scene.chunk_boxes, scene.chunk_codes,
+              scene.bch_nodes, scene.bch_codes, scene.bch_lpos,
+              scene.bch_lprim]
+    if resolve:
+        tables += [scene.chunk_smat, scene.tri_attr, scene.inv_rows]
+    return sum(t.numel() * t.element_size() for t in tables) \
+        + n_rays * per_ray_bytes
+
+
+def rt_tracer(rt, cam, paged):
+    """The tracer and the camera's primary rays of one RayTraceRender frame,
+    built as render_frame_rt builds them, on the layout `paged` names."""
+    import torch
+    from paperrenderer_tpu_torch.ops import accel as ACC
+    from paperrenderer_tpu_torch.ops import trace as TR
+
+    instances = rt.scene.flush()
+    blasset, meta = rt.accel.blas()
+    slots, masks, table, inst_mask, opaque, lights, _ = rt._device_inputs(
+        instances.capacity)
+    ctx = ACC.make_scene_tracer(
+        blasset, meta, instances, rt.accel.inst_blas(instances.capacity),
+        masks, rt.accel.tri_attr(), slots, table, tlas_index=0,
+        stack_size=rt.accel.stack_size(instances.capacity), paged=paged,
+        inst_mask=inst_mask, inst_opaque=opaque)
+    c = cam.matrices.to(rt.device)
+    o, d = TR.raygen(c, rt.width, rt.height,
+                     tile_order=TR.pick_tile(rt.width, rt.height))
+    far = torch.full((o.shape[0],), 1000.0, device=o.device)
+    return ctx, o.contiguous(), d, far, lights
+
+
+def compare_paged(crowd, grid, big, reps=10):
+    """K10/K11 against their plain versions (bitwise) on the main path's
+    wavefronts: K11 on the 10k crowd's primary rays and K10 any hit on its
+    shadow rays (1024x1024); K10 closest on config 2's 10k grid at
+    1920x1080, with K7 on the flat layout of the same rays beside it; K10
+    and K11 on the big model's primary rays (1920x1080). Kernel ms (CUDA
+    events), plain ms (one call, the flat view prebuilt), rays, mismatches,
+    the walk's visits (from the plain version) and the bound."""
+    import torch
+    from paperrenderer_tpu_torch.ops import trace as TR
+    from paperrenderer_tpu_torch.ops import trace_kernel as TK
+    from paperrenderer_tpu_torch.ops import trace_paged as TPG
+    from paperrenderer_tpu_torch.utils import random as rnd
+
+    out = {}
+
+    def case(name, ctx, o, d, t, kind, active=None):
+        walk = dict(root_code=ctx.root_code, stack_size=ctx.stack_size,
+                    max_steps=ctx._step_bound())
+        sc, r = ctx.scene, o.shape[0]
+        if kind == "k11":
+            kernel = lambda: TPG.trace_resolve_paged_kernel(
+                sc, ctx.slot_materials, o, d, t, active=active, **walk)
+            plain = lambda counts: TPG.trace_resolve_paged_plain(
+                sc, ctx.slot_materials, o, d, t, active=active,
+                counts=counts, flat=ctx.flat_view(), **walk)
+            check, per_ray, resolved = resolve_check, 48 + 24, r
+        else:
+            any_hit = kind == "k10_any"
+            kernel = lambda: TPG.trace_scene_paged_kernel(
+                sc, o, d, t, any_hit=any_hit, active=active, **walk)
+            plain = lambda counts: TPG.trace_scene_paged_plain(
+                sc, o, d, t, any_hit=any_hit, active=active, counts=counts,
+                flat=ctx.flat_view(), **walk)
+            check = hit_flags if any_hit else rec_check
+            per_ray, resolved = 48, 0
+        counts = {}
+        got = kernel()
+        ref, plain_ms = timed_once(lambda: plain(counts))
+        ok, mism, err = check(got, ref)
+        b, by = bound(paged_bytes(sc, r, per_ray, resolve=kind == "k11"),
+                      walk_ops(counts, resolved))
+        rec = got[0] if kind == "k11" else got
+        out[name] = dict(bitwise=ok, mismatches=mism, max_abs_err=err,
+                         rays=r, ms=timed(kernel, reps), plain_ms=plain_ms,
+                         visits=counts, bound_ms=b, bound_by=by,
+                         hit_fraction=float(rec.hit.float().mean()),
+                         tlas_chunks=sc.chunk_boxes.numel() // (512 * 12),
+                         blas_chunks=sc.bch_codes.numel() // 1024)
+        return got
+
+    # the crowd: primary rays (K11), then its shadow wavefront (K10 any hit)
+    rt, cam = crowd
+    ctx, o, d, far, lights = rt_tracer(rt, cam, paged=True)
+    rec, attrs = case("k11_crowd_primary", ctx, o, d, far, "k11")
+    surf = ctx.trace_resolve(o, d, far)
+    dirs, caps, actives, _ = TR._occlusion_samples(
+        surf, lights, rnd.fold_in(rt._key, 1), max(1, rt.params.shadow_samples))
+    origin = (surf.world_pos + surf.normal * 5e-3).contiguous()
+    case("k10_any_crowd_shadow", ctx, origin, dirs[0], caps[0], "k10_any",
+         active=actives[0])
+    out["k10_any_crowd_shadow"]["active_rays"] = int(actives[0].sum())
+
+    # config 2's grid: K10 closest, and K7 on the flat layout of the rays
+    rt, cam = grid
+    ctx, o, d, far, _ = rt_tracer(rt, cam, paged=True)
+    k10 = case("k10_grid_primary", ctx, o, d, far, "k10")
+    flat, o, d, far, _ = rt_tracer(rt, cam, paged=False)
+    k7 = TK.trace_scene_kernel(flat.scene, o, d, far,
+                               root_code=flat.root_code,
+                               stack_size=flat.stack_size)
+    out["k7_grid_primary_flat"] = dict(
+        ms=timed(lambda: TK.trace_scene_kernel(
+            flat.scene, o, d, far, root_code=flat.root_code,
+            stack_size=flat.stack_size), reps),
+        rays=o.shape[0], same_hits_as_k10=bool(torch.equal(k7.hit, k10.hit)),
+        same_t_as_k10=same_bits(k7.t, k10.t),
+        prim_differs_on=int((k7.prim != k10.prim).sum()))
+
+    # the big model: K10 and K11 on the primary rays
+    rt, cam = big
+    ctx, o, d, far, _ = rt_tracer(rt, cam, paged=True)
+    case("k10_big_primary", ctx, o, d, far, "k10")
+    case("k11_big_primary", ctx, o, d, far, "k11")
+    out["ok"] = all(v["bitwise"] for k, v in out.items() if "bitwise" in v)
+    return out
+
+
+def mrays(n_rays, ms):
+    return n_rays / ms / 1e3
+
+
+def hybrid_grid(n, width, height, device):
+    """Config 2's grid (scenes.build_dynamic_scene) mirrored into a
+    HybridRender -> (hybrid render, camera)."""
+    from paperrenderer_tpu_torch.scenes import build_dynamic_scene
+
+    eng, rp, cam = build_dynamic_scene(n, width, height, device=device)
+    hy = eng.create_hybrid_render(width=width, height=height,
+                                  lights=rp.lights)
+    hy.add_instances_from(rp)
+    return hy, cam
+
+
 def sync_cost(rp, cam, frames=20, rounds=4):
     """Frame time with the per-frame pair-count read vs. with the count
     supplied (same camera, so the count is known): loops of `frames`
@@ -760,6 +930,37 @@ def rt_stages():
     return [(ACC, "assemble_scene"), (TR, "raygen"),
             (ACC.SceneTracer, "trace_resolve"), (TR, "shadow_and_ao"),
             (TR, "reflections"), (TR, "shade_surfaces"), (RT, "tonemap")]
+
+
+def paged_rt_stages():
+    """The paged RT frame's stages (the crowd: primary K11, one K10 any-hit
+    shadow wavefront, no AO or reflection)."""
+    from paperrenderer_tpu_torch.ops import accel as ACC
+    from paperrenderer_tpu_torch.ops import trace as TR
+    from paperrenderer_tpu_torch.render import raytrace as RT
+
+    return [(ACC, "assemble_scene_paged"), (TR, "raygen"),
+            (ACC.PagedSceneTracer, "trace_resolve"),
+            (ACC.PagedSceneTracer, "trace_occlusion_bundle"),
+            (TR, "shade_surfaces"), (RT, "tonemap")]
+
+
+def hybrid_stages():
+    """The hybrid frame's stages: the raster G-buffer (the rasterize_exact
+    stages), the scene assembly of either layout, the primary-side
+    shadow+AO(+bounce) wavefront, deferred shading, the reflections (with
+    their bounce side's shadow_and_ao, also in its own row) and tonemap."""
+    from paperrenderer_tpu_torch.ops import accel as ACC
+    from paperrenderer_tpu_torch.ops import raster_exact as RE
+    from paperrenderer_tpu_torch.ops import trace as TR
+    from paperrenderer_tpu_torch.render import hybrid as HY
+
+    return [(HY, "expand_static"), (HY, "attach_cull"),
+            (RE, "triangle_coefficients"), (RE, "bin_groups"),
+            (RE, "rasterize_bins"), (HY, "resolve_gbuffer_pairs"),
+            (ACC, "assemble_scene"), (ACC, "assemble_scene_paged"),
+            (TR, "shadow_ao_bounce"), (TR, "shadow_and_ao"),
+            (HY, "shade_gbuffer"), (TR, "reflections"), (HY, "tonemap")]
 
 
 def profile_frames(render, stages, out_path, frames=5):
@@ -873,8 +1074,10 @@ def main():
     from paperrenderer_tpu_torch.ops import raster_exact as RE
     from paperrenderer_tpu_torch.ops import raster_pallas as TPL
     from paperrenderer_tpu_torch.ops import trace_kernel as TK
+    from paperrenderer_tpu_torch.ops import trace_paged as TPG
     from paperrenderer_tpu_torch.scenes import (
-        build_dynamic_scene, build_example_scene, build_rt_scene,
+        build_big_model_scene, build_crowd_scene, build_dynamic_scene,
+        build_example_scene, build_hybrid_scene, build_rt_scene,
         build_translucent_grid)
     from paperrenderer_tpu_torch.utils import cuda_build
 
@@ -1145,22 +1348,200 @@ def main():
                     frame_ms_1080p=ms, frame_ms_1080p_fuse_bounce=ms_fused,
                     config3=prim)
 
+    def grid_rt():
+        """Config 2's 10k grid mirrored into a RayTraceRender (1080p)."""
+        if "grid" not in rt_scenes:
+            eng, rp, cam = build_dynamic_scene(10_000, 1920, 1080,
+                                               device="cuda")
+            rt = eng.create_ray_trace_render(width=1920, height=1080,
+                                             lights=rp.lights)
+            rt.add_instances_from(rp)
+            rt_scenes["grid"] = (rt, cam)
+        return rt_scenes["grid"]
+
     def rt_grid10k():
-        eng, rp, cam = build_dynamic_scene(10_000, 1920, 1080, device="cuda")
-        rt = eng.create_ray_trace_render(width=1920, height=1080,
-                                         lights=rp.lights)
-        rt.add_instances_from(rp)
-        prim = primary_rays_mrays(rt, cam, check_every=64)
+        prim = primary_rays_mrays(*grid_rt(), check_every=64)
         return dict(ok=prim["subset_bitwise"], **prim)
 
+    def crowd_rt():
+        if "crowd" not in rt_scenes:
+            rt_scenes["crowd"] = build_crowd_scene(10_000, 1024, 1024,
+                                                   device="cuda")[2:]
+        return rt_scenes["crowd"]
+
+    def big_rt():
+        """The big model: a 224 x 224 uv sphere (100,352 triangles) among
+        cubes at 1920x1080; its BLAS build is timed here, once."""
+        if "big" not in rt_scenes:
+            _, rt, cam = build_big_model_scene(224, 224, 16, 1920, 1080,
+                                               device="cuda")
+            t0 = time.perf_counter()
+            rt.accel.blas()
+            torch.cuda.synchronize()
+            rt_scenes["big"] = (rt, cam, time.perf_counter() - t0)
+        return rt_scenes["big"][:2]
+
+    counters = (TK.LAUNCHES, TPG.LAUNCHES, RE.LAUNCHES)
+
+    def reset_counts():
+        for counter in counters:
+            for k in counter:
+                counter[k] = 0
+
+    def read_counts():
+        return {k: v for counter in counters for k, v in counter.items()
+                if v}
+
+    def counted_since(before):
+        """The launches since `before` (a read_counts()), in the counts of
+        the phase that runs."""
+        return {k: v - before.get(k, 0) for k, v in read_counts().items()
+                if v > before.get(k, 0)}
+
+    def crowd():
+        """The 10k crowd through RayTraceRender.render at 1024x1024 (paged
+        by prefer_paged), and the 600-instance crowd against
+        crowd_paged.png through the paged and the routed (flat) frame. Only
+        render calls launch kernels here: the live rays and the hit
+        fraction are those of compare_paged's wavefronts of this frame."""
+        rt, cam = crowd_rt()
+        before = read_counts()
+        ldr, aux = rt.render(cam)
+        one = counted_since(before)
+        finite = (bool(torch.isfinite(aux["hdr"]).all())
+                  and tuple(ldr.shape) == (1024, 1024, 3))
+        ms = frame_ms(rt, cam, frames=10, warmup=2)
+        waves = results["compare_paged"]
+        prim = waves["k11_crowd_primary"]
+        live = prim["rays"] + waves["k10_any_crowd_shadow"]["active_rays"]
+        nominal = 2 * prim["rays"]
+        out = dict(frame_ms=ms, paged=rt.accel.prefer_paged(
+                       rt.scene.flush().capacity),
+                   launches_one_frame=one,
+                   nominal_rays=nominal, live_rays=live,
+                   mrays_per_s_nominal=mrays(nominal, ms),
+                   mrays_per_s_live=mrays(live, ms),
+                   hit_fraction=prim["hit_fraction"])
+        ok = finite and out["paged"]
+        _, _, rt128, cam128 = build_crowd_scene(600, 128, 128, device="cuda")
+        for name, paged in (("golden128_paged", True),
+                            ("golden128_routed", None)):
+            good, mean, frac = bands(
+                rt128.render(cam128, paged=paged)[0].cpu().numpy(),
+                golden("crowd_paged"))
+            out[name] = dict(mean=mean, frac=frac, ok=good)
+            ok &= good
+        small = [build_crowd_scene(600, 96, 64, device=dev)[2:]
+                 for dev in ("cuda", "cpu")]
+        good, mean, frac = bands(
+            small[0][0].render(small[0][1], paged=True)[0].cpu().numpy(),
+            small[1][0].render(small[1][1], paged=True)[0].numpy())
+        out["card_vs_cpu_96x64_paged"] = dict(mean=mean, frac=frac, ok=good)
+        return dict(ok=ok and good, **out)
+
+    def hybrid():
+        """HybridRender: the 128x128 example against hybrid_example.png,
+        config 4 at 1920x1080 (flat: K1, K9, K8) and config 2's 10k grid at
+        1920x1080 (paged: K1, K10, K11) with each route's launches, and a
+        reduced copy of each on the card against the CPU."""
+        out, ok = {}, True
+        _, hy, cam = build_hybrid_scene(128, 128, device="cuda")
+        good, mean, frac = bands(hy.render(cam)[0].cpu().numpy(),
+                                 golden("hybrid_example"))
+        out["golden128"] = dict(mean=mean, frac=frac, ok=good)
+        ok &= good
+        for name, build in (("config4", lambda: build_hybrid_scene(
+                                1920, 1080, device="cuda")[1:]),
+                            ("grid10k", lambda: hybrid_grid(10_000, 1920,
+                                                            1080, "cuda"))):
+            hy, cam = build()
+            before = read_counts()
+            ldr, aux = hy.render(cam)
+            launches = counted_since(before)
+            ok &= (bool(torch.isfinite(aux["hdr"]).all())
+                   and tuple(ldr.shape) == (1080, 1920, 3))
+            out[name] = dict(frame_ms=frame_ms(hy, cam, frames=10, warmup=2),
+                             paged=aux["paged"],
+                             coverage=float(aux["coverage"]),
+                             launches_one_frame=launches)
+            if name == "grid10k":
+                hybrid_scenes["grid10k"] = (hy, cam)
+            else:
+                hybrid_scenes["config4"] = (hy, cam)
+        ok &= (not out["config4"]["paged"]) and out["grid10k"]["paged"]
+        for name, make, paged in (
+                ("example_96x64", lambda dev: build_hybrid_scene(
+                    96, 64, device=dev)[1:], None),
+                ("grid400_256x128_paged", lambda dev: hybrid_grid(
+                    400, 256, 128, dev), True)):
+            (hy_c, cam_c), (hy_h, cam_h) = make("cuda"), make("cpu")
+            good, mean, frac = bands(
+                hy_c.render(cam_c, paged=paged)[0].cpu().numpy(),
+                hy_h.render(cam_h, paged=paged)[0].numpy())
+            out[f"card_vs_cpu_{name}"] = dict(mean=mean, frac=frac, ok=good)
+            ok &= good
+        return dict(ok=ok, **out)
+
+    def big_model():
+        """The big model in a RayTraceRender at 1920x1080: BLAS build
+        seconds, chunk count, frame ms; the primary Mrays/s through K11 is
+        compare_paged's timing of this frame's primary rays."""
+        rt, cam = big_rt()
+        build_s = rt_scenes["big"][2]
+        _, meta = rt.accel.blas()
+        before = read_counts()
+        ldr, aux = rt.render(cam)
+        one = counted_since(before)
+        finite = (bool(torch.isfinite(aux["hdr"]).all())
+                  and tuple(ldr.shape) == (1080, 1920, 3))
+        k11 = results["compare_paged"]["k11_big_primary"]
+        capacity = rt.scene.flush().capacity
+        paged = rt.accel.prefer_paged(capacity)
+        return dict(ok=finite and meta.num_bchunks > 0 and paged,
+                    blas_build_s=build_s, blas_chunks=meta.num_bchunks,
+                    triangles=2 * 224 * 224, max_depth=meta.max_depth,
+                    stack_size=rt.accel.stack_size(capacity),
+                    paged=paged, launches_one_frame=one,
+                    primary_k11_ms=k11["ms"],
+                    primary_mrays_per_s=mrays(k11["rays"], k11["ms"]),
+                    hit_fraction=k11["hit_fraction"],
+                    frame_ms=frame_ms(rt, cam, frames=5, warmup=1))
+
+    def route_cost():
+        """The scenes prefer_paged sends to the paged layout, each framed
+        on both layouts in one call, in the order paged, flat, flat, paged
+        (a median of 10 frames each): the 10k crowd at 1024x1024, and
+        config 2's 10k grid in a RayTraceRender and in a HybridRender at
+        1920x1080."""
+        out = {}
+        for name, (r, cam) in (("crowd", crowd_rt()), ("rt_grid10k", grid_rt()),
+                               ("hybrid_grid10k", hybrid_scenes["grid10k"])):
+            ms = {True: [], False: []}
+            for paged in (True, False, False, True):
+                ms[paged].append(frame_ms(r, cam, frames=10, warmup=2,
+                                          paged=paged))
+            out[name] = dict(paged_ms=ms[True], flat_ms=ms[False],
+                             flat_over_paged=sum(ms[False]) / sum(ms[True]))
+        return out
+
+    hybrid_scenes = {}
     rt_launches = {}
-    for name, fn in (("rt_frame", rt_frame), ("rt_grid10k", rt_grid10k)):
-        for k in TK.LAUNCHES:           # count only this path's launches
-            TK.LAUNCHES[k] = 0
+    for name, fn in (("rt_frame", rt_frame), ("rt_grid10k", rt_grid10k),
+                     ("compare_paged", lambda: compare_paged(
+                         crowd_rt(), grid_rt(), big_rt())),
+                     ("crowd", crowd), ("hybrid", hybrid),
+                     ("big_model", big_model), ("route_cost", route_cost)):
+        reset_counts()                  # count only this path's launches
         phase(name, fn)
-        rt_launches[name] = dict(TK.LAUNCHES)
-    launches.update({k: rt_launches["rt_frame"][k] for k in TK.LAUNCHES})
+        rt_launches[name] = (read_counts() if name not in (
+            "compare_paged", "route_cost") else {})
+    launches.update({k: rt_launches["rt_frame"].get(k, 0)
+                     for k in TK.LAUNCHES})
     launch_path.update({k: ("rt_frame",) for k in TK.LAUNCHES})
+    paged_path = ("crowd", "hybrid", "big_model")
+    launches.update({k: sum(rt_launches[p].get(k, 0) for p in paged_path)
+                     for k in TPG.LAUNCHES})
+    launch_path.update({k: paged_path for k in TPG.LAUNCHES})
     raster_needs = dict(config1=["raster_exact"], config2=["raster_exact"],
                         translucent=["raster_exact", "raster_peel"],
                         supersample=["raster_exact"],
@@ -1168,11 +1549,22 @@ def main():
                                      "raster_classic"],
                         draw_list=["raster_tiles"],
                         compare_tiles=["raster_tiles_binned"])
+    hyb = results.get("hybrid", {})
     phase("launches", lambda: dict(
         ok=(all(raster_launches.get(p, {}).get(k, 0) > 0
                 for p, ks in raster_needs.items() for k in ks)
-            and all(n > 0 for n in rt_launches["rt_frame"].values())
-            and rt_launches["rt_grid10k"]["trace_scene"] > 0),
+            and all(rt_launches["rt_frame"].get(k, 0) > 0
+                    for k in TK.LAUNCHES)
+            and rt_launches["rt_grid10k"].get("trace_scene", 0) > 0
+            and all(rt_launches[p].get(k, 0) > 0 for p in paged_path
+                    for k in TPG.LAUNCHES)
+            and all(hyb.get("config4", {}).get("launches_one_frame", {})
+                    .get(k, 0) > 0 for k in ("raster_exact", "trace_bundle",
+                                             "trace_resolve"))
+            and all(hyb.get("grid10k", {}).get("launches_one_frame", {})
+                    .get(k, 0) > 0 for k in ("raster_exact",
+                                             "trace_scene_paged",
+                                             "trace_resolve_paged"))),
         **raster_launches, **rt_launches))
     phase("sync", lambda: {f"config{c}": sync_cost(*get(c)) for c in (1, 2)})
     if args.profile:
@@ -1189,6 +1581,17 @@ def main():
         phase("profile_rt", lambda: profile_frames(
             functools.partial(rt_1080()[0].render, rt_1080()[1]), rt_stages(),
             os.path.join(out_dir, "profile_rt_1080p.txt")))
+        phase("profile_crowd", lambda: profile_frames(
+            functools.partial(crowd_rt()[0].render, crowd_rt()[1]),
+            paged_rt_stages(), os.path.join(out_dir, "profile_crowd.txt")))
+        for name in ("config4", "grid10k"):
+            if name in hybrid_scenes:
+                hy, cam = hybrid_scenes[name]
+                phase(f"profile_hybrid_{name}", lambda hy=hy, cam=cam, n=name:
+                      profile_frames(functools.partial(hy.render, cam),
+                                     hybrid_stages(),
+                                     os.path.join(out_dir,
+                                                  f"profile_hybrid_{n}.txt")))
 
     cmp = results.get("compare", {})
     cmp1, cmp2 = cmp.get("config1", {}), cmp.get("config2", {})
@@ -1207,7 +1610,11 @@ def main():
     # the wavefront each traversal kernel is timed on (all cases in the
     # compare_trace line)
     timed_on = dict(trace_scene="k7_closest_primary",
-                    trace_resolve="k8_primary", trace_bundle="k9_shadow_ao")
+                    trace_resolve="k8_primary", trace_bundle="k9_shadow_ao",
+                    trace_scene_paged="k10_grid_primary",
+                    trace_resolve_paged="k11_crowd_primary")
+    prefix = dict(trace_scene="k7", trace_resolve="k8", trace_bundle="k9",
+                  trace_scene_paged="k10", trace_resolve_paged="k11")
     rows = []
     for k in KERNELS:
         if k["name"] == "raster_exact":
@@ -1229,16 +1636,22 @@ def main():
                 timed_on=names[0])
             row.update({"ms_" + c: ck_.get(c, {}).get("ms") for c in names[1:]})
         else:
-            names = [c for c in ct if c.startswith(
-                {"trace_scene": "k7", "trace_resolve": "k8",
-                 "trace_bundle": "k9"}[k["name"]])]
-            case = ct.get(timed_on[k["name"]], {})
+            src = ct if prefix[k["name"]] in ("k7", "k8", "k9") else \
+                results.get("compare_paged", {})
+            names = [c for c in src if c.startswith(prefix[k["name"]])
+                     and "bitwise" in src[c]]
+            case = src.get(timed_on[k["name"]], {})
             row = dict(
-                max_abs_err=max([ct[c].get("max_abs_err", float("nan"))
+                max_abs_err=max([src[c].get("max_abs_err", float("nan"))
                                  for c in names] or [float("nan")]),
                 ms=case.get("ms"), plain_ms=case.get("plain_ms"),
                 bound_ms=case.get("bound_ms"), bound_by=case.get("bound_by"),
                 timed_on=timed_on[k["name"]])
+            row.update({"ms_" + c: src[c].get("ms") for c in names
+                        if c != timed_on[k["name"]]})
+            if k["name"] == "trace_scene_paged":   # K7 on the same rays
+                row["ms_k7_grid_primary_flat"] = src.get(
+                    "k7_grid_primary_flat", {}).get("ms")
         if k["name"] in RE.LAUNCHES:
             row["launches_keyed_entry"] = raster_launches.get(
                 "keyed_entry", {}).get(k["name"], 0)

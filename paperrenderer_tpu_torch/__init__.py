@@ -9,8 +9,10 @@ asks for the CPU; on a CPU tensor each kernel wrapper runs its plain
 PyTorch version instead.
 
 Ported so far: the static raster frame, ``RenderPass.render(cam)``, the
-draw-list raster frame, ``RenderPass.render(cam, static_path=False)``, and
-the ray-traced frame, ``RayTraceRender.render(cam)``.
+draw-list raster frame, ``RenderPass.render(cam, static_path=False)``, the
+ray-traced frame, ``RayTraceRender.render(cam)``, on the flat and the paged
+layout (big scenes, big models), and the hybrid frame,
+``HybridRender.render(cam)``.
 """
 
 import torch as _torch
@@ -39,7 +41,7 @@ from .core import (  # noqa: E402
     make_torus,
     make_uv_sphere,
 )
-from .render import RayTraceRender, RenderPass  # noqa: E402
+from .render import HybridRender, RayTraceRender, RenderPass  # noqa: E402
 from .utils import Logger, LogType, StatisticsTracker, Timer  # noqa: E402
 
 __version__ = "0.1.0"
@@ -47,7 +49,8 @@ __version__ = "0.1.0"
 __all__ = [
     "Camera", "CameraMatrices", "GeometryArena", "RenderEngine",
     "Material", "MaterialInstance", "MaterialMesh", "MaterialRegistry",
-    "Model", "ModelInstance", "RayTraceRender", "RenderPass", "Scene",
+    "HybridRender", "Model", "ModelInstance", "RayTraceRender", "RenderPass",
+    "Scene",
     "make_cube", "make_icosphere", "make_plane", "make_torus", "make_uv_sphere",
     "Logger", "LogType", "StatisticsTracker", "Timer",
     "__version__",

@@ -78,3 +78,8 @@ class RenderEngine:
         from ..render.raytrace import RayTraceRender
 
         return RayTraceRender(self.scene, self.materials, **kwargs)
+
+    def create_hybrid_render(self, **kwargs):
+        from ..render.hybrid import HybridRender
+
+        return HybridRender(self.scene, self.materials, **kwargs)

@@ -10,6 +10,12 @@
 //                               any-hit occlusion samples -> bitmask,
 //                               closest-t AO samples, optionally one
 //                               closest-hit + resolve sample
+// and the paged traversal kernels of paperrenderer_tpu/ops/trace_paged.py:
+//   K10 trace_paged_launch         <- _make_kernel_paged (:214): K7's walk
+//                                     over a PagedScene
+//   K11 trace_resolve_paged_launch <- _make_resolve_kernel_paged (:575):
+//                                     K8's over a PagedScene, the material
+//                                     from the chunk's slot-material block
 //
 // Design: one thread per ray (per origin for K9), each walking its own stack
 // in local memory with the pop/push machine of accel.trace_scene (the plain
@@ -25,6 +31,20 @@
 // K9 walks its samples one after another in the same thread: the origin is
 // read once and every sample's result is the one its own walk gives, which
 // is what the plain version (one trace per sample) computes.
+//
+// K10/K11 are the same walk templated on the layout (PAGED). A paged scene
+// has three row tables: the static rows (BLAS top trees, root BVH over the
+// TLAS chunks), the TLAS chunk blocks and the BLAS chunk blocks. A code
+// with LOCAL_FLAG (bit 27) names a row of the current chunk block; the walk
+// rebases such child codes to absolute rows of their block's table when it
+// pushes them, so no current-chunk state is kept: the TLAS table for
+// world-space codes, the BLAS-chunk tables for object-space ones. A
+// TYPE_CHUNK code names a block and is walked as a box pop of the block's
+// row 0, which is what the flat view (accel.paged_to_flat, the plain
+// version's scene) holds in its place, so both take the same steps. The
+// instance record word is read as data, never decoded as a code. The TPU
+// kernels DMA the current chunk into SMEM; here every table is read from
+// global memory (through L2) and nothing is staged.
 //
 // Bitwise parity with the plain version: the file is built with -fmad=false
 // and every expression is evaluated in the plain version's operation order
@@ -49,31 +69,48 @@ constexpr int STACK_MAX = 64;     // per-thread stack; the wrapper checks
 constexpr int TYPE_BOX = 0;
 constexpr int TYPE_LEAF = 1;
 constexpr int TYPE_INST = 2;
+constexpr int TYPE_CHUNK = 3;
 constexpr int PAYLOAD_MASK = (1 << 28) - 1;
+constexpr int LOCAL_FLAG = 1 << 27;
+constexpr int PAYLOAD_MASK_P = (1 << 27) - 1;   // paged payload
+constexpr int CHUNK = 256;        // instances per TLAS chunk
+constexpr int BROWS = 2 * CHUNK;  // rows per TLAS chunk block
+constexpr int BL_LEAVES = 256;    // leaf rows per BLAS chunk
+constexpr int BL_NROWS = 512;     // node rows per BLAS chunk block
 constexpr int INST_ID_MASK = 0x007FFFFF;
 constexpr int THREADS = 128;
 
 struct SceneView {
-  const float* __restrict__ nodes;      // f32[nn, 12]
+  const float* __restrict__ nodes;      // f32[nn, 12] (paged: static rows)
   const int* __restrict__ codes;        // i32[nn, 2]
   const float* __restrict__ leaf;       // f32[nl, 120]
   const int* __restrict__ leaf_prim;    // i32[nl, 8]
   int nn, nl;
-  int root, stack_size, cull_mask;
+  int root, stack_size, cull_mask, max_steps;
   float t_min;
+  // paged layout only
+  const float* __restrict__ cboxes;     // f32[nct, 12] TLAS chunk blocks
+  const int* __restrict__ ccodes;       // i32[nct, 2]
+  const float* __restrict__ bnodes;     // f32[nbn, 12] BLAS chunk blocks
+  const int* __restrict__ bcodes;       // i32[nbn, 2]
+  const float* __restrict__ blpos;      // f32[nbl, 72] BLAS chunk leaves
+  const int* __restrict__ blprim;       // i32[nbl, 8]
+  int nct, nbn, nbl;
 };
 
 struct ResolveView {
   const float* __restrict__ tri_attr;   // f32[Ta, 16]
   const float* __restrict__ inv_rows;   // f32[N, 12]
-  const int* __restrict__ slot_mats;    // i32[N, S]
+  const int* __restrict__ slot_mats;    // i32[N, S] (paged: chunk_smat)
   int n_inst, n_slots;
+  int smat_blk;                         // paged: per-chunk block length
 };
 
 struct Hit {
   float t;
   int prim, inst;
   float u, v;
+  int irow;   // paged: TLAS chunk row of the hit's instance
 };
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
@@ -96,7 +133,14 @@ __device__ __forceinline__ bool slab(const float* b, const float* o,
   return (tf >= fmaxf(tn, 0.0f)) && (tn <= t_max) && (__ldg(b) <= __ldg(b + 3));
 }
 
-template <bool ANY_HIT>
+// a child code of a chunk block row, rebased to an absolute row of its
+// block's table (box and instance rows: base_row; leaves: base_leaf)
+__device__ __forceinline__ int rebase(int c, int base_row, int base_leaf) {
+  if (((c >> 27) & 1) == 0) return c;
+  return c + (((c >> 28) & 3) == TYPE_LEAF ? base_leaf : base_row);
+}
+
+template <bool PAGED, bool ANY_HIT>
 __device__ Hit traverse(const SceneView& sc, const float* o, const float* d,
                         float t_max, bool active) {
   int stack[STACK_MAX];
@@ -104,19 +148,32 @@ __device__ Hit traverse(const SceneView& sc, const float* o, const float* d,
   int sp = active ? 1 : 0;
   stack[0] = sc.root;
   float best_t = t_max, bu = 0.0f, bv = 0.0f;
-  int best_prim = -1, best_inst = -1, cur_inst = 0;
+  int best_prim = -1, best_inst = -1, cur_inst = 0, cur_row = 0, best_row = 0;
   float oo[3] = {o[0], o[1], o[2]};
   float dd[3] = {d[0], d[1], d[2]};
 
-  while (sp > 0) {
+  // the step bound is the paged tracer's (PagedSceneTracer._step_bound);
+  // the flat walk has none, as before
+  for (int step = 0; sp > 0 && (!PAGED || step < sc.max_steps); ++step) {
     const int top = sp - 1;
     const int code = top < s ? stack[top] : 0;
     sp = top;
     const int typ = (code >> 28) & 3;
-    const int payload = code & PAYLOAD_MASK;
+    const bool local = PAGED && (typ == TYPE_CHUNK || ((code >> 27) & 1));
+    const bool obj = ((code >> 30) & 1) != 0;
     if (typ == TYPE_INST) {
-      const int p = clampi(payload, 0, sc.nn - 1);
-      const float* m = sc.nodes + (size_t)p * 12;
+      const float* m;
+      const int* cp;
+      if (PAGED) {   // instance rows live in the TLAS chunk blocks only
+        const int p = clampi(code & PAYLOAD_MASK_P, 0, sc.nct - 1);
+        m = sc.cboxes + (size_t)p * 12;
+        cp = sc.ccodes + 2 * (size_t)p;
+        cur_row = p;
+      } else {
+        const int p = clampi(code & PAYLOAD_MASK, 0, sc.nn - 1);
+        m = sc.nodes + (size_t)p * 12;
+        cp = sc.codes + 2 * (size_t)p;
+      }
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
         const float m0 = __ldg(m + 4 * k), m1 = __ldg(m + 4 * k + 1);
@@ -124,26 +181,51 @@ __device__ Hit traverse(const SceneView& sc, const float* o, const float* d,
         oo[k] = m0 * o[0] + m1 * o[1] + m2 * o[2] + m3;
         dd[k] = m0 * d[0] + m1 * d[1] + m2 * d[2];
       }
-      const int root = __ldg(sc.codes + 2 * p);
-      cur_inst = __ldg(sc.codes + 2 * p + 1);
+      const int root = __ldg(cp);
+      cur_inst = __ldg(cp + 1);   // the record word: data, not a code
       if (((cur_inst >> 24) & sc.cull_mask) != 0) {
         if (sp < s) stack[sp] = root;
         ++sp;
       }
-    } else if (typ == TYPE_BOX) {
-      const int p = clampi(payload, 0, sc.nn - 1);
-      const bool obj = ((code >> 30) & 1) != 0;
+    } else if (typ == TYPE_BOX || (PAGED && typ == TYPE_CHUNK)) {
+      const float* row;
+      const int* cp;
+      int base_row = 0, base_leaf = 0;
+      if (!PAGED || !local) {
+        const int p = clampi(code & (PAGED ? PAYLOAD_MASK_P : PAYLOAD_MASK),
+                             0, sc.nn - 1);
+        row = sc.nodes + (size_t)p * 12;
+        cp = sc.codes + 2 * (size_t)p;
+      } else {
+        int pay = code & PAYLOAD_MASK_P;
+        if (typ == TYPE_CHUNK) pay *= obj ? BL_NROWS : BROWS;   // row 0
+        if (obj) {   // a BLAS chunk block
+          const int p = clampi(pay, 0, sc.nbn - 1);
+          row = sc.bnodes + (size_t)p * 12;
+          cp = sc.bcodes + 2 * (size_t)p;
+          base_row = p - p % BL_NROWS;
+          base_leaf = p / BL_NROWS * BL_LEAVES;
+        } else {     // a TLAS chunk block
+          const int p = clampi(pay, 0, sc.nct - 1);
+          row = sc.cboxes + (size_t)p * 12;
+          cp = sc.ccodes + 2 * (size_t)p;
+          base_row = p - p % BROWS;
+        }
+      }
       const float* ot = obj ? oo : o;
       const float* dt = obj ? dd : d;
       float inv_d[3];
 #pragma unroll
       for (int k = 0; k < 3; ++k)
         inv_d[k] = 1.0f / (fabsf(dt[k]) < 1e-12f ? 1e-12f : dt[k]);
-      const float* row = sc.nodes + (size_t)p * 12;
       float tn0, tn1;
       const bool h0 = slab(row, ot, inv_d, best_t, &tn0);
       const bool h1 = slab(row + 6, ot, inv_d, best_t, &tn1);
-      const int c0 = __ldg(sc.codes + 2 * p), c1 = __ldg(sc.codes + 2 * p + 1);
+      int c0 = __ldg(cp), c1 = __ldg(cp + 1);
+      if (local) {
+        c0 = rebase(c0, base_row, base_leaf);
+        c1 = rebase(c1, base_row, base_leaf);
+      }
       const bool first0 = tn0 <= tn1;
       const int near_c = first0 ? c0 : c1, far_c = first0 ? c1 : c0;
       const bool near_h = first0 ? h0 : h1, far_h = first0 ? h1 : h0;
@@ -156,14 +238,24 @@ __device__ Hit traverse(const SceneView& sc, const float* o, const float* d,
         ++sp;
       }
     } else if (typ == TYPE_LEAF) {
-      const int p = clampi(payload, 0, sc.nl - 1);
-      const float* row = sc.leaf + (size_t)p * LEAF_ROW;
+      const float* row;
+      const int* prim;
+      if (local) {   // a BLAS chunk leaf: positions only (72 floats)
+        const int p = clampi(code & PAYLOAD_MASK_P, 0, sc.nbl - 1);
+        row = sc.blpos + (size_t)p * 72;
+        prim = sc.blprim + (size_t)p * K;
+      } else {
+        const int p = clampi(code & (PAGED ? PAYLOAD_MASK_P : PAYLOAD_MASK),
+                             0, sc.nl - 1);
+        row = sc.leaf + (size_t)p * LEAF_ROW;
+        prim = sc.leaf_prim + (size_t)p * K;
+      }
       float kt = CUDART_INF_F, ku = 0.0f, kv = 0.0f;
       int ktag = -1;
       bool win = false;
 #pragma unroll 1
       for (int k = 0; k < K; ++k) {
-        const int tag = __ldg(sc.leaf_prim + (size_t)p * K + k);
+        const int tag = __ldg(prim + k);
         const float* tri = row + 9 * k;
         const float a0 = __ldg(tri), a1 = __ldg(tri + 1), a2 = __ldg(tri + 2);
         const float e10 = __ldg(tri + 3), e11 = __ldg(tri + 4), e12 = __ldg(tri + 5);
@@ -197,6 +289,7 @@ __device__ Hit traverse(const SceneView& sc, const float* o, const float* d,
         best_t = kt;
         best_prim = ktag & 0x00FFFFFF;
         best_inst = cur_inst & INST_ID_MASK;
+        best_row = cur_row;
         bu = ku;
         bv = kv;
         if (ANY_HIT) sp = 0;
@@ -209,10 +302,14 @@ __device__ Hit traverse(const SceneView& sc, const float* o, const float* d,
   h.inst = best_prim < 0 ? -1 : best_inst;
   h.u = bu;
   h.v = bv;
+  h.irow = best_row;
   return h;
 }
 
-// accel.resolve_attrs: uv, world normal (before normalization), material
+// accel.resolve_attrs: uv, world normal (before normalization), material.
+// The paged form reads the material from the hit chunk's slot-material
+// block (chunk_smat) at the instance's place in its chunk.
+template <bool PAGED>
 __device__ void resolve(const ResolveView& rv, const Hit& h, float* uv,
                         float* n, int* material) {
   const int pid = h.prim < 0 ? 0 : h.prim;
@@ -233,8 +330,16 @@ __device__ void resolve(const ResolveView& rv, const Hit& h, float* uv,
   for (int k = 0; k < 2; ++k)
     uv[k] = w0 * __ldg(a + 9 + k) + u * __ldg(a + 11 + k) + v * __ldg(a + 13 + k);
   const int slot = clampi((int)__ldg(a + 15), 0, rv.n_slots - 1);
-  const int mat = __ldg(rv.slot_mats + (size_t)iid * rv.n_slots + slot);
-  *material = h.prim >= 0 ? mat : 0;
+  if (PAGED) {
+    const int chunk = h.irow / BROWS;
+    const int k = h.irow - chunk * BROWS - (CHUNK - 1);
+    *material = h.prim >= 0 ? __ldg(rv.slot_mats + (size_t)chunk * rv.smat_blk
+                                    + (size_t)k * rv.n_slots + slot)
+                            : 0;
+  } else {
+    const int mat = __ldg(rv.slot_mats + (size_t)iid * rv.n_slots + slot);
+    *material = h.prim >= 0 ? mat : 0;
+  }
 }
 
 __device__ __forceinline__ void load3(const float* p, int i, float* v) {
@@ -252,12 +357,13 @@ __device__ __forceinline__ void store_hit(const Hit& h, int i, float* t,
   bary[2 * (size_t)i + 1] = h.v;
 }
 
+template <bool PAGED>
 __device__ __forceinline__ void store_resolved(const ResolveView& rv,
                                                const Hit& h, int i, float* uv,
                                                float* normal, int* material) {
   float a[2], n[3];
   int mat;
-  resolve(rv, h, a, n, &mat);
+  resolve<PAGED>(rv, h, a, n, &mat);
   uv[2 * (size_t)i] = a[0];
   uv[2 * (size_t)i + 1] = a[1];
   normal[3 * (size_t)i] = n[0];
@@ -266,7 +372,7 @@ __device__ __forceinline__ void store_resolved(const ResolveView& rv,
   material[i] = mat;
 }
 
-template <bool ANY_HIT, bool RESOLVE>
+template <bool PAGED, bool ANY_HIT, bool RESOLVE>
 __global__ void __launch_bounds__(THREADS)
 trace_kernel(SceneView sc, ResolveView rv, const float* __restrict__ ray_o,
              const float* __restrict__ ray_d, const float* __restrict__ t_max,
@@ -279,9 +385,9 @@ trace_kernel(SceneView sc, ResolveView rv, const float* __restrict__ ray_o,
   load3(ray_o, i, o);
   load3(ray_d, i, d);
   const bool act = active == nullptr || active[i] != 0;
-  const Hit h = traverse<ANY_HIT>(sc, o, d, __ldg(t_max + i), act);
+  const Hit h = traverse<PAGED, ANY_HIT>(sc, o, d, __ldg(t_max + i), act);
   store_hit(h, i, out_t, out_prim, out_inst, out_bary);
-  if (RESOLVE) store_resolved(rv, h, i, out_uv, out_normal, out_mat);
+  if (RESOLVE) store_resolved<PAGED>(rv, h, i, out_uv, out_normal, out_mat);
 }
 
 struct BundleArgs {
@@ -313,7 +419,8 @@ bundle_kernel(SceneView sc, ResolveView rv, BundleArgs b, int* out_bits,
   for (int s = 0; s < b.n_occ; ++s) {
     const bool act = b.occ_act[s * r + i] != 0;
     load3(b.occ_d + s * r * 3, i, d);
-    const Hit h = traverse<true>(sc, o, d, __ldg(b.occ_cap + s * r + i), act);
+    const Hit h = traverse<false, true>(sc, o, d, __ldg(b.occ_cap + s * r + i),
+                                        act);
     bits |= (int)(h.prim >= 0 || !act) << s;
   }
   out_bits[i] = bits;
@@ -321,16 +428,16 @@ bundle_kernel(SceneView sc, ResolveView rv, BundleArgs b, int* out_bits,
     const bool act = b.ao_act[j * r + i] != 0;
     const float cap = __ldg(b.ao_cap + j * r + i);
     load3(b.ao_d + j * r * 3, i, d);
-    const Hit h = traverse<false>(sc, o, d, cap, act);
+    const Hit h = traverse<false, false>(sc, o, d, cap, act);
     const float t = h.prim >= 0 ? h.t : cap;
     out_ao_t[j * r + i] = act ? t : -3e38f;
   }
   if (b.rs_d != nullptr) {
     load3(b.rs_d, i, d);
-    const Hit h = traverse<false>(sc, o, d, __ldg(b.rs_cap + i),
-                                  b.rs_act[i] != 0);
+    const Hit h = traverse<false, false>(sc, o, d, __ldg(b.rs_cap + i),
+                                         b.rs_act[i] != 0);
     store_hit(h, i, rs_t, rs_prim, rs_inst, rs_bary);
-    store_resolved(rv, h, i, rs_uv, rs_normal, rs_mat);
+    store_resolved<false>(rv, h, i, rs_uv, rs_normal, rs_mat);
   }
 }
 
@@ -347,7 +454,30 @@ SceneView scene_view(const float* nodes, const int* codes, const float* leaf,
   sc.root = root;
   sc.stack_size = stack_size;
   sc.cull_mask = cull_mask;
+  sc.max_steps = 0;   // paged walks only
   sc.t_min = t_min;
+  sc.cboxes = sc.bnodes = sc.blpos = nullptr;
+  sc.ccodes = sc.bcodes = sc.blprim = nullptr;
+  sc.nct = sc.nbn = sc.nbl = 0;
+  return sc;
+}
+
+// the paged scene's chunk tables (nct TLAS chunk rows, nbn BLAS chunk node
+// rows, nbl BLAS chunk leaves)
+SceneView paged_view(SceneView sc, const float* cboxes, const int* ccodes,
+                     int nct, const float* bnodes, const int* bcodes, int nbn,
+                     const float* blpos, const int* blprim, int nbl,
+                     int max_steps) {
+  sc.cboxes = cboxes;
+  sc.ccodes = ccodes;
+  sc.nct = nct;
+  sc.bnodes = bnodes;
+  sc.bcodes = bcodes;
+  sc.nbn = nbn;
+  sc.blpos = blpos;
+  sc.blprim = blprim;
+  sc.nbl = nbl;
+  sc.max_steps = max_steps;
   return sc;
 }
 
@@ -359,6 +489,7 @@ ResolveView resolve_view(const float* tri_attr, const float* inv_rows,
   rv.slot_mats = slot_mats;
   rv.n_inst = n_inst;
   rv.n_slots = n_slots;
+  rv.smat_blk = 0;
   return rv;
 }
 
@@ -383,11 +514,11 @@ int trace_launch(const float* nodes, const int* codes, const float* leaf,
                             stack_size, cull_mask, t_min);
   ResolveView rv = resolve_view(nullptr, nullptr, nullptr, 1, 1);
   if (any_hit)
-    trace_kernel<true, false><<<blocks(n_rays), THREADS, 0, stream>>>(
+    trace_kernel<false, true, false><<<blocks(n_rays), THREADS, 0, stream>>>(
         sc, rv, ray_o, ray_d, t_max, active, n_rays, out_t, out_prim,
         out_inst, out_bary, nullptr, nullptr, nullptr);
   else
-    trace_kernel<false, false><<<blocks(n_rays), THREADS, 0, stream>>>(
+    trace_kernel<false, false, false><<<blocks(n_rays), THREADS, 0, stream>>>(
         sc, rv, ray_o, ray_d, t_max, active, n_rays, out_t, out_prim,
         out_inst, out_bary, nullptr, nullptr, nullptr);
   return (int)cudaGetLastError();
@@ -409,7 +540,7 @@ int trace_resolve_launch(const float* nodes, const int* codes,
   SceneView sc = scene_view(nodes, codes, leaf, leaf_prim, nn, nl, root,
                             stack_size, cull_mask, t_min);
   ResolveView rv = resolve_view(tri_attr, inv_rows, slot_mats, n_inst, n_slots);
-  trace_kernel<false, true><<<blocks(n_rays), THREADS, 0, stream>>>(
+  trace_kernel<false, false, true><<<blocks(n_rays), THREADS, 0, stream>>>(
       sc, rv, ray_o, ray_d, t_max, active, n_rays, out_t, out_prim, out_inst,
       out_bary, out_uv, out_normal, out_mat);
   return (int)cudaGetLastError();
@@ -452,6 +583,62 @@ int trace_bundle_launch(const float* nodes, const int* codes,
   bundle_kernel<<<blocks(n_rays), THREADS, 0, stream>>>(
       sc, rv, b, out_bits, out_ao_t, rs_t, rs_prim, rs_inst, rs_bary, rs_uv,
       rs_normal, rs_mat);
+  return (int)cudaGetLastError();
+}
+
+// K10: closest hit (any_hit = 0) or any hit (any_hit = 1) over a PagedScene
+int trace_paged_launch(const float* nodes, const int* codes, const float* leaf,
+                       const int* leaf_prim, int nn, int nl, int root,
+                       int stack_size, int cull_mask, float t_min,
+                       const float* cboxes, const int* ccodes, int nct,
+                       const float* bnodes, const int* bcodes, int nbn,
+                       const float* blpos, const int* blprim, int nbl,
+                       int max_steps, int any_hit, const float* ray_o,
+                       const float* ray_d, const float* t_max,
+                       const unsigned char* active, int n_rays, float* out_t,
+                       int* out_prim, int* out_inst, float* out_bary,
+                       cudaStream_t stream) {
+  if (n_rays <= 0) return 0;
+  SceneView sc = paged_view(
+      scene_view(nodes, codes, leaf, leaf_prim, nn, nl, root, stack_size,
+                 cull_mask, t_min),
+      cboxes, ccodes, nct, bnodes, bcodes, nbn, blpos, blprim, nbl, max_steps);
+  ResolveView rv = resolve_view(nullptr, nullptr, nullptr, 1, 1);
+  if (any_hit)
+    trace_kernel<true, true, false><<<blocks(n_rays), THREADS, 0, stream>>>(
+        sc, rv, ray_o, ray_d, t_max, active, n_rays, out_t, out_prim,
+        out_inst, out_bary, nullptr, nullptr, nullptr);
+  else
+    trace_kernel<true, false, false><<<blocks(n_rays), THREADS, 0, stream>>>(
+        sc, rv, ray_o, ray_d, t_max, active, n_rays, out_t, out_prim,
+        out_inst, out_bary, nullptr, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// K11: closest hit + resolve over a PagedScene; the material comes from
+// chunk_smat (smat_blk ints per chunk, n_slots per instance)
+int trace_resolve_paged_launch(
+    const float* nodes, const int* codes, const float* leaf,
+    const int* leaf_prim, int nn, int nl, int root, int stack_size,
+    int cull_mask, float t_min, const float* cboxes, const int* ccodes,
+    int nct, const float* bnodes, const int* bcodes, int nbn,
+    const float* blpos, const int* blprim, int nbl, int max_steps,
+    const float* tri_attr, const float* inv_rows, const int* chunk_smat,
+    int n_inst, int n_slots, int smat_blk, const float* ray_o,
+    const float* ray_d, const float* t_max, const unsigned char* active,
+    int n_rays, float* out_t, int* out_prim, int* out_inst, float* out_bary,
+    float* out_uv, float* out_normal, int* out_mat, cudaStream_t stream) {
+  if (n_rays <= 0) return 0;
+  SceneView sc = paged_view(
+      scene_view(nodes, codes, leaf, leaf_prim, nn, nl, root, stack_size,
+                 cull_mask, t_min),
+      cboxes, ccodes, nct, bnodes, bcodes, nbn, blpos, blprim, nbl, max_steps);
+  ResolveView rv = resolve_view(tri_attr, inv_rows, chunk_smat, n_inst,
+                                n_slots);
+  rv.smat_blk = smat_blk;
+  trace_kernel<true, false, true><<<blocks(n_rays), THREADS, 0, stream>>>(
+      sc, rv, ray_o, ray_d, t_max, active, n_rays, out_t, out_prim, out_inst,
+      out_bary, out_uv, out_normal, out_mat);
   return (int)cudaGetLastError();
 }
 

@@ -6,8 +6,8 @@ have the same field names as the port's. Fetch their fields with
 for both packages — the parity tests do exactly that. Fields the port does
 not carry (the texture ids of ``MaterialTable``, the jump-fill and
 per-triangle id fields of ``StaticMapping``, the static light flags, the
-big-model chunk tables of ``BLASSet``, the leaf-normal and forward-matrix
-tables that only the TPU kernels read) are ignored.
+leaf-normal and forward-matrix tables of ``BLASSet``, ``RTScene`` and
+``PagedScene`` that only the TPU kernels read) are ignored.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from .core.camera import CameraMatrices
 from .core.geometry import GeometryArrays
 from .core.material import MaterialTable
 from .core.scene import InstanceArrays, SceneTables
-from .ops.accel import BLASSet, HitRecord2, RTScene
+from .ops.accel import BLASSet, HitRecord2, PagedScene, RTScene
 from .ops.preprocess import PreprocessResult
 from .ops.raster import TriangleBatch
 from .ops.shading import Lights
@@ -33,7 +33,7 @@ from .utils.device import require_device
 KINDS = {cls.__name__: cls for cls in (
     CameraMatrices, InstanceArrays, SceneTables, StaticMapping, TriangleBatch,
     MaterialTable, Lights, TonemapParams, RTScene, BLASSet, HitRecord2,
-    GeometryArrays, PreprocessResult)}
+    GeometryArrays, PreprocessResult, PagedScene)}
 
 
 def from_numpy(kind: str, arrays: Dict[str, np.ndarray], device="cuda"):

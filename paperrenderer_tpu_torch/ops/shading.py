@@ -14,11 +14,13 @@ untextured path; the math is the reference example's
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
 import numpy as np
 import torch
 
 from ..core.material import MaterialTable
-from ..utils.tree import tree_to
+from ..utils.tree import device_constant, tree_to
 from .raster import GBuffer
 
 
@@ -153,9 +155,16 @@ def shade_gbuffer(
     materials: MaterialTable,
     lights: Lights,
     cam_pos: torch.Tensor,
+    *,
+    shadow_vis: Optional[torch.Tensor] = None,          # f32[L, H, W]
+    ambient_occlusion: Optional[torch.Tensor] = None,   # f32[H, W]
+    background: Optional[tuple] = None,
 ) -> torch.Tensor:
-    """Shade the G-buffer -> HDR image f32[H, W, 3] (untextured materials;
-    black where no triangle covers the pixel)."""
+    """Shade the G-buffer -> HDR image f32[H, W, 3] (untextured materials).
+    The hybrid frame passes its ray-traced per-light visibility, AO factor
+    and environment color (replacing the shadow-ray loop of
+    raytrace.rchit:61-122); the raster frames pass none of them: full
+    visibility, no AO, black where no triangle covers the pixel."""
     albedo, emissive, roughness, metallic = lookup_material_params(
         materials, gbuf.material)
     view_dir = cam_pos - gbuf.world_pos
@@ -163,10 +172,17 @@ def shade_gbuffer(
 
     total = torch.zeros_like(albedo)
     for i in range(lights.count):
-        total = total + point_light_contribution(
+        contrib = point_light_contribution(
             gbuf.normal, view_dir, gbuf.world_pos, albedo, roughness, metallic,
             lights.position[i], lights.color[i], lights.bounds[i],
         )
+        if shadow_vis is not None:
+            contrib = contrib * shadow_vis[i][..., None]
+        total = total + contrib
     ambient = lights.ambient[:3] * lights.ambient[3] * albedo
+    if ambient_occlusion is not None:
+        ambient = ambient * ambient_occlusion[..., None]
     total = total + ambient + emissive
-    return torch.where(gbuf.coverage[..., None], total, 0.0)
+    bg = 0.0 if background is None else device_constant(background,
+                                                         total.device)
+    return torch.where(gbuf.coverage[..., None], total, bg)

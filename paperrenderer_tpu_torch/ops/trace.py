@@ -15,7 +15,10 @@ Random numbers come from ``utils.random``, bit-exact with the JAX package's
 generated in pixel-tile order (``pick_tile``); only the final image is
 un-tiled.
 
-``ctx`` is a tracer (``accel.SceneTracer``). The group compaction of the
+``ctx`` is a tracer: ``accel.SceneTracer`` (flat layout), which has the
+fused shadow/AO bundles, or ``accel.PagedSceneTracer``, which has not; as
+in the JAX package, each pass uses a fused bundle only where the tracer has
+it and traces the samples apart otherwise. The group compaction of the
 JAX package (``compact_secondary``/``compact_refl``) only reorders work for
 the TPU's packets and leaves every result unchanged; it is not ported.
 Not ported: textures and the any-hit leaf cutout (ROADMAP Queue 1 items 4
@@ -249,14 +252,38 @@ def shadow_visibility(surf: SurfaceHits, ctx, lights: Lights, key,
                       samples: int, cull_mask: int = 0xFF) -> torch.Tensor:
     """Per-light soft-shadow visibility in [0, 1], f32[L, R]
     (raytrace.rchit:61-116): ``samples`` any-hit rays toward a sphere light
-    up to the light-center distance, all lights in one origin-shared bundle.
-    Origins are offset along the normal (OffsetRay) against acne."""
+    up to the light-center distance, all lights in one origin-shared bundle
+    (``trace_shadow_ao_bundle``) where the tracer has it, else one
+    ``trace_occlusion_bundle`` per light. Origins are offset along the
+    normal (OffsetRay) against acne."""
     origin = surf.world_pos + surf.normal * 5e-3
     dirs, caps, actives, slots = _occlusion_samples(surf, lights, key, samples)
-    bits, _ = ctx.trace_shadow_ao_bundle(origin, dirs, caps, [], [],
-                                         occ_actives=actives,
-                                         cull_mask=cull_mask)
-    return _visibility(bits, lights, slots, samples)
+    if getattr(ctx, "trace_shadow_ao_bundle", None) is not None:
+        bits, _ = ctx.trace_shadow_ao_bundle(origin, dirs, caps, [], [],
+                                             occ_actives=actives,
+                                             cull_mask=cull_mask)
+        return _visibility(bits, lights, slots, samples)
+    vis = []
+    for li, (shift, active) in enumerate(slots):
+        bits = ctx.trace_occlusion_bundle(
+            origin, dirs[shift:shift + samples], caps[shift:shift + samples],
+            active=active, cull_mask=cull_mask)
+        vis.append(_shadow_vis_from_bits(bits, active,
+                                         lights.cast_shadow[li], samples, 0))
+    return torch.stack(vis)
+
+
+def occlusion_bits(ctx, o, dirs, t_caps, *, active=None,
+                   cull_mask: int = 0xFF) -> torch.Tensor:
+    """Origin-shared occlusion samples, one any-hit ``ctx.trace`` each ->
+    i32[R] bits: bit s set where sample s is occluded or inactive."""
+    bits = torch.zeros(o.shape[0], dtype=torch.int32, device=o.device)
+    for s, (d, tc) in enumerate(zip(dirs, t_caps)):
+        rec = ctx.trace(o, d, tc, any_hit=True, active=active,
+                        cull_mask=cull_mask)
+        occ = rec.hit if active is None else (rec.hit | ~active)
+        bits = bits | (occ.to(torch.int32) << s)
+    return bits
 
 
 def ambient_occlusion(surf: SurfaceHits, ctx, materials: MaterialTable, key,
@@ -287,8 +314,10 @@ def shadow_and_ao(surf: SurfaceHits, ctx, materials: MaterialTable,
     ao f32[R]) with the sampling of ``shadow_visibility`` +
     ``ambient_occlusion``. The AO samples share the shadow offset (normal *
     5e-3; the separate AO pass uses 1e-3). Separate passes run when the
-    cull masks differ or AO is off."""
-    if shadow_cull_mask != cull_mask or ao_samples <= 0 or ao_radius <= 0.0:
+    tracer has no fused bundle, the cull masks differ or AO is off."""
+    if (getattr(ctx, "trace_shadow_ao_bundle", None) is None
+            or shadow_cull_mask != cull_mask or ao_samples <= 0
+            or ao_radius <= 0.0):
         return (shadow_visibility(surf, ctx, lights, shadow_key,
                                   shadow_samples, cull_mask=shadow_cull_mask),
                 ambient_occlusion(surf, ctx, materials, ao_key, ao_samples,
@@ -310,8 +339,9 @@ def shadow_ao_bounce(surf: SurfaceHits, ctx, materials: MaterialTable,
     """The primary-side lighting wavefront: shadow + AO samples, and with
     ``params.fuse_bounce`` the 1-bounce reflection ray too, in one bundle.
     Returns (svis, ao, bounce hits or None when the bounce is traced by
-    ``reflections``)."""
+    ``reflections``, as it is on a tracer without the fused bundle)."""
     fuse = (params.fuse_bounce and params.reflection_samples == 1
+            and getattr(ctx, "trace_shadow_ao_resolve_bundle", None) is not None
             and params.shadow_cull_mask == params.cull_mask
             and params.ao_samples > 0 and params.ao_radius > 0.0)
     samples = max(1, params.shadow_samples)

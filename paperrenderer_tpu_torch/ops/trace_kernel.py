@@ -170,12 +170,12 @@ def trace_scene_kernel(scene: RTScene, o, d, t_max, *, root_code: int,
 
 def trace_resolve_plain(scene: RTScene, slot_materials, o, d, t_max, *,
                         root_code: int, stack_size: int, active=None,
-                        cull_mask: int = 0xFF, counts=None):
+                        cull_mask: int = 0xFF, counts=None, max_steps=None):
     """Plain version of K8: closest hit, then ``accel.resolve_attrs``.
     Returns (HitRecord2, (uv, unnormalized world normal, material))."""
     rec = trace_scene(scene, o, d, t_max, root_code=root_code,
                       stack_size=stack_size, t_min=T_MIN, active=active,
-                      cull_mask=cull_mask, counts=counts)
+                      cull_mask=cull_mask, counts=counts, max_steps=max_steps)
     return rec, resolve_attrs(scene, slot_materials, rec)
 
 

@@ -1,0 +1,197 @@
+"""Wrappers of the paged traversal kernels (``csrc/trace.cu``) and their
+plain PyTorch versions.
+
+  * ``trace_scene_paged_kernel``   K10: closest or any hit over a PagedScene
+  * ``trace_resolve_paged_kernel`` K11: closest hit + resolved uv/normal/
+    material, the material from the chunk's slot-material block
+
+On a CUDA tensor each wrapper launches its kernel (built at first use) and
+counts the launch in ``LAUNCHES``; on a CPU tensor it runs the plain
+version: the flat view (``accel.paged_to_flat``) walked by
+``accel.trace_scene`` (K10), then ``accel.resolve_attrs`` (K11), which is
+the JAX package's own CPU route for a paged scene. There is no other
+fallback: a build or launch failure raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from . import trace_kernel as TK
+from .accel import (
+    BL_LEAVES, BROWS, K, HitRecord2, PagedScene, RTScene, paged_to_flat,
+    smat_block, trace_scene)
+
+# launches of each kernel wrapper, counted where the kernel is launched
+LAUNCHES = {"trace_scene_paged": 0, "trace_resolve_paged": 0}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PAGED_ARGS = ([_P] * 4 + [_I] * 5 + [_F] + [_P] * 2 + [_I] + [_P] * 2 + [_I]
+               + [_P] * 2 + [_I] + [_I])
+_DECLARED = []
+
+
+def _lib():
+    """The built ``csrc/trace.cu`` with the paged entry points declared."""
+    lib = TK._lib()
+    if not _DECLARED:
+        lib.trace_paged_launch.argtypes = (
+            _PAGED_ARGS + [_I] + [_P] * 4 + [_I] + [_P] * 4 + [_P])
+        lib.trace_resolve_paged_launch.argtypes = (
+            _PAGED_ARGS + [_P] * 3 + [_I] * 3 + [_P] * 4 + [_I] + [_P] * 7
+            + [_P])
+        for fn in (lib.trace_paged_launch, lib.trace_resolve_paged_launch):
+            fn.restype = _I
+        _DECLARED.append(True)
+    return lib
+
+
+def _paged_args(lib, scene: PagedScene, root_code: int, stack_size: int,
+                cull_mask: int, max_steps: int):
+    dev = scene.static_nodes.device
+    if stack_size > lib.trace_stack_max():
+        raise ValueError(f"scene needs a traversal stack of {stack_size}; "
+                         f"csrc/trace.cu holds {lib.trace_stack_max()}")
+    nct = scene.chunk_boxes.shape[0] // 12
+    nbn = scene.bch_codes.shape[0] // 2
+    nbl = scene.bch_lprim.shape[0] // K
+    if max(nct, nbn, scene.static_nodes.shape[0]) >= 1 << 27:
+        raise ValueError("a paged row table exceeds the 27-bit payload")
+    for name, t, dtype, shape in (
+            ("static_nodes", scene.static_nodes, torch.float32, None),
+            ("static_codes", scene.static_codes, torch.int32,
+             (scene.static_nodes.shape[0], 2)),
+            ("leaf_rows", scene.leaf_rows, torch.float32, None),
+            ("leaf_prim", scene.leaf_prim, torch.int32,
+             (scene.leaf_rows.shape[0], K)),
+            ("chunk_boxes", scene.chunk_boxes, torch.float32, (nct * 12,)),
+            ("chunk_codes", scene.chunk_codes, torch.int32, (nct * 2,)),
+            ("bch_nodes", scene.bch_nodes, torch.float32, (nbn * 12,)),
+            ("bch_codes", scene.bch_codes, torch.int32, (nbn * 2,)),
+            ("bch_lpos", scene.bch_lpos, torch.float32, (nbl * 72,)),
+            ("bch_lprim", scene.bch_lprim, torch.int32, (nbl * K,))):
+        TK._check(name, t, dtype, dev, shape)
+    if nct % BROWS or nbn % (2 * BL_LEAVES):
+        raise ValueError("chunk tables must hold whole blocks")
+    return (scene.static_nodes.data_ptr(), scene.static_codes.data_ptr(),
+            scene.leaf_rows.data_ptr(), scene.leaf_prim.data_ptr(),
+            scene.static_nodes.shape[0], scene.leaf_rows.shape[0], root_code,
+            stack_size, cull_mask & 0xFF, TK.T_MIN,
+            scene.chunk_boxes.data_ptr(), scene.chunk_codes.data_ptr(), nct,
+            scene.bch_nodes.data_ptr(), scene.bch_codes.data_ptr(), nbn,
+            scene.bch_lpos.data_ptr(), scene.bch_lprim.data_ptr(), nbl,
+            max_steps)
+
+
+def _raise_on(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _flat(scene: PagedScene, root_code: int,
+          flat: Optional[Tuple[RTScene, int]]):
+    """(flat view, its root code): ``flat`` when the caller built it."""
+    if flat is not None:
+        return flat
+    view, remap_root = paged_to_flat(scene)
+    return view, remap_root(root_code)
+
+
+# ---------------------------------------------------------------------------
+# K10
+# ---------------------------------------------------------------------------
+
+def trace_scene_paged_plain(scene: PagedScene, o, d, t_max, *, root_code: int,
+                            stack_size: int, max_steps: int,
+                            any_hit: bool = False, active=None,
+                            cull_mask: int = 0xFF, counts=None,
+                            flat=None) -> HitRecord2:
+    """Plain version of K10: ``accel.trace_scene`` on the flat view
+    (``flat`` = (RTScene, root code) when already built)."""
+    view, root = _flat(scene, root_code, flat)
+    return trace_scene(view, o, d, t_max, root_code=root,
+                       stack_size=stack_size, t_min=TK.T_MIN, any_hit=any_hit,
+                       active=active, cull_mask=cull_mask, counts=counts,
+                       max_steps=max_steps)
+
+
+def trace_scene_paged_kernel(scene: PagedScene, o, d, t_max, *,
+                             root_code: int, stack_size: int, max_steps: int,
+                             any_hit: bool = False, active=None,
+                             cull_mask: int = 0xFF, flat=None) -> HitRecord2:
+    """Two-level traversal of a PagedScene (closest or any hit): kernel K10
+    on CUDA tensors, ``trace_scene_paged_plain`` on CPU tensors."""
+    if TK._device(o, "trace_scene_paged") == "cpu":
+        return trace_scene_paged_plain(
+            scene, o, d, t_max, root_code=root_code, stack_size=stack_size,
+            max_steps=max_steps, any_hit=any_hit, active=active,
+            cull_mask=cull_mask, flat=flat)
+    lib = _lib()
+    o, d, t, act = TK._rays(o, d, t_max, active)
+    r = o.shape[0]
+    out = TK._hit_outputs(r, o.device)
+    rc = lib.trace_paged_launch(
+        *_paged_args(lib, scene, root_code, stack_size, cull_mask, max_steps),
+        int(any_hit), o.data_ptr(), d.data_ptr(), t.data_ptr(),
+        TK._ptr(act), r, *(x.data_ptr() for x in out),
+        torch.cuda.current_stream(o.device).cuda_stream)
+    _raise_on(rc, "trace_scene_paged")
+    return HitRecord2(*out)
+
+
+# ---------------------------------------------------------------------------
+# K11
+# ---------------------------------------------------------------------------
+
+def trace_resolve_paged_plain(scene: PagedScene, slot_materials, o, d, t_max,
+                              *, root_code: int, stack_size: int,
+                              max_steps: int, active=None,
+                              cull_mask: int = 0xFF, counts=None, flat=None):
+    """Plain version of K11: ``trace_kernel.trace_resolve_plain`` on the
+    flat view. Returns (HitRecord2, (uv, unnormalized normal, material))."""
+    view, root = _flat(scene, root_code, flat)
+    return TK.trace_resolve_plain(
+        view, slot_materials, o, d, t_max, root_code=root,
+        stack_size=stack_size, active=active, cull_mask=cull_mask,
+        counts=counts, max_steps=max_steps)
+
+
+def trace_resolve_paged_kernel(scene: PagedScene, slot_materials, o, d,
+                               t_max, *, root_code: int, stack_size: int,
+                               max_steps: int, active=None,
+                               cull_mask: int = 0xFF, flat=None):
+    """Closest hit + resolve over a PagedScene: kernel K11 on CUDA tensors
+    (material from ``chunk_smat``), its plain version (material from
+    ``slot_materials``) on CPU tensors. Returns (HitRecord2, (uv, normal,
+    material))."""
+    if TK._device(o, "trace_resolve_paged") == "cpu":
+        return trace_resolve_paged_plain(
+            scene, slot_materials, o, d, t_max, root_code=root_code,
+            stack_size=stack_size, max_steps=max_steps, active=active,
+            cull_mask=cull_mask, flat=flat)
+    lib = _lib()
+    dev = o.device
+    n, s = slot_materials.shape
+    nc = scene.chunk_boxes.shape[0] // (BROWS * 12)
+    TK._check("tri_attr", scene.tri_attr, torch.float32, dev)
+    TK._check("inv_rows", scene.inv_rows, torch.float32, dev, (n, 12))
+    TK._check("chunk_smat", scene.chunk_smat, torch.int32, dev,
+              (nc * smat_block(s),))
+    o, d, t, act = TK._rays(o, d, t_max, active)
+    r = o.shape[0]
+    hit_out = TK._hit_outputs(r, dev)
+    res_out = TK._resolve_outputs(r, dev)
+    rc = lib.trace_resolve_paged_launch(
+        *_paged_args(lib, scene, root_code, stack_size, cull_mask, max_steps),
+        scene.tri_attr.data_ptr(), scene.inv_rows.data_ptr(),
+        scene.chunk_smat.data_ptr(), n, s, smat_block(s),
+        o.data_ptr(), d.data_ptr(), t.data_ptr(), TK._ptr(act), r,
+        *(x.data_ptr() for x in hit_out + res_out),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "trace_resolve_paged")
+    return HitRecord2(*hit_out), res_out
+

@@ -9,17 +9,21 @@ two-level path (reference RayTrace.h:37-99):
     ``TLAS::updateTLAS`` analogue (AccelerationStructure.cpp:618-650);
   * **several TLASes** (RayTrace.h:50-56, ``add_tlas``) share the BLAS rows
     and are appended as extra node-row blocks with their own roots;
-  * per-instance 8-bit visibility masks and force-opaque flags.
+  * per-instance 8-bit visibility masks and force-opaque flags;
+  * big scenes on the paged layout (chunked TLAS, big models' BLAS chunks):
+    ``render`` picks it with ``accel.prefer_paged``, as the JAX package
+    does, on every device; a paged frame traces the one TLAS it renders.
 
 The frame traces on the scene's device: the traversal kernels of
-``csrc/trace.cu`` on the card, their plain versions on the CPU.
+``csrc/trace.cu`` on the card (K7-K9 flat, K10/K11 paged), their plain
+versions on the CPU.
 
 Not ported yet, refused with ``NotImplementedError``: animation
 (``animate``/``anim_resplit``, ROADMAP Queue 1 item 7), half-rate
 reflections and the leaf any-hit cutout (item 9); textured materials are
-refused by the registry (item 4). ``compact_secondary``, ``compact_refl``
-and ``packet_pack`` are TPU scheduling knobs that leave every result
-unchanged: they are accepted and ignored.
+refused by the registry (item 4). ``compact_secondary``, ``compact_refl``,
+``packet_pack`` and ``bvh_wide`` are TPU scheduling knobs that leave every
+result unchanged: they are accepted and ignored.
 """
 
 from __future__ import annotations
@@ -85,19 +89,25 @@ class AccelCache:
         _, meta = self.blas()
         return ACC.required_stack_size(meta, capacity)
 
+    def prefer_paged(self, capacity: int) -> bool:
+        """The layout of this scene's frames (``accel.prefer_paged``)."""
+        _, meta = self.blas()
+        return ACC.prefer_paged(meta, capacity, max(1, self.scene.max_slots))
+
 
 def render_frame_rt(blasset, meta, instances: InstanceArrays, inst_blas,
                     masks, tri_attr, materials, lights: Lights,
                     camera: CameraMatrices, slot_materials, tonemap_params,
                     key, inst_mask=None, inst_opaque=None, *, width: int,
                     height: int, stack_size: int, params: RTParams,
-                    tlas_index: int = 0):
+                    tlas_index: int = 0, paged: bool = False):
     """One ray-traced frame (the JAX package's ``make_rt_frame`` body):
-    assemble this frame's TLAS, trace, tonemap. Returns (ldr f32[H, W, 3],
-    {"hdr": f32[H, W, 3]})."""
+    assemble this frame's TLAS on the flat or, with ``paged``, the paged
+    layout, trace, tonemap. Returns (ldr f32[H, W, 3], {"hdr": f32[H, W,
+    3]})."""
     ctx = ACC.make_scene_tracer(
         blasset, meta, instances, inst_blas, masks, tri_attr, slot_materials,
-        materials, tlas_index=tlas_index, stack_size=stack_size,
+        materials, tlas_index=tlas_index, stack_size=stack_size, paged=paged,
         inst_mask=inst_mask, inst_opaque=inst_opaque)
     hdr = trace_frame(ctx, materials, lights, camera, key, width=width,
                       height=height, params=params)
@@ -132,6 +142,7 @@ class RayTraceRender:
         compact_secondary: bool = False,   # TPU scheduling knobs: results
         compact_refl: bool = False,        # are the same either way, so
         packet_pack: Optional[int] = None,  # they are accepted and ignored
+        bvh_wide: bool = True,
     ):
         if animate is not None or anim_resplit:
             raise NotImplementedError(
@@ -265,8 +276,10 @@ class RayTraceRender:
             self._cache_dirty = False
         return self._cached
 
-    def render(self, camera: Camera | CameraMatrices, *, tlas: int = 0):
-        """Trace one frame; returns (ldr f32[H, W, 3], {"hdr": ...})."""
+    def render(self, camera: Camera | CameraMatrices, *, tlas: int = 0,
+               paged: Optional[bool] = None):
+        """Trace one frame; returns (ldr f32[H, W, 3], {"hdr": ...}).
+        ``paged`` forces a layout (None: ``accel.prefer_paged``'s)."""
         require_device(self.device)
         cam = camera.matrices if isinstance(camera, Camera) else camera
         instances = self.scene.flush()
@@ -274,10 +287,12 @@ class RayTraceRender:
         slots, masks, table, inst_mask, opaque, lights, tm = (
             self._device_inputs(instances.capacity))
         self._frame += 1
+        if paged is None:
+            paged = self.accel.prefer_paged(instances.capacity)
         return render_frame_rt(
             blasset, meta, instances, self.accel.inst_blas(instances.capacity),
             masks, self.accel.tri_attr(), table, lights, cam.to(self.device),
             slots, tm, rnd.fold_in(self._key, self._frame), inst_mask, opaque,
             width=self.width, height=self.height,
             stack_size=self.accel.stack_size(instances.capacity),
-            params=self.params, tlas_index=tlas)
+            params=self.params, tlas_index=tlas, paged=paged)

@@ -4,10 +4,15 @@ Exact copies of ``examples/render_scene.py::build_example_scene`` (config 1:
 ~4.1k triangles), ``examples/render_dynamic.py::build_dynamic_scene``
 (config 2: 10k instances, half 12-triangle cubes and half 80-triangle
 icospheres, ~460k triangles) and ``examples/render_rt.py::build_rt_scene``
-(the ray-traced frame of config 3: a plane, a sphere and a mirror cube) —
-same meshes, materials, transforms, lights, camera and seed — with a
-``device`` that defaults to the card. ``build_translucent_grid`` is config
-2's grid with glass and leaf instances, drawn through sorted translucency.
+(the ray-traced frame of config 3: a plane, a sphere and a mirror cube),
+``examples/render_crowd.py::build_crowd_scene`` (many instances traced on
+the paged layout) and ``examples/render_hybrid.py::build_hybrid_scene``
+(the hybrid frame) — same meshes, materials, transforms, lights, camera and
+seed — with a ``device`` that defaults to the card.
+``build_translucent_grid`` is config 2's grid with glass and leaf
+instances, drawn through sorted translucency; ``build_big_model_scene`` is
+the big-model recipe of ``tests/test_trace_paged.py`` (a sphere cut into
+BLAS chunks among cubes) with the sphere's size as a parameter.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from .core import (
     make_torus, make_uv_sphere,
 )
 from .ops.shading import Lights
-from .render import RenderPass
+from .render import RayTraceRender, RenderPass
 
 
 def build_example_scene(width: int = 512, height: int = 512, device="cuda"):
@@ -172,4 +177,103 @@ def build_rt_scene(width: int = 192, height: int = 192, device="cuda"):
     rt.add_instance(c, {0: gold.instance()})
     cam = Camera(yfov_deg=55.0, aspect=width / height, near=0.1, far=200.0)
     cam.look_at((0.0, -6.5, 3.2), (0.0, 0.0, 0.7), up=(0, 0, 1))
+    return eng, rt, cam
+
+
+def build_crowd_scene(n_inst: int = 10_000, width: int = 512,
+                      height: int = 512, seed: int = 0, device="cuda"):
+    """n_inst spheres and cubes uniformly in a cube, one RayTraceRender (1
+    shadow sample, no AO, no reflection); returns (scene, registry, rt,
+    camera)."""
+    rng = np.random.default_rng(seed)
+    scene = Scene(device=device)
+    registry = MaterialRegistry()
+    sphere = Model.from_mesh(
+        scene.arena, *make_uv_sphere(radius=0.5, rings=6, sectors=8))
+    cube = Model.from_mesh(scene.arena, *make_cube(size=0.7))
+    side = max(4.0, float(n_inst) ** (1 / 3) * 1.3)
+    rt = RayTraceRender(
+        scene, registry, width=width, height=height,
+        lights=Lights.make(
+            [{"position": (0.0, -3.0 * side, 2.0 * side),
+              "color": (40.0 * side ** 2, 38.0 * side ** 2, 34.0 * side ** 2),
+              "bounds": 10.0 * side}],
+            ambient=(0.6, 0.7, 1.0, 0.3),
+        ),
+        shadow_samples=1, reflection_samples=0, ao_samples=0,
+    )
+    red = Material("red", albedo=(0.8, 0.2, 0.2), roughness=0.5)
+    blue = Material("blue", albedo=(0.2, 0.2, 0.8), roughness=0.5)
+    for i in range(n_inst):
+        m = ModelInstance(sphere if i % 2 == 0 else cube)
+        m.set_transform(pos=tuple(rng.uniform(-side, side, 3)))
+        rt.add_instance(m, {0: (red if i % 2 else blue).instance()})
+    cam = Camera(yfov_deg=60.0, aspect=width / height, near=0.1, far=1000.0)
+    cam.look_at((0.0, -2.6 * side, 1.2 * side), (0, 0, 0), up=(0, 0, 1))
+    return scene, registry, rt, cam
+
+
+def build_hybrid_scene(width: int = 256, height: int = 256, device="cuda"):
+    """The hybrid example (a plane, a red sphere and a mirror cube; 2 shadow
+    samples, 2 AO samples, 1 reflection; a second light that casts no
+    shadow); returns (engine, HybridRender, camera)."""
+    eng = RenderEngine(device=device, device_check=False)
+    ground = Model.from_mesh(eng.scene.arena, *make_plane(size=30.0),
+                             name="ground")
+    sphere = Model.from_mesh(
+        eng.scene.arena, *make_uv_sphere(radius=1.0, rings=20, sectors=28),
+        name="sphere")
+    cube = Model.from_mesh(eng.scene.arena, *make_cube(size=1.4), name="cube")
+    hy = eng.create_hybrid_render(
+        width=width, height=height,
+        lights=Lights.make(
+            [{"position": (4.0, -4.0, 7.0), "color": (160.0, 150.0, 130.0),
+              "bounds": 60.0, "radius": 0.4},
+             {"position": (-6.0, -3.0, 4.0), "color": (40.0, 45.0, 60.0),
+              "bounds": 40.0, "cast_shadow": False}],
+            ambient=(0.6, 0.7, 1.0, 0.25),
+        ),
+        shadow_samples=2, reflection_samples=1, ao_samples=2, ao_radius=2.0,
+    )
+    white = Material("white", albedo=(0.75, 0.75, 0.78), roughness=0.85)
+    red = Material("red", albedo=(0.85, 0.1, 0.08), roughness=0.3)
+    mirror = Material("mirror", albedo=(0.95, 0.95, 0.95), roughness=0.05,
+                      metallic=1.0)
+    g = ModelInstance(ground)
+    hy.add_instance(g, {0: white.instance()})
+    s = ModelInstance(sphere)
+    s.set_transform(pos=(-0.9, 0.3, 1.0))
+    hy.add_instance(s, {0: red.instance()})
+    c = ModelInstance(cube)
+    c.set_transform(pos=(1.5, 0.8, 0.7), quat=(0.924, 0.0, 0.0, 0.383))
+    hy.add_instance(c, {0: mirror.instance()})
+    cam = Camera(yfov_deg=55.0, aspect=width / height, near=0.1, far=200.0)
+    cam.look_at((0.0, -6.5, 3.2), (0.0, 0.0, 0.7), up=(0, 0, 1))
+    return eng, hy, cam
+
+
+def build_big_model_scene(rings: int = 40, sectors: int = 52,
+                          n_small: int = 16, width: int = 32,
+                          height: int = 32, seed: int = 7, device="cuda"):
+    """One big uv sphere (radius 1.2, ``rings`` x ``sectors`` quads, so
+    2 x rings x sectors triangles; over 4,096 of them its BLAS is cut into
+    chunks) among ``n_small`` cubes: instance i is the sphere when i % 3 ==
+    0, else a cube, at a seeded uniform position in [-6, 6]^3, in a
+    RayTraceRender with the default lights and samples. The defaults are
+    the 24-instance, 4,160-triangle scene of the big-model tests. Returns
+    (engine, rt, camera)."""
+    rng = np.random.default_rng(seed)
+    eng = RenderEngine(device=device, device_check=False)
+    big = Model.from_mesh(eng.scene.arena, *make_uv_sphere(
+        radius=1.2, rings=rings, sectors=sectors))
+    cube = Model.from_mesh(eng.scene.arena, *make_cube(size=0.7))
+    rt = eng.create_ray_trace_render(width=width, height=height)
+    red = Material("red", albedo=(0.8, 0.2, 0.2), roughness=0.5)
+    blue = Material("blue", albedo=(0.2, 0.2, 0.8), roughness=0.5)
+    for i in range(n_small + (n_small + 1) // 2):
+        m = ModelInstance(big if i % 3 == 0 else cube)
+        m.set_transform(pos=tuple(rng.uniform(-6.0, 6.0, 3)))
+        rt.add_instance(m, {0: (red if i % 2 else blue).instance()})
+    cam = Camera(yfov_deg=60.0, aspect=width / height, near=0.1, far=1000.0)
+    cam.look_at((0.0, -16.0, 7.0), (0, 0, 0), up=(0, 0, 1))
     return eng, rt, cam

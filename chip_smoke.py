@@ -25,8 +25,11 @@ Phases, each reported as one JSON line:
   compare_trace  the traversal kernels against their plain versions on the
            wavefronts of the 1920x1080 RT frame (bitwise): K7 closest and any
            hit on primary rays, K8 on primary and reflection rays, K9 on the
-           shadow+AO bundle without and with the resolve sample; kernel and
-           plain ms, rays, mismatches, and the box/leaf visits of the walk;
+           shadow+AO bundle without and with the resolve sample; and the
+           alpha forms (the any-hit leaf cutout) on the 1920x1080 leaf grid's
+           flat layout: K8 on its primary and reflection rays, K7 on its
+           primary rays; kernel and plain ms, rays, mismatches, the box/leaf
+           visits of the walk and the candidates the cutout rejected;
   config1  the example scene through RenderPass.render at 512x512 and
            128x128, held to tests/goldens/raster_512.png and
            raster_example.png with the golden bands; median frame time;
@@ -64,8 +67,11 @@ Phases, each reported as one JSON line:
            (bitwise) on the main path's wavefronts: K11 on the 10k crowd's
            primary rays and K10 any hit on its shadow rays (1024x1024), K10
            on config 2's grid at 1920x1080 with K7 on the flat layout of the
-           same rays beside it, K10 and K11 on the big model's primary rays;
-           kernel and plain ms, rays, mismatches, visits, bound;
+           same rays beside it, K10 and K11 on the big model's primary rays,
+           and the alpha forms on the leaf grid's paged layout: K11 on its
+           primary and AO rays, K10 on its primary rays; kernel and plain
+           ms, rays, mismatches, visits, candidates the cutout rejected,
+           bound;
   crowd    the 10k crowd through RayTraceRender.render at 1024x1024 (paged
            by prefer_paged): median frame ms, Mrays/s with the nominal 2WH
            rays and with the live rays; the 600-instance crowd at 128x128
@@ -79,6 +85,14 @@ Phases, each reported as one JSON line:
   big_model  a 224 x 224 uv sphere (100,352 triangles, BLAS chunks) among
            cubes in a RayTraceRender at 1920x1080: BLAS build seconds, chunk
            count, primary Mrays/s through K11, median frame ms;
+  leaf_rt  the leaf grid (scenes.build_leaf_rt_grid: the translucent grid,
+           one instance in sixteen a leaf cutout; 1 shadow, AO and
+           reflection sample) at 1920x1080 through RayTraceRender.render
+           (routed paged: K10, K11 alpha) and forced flat (K9, K8 alpha), and
+           through HybridRender.render (K1, K10, K11 alpha), and config 3
+           with half-rate reflections off and on: median frame ms and one
+           frame's launches; a reduced copy of each (400 instances or the RT
+           scene, 96x64) on the card against the CPU with the golden bands;
   launches every kernel was launched by the phases of its path (K1: config1,
            config2, translucent, supersample; K2: translucent, keyed_entry;
            K3/K4: keyed_entry; K5: draw_list; K6: compare_tiles; traversal:
@@ -86,7 +100,8 @@ Phases, each reported as one JSON line:
            before each and read just after; the kernels line counts K1/K2
            from the frame phases, K3/K4 from keyed_entry, K5 from draw_list,
            K6 from compare_tiles (no frame runs it), K7-K9 from rt_frame,
-           K10/K11 from crowd, hybrid and big_model;
+           K10/K11 from crowd, hybrid and big_model, the alpha forms of K8
+           and K11 from leaf_rt;
   sync     cost of the raster frame's one device-to-host read (the pair
            count): frame time as is vs. with the count supplied.
 
@@ -96,7 +111,8 @@ Usage: python3 chip_smoke.py            (all phases; needs one CUDA card)
                                          config 2 at supersample=2, config
                                          2's draw-list frame, the 1080p
                                          RT frame, the crowd frame and the
-                                         1080p hybrid frames by stage,
+                                         1080p hybrid frames and the
+                                         leaf grid's RT frame by stage,
                                          with the tables written to
                                          chiprun_out/)
 Exit code 0 only when every phase passed; the last line of stdout is then
@@ -569,10 +585,35 @@ def rt_wavefronts(rt, cam):
                 cull=p.cull_mask, roots=roots)
 
 
-def compare_trace(rt, cam, reps=10):
-    """K7/K8/K9 vs their plain versions on the 1080p RT frame's wavefronts:
-    bitwise checks, kernel ms (CUDA events), plain ms (one call), the walk's
-    visits (from the plain version) and the least-time bound."""
+def leaf_wavefronts(rt, cam, paged):
+    """The leaf cutout's wavefronts of one RayTraceRender frame, built as
+    render_frame_rt and ops.trace build them, on the layout `paged` names:
+    the tracer (leaf cutout on), the camera's primary rays, and from their
+    hits (through the cutout) the reflection rays and the first AO rays."""
+    import torch
+    from paperrenderer_tpu_torch.ops import trace as TR
+    from paperrenderer_tpu_torch.utils import random as rnd
+
+    ctx, o, d, far, _ = rt_tracer(rt, cam, paged, leaf_cutout=True)
+    surf = ctx.trace_resolve(o, d, far, use_alpha=True)
+    key = rnd.fold_in(rt._key, 1)
+    ao_ds, _ = TR._ao_samples(surf, key, 1, rt.params.ao_radius)
+    return dict(
+        ctx=ctx, o=o, d=d, far=far, surf=surf,
+        refl_o=(surf.world_pos + surf.normal * 5e-3).contiguous(),
+        rdir=TR._reflection_dir(surf, ctx.materials,
+                                cam.matrices.to(rt.device).cam_pos,
+                                rnd.fold_in(key, 7), 0),
+        ao_o=(surf.world_pos + surf.normal * 1e-3).contiguous(),
+        ao_d=ao_ds[0], ao_cap=torch.full_like(far, rt.params.ao_radius))
+
+
+def compare_trace(rt, cam, leaf, reps=10):
+    """K7/K8/K9 vs their plain versions on the 1080p RT frame's wavefronts,
+    and K8's and K7's alpha forms on the 1080p leaf grid's (`leaf` = (rt,
+    camera); flat layout, forced): bitwise checks, kernel ms (CUDA events),
+    plain ms (one call), the walk's visits and the candidates the cutout
+    rejected (from the plain version) and the least-time bound."""
     import torch
     from paperrenderer_tpu_torch.ops import trace_kernel as TK
 
@@ -586,15 +627,15 @@ def compare_trace(rt, cam, reps=10):
     out = {}
 
     def walk_case(name, kernel, plain, check, per_ray_bytes, resolved=0,
-                  extra_bytes=0):
+                  extra_bytes=0, scene=sc, rays=r):
         counts = {}
         got = kernel()
         ref, plain_ms = timed_once(lambda: plain(counts))
         ok, mism, err = check(got, ref)
-        b, by = bound(walk_bytes(sc, r, per_ray_bytes) + extra_bytes,
+        b, by = bound(walk_bytes(scene, rays, per_ray_bytes) + extra_bytes,
                       walk_ops(counts, resolved))
         out[name] = dict(bitwise=ok, mismatches=mism, max_abs_err=err,
-                         rays=r, ms=timed(kernel, reps), plain_ms=plain_ms,
+                         rays=rays, ms=timed(kernel, reps), plain_ms=plain_ms,
                          visits=counts, bound_ms=b, bound_by=by)
 
     # K7 closest / any hit on the primary rays, and closest on the second
@@ -657,6 +698,48 @@ def compare_trace(rt, cam, reps=10):
                       *args, resolve=rs, counts=counts, **walk),
                   bundle_check, per_ray, resolved=0 if rs is None else r,
                   extra_bytes=0 if rs is None else res_bytes)
+
+    # the alpha forms on the leaf grid (flat): K8 on the primary rays and
+    # on the reflection rays of their hits, K7 (closest) on the primary rays
+    lw = leaf_wavefronts(*leaf, paged=False)
+    lc = lw["ctx"]
+    lsc, smat, sm = lc.scene, lc.slot_materials, lc.materials.shading_model
+    lwalk = dict(root_code=lc.root_code, stack_size=lc.stack_size)
+    alpha_bytes = sum(t.numel() * t.element_size()
+                      for t in (lsc.tri_attr, smat, sm))
+    lr = lw["o"].shape[0]
+    # (k8_leaf_primary: the plain form on the same rays, for its cost)
+    for name, ro, rd, act, asm in (
+            ("k8_alpha_leaf_primary", lw["o"], lw["d"], None, sm),
+            ("k8_leaf_primary", lw["o"], lw["d"], None, None),
+            ("k8_alpha_leaf_reflection", lw["refl_o"], lw["rdir"],
+             lw["surf"].valid, sm)):
+        walk_case(
+            name,
+            lambda ro=ro, rd=rd, act=act, asm=asm: TK.trace_resolve_kernel(
+                lsc, smat, ro, rd, lw["far"], active=act, shading_model=asm,
+                **lwalk),
+            lambda counts, ro=ro, rd=rd, act=act, asm=asm:
+                TK.trace_resolve_plain(
+                    lsc, smat, ro, rd, lw["far"], active=act,
+                    shading_model=asm, counts=counts, **lwalk),
+            resolve_check, 48 + 24, resolved=lr,
+            extra_bytes=alpha_bytes + lsc.inv_rows.numel() * 4, scene=lsc,
+            rays=lr)
+    walk_case(
+        "k7_alpha_leaf_primary",
+        lambda: TK.trace_scene_kernel(lsc, lw["o"], lw["d"], lw["far"],
+                                      slot_materials=smat, shading_model=sm,
+                                      **lwalk),
+        lambda counts: TK.trace_scene(lsc, lw["o"], lw["d"], lw["far"],
+                                      t_min=TK.T_MIN, slot_materials=smat,
+                                      shading_model=sm, counts=counts,
+                                      **lwalk),
+        rec_check, 48, extra_bytes=alpha_bytes, scene=lsc, rays=lr)
+    for name in ("k8_alpha_leaf_primary", "k8_alpha_leaf_reflection",
+                 "k7_alpha_leaf_primary"):
+        out[name]["alpha_rejected"] = out[name]["visits"].get(
+            "alpha_rejected", 0)
     out["ok"] = all(v["bitwise"] for v in out.values())
     return out
 
@@ -729,7 +812,7 @@ def paged_bytes(scene, n_rays, per_ray_bytes, resolve=False):
         + n_rays * per_ray_bytes
 
 
-def rt_tracer(rt, cam, paged):
+def rt_tracer(rt, cam, paged, leaf_cutout=False):
     """The tracer and the camera's primary rays of one RayTraceRender frame,
     built as render_frame_rt builds them, on the layout `paged` names."""
     import torch
@@ -744,7 +827,7 @@ def rt_tracer(rt, cam, paged):
         blasset, meta, instances, rt.accel.inst_blas(instances.capacity),
         masks, rt.accel.tri_attr(), slots, table, tlas_index=0,
         stack_size=rt.accel.stack_size(instances.capacity), paged=paged,
-        inst_mask=inst_mask, inst_opaque=opaque)
+        inst_mask=inst_mask, inst_opaque=opaque, leaf_cutout=leaf_cutout)
     c = cam.matrices.to(rt.device)
     o, d = TR.raygen(c, rt.width, rt.height,
                      tile_order=TR.pick_tile(rt.width, rt.height))
@@ -752,14 +835,17 @@ def rt_tracer(rt, cam, paged):
     return ctx, o.contiguous(), d, far, lights
 
 
-def compare_paged(crowd, grid, big, reps=10):
+def compare_paged(crowd, grid, big, leaf, reps=10):
     """K10/K11 against their plain versions (bitwise) on the main path's
     wavefronts: K11 on the 10k crowd's primary rays and K10 any hit on its
     shadow rays (1024x1024); K10 closest on config 2's 10k grid at
     1920x1080, with K7 on the flat layout of the same rays beside it; K10
-    and K11 on the big model's primary rays (1920x1080). Kernel ms (CUDA
-    events), plain ms (one call, the flat view prebuilt), rays, mismatches,
-    the walk's visits (from the plain version) and the bound."""
+    and K11 on the big model's primary rays (1920x1080); the alpha forms on
+    the 10k leaf grid (`leaf` = (rt, camera), 1920x1080): K11 on its
+    primary rays and its first AO rays, K10 on its primary rays. Kernel ms
+    (CUDA events), plain ms (one call, the flat view prebuilt), rays,
+    mismatches, the walk's visits and the candidates the cutout rejected
+    (from the plain version) and the bound."""
     import torch
     from paperrenderer_tpu_torch.ops import trace as TR
     from paperrenderer_tpu_torch.ops import trace_kernel as TK
@@ -768,31 +854,37 @@ def compare_paged(crowd, grid, big, reps=10):
 
     out = {}
 
-    def case(name, ctx, o, d, t, kind, active=None):
+    def case(name, ctx, o, d, t, kind, active=None, alpha=False):
         walk = dict(root_code=ctx.root_code, stack_size=ctx.stack_size,
                     max_steps=ctx._step_bound())
         sc, r = ctx.scene, o.shape[0]
+        sm = ctx.materials.shading_model if alpha else None
         if kind == "k11":
             kernel = lambda: TPG.trace_resolve_paged_kernel(
-                sc, ctx.slot_materials, o, d, t, active=active, **walk)
+                sc, ctx.slot_materials, o, d, t, active=active,
+                shading_model=sm, **walk)
             plain = lambda counts: TPG.trace_resolve_paged_plain(
                 sc, ctx.slot_materials, o, d, t, active=active,
-                counts=counts, flat=ctx.flat_view(), **walk)
+                counts=counts, flat=ctx.flat_view(), shading_model=sm,
+                **walk)
             check, per_ray, resolved = resolve_check, 48 + 24, r
         else:
             any_hit = kind == "k10_any"
             kernel = lambda: TPG.trace_scene_paged_kernel(
-                sc, o, d, t, any_hit=any_hit, active=active, **walk)
+                sc, o, d, t, any_hit=any_hit, active=active,
+                slot_materials=ctx.slot_materials, shading_model=sm, **walk)
             plain = lambda counts: TPG.trace_scene_paged_plain(
                 sc, o, d, t, any_hit=any_hit, active=active, counts=counts,
-                flat=ctx.flat_view(), **walk)
+                flat=ctx.flat_view(), slot_materials=ctx.slot_materials,
+                shading_model=sm, **walk)
             check = hit_flags if any_hit else rec_check
             per_ray, resolved = 48, 0
         counts = {}
         got = kernel()
         ref, plain_ms = timed_once(lambda: plain(counts))
         ok, mism, err = check(got, ref)
-        b, by = bound(paged_bytes(sc, r, per_ray, resolve=kind == "k11"),
+        b, by = bound(paged_bytes(sc, r, per_ray,
+                                  resolve=kind == "k11" or alpha),
                       walk_ops(counts, resolved))
         rec = got[0] if kind == "k11" else got
         out[name] = dict(bitwise=ok, mismatches=mism, max_abs_err=err,
@@ -801,6 +893,8 @@ def compare_paged(crowd, grid, big, reps=10):
                          hit_fraction=float(rec.hit.float().mean()),
                          tlas_chunks=sc.chunk_boxes.numel() // (512 * 12),
                          blas_chunks=sc.bch_codes.numel() // 1024)
+        if alpha:
+            out[name]["alpha_rejected"] = counts.get("alpha_rejected", 0)
         return got
 
     # the crowd: primary rays (K11), then its shadow wavefront (K10 any hit)
@@ -836,6 +930,19 @@ def compare_paged(crowd, grid, big, reps=10):
     ctx, o, d, far, _ = rt_tracer(rt, cam, paged=True)
     case("k10_big_primary", ctx, o, d, far, "k10")
     case("k11_big_primary", ctx, o, d, far, "k11")
+
+    # the leaf grid: the alpha forms of K11 (primary rays, and the first AO
+    # rays of their hits, which trace_resolve(use_alpha=True) carries) and
+    # of K10 (primary rays); K11's plain form on the same primary rays
+    lw = leaf_wavefronts(*leaf, paged=True)
+    ctx = lw["ctx"]
+    case("k11_alpha_leaf_primary", ctx, lw["o"], lw["d"], lw["far"], "k11",
+         alpha=True)
+    case("k11_leaf_primary", ctx, lw["o"], lw["d"], lw["far"], "k11")
+    case("k11_alpha_leaf_ao", ctx, lw["ao_o"], lw["ao_d"], lw["ao_cap"],
+         "k11", active=lw["surf"].valid, alpha=True)
+    case("k10_alpha_leaf_primary", ctx, lw["o"], lw["d"], lw["far"], "k10",
+         alpha=True)
     out["ok"] = all(v["bitwise"] for k, v in out.items() if "bitwise" in v)
     return out
 
@@ -943,6 +1050,22 @@ def paged_rt_stages():
             (ACC.PagedSceneTracer, "trace_resolve"),
             (ACC.PagedSceneTracer, "trace_occlusion_bundle"),
             (TR, "shade_surfaces"), (RT, "tonemap")]
+
+
+def leaf_rt_stages():
+    """The leaf grid's RT frame (routed paged): the paged assembly, primary
+    rays through K11's alpha form, the shadow wavefronts (K10 any hit, opaque
+    under the cutout), the AO wavefronts (K11's alpha form, unfused), the
+    reflections (their bounce side's shadow and AO passes also in those
+    rows), shading and tonemap."""
+    from paperrenderer_tpu_torch.ops import accel as ACC
+    from paperrenderer_tpu_torch.ops import trace as TR
+    from paperrenderer_tpu_torch.render import raytrace as RT
+
+    return [(ACC, "assemble_scene_paged"), (TR, "raygen"),
+            (ACC.PagedSceneTracer, "trace_resolve"),
+            (TR, "shadow_visibility"), (TR, "ambient_occlusion"),
+            (TR, "reflections"), (TR, "shade_surfaces"), (RT, "tonemap")]
 
 
 def hybrid_stages():
@@ -1077,8 +1200,8 @@ def main():
     from paperrenderer_tpu_torch.ops import trace_paged as TPG
     from paperrenderer_tpu_torch.scenes import (
         build_big_model_scene, build_crowd_scene, build_dynamic_scene,
-        build_example_scene, build_hybrid_scene, build_rt_scene,
-        build_translucent_grid)
+        build_example_scene, build_hybrid_scene, build_leaf_rt_grid,
+        build_rt_scene, build_translucent_grid)
     from paperrenderer_tpu_torch.utils import cuda_build
 
     def build():
@@ -1153,7 +1276,16 @@ def main():
             rt_scenes["rt"] = (rt, cam)
         return rt_scenes["rt"]
 
-    phase("compare_trace", lambda: compare_trace(*rt_1080()))
+    def leaf_grid():
+        """The leaf grid (the translucent grid, one instance in sixteen a
+        leaf cutout) at 1920x1080 in a RayTraceRender and a HybridRender."""
+        if "leaf" not in rt_scenes:
+            rt_scenes["leaf"] = build_leaf_rt_grid(10_000, 1920, 1080,
+                                                   device="cuda")[1:]
+        return rt_scenes["leaf"]
+
+    phase("compare_trace", lambda: compare_trace(
+        *rt_1080(), (leaf_grid()[0], leaf_grid()[2])))
 
     def config1():
         rp, cam = get(1)
@@ -1507,6 +1639,70 @@ def main():
                     hit_fraction=k11["hit_fraction"],
                     frame_ms=frame_ms(rt, cam, frames=5, warmup=1))
 
+    def leaf_rt():
+        """The leaf grid at 1920x1080: RayTraceRender.render routed (paged
+        by prefer_paged: K10 shadows, K11's alpha form for primary, AO and
+        reflection rays) and forced flat (K9 shadows, K8's alpha form),
+        HybridRender.render (K1, K10, K11's alpha form), and config 3 with
+        half-rate reflections off and on (in the order off, on, on, off):
+        median frame ms, with one frame's launches; a reduced copy of each
+        (the 400-instance leaf grid or the RT scene, 96x64) on the card
+        against the CPU with the golden bands."""
+        rt, hy, cam = leaf_grid()
+        out, ok = {}, True
+        for name, render, kw in (("rt_routed", rt, {}),
+                                 ("rt_flat", rt, dict(paged=False)),
+                                 ("hybrid", hy, {})):
+            before = read_counts()
+            ldr, aux = render.render(cam, **kw)
+            one = counted_since(before)
+            ok &= (bool(torch.isfinite(aux["hdr"]).all())
+                   and tuple(ldr.shape) == (1080, 1920, 3))
+            out[name] = dict(frame_ms=frame_ms(render, cam, frames=10,
+                                               warmup=2, **kw),
+                             launches_one_frame=one)
+        out["rt_routed"]["paged"] = rt.accel.prefer_paged(
+            rt.scene.flush().capacity)
+        out["hybrid"]["paged"] = bool(aux["paged"])
+        ok &= out["rt_routed"]["paged"] and out["hybrid"]["paged"]
+        ok &= all(out[n]["launches_one_frame"].get(k, 0) > 0 for n, k in (
+            ("rt_routed", "trace_resolve_paged_alpha"),
+            ("rt_flat", "trace_resolve_alpha"),
+            ("hybrid", "trace_resolve_paged_alpha")))
+        half = {False: [], True: []}
+        renders = {}
+        for on in (False, True):
+            _, r3, c3 = build_rt_scene(1920, 1080, device="cuda")
+            r3.params = dataclasses.replace(r3.params,
+                                            reflection_half_rate=on)
+            renders[on] = (r3, c3)
+        for on in (False, True, True, False):
+            half[on].append(frame_ms(*renders[on], frames=10, warmup=2))
+        out["config3_half_rate"] = dict(
+            full_rate_ms=half[False], half_rate_ms=half[True],
+            half_over_full=sum(half[True]) / sum(half[False]))
+
+        def reduced(dev, name):
+            if name == "config3_half_rate":
+                _, r3, c3 = build_rt_scene(96, 64, device=dev)
+                r3.params = dataclasses.replace(r3.params,
+                                                reflection_half_rate=True)
+                return r3, c3, {}
+            _, r, h, c = build_leaf_rt_grid(400, 96, 64, device=dev)
+            return ((h, c, {}) if name == "hybrid_400"
+                    else (r, c, dict(paged=name == "rt_400_paged")))
+
+        for name in ("rt_400_paged", "rt_400_flat", "hybrid_400",
+                     "config3_half_rate"):
+            (rc, cc, kw), (rh, ch, _) = (reduced("cuda", name),
+                                         reduced("cpu", name))
+            good, mean, frac = bands(rc.render(cc, **kw)[0].cpu().numpy(),
+                                     rh.render(ch, **kw)[0].numpy())
+            out[f"card_vs_cpu_{name}_96x64"] = dict(mean=mean, frac=frac,
+                                                    ok=good)
+            ok &= good
+        return dict(ok=ok, **out)
+
     def route_cost():
         """The scenes prefer_paged sends to the paged layout, each framed
         on both layouts in one call, in the order paged, flat, flat, paged
@@ -1528,20 +1724,29 @@ def main():
     rt_launches = {}
     for name, fn in (("rt_frame", rt_frame), ("rt_grid10k", rt_grid10k),
                      ("compare_paged", lambda: compare_paged(
-                         crowd_rt(), grid_rt(), big_rt())),
+                         crowd_rt(), grid_rt(), big_rt(),
+                         (leaf_grid()[0], leaf_grid()[2]))),
                      ("crowd", crowd), ("hybrid", hybrid),
-                     ("big_model", big_model), ("route_cost", route_cost)):
+                     ("big_model", big_model), ("leaf_rt", leaf_rt),
+                     ("route_cost", route_cost)):
         reset_counts()                  # count only this path's launches
         phase(name, fn)
         rt_launches[name] = (read_counts() if name not in (
             "compare_paged", "route_cost") else {})
-    launches.update({k: rt_launches["rt_frame"].get(k, 0)
-                     for k in TK.LAUNCHES})
-    launch_path.update({k: ("rt_frame",) for k in TK.LAUNCHES})
+    # the plain forms of K7-K9 from rt_frame and of K10/K11 from the paged
+    # frames; the alpha forms of K8 and K11 from leaf_rt (K7's and K10's
+    # alpha forms back SceneTracer.trace(use_alpha=True), which no frame
+    # calls: compare_trace and compare_paged hold them)
+    flat_keys = ("trace_scene", "trace_resolve", "trace_bundle")
+    paged_keys = ("trace_scene_paged", "trace_resolve_paged")
+    launches.update({k: rt_launches["rt_frame"].get(k, 0) for k in flat_keys})
+    launch_path.update({k: ("rt_frame",) for k in flat_keys})
     paged_path = ("crowd", "hybrid", "big_model")
     launches.update({k: sum(rt_launches[p].get(k, 0) for p in paged_path)
-                     for k in TPG.LAUNCHES})
-    launch_path.update({k: paged_path for k in TPG.LAUNCHES})
+                     for k in paged_keys})
+    launch_path.update({k: paged_path for k in paged_keys})
+    alpha_launches = {k: rt_launches.get("leaf_rt", {}).get(k + "_alpha", 0)
+                      for k in ("trace_resolve", "trace_resolve_paged")}
     raster_needs = dict(config1=["raster_exact"], config2=["raster_exact"],
                         translucent=["raster_exact", "raster_peel"],
                         supersample=["raster_exact"],
@@ -1554,10 +1759,11 @@ def main():
         ok=(all(raster_launches.get(p, {}).get(k, 0) > 0
                 for p, ks in raster_needs.items() for k in ks)
             and all(rt_launches["rt_frame"].get(k, 0) > 0
-                    for k in TK.LAUNCHES)
+                    for k in flat_keys)
             and rt_launches["rt_grid10k"].get("trace_scene", 0) > 0
             and all(rt_launches[p].get(k, 0) > 0 for p in paged_path
-                    for k in TPG.LAUNCHES)
+                    for k in paged_keys)
+            and all(v > 0 for v in alpha_launches.values())
             and all(hyb.get("config4", {}).get("launches_one_frame", {})
                     .get(k, 0) > 0 for k in ("raster_exact", "trace_bundle",
                                              "trace_resolve"))
@@ -1584,6 +1790,9 @@ def main():
         phase("profile_crowd", lambda: profile_frames(
             functools.partial(crowd_rt()[0].render, crowd_rt()[1]),
             paged_rt_stages(), os.path.join(out_dir, "profile_crowd.txt")))
+        phase("profile_leaf_rt", lambda: profile_frames(
+            functools.partial(leaf_grid()[0].render, leaf_grid()[2]),
+            leaf_rt_stages(), os.path.join(out_dir, "profile_leaf_rt.txt")))
         for name in ("config4", "grid10k"):
             if name in hybrid_scenes:
                 hy, cam = hybrid_scenes[name]
@@ -1652,11 +1861,25 @@ def main():
             if k["name"] == "trace_scene_paged":   # K7 on the same rays
                 row["ms_k7_grid_primary_flat"] = src.get(
                     "k7_grid_primary_flat", {}).get("ms")
+            if k["name"] in alpha_launches:   # the alpha form: leaf_rt
+                case = src.get(prefix[k["name"]] + "_alpha_leaf_primary", {})
+                row["alpha"] = dict(
+                    ms_plain_form_same_rays=src.get(
+                        prefix[k["name"]] + "_leaf_primary", {}).get("ms"),
+                    ms=case.get("ms"), plain_ms=case.get("plain_ms"),
+                    bound_ms=case.get("bound_ms"),
+                    bound_by=case.get("bound_by"),
+                    timed_on=prefix[k["name"]] + "_alpha_leaf_primary",
+                    launches=alpha_launches[k["name"]],
+                    launches_from=["leaf_rt"])
         if k["name"] in RE.LAUNCHES:
             row["launches_keyed_entry"] = raster_launches.get(
                 "keyed_entry", {}).get(k["name"], 0)
-        rows.append(dict(k, launches=launches.get(k["name"], 0),
-                         launches_from=list(launch_path[k["name"]]),
+        n_alpha = alpha_launches.get(k["name"], 0)
+        rows.append(dict(k, launches=launches.get(k["name"], 0) + n_alpha,
+                         launches_from=list(launch_path[k["name"]])
+                         + (["leaf_rt"] if k["name"] in alpha_launches
+                            else []),
                          library_ms=None, **row))
     emit(kernels=rows)
     print(smi, flush=True)

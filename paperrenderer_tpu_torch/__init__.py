@@ -12,7 +12,8 @@ Ported so far: the static raster frame, ``RenderPass.render(cam)``, the
 draw-list raster frame, ``RenderPass.render(cam, static_path=False)``, the
 ray-traced frame, ``RayTraceRender.render(cam)``, on the flat and the paged
 layout (big scenes, big models), and the hybrid frame,
-``HybridRender.render(cam)``.
+``HybridRender.render(cam)``, both with the any-hit leaf cutout and
+half-rate reflections. Textures and animation are still to port.
 """
 
 import torch as _torch

@@ -69,6 +69,12 @@ class RenderEngine:
     def frame_number(self) -> int:
         return self._frame
 
+    @property
+    def buffer_index(self) -> int:
+        """frame % 2, as the JAX package's engine gives it
+        (PaperRenderer.h:112)."""
+        return self._frame % 2
+
     def create_render_pass(self, **kwargs):
         from ..render.renderpass import RenderPass
 

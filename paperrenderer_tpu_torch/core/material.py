@@ -5,7 +5,7 @@ Material.h:11-53, example/src/Materials.cpp). A material is a row of a
 device SoA parameter table that the shading ops index by material id.
 
 Textures are not ported yet: a material that carries one raises
-``NotImplementedError`` when it is registered (ROADMAP Queue 1 item 4).
+``NotImplementedError`` when it is registered (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -110,8 +110,8 @@ def _resolve_untextured(mat) -> Dict:
             else Material.instance(mat).resolved())
     if any(vals.get(k) is not None for k in _TEXTURE_KEYS):
         raise NotImplementedError(
-            "textured materials are not ported yet (ROADMAP Queue 1 item 4: "
-            "textures and supersampling)")
+            "textured materials are not ported yet (ROADMAP Queue 1 item 3: "
+            "textures)")
     return vals
 
 
@@ -154,6 +154,12 @@ class MaterialRegistry:
 
     def rows(self) -> list:
         return [dict(v) for v in self._rows]
+
+    @property
+    def has_leaf(self) -> bool:
+        """A registered material is a leaf cutout (SHADE_LEAF): the RT
+        frames then trace with the any-hit leaf test."""
+        return any(v["shading_model"] == SHADE_LEAF for v in self._rows)
 
     def table(self, device="cpu") -> MaterialTable:
         n = max(1, len(self._rows))

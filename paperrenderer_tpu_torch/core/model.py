@@ -84,9 +84,14 @@ class ModelInstance:
     PaperRenderer.cpp:308-363)."""
 
     __slots__ = ("model", "index", "_pos", "_scale", "_quat", "dirty",
-                 "visible", "_scene")
+                 "visible", "_scene", "unique_geometry", "anim_phase")
 
-    def __init__(self, model: Model):
+    def __init__(self, model: Model, unique_geometry: bool = False,
+                 anim_phase: float = 0.0):
+        if unique_geometry:
+            raise NotImplementedError(
+                "unique-geometry (animated) instances are not ported yet "
+                "(ROADMAP Queue 1 item 4)")
         self.model = model
         self.index: int = -1  # slot in the Scene's instance SoA
         self._pos = np.zeros(3, np.float32)
@@ -94,6 +99,9 @@ class ModelInstance:
         self._quat = np.asarray([1.0, 0.0, 0.0, 0.0], np.float32)
         self.dirty = True
         self.visible = True
+        self.unique_geometry = False
+        # per-instance animation phase, read once animation is ported
+        self.anim_phase = anim_phase
         self._scene = None
 
     def set_transform(self, pos=None, scale=None, quat=None) -> None:

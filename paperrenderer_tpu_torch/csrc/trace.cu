@@ -16,6 +16,19 @@
 //   K11 trace_resolve_paged_launch <- _make_resolve_kernel_paged (:575):
 //                                     K8's over a PagedScene, the material
 //                                     from the chunk's slot-material block
+// K8 and K11 have an alpha form, the any-hit leaf cutout of leaf.rahit
+// (_make_resolve_kernel(alpha_test=True), trace_kernel.py:506, gate :735;
+// _make_resolve_kernel_paged(alpha_test=True), trace_paged.py:575, gate
+// :906), and so do K7 and K10 (SceneTracer.trace(use_alpha=True), which the
+// JAX package runs in XLA): the ALPHA template flag of the walk. A leaf
+// candidate that would win (t < best_t and t < the leaf's best so far)
+// reads its material (flat: slot_mats[inst, slot]; paged: the chunk's
+// slot-material block at the instance's row) and its shading model; only
+// on a SHADE_LEAF material does it read its 6 uv floats and keep the
+// candidate inside the leaf's lens, |uv.y - 0.5| < (1 - (1 - 2 uv.x)^2) *
+// 0.2, unless the instance is force-opaque (record bit 23). The TPU kernels
+// re-derive the uv from their packet's ratio state; this walk has u and v.
+// A null shading-model pointer selects the instantiation without the gate.
 //
 // Design: one thread per ray (per origin for K9), each walking its own stack
 // in local memory with the pop/push machine of accel.trace_scene (the plain
@@ -78,6 +91,8 @@ constexpr int BROWS = 2 * CHUNK;  // rows per TLAS chunk block
 constexpr int BL_LEAVES = 256;    // leaf rows per BLAS chunk
 constexpr int BL_NROWS = 512;     // node rows per BLAS chunk block
 constexpr int INST_ID_MASK = 0x007FFFFF;
+constexpr int INST_OPAQUE_BIT = 1 << 23;
+constexpr int SHADE_LEAF = 1;
 constexpr int THREADS = 128;
 
 struct SceneView {
@@ -104,6 +119,8 @@ struct ResolveView {
   const int* __restrict__ slot_mats;    // i32[N, S] (paged: chunk_smat)
   int n_inst, n_slots;
   int smat_blk;                         // paged: per-chunk block length
+  const int* __restrict__ shading_model;   // i32[n_mats]; alpha forms only
+  int n_mats;
 };
 
 struct Hit {
@@ -140,9 +157,48 @@ __device__ __forceinline__ int rebase(int c, int base_row, int base_leaf) {
   return c + (((c >> 28) & 3) == TYPE_LEAF ? base_leaf : base_row);
 }
 
-template <bool PAGED, bool ANY_HIT>
-__device__ Hit traverse(const SceneView& sc, const float* o, const float* d,
-                        float t_max, bool active) {
+// the material of slot `slot` of an instance: flat, slot_mats[inst, slot];
+// paged, the hit chunk's slot-material block at the instance's place in
+// its chunk (irow: the instance's TLAS chunk row)
+template <bool PAGED>
+__device__ __forceinline__ int slot_material(const ResolveView& rv, int inst,
+                                             int irow, int slot) {
+  if (PAGED) {
+    const int chunk = irow / BROWS;
+    const int k = irow - chunk * BROWS - (CHUNK - 1);
+    return __ldg(rv.slot_mats + (size_t)chunk * rv.smat_blk +
+                 (size_t)k * rv.n_slots + slot);
+  }
+  return __ldg(rv.slot_mats + (size_t)clampi(inst, 0, rv.n_inst - 1) *
+               rv.n_slots + slot);
+}
+
+// the any-hit leaf cutout of one candidate (accel.leaf_cutout_keep, in its
+// operation order): false where it lies on a SHADE_LEAF material outside
+// the procedural leaf (shading.leaf_alpha(uv) < 0.5)
+template <bool PAGED>
+__device__ __forceinline__ bool alpha_keep(const ResolveView& rv, int tag,
+                                           int inst_word, int irow, float u,
+                                           float v) {
+  if (inst_word & INST_OPAQUE_BIT) return true;
+  const int slot = clampi(tag >> 24, 0, rv.n_slots - 1);
+  const int mat = slot_material<PAGED>(rv, inst_word & INST_ID_MASK, irow,
+                                       slot);
+  if (__ldg(rv.shading_model + clampi(mat, 0, rv.n_mats - 1)) != SHADE_LEAF)
+    return true;
+  const float* a = rv.tri_attr + (size_t)(tag & 0x00FFFFFF) * 16;
+  const float w0 = 1.0f - u - v;
+  const float x = w0 * __ldg(a + 9) + u * __ldg(a + 11) + v * __ldg(a + 13);
+  const float y = w0 * __ldg(a + 10) + u * __ldg(a + 12) + v * __ldg(a + 14);
+  const float e = 1.0f - 2.0f * x;
+  const float curve = (-(e * e) + 1.0f) * 0.2f;
+  return fabsf(y - 0.5f) < curve;
+}
+
+template <bool PAGED, bool ANY_HIT, bool ALPHA>
+__device__ Hit traverse(const SceneView& sc, const ResolveView& rv,
+                        const float* o, const float* d, float t_max,
+                        bool active) {
   int stack[STACK_MAX];
   const int s = sc.stack_size;
   int sp = active ? 1 : 0;
@@ -276,8 +332,10 @@ __device__ Hit traverse(const SceneView& sc, const float* o, const float* d,
         const float t = (e20 * q0 + e21 * q1 + e22 * q2) * inv;
         const bool hit = ok && u >= 0.0f && v >= 0.0f && (u + v) <= 1.0f &&
                          t > sc.t_min;
-        // first of the closest candidates (argmin over t where cand)
-        if (hit && tag >= 0 && t < best_t && t < kt) {
+        // first of the closest candidates (argmin over t where cand) that
+        // the leaf cutout keeps
+        if (hit && tag >= 0 && t < best_t && t < kt &&
+            (!ALPHA || alpha_keep<PAGED>(rv, tag, cur_inst, cur_row, u, v))) {
           kt = t;
           ku = u;
           kv = v;
@@ -330,16 +388,7 @@ __device__ void resolve(const ResolveView& rv, const Hit& h, float* uv,
   for (int k = 0; k < 2; ++k)
     uv[k] = w0 * __ldg(a + 9 + k) + u * __ldg(a + 11 + k) + v * __ldg(a + 13 + k);
   const int slot = clampi((int)__ldg(a + 15), 0, rv.n_slots - 1);
-  if (PAGED) {
-    const int chunk = h.irow / BROWS;
-    const int k = h.irow - chunk * BROWS - (CHUNK - 1);
-    *material = h.prim >= 0 ? __ldg(rv.slot_mats + (size_t)chunk * rv.smat_blk
-                                    + (size_t)k * rv.n_slots + slot)
-                            : 0;
-  } else {
-    const int mat = __ldg(rv.slot_mats + (size_t)iid * rv.n_slots + slot);
-    *material = h.prim >= 0 ? mat : 0;
-  }
+  *material = h.prim >= 0 ? slot_material<PAGED>(rv, iid, h.irow, slot) : 0;
 }
 
 __device__ __forceinline__ void load3(const float* p, int i, float* v) {
@@ -372,7 +421,7 @@ __device__ __forceinline__ void store_resolved(const ResolveView& rv,
   material[i] = mat;
 }
 
-template <bool PAGED, bool ANY_HIT, bool RESOLVE>
+template <bool PAGED, bool ANY_HIT, bool RESOLVE, bool ALPHA>
 __global__ void __launch_bounds__(THREADS)
 trace_kernel(SceneView sc, ResolveView rv, const float* __restrict__ ray_o,
              const float* __restrict__ ray_d, const float* __restrict__ t_max,
@@ -385,7 +434,8 @@ trace_kernel(SceneView sc, ResolveView rv, const float* __restrict__ ray_o,
   load3(ray_o, i, o);
   load3(ray_d, i, d);
   const bool act = active == nullptr || active[i] != 0;
-  const Hit h = traverse<PAGED, ANY_HIT>(sc, o, d, __ldg(t_max + i), act);
+  const Hit h = traverse<PAGED, ANY_HIT, ALPHA>(sc, rv, o, d,
+                                                __ldg(t_max + i), act);
   store_hit(h, i, out_t, out_prim, out_inst, out_bary);
   if (RESOLVE) store_resolved<PAGED>(rv, h, i, out_uv, out_normal, out_mat);
 }
@@ -419,8 +469,8 @@ bundle_kernel(SceneView sc, ResolveView rv, BundleArgs b, int* out_bits,
   for (int s = 0; s < b.n_occ; ++s) {
     const bool act = b.occ_act[s * r + i] != 0;
     load3(b.occ_d + s * r * 3, i, d);
-    const Hit h = traverse<false, true>(sc, o, d, __ldg(b.occ_cap + s * r + i),
-                                        act);
+    const Hit h = traverse<false, true, false>(
+        sc, rv, o, d, __ldg(b.occ_cap + s * r + i), act);
     bits |= (int)(h.prim >= 0 || !act) << s;
   }
   out_bits[i] = bits;
@@ -428,14 +478,15 @@ bundle_kernel(SceneView sc, ResolveView rv, BundleArgs b, int* out_bits,
     const bool act = b.ao_act[j * r + i] != 0;
     const float cap = __ldg(b.ao_cap + j * r + i);
     load3(b.ao_d + j * r * 3, i, d);
-    const Hit h = traverse<false, false>(sc, o, d, cap, act);
+    const Hit h = traverse<false, false, false>(sc, rv, o, d, cap, act);
     const float t = h.prim >= 0 ? h.t : cap;
     out_ao_t[j * r + i] = act ? t : -3e38f;
   }
   if (b.rs_d != nullptr) {
     load3(b.rs_d, i, d);
-    const Hit h = traverse<false, false>(sc, o, d, __ldg(b.rs_cap + i),
-                                         b.rs_act[i] != 0);
+    const Hit h = traverse<false, false, false>(sc, rv, o, d,
+                                                __ldg(b.rs_cap + i),
+                                                b.rs_act[i] != 0);
     store_hit(h, i, rs_t, rs_prim, rs_inst, rs_bary);
     store_resolved<false>(rv, h, i, rs_uv, rs_normal, rs_mat);
   }
@@ -482,18 +533,43 @@ SceneView paged_view(SceneView sc, const float* cboxes, const int* ccodes,
 }
 
 ResolveView resolve_view(const float* tri_attr, const float* inv_rows,
-                         const int* slot_mats, int n_inst, int n_slots) {
+                         const int* slot_mats, int n_inst, int n_slots,
+                         const int* shading_model = nullptr, int n_mats = 1,
+                         int smat_blk = 0) {
   ResolveView rv;
   rv.tri_attr = tri_attr;
   rv.inv_rows = inv_rows;
   rv.slot_mats = slot_mats;
   rv.n_inst = n_inst;
   rv.n_slots = n_slots;
-  rv.smat_blk = 0;
+  rv.smat_blk = smat_blk;
+  rv.shading_model = shading_model;
+  rv.n_mats = n_mats;
   return rv;
 }
 
 inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
+
+// one trace_kernel launch; a shading model selects the alpha form
+template <bool PAGED, bool ANY_HIT, bool RESOLVE>
+int launch(const SceneView& sc, const ResolveView& rv, const float* ray_o,
+           const float* ray_d, const float* t_max,
+           const unsigned char* active, int n_rays, float* out_t,
+           int* out_prim, int* out_inst, float* out_bary, float* out_uv,
+           float* out_normal, int* out_mat, cudaStream_t stream) {
+  if (n_rays <= 0) return 0;
+  if (rv.shading_model != nullptr)
+    trace_kernel<PAGED, ANY_HIT, RESOLVE, true>
+        <<<blocks(n_rays), THREADS, 0, stream>>>(
+            sc, rv, ray_o, ray_d, t_max, active, n_rays, out_t, out_prim,
+            out_inst, out_bary, out_uv, out_normal, out_mat);
+  else
+    trace_kernel<PAGED, ANY_HIT, RESOLVE, false>
+        <<<blocks(n_rays), THREADS, 0, stream>>>(
+            sc, rv, ray_o, ray_d, t_max, active, n_rays, out_t, out_prim,
+            out_inst, out_bary, out_uv, out_normal, out_mat);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -501,49 +577,48 @@ extern "C" {
 
 int trace_stack_max() { return STACK_MAX; }
 
-// K7: closest hit (any_hit = 0) or any hit (any_hit = 1)
+// K7: closest hit (any_hit = 0) or any hit (any_hit = 1); with a shading
+// model (and the resolve tables the cutout reads) its alpha form
 int trace_launch(const float* nodes, const int* codes, const float* leaf,
                  const int* leaf_prim, int nn, int nl, int root,
                  int stack_size, int cull_mask, float t_min, int any_hit,
-                 const float* ray_o, const float* ray_d, const float* t_max,
+                 const float* tri_attr, const float* inv_rows,
+                 const int* slot_mats, int n_inst, int n_slots,
+                 const int* shading_model, int n_mats, const float* ray_o,
+                 const float* ray_d, const float* t_max,
                  const unsigned char* active, int n_rays, float* out_t,
                  int* out_prim, int* out_inst, float* out_bary,
                  cudaStream_t stream) {
-  if (n_rays <= 0) return 0;
-  SceneView sc = scene_view(nodes, codes, leaf, leaf_prim, nn, nl, root,
-                            stack_size, cull_mask, t_min);
-  ResolveView rv = resolve_view(nullptr, nullptr, nullptr, 1, 1);
-  if (any_hit)
-    trace_kernel<false, true, false><<<blocks(n_rays), THREADS, 0, stream>>>(
-        sc, rv, ray_o, ray_d, t_max, active, n_rays, out_t, out_prim,
-        out_inst, out_bary, nullptr, nullptr, nullptr);
-  else
-    trace_kernel<false, false, false><<<blocks(n_rays), THREADS, 0, stream>>>(
-        sc, rv, ray_o, ray_d, t_max, active, n_rays, out_t, out_prim,
-        out_inst, out_bary, nullptr, nullptr, nullptr);
-  return (int)cudaGetLastError();
+  const SceneView sc = scene_view(nodes, codes, leaf, leaf_prim, nn, nl,
+                                  root, stack_size, cull_mask, t_min);
+  const ResolveView rv = resolve_view(tri_attr, inv_rows, slot_mats, n_inst,
+                                      n_slots, shading_model, n_mats);
+  return (any_hit ? launch<false, true, false> : launch<false, false, false>)(
+      sc, rv, ray_o, ray_d, t_max, active, n_rays, out_t, out_prim, out_inst,
+      out_bary, nullptr, nullptr, nullptr, stream);
 }
 
-// K8: closest hit + resolve
+// K8: closest hit + resolve; with a shading model its alpha form
 int trace_resolve_launch(const float* nodes, const int* codes,
                          const float* leaf, const int* leaf_prim, int nn,
                          int nl, int root, int stack_size, int cull_mask,
                          float t_min, const float* tri_attr,
                          const float* inv_rows, const int* slot_mats,
-                         int n_inst, int n_slots, const float* ray_o,
-                         const float* ray_d, const float* t_max,
-                         const unsigned char* active, int n_rays,
-                         float* out_t, int* out_prim, int* out_inst,
-                         float* out_bary, float* out_uv, float* out_normal,
-                         int* out_mat, cudaStream_t stream) {
-  if (n_rays <= 0) return 0;
-  SceneView sc = scene_view(nodes, codes, leaf, leaf_prim, nn, nl, root,
-                            stack_size, cull_mask, t_min);
-  ResolveView rv = resolve_view(tri_attr, inv_rows, slot_mats, n_inst, n_slots);
-  trace_kernel<false, false, true><<<blocks(n_rays), THREADS, 0, stream>>>(
-      sc, rv, ray_o, ray_d, t_max, active, n_rays, out_t, out_prim, out_inst,
-      out_bary, out_uv, out_normal, out_mat);
-  return (int)cudaGetLastError();
+                         int n_inst, int n_slots, const int* shading_model,
+                         int n_mats, const float* ray_o, const float* ray_d,
+                         const float* t_max, const unsigned char* active,
+                         int n_rays, float* out_t, int* out_prim,
+                         int* out_inst, float* out_bary, float* out_uv,
+                         float* out_normal, int* out_mat,
+                         cudaStream_t stream) {
+  const SceneView sc = scene_view(nodes, codes, leaf, leaf_prim, nn, nl,
+                                  root, stack_size, cull_mask, t_min);
+  const ResolveView rv = resolve_view(tri_attr, inv_rows, slot_mats, n_inst,
+                                      n_slots, shading_model, n_mats);
+  return launch<false, false, true>(sc, rv, ray_o, ray_d, t_max, active,
+                                    n_rays, out_t, out_prim, out_inst,
+                                    out_bary, out_uv, out_normal, out_mat,
+                                    stream);
 }
 
 // K9: occlusion bitmask + AO t + optional resolve sample, one origin per ray
@@ -586,37 +661,38 @@ int trace_bundle_launch(const float* nodes, const int* codes,
   return (int)cudaGetLastError();
 }
 
-// K10: closest hit (any_hit = 0) or any hit (any_hit = 1) over a PagedScene
+// K10: closest hit (any_hit = 0) or any hit (any_hit = 1) over a
+// PagedScene; with a shading model (and the resolve tables the cutout
+// reads: chunk_smat, smat_blk ints per chunk) its alpha form
 int trace_paged_launch(const float* nodes, const int* codes, const float* leaf,
                        const int* leaf_prim, int nn, int nl, int root,
                        int stack_size, int cull_mask, float t_min,
                        const float* cboxes, const int* ccodes, int nct,
                        const float* bnodes, const int* bcodes, int nbn,
                        const float* blpos, const int* blprim, int nbl,
-                       int max_steps, int any_hit, const float* ray_o,
-                       const float* ray_d, const float* t_max,
-                       const unsigned char* active, int n_rays, float* out_t,
-                       int* out_prim, int* out_inst, float* out_bary,
-                       cudaStream_t stream) {
-  if (n_rays <= 0) return 0;
-  SceneView sc = paged_view(
+                       int max_steps, int any_hit, const float* tri_attr,
+                       const float* inv_rows, const int* chunk_smat,
+                       int n_inst, int n_slots, int smat_blk,
+                       const int* shading_model, int n_mats,
+                       const float* ray_o, const float* ray_d,
+                       const float* t_max, const unsigned char* active,
+                       int n_rays, float* out_t, int* out_prim, int* out_inst,
+                       float* out_bary, cudaStream_t stream) {
+  const SceneView sc = paged_view(
       scene_view(nodes, codes, leaf, leaf_prim, nn, nl, root, stack_size,
                  cull_mask, t_min),
       cboxes, ccodes, nct, bnodes, bcodes, nbn, blpos, blprim, nbl, max_steps);
-  ResolveView rv = resolve_view(nullptr, nullptr, nullptr, 1, 1);
-  if (any_hit)
-    trace_kernel<true, true, false><<<blocks(n_rays), THREADS, 0, stream>>>(
-        sc, rv, ray_o, ray_d, t_max, active, n_rays, out_t, out_prim,
-        out_inst, out_bary, nullptr, nullptr, nullptr);
-  else
-    trace_kernel<true, false, false><<<blocks(n_rays), THREADS, 0, stream>>>(
-        sc, rv, ray_o, ray_d, t_max, active, n_rays, out_t, out_prim,
-        out_inst, out_bary, nullptr, nullptr, nullptr);
-  return (int)cudaGetLastError();
+  const ResolveView rv = resolve_view(tri_attr, inv_rows, chunk_smat, n_inst,
+                                      n_slots, shading_model, n_mats,
+                                      smat_blk);
+  return (any_hit ? launch<true, true, false> : launch<true, false, false>)(
+      sc, rv, ray_o, ray_d, t_max, active, n_rays, out_t, out_prim, out_inst,
+      out_bary, nullptr, nullptr, nullptr, stream);
 }
 
 // K11: closest hit + resolve over a PagedScene; the material comes from
-// chunk_smat (smat_blk ints per chunk, n_slots per instance)
+// chunk_smat (smat_blk ints per chunk, n_slots per instance); with a
+// shading model its alpha form
 int trace_resolve_paged_launch(
     const float* nodes, const int* codes, const float* leaf,
     const int* leaf_prim, int nn, int nl, int root, int stack_size,
@@ -624,22 +700,22 @@ int trace_resolve_paged_launch(
     int nct, const float* bnodes, const int* bcodes, int nbn,
     const float* blpos, const int* blprim, int nbl, int max_steps,
     const float* tri_attr, const float* inv_rows, const int* chunk_smat,
-    int n_inst, int n_slots, int smat_blk, const float* ray_o,
-    const float* ray_d, const float* t_max, const unsigned char* active,
-    int n_rays, float* out_t, int* out_prim, int* out_inst, float* out_bary,
-    float* out_uv, float* out_normal, int* out_mat, cudaStream_t stream) {
-  if (n_rays <= 0) return 0;
-  SceneView sc = paged_view(
+    int n_inst, int n_slots, int smat_blk, const int* shading_model,
+    int n_mats, const float* ray_o, const float* ray_d, const float* t_max,
+    const unsigned char* active, int n_rays, float* out_t, int* out_prim,
+    int* out_inst, float* out_bary, float* out_uv, float* out_normal,
+    int* out_mat, cudaStream_t stream) {
+  const SceneView sc = paged_view(
       scene_view(nodes, codes, leaf, leaf_prim, nn, nl, root, stack_size,
                  cull_mask, t_min),
       cboxes, ccodes, nct, bnodes, bcodes, nbn, blpos, blprim, nbl, max_steps);
-  ResolveView rv = resolve_view(tri_attr, inv_rows, chunk_smat, n_inst,
-                                n_slots);
-  rv.smat_blk = smat_blk;
-  trace_kernel<true, false, true><<<blocks(n_rays), THREADS, 0, stream>>>(
-      sc, rv, ray_o, ray_d, t_max, active, n_rays, out_t, out_prim, out_inst,
-      out_bary, out_uv, out_normal, out_mat);
-  return (int)cudaGetLastError();
+  const ResolveView rv = resolve_view(tri_attr, inv_rows, chunk_smat, n_inst,
+                                      n_slots, shading_model, n_mats,
+                                      smat_blk);
+  return launch<true, false, true>(sc, rv, ray_o, ray_d, t_max, active,
+                                   n_rays, out_t, out_prim, out_inst,
+                                   out_bary, out_uv, out_normal, out_mat,
+                                   stream);
 }
 
 }  // extern "C"

@@ -28,7 +28,7 @@ block; a TYPE_CHUNK code names a whole chunk. ``paged_to_flat`` turns a
 PagedScene into the equivalent flat RTScene.
 
 Not ported: animated (unique-geometry) BLASes and their refit/re-split
-(ROADMAP Queue 1 item 7), and with them the paged layout's ``animate`` and
+(ROADMAP Queue 1 item 4), and with them the paged layout's ``animate`` and
 ``resplit``; ``assemble_scene_paged``'s ``order_override`` (its one caller
 is a TPU profiling script, and the k-d order it fed was a measured loss).
 """
@@ -43,9 +43,11 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.material import SHADE_LEAF
 from ..core.scene import InstanceArrays
 from ..core.transforms import quat_to_mat3, transform_aabb, trs_to_mat34
 from .bvh import moller_trumbore_edges, morton_codes
+from .shading import leaf_alpha
 from .trace import SurfaceHits, occlusion_bits
 
 K = 8                      # triangles per BLAS leaf
@@ -958,6 +960,33 @@ def _slab2(o, inv_d, t_max, bmin0, bmax0, bmin1, bmax1):
     return h0, h1, tn0, tn1
 
 
+def leaf_cutout_keep(tri_attr, slot_materials, shading_model, prim_tag,
+                     inst_word, u, v) -> torch.Tensor:
+    """The any-hit leaf cutout (leaf.rahit) of one leaf's candidates ->
+    bool[R, K], False where a candidate lies on a SHADE_LEAF material
+    outside the procedural leaf (``shading.leaf_alpha(uv) < 0.5``).
+    ``prim_tag`` i32[R, K] (the material slot in bits 24-30), ``inst_word``
+    i32[R] the instance record word (a force-opaque instance keeps every
+    candidate), ``u``/``v`` f32[R, K] the candidates' barycentrics; the
+    material is ``slot_materials[instance, slot]`` and the uv is
+    interpolated from ``tri_attr`` cols 9:15 with (1-u-v, u, v). The
+    traversal kernels' alpha forms evaluate these expressions in this
+    order (``csrc/trace.cu`` ``alpha_keep``)."""
+    n, s = slot_materials.shape
+    iid = torch.clamp(inst_word & INST_ID_MASK, 0, n - 1).long()
+    slot = torch.clamp(prim_tag >> 24, 0, s - 1).long()
+    mat = slot_materials[iid[:, None], slot]
+    is_leaf = shading_model[
+        torch.clamp(mat, 0, shading_model.shape[0] - 1).long()] == SHADE_LEAF
+    attr = tri_attr[torch.where(prim_tag >= 0, prim_tag & 0x00FFFFFF,
+                                0).long()]
+    w0 = 1.0 - u - v
+    uv = (w0[..., None] * attr[..., 9:11] + u[..., None] * attr[..., 11:13]
+          + v[..., None] * attr[..., 13:15])
+    opaque = (inst_word & INST_OPAQUE_BIT) != 0
+    return opaque[:, None] | ~is_leaf | (leaf_alpha(uv) >= 0.5)
+
+
 def trace_scene(
     scene: RTScene,
     ray_o: torch.Tensor,    # f32[R, 3] world
@@ -972,6 +1001,8 @@ def trace_scene(
     cull_mask: int = 0xFF,
     counts: Optional[dict] = None,
     max_steps: Optional[int] = None,
+    slot_materials: Optional[torch.Tensor] = None,
+    shading_model: Optional[torch.Tensor] = None,
 ) -> HitRecord2:
     """Two-level traversal, the plain version of the traversal kernels
     (``csrc/trace.cu``) and the port of ``accel.trace_scene``.
@@ -986,7 +1017,10 @@ def trace_scene(
     type only on the rays that popped it, and finished rays leave the
     working set. ``counts`` (optional) accumulates the box, leaf and
     instance pops; ``max_steps`` (optional) ends every walk after that many
-    pops with the best hit so far."""
+    pops with the best hit so far. With ``shading_model`` (i32[M], and the
+    frame's ``slot_materials`` i32[N, S]) a leaf's candidates first pass
+    the any-hit leaf cutout (``leaf_cutout_keep``; ``counts["alpha_rejected"]``
+    counts the candidates it drops)."""
     r = ray_o.shape[0]
     dev = ray_o.device
     nn = scene.nodes.shape[0]
@@ -1068,6 +1102,13 @@ def trace_scene(
                 oo[il][:, None, :], do[il][:, None, :],
                 tri[..., 0:3], tri[..., 3:6], tri[..., 6:9], t_min=t_min)
             cand = hit & (prim_tag >= 0) & (t < bt[il][:, None])
+            if shading_model is not None:
+                keep = leaf_cutout_keep(scene.tri_attr, slot_materials,
+                                        shading_model, prim_tag, ci[il], u, v)
+                if counts is not None:
+                    counts["alpha_rejected"] = counts.get(
+                        "alpha_rejected", 0) + int((cand & ~keep).sum())
+                cand = cand & keep
             t_m = torch.where(cand, t, float("inf"))
             k = torch.argmin(t_m, dim=1, keepdim=True)
             win = cand.any(dim=1)
@@ -1134,42 +1175,52 @@ class SceneTracer:
     """Two-level tracer and attribute resolver bound to one frame's RTScene.
     Every method goes through a traversal kernel wrapper
     (``ops/trace_kernel.py``): the CUDA kernel on a CUDA scene, its plain
-    version on a CPU scene."""
-
-    leaf_cutout = False   # the any-hit alpha test is not ported (item 9)
+    version on a CPU scene. With ``leaf_cutout``, ``trace`` and
+    ``trace_resolve`` called with ``use_alpha=True`` apply the any-hit leaf
+    cutout (the kernels' alpha forms); the bundles stay opaque."""
 
     def __init__(self, scene: RTScene, slot_materials: torch.Tensor,
-                 materials, *, root_code: int, stack_size: int):
+                 materials, *, root_code: int, stack_size: int,
+                 leaf_cutout: bool = False):
         self.scene = scene
         self.slot_materials = slot_materials
         self.materials = materials
         self.root_code = root_code
         self.stack_size = stack_size
+        self.leaf_cutout = leaf_cutout
 
     def _walk(self):
         return dict(root_code=self.root_code, stack_size=self.stack_size)
 
+    def _shading_model(self, use_alpha: bool):
+        """The material table's shading models when this trace applies the
+        leaf cutout, else None."""
+        return (self.materials.shading_model
+                if use_alpha and self.leaf_cutout else None)
+
     def trace(self, o, d, t_max, *, any_hit=False, active=None,
-              cull_mask: int = 0xFF) -> HitRecord2:
+              use_alpha=False, cull_mask: int = 0xFF) -> HitRecord2:
         from .trace_kernel import trace_scene_kernel
 
-        return trace_scene_kernel(self.scene, o, d, t_max, any_hit=any_hit,
-                                  active=active, cull_mask=cull_mask,
-                                  **self._walk())
+        return trace_scene_kernel(
+            self.scene, o, d, t_max, any_hit=any_hit, active=active,
+            cull_mask=cull_mask, slot_materials=self.slot_materials,
+            shading_model=self._shading_model(use_alpha), **self._walk())
 
     def resolve(self, rec: HitRecord2, ray_o, ray_d):
         """Interpolated hit attributes (hitcommon.glsl getHitInfo)."""
         return surface_hits(rec, resolve_attrs(self.scene, self.slot_materials,
                                                rec), ray_o, ray_d)
 
-    def trace_resolve(self, o, d, t_max, *, active=None,
+    def trace_resolve(self, o, d, t_max, *, active=None, use_alpha=False,
                       cull_mask: int = 0xFF):
         """Closest hit + attribute resolve in one kernel -> SurfaceHits."""
         from .trace_kernel import trace_resolve_kernel
 
         rec, attrs = trace_resolve_kernel(
             self.scene, self.slot_materials, o, d, t_max, active=active,
-            cull_mask=cull_mask, **self._walk())
+            cull_mask=cull_mask, shading_model=self._shading_model(use_alpha),
+            **self._walk())
         return surface_hits(rec, attrs, o, d)
 
     def trace_shadow_ao_bundle(self, o, dirs, t_caps, ao_dirs, ao_caps, *,
@@ -1222,18 +1273,21 @@ class PagedSceneTracer:
     fused shadow/AO bundle, so the lighting passes trace shadows and AO
     apart, as the JAX package does for this tracer. On a CPU scene every
     method runs the plain version: the flat view (``paged_to_flat``, built
-    once per tracer) walked by ``trace_scene``."""
-
-    leaf_cutout = False   # the any-hit alpha test is not ported (item 9)
+    once per tracer) walked by ``trace_scene``. ``leaf_cutout`` and
+    ``use_alpha`` work as on ``SceneTracer``."""
 
     def __init__(self, scene: PagedScene, slot_materials: torch.Tensor,
-                 materials, *, root_code: int, stack_size: int):
+                 materials, *, root_code: int, stack_size: int,
+                 leaf_cutout: bool = False):
         self.scene = scene
         self.slot_materials = slot_materials
         self.materials = materials
         self.root_code = root_code
         self.stack_size = stack_size
+        self.leaf_cutout = leaf_cutout
         self._flat = None
+
+    _shading_model = SceneTracer._shading_model
 
     def flat_view(self):
         """(flat RTScene, its root code), built at first use."""
@@ -1256,12 +1310,13 @@ class PagedSceneTracer:
                     max_steps=self._step_bound(), flat=flat)
 
     def trace(self, o, d, t_max, *, any_hit=False, active=None,
-              cull_mask: int = 0xFF) -> HitRecord2:
+              use_alpha=False, cull_mask: int = 0xFF) -> HitRecord2:
         from .trace_paged import trace_scene_paged_kernel
 
-        return trace_scene_paged_kernel(self.scene, o, d, t_max,
-                                        any_hit=any_hit, active=active,
-                                        cull_mask=cull_mask, **self._walk())
+        return trace_scene_paged_kernel(
+            self.scene, o, d, t_max, any_hit=any_hit, active=active,
+            cull_mask=cull_mask, slot_materials=self.slot_materials,
+            shading_model=self._shading_model(use_alpha), **self._walk())
 
     def trace_occlusion_bundle(self, o, dirs, t_caps, *, active=None,
                                cull_mask: int = 0xFF) -> torch.Tensor:
@@ -1277,33 +1332,37 @@ class PagedSceneTracer:
         return surface_hits(rec, resolve_attrs(self.scene, self.slot_materials,
                                                rec), ray_o, ray_d)
 
-    def trace_resolve(self, o, d, t_max, *, active=None,
+    def trace_resolve(self, o, d, t_max, *, active=None, use_alpha=False,
                       cull_mask: int = 0xFF):
         """Closest hit + attribute resolve in one K11 launch -> SurfaceHits."""
         from .trace_paged import trace_resolve_paged_kernel
 
         rec, attrs = trace_resolve_paged_kernel(
             self.scene, self.slot_materials, o, d, t_max, active=active,
-            cull_mask=cull_mask, **self._walk())
+            cull_mask=cull_mask, shading_model=self._shading_model(use_alpha),
+            **self._walk())
         return surface_hits(rec, attrs, o, d)
 
 
 def make_scene_tracer(blasset, meta, instances, inst_blas, masks, tri_attr,
                       slot_materials, materials, *, tlas_index: int,
                       stack_size: int, paged: bool = False, inst_mask=None,
-                      inst_opaque=None):
+                      inst_opaque=None, leaf_cutout: bool = False):
     """Assemble this frame's scene and return its tracer: the paged layout
     over TLAS ``tlas_index`` alone (``PagedSceneTracer``) with ``paged``,
-    else the flat layout over every TLAS (``SceneTracer``)."""
+    else the flat layout over every TLAS (``SceneTracer``); ``leaf_cutout``
+    goes to the tracer."""
     if paged:
         scene, root = assemble_scene_paged(
             blasset, meta, instances, inst_blas, masks[tlas_index],
             slot_materials, tri_attr, inst_mask=inst_mask,
             inst_opaque=inst_opaque)
         return PagedSceneTracer(scene, slot_materials, materials,
-                                root_code=root, stack_size=stack_size)
+                                root_code=root, stack_size=stack_size,
+                                leaf_cutout=leaf_cutout)
     rt_scene, roots = assemble_scene(
         blasset, meta, instances, inst_blas, list(masks), tri_attr,
         inst_mask=inst_mask, inst_opaque=inst_opaque)
     return SceneTracer(rt_scene, slot_materials, materials,
-                       root_code=roots[tlas_index], stack_size=stack_size)
+                       root_code=roots[tlas_index], stack_size=stack_size,
+                       leaf_cutout=leaf_cutout)

@@ -18,11 +18,14 @@ un-tiled.
 ``ctx`` is a tracer: ``accel.SceneTracer`` (flat layout), which has the
 fused shadow/AO bundles, or ``accel.PagedSceneTracer``, which has not; as
 in the JAX package, each pass uses a fused bundle only where the tracer has
-it and traces the samples apart otherwise. The group compaction of the
-JAX package (``compact_secondary``/``compact_refl``) only reorders work for
-the TPU's packets and leaves every result unchanged; it is not ported.
-Not ported: textures and the any-hit leaf cutout (ROADMAP Queue 1 items 4
-and 9), half-rate reflections (item 9).
+it and traces the samples apart otherwise. Under the any-hit leaf cutout
+(``RTParams.leaf_cutout``, ``ctx.leaf_cutout``) primary, AO and reflection
+rays trace with ``use_alpha``, shadow rays stay opaque (the reference's
+OpaqueEXT), and shadows and AO no longer share a bundle. The group
+compaction of the JAX package (``compact_secondary``/``compact_refl``)
+only reorders work for the TPU's packets and leaves every result
+unchanged; it is not ported. Not ported: textures (ROADMAP Queue 1 item
+3).
 """
 
 from __future__ import annotations
@@ -47,16 +50,21 @@ class RTParams:
     """The example's RT uniform block (sample counts + AO radius) and the
     per-trace 8-bit cull masks (traceRayEXT cullMask): ``cull_mask`` for
     primary/reflection/AO rays, ``shadow_cull_mask`` for shadow rays.
-    ``fuse_bounce`` folds the reflection ray into the primary-side
-    shadow+AO bundle (one traversal launch for all primary-side secondary
-    rays; the same result as tracing it separately)."""
+    ``leaf_cutout`` applies the any-hit leaf cutout to SHADE_LEAF materials.
+    ``reflection_half_rate`` traces reflections for every other pixel
+    (``reflections_half_rate``; not reference parity). ``fuse_bounce``
+    folds the reflection ray into the primary-side shadow+AO bundle (one
+    traversal launch for all primary-side secondary rays; the same result
+    as tracing it separately)."""
 
     shadow_samples: int = 1
     reflection_samples: int = 1
     ao_samples: int = 1
     ao_radius: float = 2.0
+    leaf_cutout: bool = False
     cull_mask: int = 0xFF
     shadow_cull_mask: int = 0xFF
+    reflection_half_rate: bool = False
     fuse_bounce: bool = False
 
 
@@ -291,7 +299,9 @@ def ambient_occlusion(surf: SurfaceHits, ctx, materials: MaterialTable, key,
                       cull_mask: int = 0xFF) -> torch.Tensor:
     """RTAO factor in [0, 1] (raytrace.rchit:175-219): cosine-hemisphere
     rays, occlusion weighted by 1 - t/radius, scaled by
-    mix(1, roughness, metallic)."""
+    mix(1, roughness, metallic). Under the tracer's leaf cutout the rays go
+    through ``trace_resolve(use_alpha=True)``, whose kernels hold the
+    cutout, and only its hit flag and t are read."""
     r = surf.world_pos.shape[0]
     if samples <= 0 or radius <= 0.0:
         return torch.ones(r, device=surf.world_pos.device)
@@ -299,9 +309,17 @@ def ambient_occlusion(surf: SurfaceHits, ctx, materials: MaterialTable, key,
     o = surf.world_pos + surf.normal * 1e-3
     ao_ts = []
     for d in dirs:
-        rec = ctx.trace(o, d, radius, active=surf.valid, cull_mask=cull_mask)
-        ao_ts.append(torch.where(rec.hit, torch.clamp(rec.t, max=radius),
-                                 radius))
+        if getattr(ctx, "leaf_cutout", False):
+            s2 = ctx.trace_resolve(o, d, torch.full((r,), radius,
+                                                    device=o.device),
+                                   active=surf.valid, use_alpha=True,
+                                   cull_mask=cull_mask)
+            hit, t = s2.valid, s2.t
+        else:
+            rec = ctx.trace(o, d, radius, active=surf.valid,
+                            cull_mask=cull_mask)
+            hit, t = rec.hit, rec.t
+        ao_ts.append(torch.where(hit, torch.clamp(t, max=radius), radius))
     return _ao_from_t(surf, materials, ao_ts, samples, radius)
 
 
@@ -314,10 +332,12 @@ def shadow_and_ao(surf: SurfaceHits, ctx, materials: MaterialTable,
     ao f32[R]) with the sampling of ``shadow_visibility`` +
     ``ambient_occlusion``. The AO samples share the shadow offset (normal *
     5e-3; the separate AO pass uses 1e-3). Separate passes run when the
-    tracer has no fused bundle, the cull masks differ or AO is off."""
+    tracer has no fused bundle, the cull masks differ, AO is off or the AO
+    rays must honor the leaf cutout (the bundle has no alpha form; shadow
+    rays are opaque either way)."""
     if (getattr(ctx, "trace_shadow_ao_bundle", None) is None
             or shadow_cull_mask != cull_mask or ao_samples <= 0
-            or ao_radius <= 0.0):
+            or ao_radius <= 0.0 or getattr(ctx, "leaf_cutout", False)):
         return (shadow_visibility(surf, ctx, lights, shadow_key,
                                   shadow_samples, cull_mask=shadow_cull_mask),
                 ambient_occlusion(surf, ctx, materials, ao_key, ao_samples,
@@ -339,11 +359,14 @@ def shadow_ao_bounce(surf: SurfaceHits, ctx, materials: MaterialTable,
     """The primary-side lighting wavefront: shadow + AO samples, and with
     ``params.fuse_bounce`` the 1-bounce reflection ray too, in one bundle.
     Returns (svis, ao, bounce hits or None when the bounce is traced by
-    ``reflections``, as it is on a tracer without the fused bundle)."""
+    ``reflections``, as it is on a tracer without the fused bundle, at half
+    rate and under the leaf cutout)."""
     fuse = (params.fuse_bounce and params.reflection_samples == 1
+            and not params.reflection_half_rate
             and getattr(ctx, "trace_shadow_ao_resolve_bundle", None) is not None
             and params.shadow_cull_mask == params.cull_mask
-            and params.ao_samples > 0 and params.ao_radius > 0.0)
+            and params.ao_samples > 0 and params.ao_radius > 0.0
+            and not getattr(ctx, "leaf_cutout", False))
     samples = max(1, params.shadow_samples)
     if not fuse:
         svis, ao = shadow_and_ao(
@@ -432,6 +455,7 @@ def reflections(surf: SurfaceHits, ctx, materials: MaterialTable,
             o = surf.world_pos + surf.normal * 5e-3
             hit2 = ctx.trace_resolve(o, rdir, torch.full((r,), 1000.0, device=dev),
                                      active=surf.valid,
+                                     use_alpha=params.leaf_cutout,
                                      cull_mask=params.cull_mask)
         svis, ao2 = shadow_and_ao(
             hit2, ctx, materials, lights, rnd.fold_in(k, 1),
@@ -448,6 +472,27 @@ def reflections(surf: SurfaceHits, ctx, materials: MaterialTable,
     return refl * influence * tint
 
 
+def reflections_half_rate(surf: SurfaceHits, ctx, materials: MaterialTable,
+                          lights: Lights, cam_pos, key,
+                          params: RTParams) -> torch.Tensor:
+    """Reflections traced for every other ray (flat stride 2, which is
+    x-parity both in row-major order and in ``pick_tile``'s tile order,
+    whose tile widths are even), each odd ray's reconstructed as the mean
+    of its two traced horizontal neighbours (the last one repeats its left
+    neighbour). Halves the bounce trace and its secondary shadow/AO
+    wavefronts; a perf option of the JAX package, not reference parity.
+    Returns radiance to ADD, f32[R, 3]; R must be even."""
+    r = surf.world_pos.shape[0]
+    if r % 2:
+        raise ValueError("half-rate reflections need an even ray count")
+    half = SurfaceHits(**{f.name: getattr(surf, f.name)[0::2]
+                          for f in dataclasses.fields(surf)})
+    refl_h = reflections(half, ctx, materials, lights, cam_pos, key, params)
+    right = torch.cat([refl_h[1:], refl_h[-1:]], dim=0)
+    odd = 0.5 * (refl_h + right)
+    return torch.stack([refl_h, odd], dim=1).reshape(r, 3)
+
+
 def trace_frame(ctx, materials: MaterialTable, lights: Lights,
                 camera: CameraMatrices, key, *, width: int, height: int,
                 params: RTParams) -> torch.Tensor:
@@ -457,14 +502,20 @@ def trace_frame(ctx, materials: MaterialTable, lights: Lights,
     o, d = raygen(camera, width, height, tile_order=tiled)
     r = o.shape[0]
     surf = ctx.trace_resolve(o, d, torch.full((r,), 1000.0, device=o.device),
+                             use_alpha=params.leaf_cutout,
                              cull_mask=params.cull_mask)
     refl_key = rnd.fold_in(key, 7)
     svis, ao, pre_bounce = shadow_ao_bounce(
         surf, ctx, materials, lights, camera.cam_pos, key, key, refl_key,
         params=params)
     color = shade_surfaces(surf, materials, lights, camera.cam_pos, svis, ao)
-    color = color + reflections(surf, ctx, materials, lights, camera.cam_pos,
-                                refl_key, params, pretraced=pre_bounce)
+    if params.reflection_half_rate and width % 2 == 0:
+        color = color + reflections_half_rate(
+            surf, ctx, materials, lights, camera.cam_pos, refl_key, params)
+    else:
+        color = color + reflections(surf, ctx, materials, lights,
+                                    camera.cam_pos, refl_key, params,
+                                    pretraced=pre_bounce)
     color = torch.where(surf.valid[:, None], color,
                         device_constant(BACKGROUND_RGB, o.device))
     if tiled:

@@ -6,6 +6,10 @@ PyTorch versions.
   * ``trace_bundle_kernel``  K9: origin-shared occlusion samples (bitmask),
     AO samples (closest t) and optionally one closest + resolve sample
 
+K7 and K8 take ``shading_model`` (i32[M]): with it they run their alpha
+form, the any-hit leaf cutout (``accel.leaf_cutout_keep``), counted apart
+as ``trace_scene_alpha`` / ``trace_resolve_alpha``.
+
 On a CUDA tensor each wrapper launches its kernel (built at first use) and
 counts the launch in ``LAUNCHES``; on a CPU tensor it runs the plain
 version: ``accel.trace_scene`` (K7), ``trace_scene`` then
@@ -24,7 +28,8 @@ from ..utils.cuda_build import load_library
 from .accel import HitRecord2, RTScene, resolve_attrs, trace_scene
 
 # launches of each kernel wrapper, counted where the kernel is launched
-LAUNCHES = {"trace_scene": 0, "trace_resolve": 0, "trace_bundle": 0}
+LAUNCHES = {"trace_scene": 0, "trace_resolve": 0, "trace_bundle": 0,
+            "trace_scene_alpha": 0, "trace_resolve_alpha": 0}
 
 T_MIN = 1e-3
 _P = ctypes.c_void_p
@@ -32,6 +37,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SCENE_ARGS = [_P] * 4 + [_I] * 5 + [_F]
 _RESOLVE_ARGS = [_P] * 3 + [_I] * 2
+_ALPHA_ARGS = [_P, _I]
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -47,9 +53,11 @@ def _lib():
         lib = load_library("trace")
         lib.trace_stack_max.restype = _I
         lib.trace_launch.argtypes = (
-            _SCENE_ARGS + [_I] + [_P] * 4 + [_I] + [_P] * 4 + [_P])
+            _SCENE_ARGS + [_I] + _RESOLVE_ARGS + _ALPHA_ARGS + [_P] * 4 + [_I]
+            + [_P] * 4 + [_P])
         lib.trace_resolve_launch.argtypes = (
-            _SCENE_ARGS + _RESOLVE_ARGS + [_P] * 4 + [_I] + [_P] * 7 + [_P])
+            _SCENE_ARGS + _RESOLVE_ARGS + _ALPHA_ARGS + [_P] * 4 + [_I]
+            + [_P] * 7 + [_P])
         lib.trace_bundle_launch.argtypes = (
             _SCENE_ARGS + _RESOLVE_ARGS + [_P, _I] + [_P] * 3 + [_I]
             + [_P] * 3 + [_I] + [_P] * 3 + [_P] * 9 + [_P])
@@ -98,6 +106,22 @@ def _resolve_args(scene: RTScene, slot_materials: torch.Tensor):
             slot_materials.data_ptr(), n, slot_materials.shape[1])
 
 
+def _alpha_args(shading_model: Optional[torch.Tensor], dev):
+    """(shading model pointer, material count): a null pointer selects the
+    kernel without the leaf cutout."""
+    if shading_model is None:
+        return None, 1
+    _check("shading_model", shading_model, torch.int32, dev)
+    if shading_model.dim() != 1 or shading_model.shape[0] == 0:
+        raise ValueError("shading_model must be a non-empty i32[M]")
+    return shading_model.data_ptr(), shading_model.shape[0]
+
+
+def alpha_key(name: str, shading_model) -> str:
+    """The launch counter of a kernel's plain or alpha form."""
+    return name if shading_model is None else name + "_alpha"
+
+
 def _rays(o, d, t_max, active):
     """Ray tensors as the kernels take them: f32[R, 3] o/d, f32[R] t_max,
     u8[R] active (or None)."""
@@ -143,24 +167,30 @@ def _device(x: torch.Tensor, name: str) -> str:
 
 def trace_scene_kernel(scene: RTScene, o, d, t_max, *, root_code: int,
                        stack_size: int, any_hit: bool = False,
-                       active=None, cull_mask: int = 0xFF) -> HitRecord2:
+                       active=None, cull_mask: int = 0xFF,
+                       slot_materials=None, shading_model=None) -> HitRecord2:
     """Two-level traversal (closest or any hit): kernel K7 on CUDA tensors,
-    ``accel.trace_scene`` on CPU tensors."""
+    ``accel.trace_scene`` on CPU tensors. With ``shading_model`` (and the
+    frame's ``slot_materials``) its alpha form: the any-hit leaf cutout."""
     if _device(o, "trace_scene") == "cpu":
         return trace_scene(scene, o, d, t_max, root_code=root_code,
                            stack_size=stack_size, t_min=T_MIN,
                            any_hit=any_hit, active=active,
-                           cull_mask=cull_mask)
+                           cull_mask=cull_mask, slot_materials=slot_materials,
+                           shading_model=shading_model)
     lib = _lib()
     o, d, t, act = _rays(o, d, t_max, active)
     r = o.shape[0]
     out = _hit_outputs(r, o.device)
+    res = ((None, None, None, 1, 1) if shading_model is None
+           else _resolve_args(scene, slot_materials))
     rc = lib.trace_launch(
         *_scene_args(lib, scene, root_code, stack_size, cull_mask),
-        int(any_hit), o.data_ptr(), d.data_ptr(), t.data_ptr(), _ptr(act), r,
+        int(any_hit), *res, *_alpha_args(shading_model, o.device),
+        o.data_ptr(), d.data_ptr(), t.data_ptr(), _ptr(act), r,
         *(x.data_ptr() for x in out),
         torch.cuda.current_stream(o.device).cuda_stream)
-    _raise_on(rc, "trace_scene")
+    _raise_on(rc, alpha_key("trace_scene", shading_model))
     return HitRecord2(*out)
 
 
@@ -170,24 +200,30 @@ def trace_scene_kernel(scene: RTScene, o, d, t_max, *, root_code: int,
 
 def trace_resolve_plain(scene: RTScene, slot_materials, o, d, t_max, *,
                         root_code: int, stack_size: int, active=None,
-                        cull_mask: int = 0xFF, counts=None, max_steps=None):
-    """Plain version of K8: closest hit, then ``accel.resolve_attrs``.
-    Returns (HitRecord2, (uv, unnormalized world normal, material))."""
+                        cull_mask: int = 0xFF, counts=None, max_steps=None,
+                        shading_model=None):
+    """Plain version of K8: closest hit (with ``shading_model``, through
+    the leaf cutout), then ``accel.resolve_attrs``. Returns (HitRecord2,
+    (uv, unnormalized world normal, material))."""
     rec = trace_scene(scene, o, d, t_max, root_code=root_code,
                       stack_size=stack_size, t_min=T_MIN, active=active,
-                      cull_mask=cull_mask, counts=counts, max_steps=max_steps)
+                      cull_mask=cull_mask, counts=counts, max_steps=max_steps,
+                      slot_materials=slot_materials,
+                      shading_model=shading_model)
     return rec, resolve_attrs(scene, slot_materials, rec)
 
 
 def trace_resolve_kernel(scene: RTScene, slot_materials, o, d, t_max, *,
                          root_code: int, stack_size: int, active=None,
-                         cull_mask: int = 0xFF):
+                         cull_mask: int = 0xFF, shading_model=None):
     """Closest hit + resolve: kernel K8 on CUDA tensors, its plain version
-    on CPU tensors. Returns (HitRecord2, (uv, normal, material))."""
+    on CPU tensors; with ``shading_model`` its alpha form (the any-hit leaf
+    cutout). Returns (HitRecord2, (uv, normal, material))."""
     if _device(o, "trace_resolve") == "cpu":
         return trace_resolve_plain(scene, slot_materials, o, d, t_max,
                                    root_code=root_code, stack_size=stack_size,
-                                   active=active, cull_mask=cull_mask)
+                                   active=active, cull_mask=cull_mask,
+                                   shading_model=shading_model)
     lib = _lib()
     o, d, t, act = _rays(o, d, t_max, active)
     r = o.shape[0]
@@ -196,10 +232,11 @@ def trace_resolve_kernel(scene: RTScene, slot_materials, o, d, t_max, *,
     rc = lib.trace_resolve_launch(
         *_scene_args(lib, scene, root_code, stack_size, cull_mask),
         *_resolve_args(scene, slot_materials),
+        *_alpha_args(shading_model, o.device),
         o.data_ptr(), d.data_ptr(), t.data_ptr(), _ptr(act), r,
         *(x.data_ptr() for x in hit_out + res_out),
         torch.cuda.current_stream(o.device).cuda_stream)
-    _raise_on(rc, "trace_resolve")
+    _raise_on(rc, alpha_key("trace_resolve", shading_model))
     return HitRecord2(*hit_out), res_out
 
 

@@ -5,6 +5,11 @@ plain PyTorch versions.
   * ``trace_resolve_paged_kernel`` K11: closest hit + resolved uv/normal/
     material, the material from the chunk's slot-material block
 
+Both take ``shading_model`` (i32[M]): with it they run their alpha form,
+the any-hit leaf cutout (``accel.leaf_cutout_keep``), the kernel reading
+each candidate's material from the chunk's slot-material block; counted
+apart as ``trace_scene_paged_alpha`` / ``trace_resolve_paged_alpha``.
+
 On a CUDA tensor each wrapper launches its kernel (built at first use) and
 counts the launch in ``LAUNCHES``; on a CPU tensor it runs the plain
 version: the flat view (``accel.paged_to_flat``) walked by
@@ -26,11 +31,13 @@ from .accel import (
     smat_block, trace_scene)
 
 # launches of each kernel wrapper, counted where the kernel is launched
-LAUNCHES = {"trace_scene_paged": 0, "trace_resolve_paged": 0}
+LAUNCHES = {"trace_scene_paged": 0, "trace_resolve_paged": 0,
+            "trace_scene_paged_alpha": 0, "trace_resolve_paged_alpha": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PAGED_ARGS = ([_P] * 4 + [_I] * 5 + [_F] + [_P] * 2 + [_I] + [_P] * 2 + [_I]
                + [_P] * 2 + [_I] + [_I])
+_SMAT_ARGS = [_P] * 3 + [_I] * 3 + TK._ALPHA_ARGS
 _DECLARED = []
 
 
@@ -39,10 +46,10 @@ def _lib():
     lib = TK._lib()
     if not _DECLARED:
         lib.trace_paged_launch.argtypes = (
-            _PAGED_ARGS + [_I] + [_P] * 4 + [_I] + [_P] * 4 + [_P])
-        lib.trace_resolve_paged_launch.argtypes = (
-            _PAGED_ARGS + [_P] * 3 + [_I] * 3 + [_P] * 4 + [_I] + [_P] * 7
+            _PAGED_ARGS + [_I] + _SMAT_ARGS + [_P] * 4 + [_I] + [_P] * 4
             + [_P])
+        lib.trace_resolve_paged_launch.argtypes = (
+            _PAGED_ARGS + _SMAT_ARGS + [_P] * 4 + [_I] + [_P] * 7 + [_P])
         for fn in (lib.trace_paged_launch, lib.trace_resolve_paged_launch):
             fn.restype = _I
         _DECLARED.append(True)
@@ -86,6 +93,20 @@ def _paged_args(lib, scene: PagedScene, root_code: int, stack_size: int,
             max_steps)
 
 
+def _smat_args(scene: PagedScene, slot_materials, shading_model, dev):
+    """The resolve tables (tri_attr, inv_rows, chunk_smat) with their
+    sizes, and the leaf cutout's shading model."""
+    n, s = slot_materials.shape
+    nc = scene.chunk_boxes.shape[0] // (BROWS * 12)
+    TK._check("tri_attr", scene.tri_attr, torch.float32, dev)
+    TK._check("inv_rows", scene.inv_rows, torch.float32, dev, (n, 12))
+    TK._check("chunk_smat", scene.chunk_smat, torch.int32, dev,
+              (nc * smat_block(s),))
+    return (scene.tri_attr.data_ptr(), scene.inv_rows.data_ptr(),
+            scene.chunk_smat.data_ptr(), n, s, smat_block(s),
+            *TK._alpha_args(shading_model, dev))
+
+
 def _raise_on(rc: int, name: str):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
@@ -109,37 +130,48 @@ def trace_scene_paged_plain(scene: PagedScene, o, d, t_max, *, root_code: int,
                             stack_size: int, max_steps: int,
                             any_hit: bool = False, active=None,
                             cull_mask: int = 0xFF, counts=None,
-                            flat=None) -> HitRecord2:
+                            flat=None, slot_materials=None,
+                            shading_model=None) -> HitRecord2:
     """Plain version of K10: ``accel.trace_scene`` on the flat view
-    (``flat`` = (RTScene, root code) when already built)."""
+    (``flat`` = (RTScene, root code) when already built); with
+    ``shading_model`` through the leaf cutout."""
     view, root = _flat(scene, root_code, flat)
     return trace_scene(view, o, d, t_max, root_code=root,
                        stack_size=stack_size, t_min=TK.T_MIN, any_hit=any_hit,
                        active=active, cull_mask=cull_mask, counts=counts,
-                       max_steps=max_steps)
+                       max_steps=max_steps, slot_materials=slot_materials,
+                       shading_model=shading_model)
 
 
 def trace_scene_paged_kernel(scene: PagedScene, o, d, t_max, *,
                              root_code: int, stack_size: int, max_steps: int,
                              any_hit: bool = False, active=None,
-                             cull_mask: int = 0xFF, flat=None) -> HitRecord2:
+                             cull_mask: int = 0xFF, flat=None,
+                             slot_materials=None,
+                             shading_model=None) -> HitRecord2:
     """Two-level traversal of a PagedScene (closest or any hit): kernel K10
-    on CUDA tensors, ``trace_scene_paged_plain`` on CPU tensors."""
+    on CUDA tensors, ``trace_scene_paged_plain`` on CPU tensors; with
+    ``shading_model`` (and the frame's ``slot_materials``) its alpha form,
+    the any-hit leaf cutout."""
     if TK._device(o, "trace_scene_paged") == "cpu":
         return trace_scene_paged_plain(
             scene, o, d, t_max, root_code=root_code, stack_size=stack_size,
             max_steps=max_steps, any_hit=any_hit, active=active,
-            cull_mask=cull_mask, flat=flat)
+            cull_mask=cull_mask, flat=flat, slot_materials=slot_materials,
+            shading_model=shading_model)
     lib = _lib()
+    dev = o.device
+    res = ((None, None, None, 1, 1, 0, None, 1) if shading_model is None
+           else _smat_args(scene, slot_materials, shading_model, dev))
     o, d, t, act = TK._rays(o, d, t_max, active)
     r = o.shape[0]
-    out = TK._hit_outputs(r, o.device)
+    out = TK._hit_outputs(r, dev)
     rc = lib.trace_paged_launch(
         *_paged_args(lib, scene, root_code, stack_size, cull_mask, max_steps),
-        int(any_hit), o.data_ptr(), d.data_ptr(), t.data_ptr(),
+        int(any_hit), *res, o.data_ptr(), d.data_ptr(), t.data_ptr(),
         TK._ptr(act), r, *(x.data_ptr() for x in out),
-        torch.cuda.current_stream(o.device).cuda_stream)
-    _raise_on(rc, "trace_scene_paged")
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, TK.alpha_key("trace_scene_paged", shading_model))
     return HitRecord2(*out)
 
 
@@ -150,48 +182,44 @@ def trace_scene_paged_kernel(scene: PagedScene, o, d, t_max, *,
 def trace_resolve_paged_plain(scene: PagedScene, slot_materials, o, d, t_max,
                               *, root_code: int, stack_size: int,
                               max_steps: int, active=None,
-                              cull_mask: int = 0xFF, counts=None, flat=None):
+                              cull_mask: int = 0xFF, counts=None, flat=None,
+                              shading_model=None):
     """Plain version of K11: ``trace_kernel.trace_resolve_plain`` on the
     flat view. Returns (HitRecord2, (uv, unnormalized normal, material))."""
     view, root = _flat(scene, root_code, flat)
     return TK.trace_resolve_plain(
         view, slot_materials, o, d, t_max, root_code=root,
         stack_size=stack_size, active=active, cull_mask=cull_mask,
-        counts=counts, max_steps=max_steps)
+        counts=counts, max_steps=max_steps, shading_model=shading_model)
 
 
 def trace_resolve_paged_kernel(scene: PagedScene, slot_materials, o, d,
                                t_max, *, root_code: int, stack_size: int,
                                max_steps: int, active=None,
-                               cull_mask: int = 0xFF, flat=None):
+                               cull_mask: int = 0xFF, flat=None,
+                               shading_model=None):
     """Closest hit + resolve over a PagedScene: kernel K11 on CUDA tensors
     (material from ``chunk_smat``), its plain version (material from
-    ``slot_materials``) on CPU tensors. Returns (HitRecord2, (uv, normal,
+    ``slot_materials``) on CPU tensors; with ``shading_model`` the alpha
+    form (the any-hit leaf cutout). Returns (HitRecord2, (uv, normal,
     material))."""
     if TK._device(o, "trace_resolve_paged") == "cpu":
         return trace_resolve_paged_plain(
             scene, slot_materials, o, d, t_max, root_code=root_code,
             stack_size=stack_size, max_steps=max_steps, active=active,
-            cull_mask=cull_mask, flat=flat)
+            cull_mask=cull_mask, flat=flat, shading_model=shading_model)
     lib = _lib()
     dev = o.device
-    n, s = slot_materials.shape
-    nc = scene.chunk_boxes.shape[0] // (BROWS * 12)
-    TK._check("tri_attr", scene.tri_attr, torch.float32, dev)
-    TK._check("inv_rows", scene.inv_rows, torch.float32, dev, (n, 12))
-    TK._check("chunk_smat", scene.chunk_smat, torch.int32, dev,
-              (nc * smat_block(s),))
+    res = _smat_args(scene, slot_materials, shading_model, dev)
     o, d, t, act = TK._rays(o, d, t_max, active)
     r = o.shape[0]
     hit_out = TK._hit_outputs(r, dev)
     res_out = TK._resolve_outputs(r, dev)
     rc = lib.trace_resolve_paged_launch(
         *_paged_args(lib, scene, root_code, stack_size, cull_mask, max_steps),
-        scene.tri_attr.data_ptr(), scene.inv_rows.data_ptr(),
-        scene.chunk_smat.data_ptr(), n, s, smat_block(s),
-        o.data_ptr(), d.data_ptr(), t.data_ptr(), TK._ptr(act), r,
+        *res, o.data_ptr(), d.data_ptr(), t.data_ptr(), TK._ptr(act), r,
         *(x.data_ptr() for x in hit_out + res_out),
         torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "trace_resolve_paged")
+    _raise_on(rc, TK.alpha_key("trace_resolve_paged", shading_model))
     return HitRecord2(*hit_out), res_out
 

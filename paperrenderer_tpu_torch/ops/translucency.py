@@ -18,7 +18,7 @@ one_minus_src_alpha blending. Here, per frame:
 The JAX package bins the translucent set again for every layer; its inputs
 do not change between layers, so binning once gives the same output. Its
 pure-XLA peel (``use_exact=False``: ``_rasterize_peel`` with
-``resolve_gbuffer_unproject``) is not ported (ROADMAP Queue 1 item 14).
+``resolve_gbuffer_unproject``) is not ported (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations

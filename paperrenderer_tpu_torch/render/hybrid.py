@@ -6,7 +6,11 @@ shadows, RTAO, 1-bounce reflections) evaluated at the G-buffer surfaces and
 fed into the raster frame's deferred shading. The RT passes trace the
 two-level BLAS/TLAS of ``ops/accel.py`` on the layout ``accel.prefer_paged``
 picks: flat (K9 for shadows + AO, K8 for reflections) or paged (K10 for
-shadows and AO, K11 for reflections).
+shadows and AO, K11 for reflections). A scene with a ``SHADE_LEAF``
+material traces its AO and reflection rays with the any-hit leaf cutout
+(K8/K11's alpha forms; shadows stay opaque and AO leaves the fused bundle),
+while the G-buffer stays the raster one with no cutout, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from typing import Dict, Optional
 import torch
 
 from ..core.camera import Camera, CameraMatrices
-from ..core.material import SHADE_LEAF, MaterialInstance
+from ..core.material import MaterialInstance
 from ..core.model import ModelInstance
 from ..ops import accel as ACC
 from ..ops import trace as T
@@ -26,7 +30,7 @@ from ..ops.shading import Lights, shade_gbuffer
 from ..ops.static_batch import expand_static
 from ..ops.tonemap import TonemapParams, tonemap
 from ..utils import random as rnd
-from ..utils.device import require_device
+from ..utils.device import check_use_pallas, require_device
 from .raytrace import AccelCache
 from .renderpass import RenderPass
 
@@ -38,12 +42,15 @@ def render_frame_hybrid(mapping, blasset, meta, instances, inst_blas,
                         height: int, stack_size: int, paged: bool = False,
                         do_culling: bool = True, shadow_samples: int = 1,
                         reflection_samples: int = 1, ao_samples: int = 1,
-                        ao_radius: float = 2.0):
+                        ao_radius: float = 2.0, leaf_cutout: bool = False,
+                        reflection_half_rate: bool = False):
     """One hybrid frame (the body of the JAX package's ``make_hybrid_frame``):
     the static raster G-buffer through K1, the scene's tracer on the flat or
     (``paged``) the paged layout, shadows + AO + the fused-or-not bounce at
-    the G-buffer surfaces, deferred shading with them, reflections, tonemap.
-    Returns (ldr f32[H, W, 3], aux dict)."""
+    the G-buffer surfaces, deferred shading with them, reflections (at half
+    rate with ``reflection_half_rate`` on an even width), tonemap; with
+    ``leaf_cutout`` the RT passes apply the any-hit leaf cutout. Returns
+    (ldr f32[H, W, 3], aux dict)."""
     batch, inst_visible = expand_static(
         mapping, instances, tables, camera, slot_materials, instance_visible,
         do_culling=do_culling)
@@ -56,7 +63,8 @@ def render_frame_hybrid(mapping, blasset, meta, instances, inst_blas,
                        device=instances.pos.device),)
     ctx = ACC.make_scene_tracer(
         blasset, meta, instances, inst_blas, mask, tri_attr, slot_materials,
-        materials, tlas_index=0, stack_size=stack_size, paged=paged)
+        materials, tlas_index=0, stack_size=stack_size, paged=paged,
+        leaf_cutout=leaf_cutout)
     cov = gbuf.coverage.reshape(-1)
     surf = T.SurfaceHits(
         world_pos=gbuf.world_pos.reshape(-1, 3),
@@ -65,7 +73,9 @@ def render_frame_hybrid(mapping, blasset, meta, instances, inst_blas,
         t=torch.where(cov, depth.reshape(-1), float("inf")))
     params = T.RTParams(shadow_samples=shadow_samples,
                         reflection_samples=reflection_samples,
-                        ao_samples=ao_samples, ao_radius=ao_radius)
+                        ao_samples=ao_samples, ao_radius=ao_radius,
+                        leaf_cutout=leaf_cutout,
+                        reflection_half_rate=reflection_half_rate)
     refl_key = rnd.fold_in(key, 7)
     svis, ao, pre_bounce = T.shadow_ao_bounce(
         surf, ctx, materials, lights, camera.cam_pos, key,
@@ -75,8 +85,13 @@ def render_frame_hybrid(mapping, blasset, meta, instances, inst_blas,
                         ambient_occlusion=ao.reshape(height, width),
                         background=T.BACKGROUND_RGB)
     if reflection_samples > 0:
-        refl = T.reflections(surf, ctx, materials, lights, camera.cam_pos,
-                             refl_key, params, pretraced=pre_bounce)
+        if reflection_half_rate and width % 2 == 0:
+            refl = T.reflections_half_rate(surf, ctx, materials, lights,
+                                           camera.cam_pos, refl_key, params)
+        else:
+            refl = T.reflections(surf, ctx, materials, lights,
+                                 camera.cam_pos, refl_key, params,
+                                 pretraced=pre_bounce)
         hdr = hdr + torch.where(gbuf.coverage[..., None],
                                 refl.reshape(height, width, 3), 0.0)
     ldr = tonemap(hdr, tonemap_params)
@@ -95,10 +110,11 @@ class HybridRender:
     7)``).
 
     Not ported yet, refused with ``NotImplementedError``: ``animate``
-    (ROADMAP Queue 1 item 7), half-rate reflections and the leaf any-hit
-    cutout (item 9). ``bvh_wide`` is a TPU scheduling knob and is ignored.
-    The JAX package's ``use_pallas``/pair-capacity protocol is not ported:
-    the port sizes its raster pair buffers from each frame's own count."""
+    (ROADMAP Queue 1 item 4) and ``use_pallas=False`` (item 8).
+    ``render(time=)`` is accepted and has no effect until animation is
+    ported. ``bvh_wide`` is a TPU scheduling knob and is ignored. The JAX
+    package's pair-capacity protocol is not ported: the port sizes its
+    raster pair buffers from each frame's own count."""
 
     def __init__(
         self,
@@ -115,17 +131,15 @@ class HybridRender:
         ao_radius: float = 2.0,
         seed: int = 0,
         animate=None,
+        use_pallas: Optional[bool] = None,
         reflection_half_rate: bool = False,
         bvh_wide: bool = True,
     ):
         if animate is not None:
             raise NotImplementedError(
                 "animated (unique-geometry) instances are not ported yet "
-                "(ROADMAP Queue 1 item 7)")
-        if reflection_half_rate:
-            raise NotImplementedError(
-                "half-rate reflections are not ported yet (ROADMAP Queue 1 "
-                "item 9)")
+                "(ROADMAP Queue 1 item 4)")
+        check_use_pallas(use_pallas)
         self._rp = RenderPass(scene, materials, width=width, height=height,
                               lights=lights, tonemap_params=tonemap_params)
         self.scene = scene
@@ -137,6 +151,7 @@ class HybridRender:
         self.reflection_samples = reflection_samples
         self.ao_samples = ao_samples
         self.ao_radius = ao_radius
+        self.reflection_half_rate = reflection_half_rate
         self._key = rnd.prng_key(seed)
         self._frame = 0
         self.accel = AccelCache(scene)
@@ -172,16 +187,12 @@ class HybridRender:
     def lights(self) -> Lights:
         return self._rp.lights
 
-    def render(self, camera: Camera | CameraMatrices, *,
+    def render(self, camera: Camera | CameraMatrices, *, time: float = 0.0,
                paged: Optional[bool] = None):
         """One hybrid frame; returns (ldr f32[H, W, 3], aux dict).
-        ``paged`` forces a layout (None: ``accel.prefer_paged``'s)."""
+        ``paged`` forces a layout (None: ``accel.prefer_paged``'s);
+        ``time`` is the animation time, unused until animation is ported."""
         require_device(self.device)
-        if any(row["shading_model"] == SHADE_LEAF
-               for row in self.materials.rows()):
-            raise NotImplementedError(
-                "the any-hit leaf cutout is not ported yet (ROADMAP Queue 1 "
-                "item 9)")
         rp = self._rp
         mapping, instances, tables, table, cam, slots, visible = (
             rp.frame_inputs(camera))
@@ -198,4 +209,6 @@ class HybridRender:
             do_culling=rp.do_culling,
             shadow_samples=self.shadow_samples,
             reflection_samples=self.reflection_samples,
-            ao_samples=self.ao_samples, ao_radius=self.ao_radius)
+            ao_samples=self.ao_samples, ao_radius=self.ao_radius,
+            leaf_cutout=self.materials.has_leaf,
+            reflection_half_rate=self.reflection_half_rate)

@@ -18,23 +18,31 @@ The frame traces on the scene's device: the traversal kernels of
 ``csrc/trace.cu`` on the card (K7-K9 flat, K10/K11 paged), their plain
 versions on the CPU.
 
+A scene with a ``SHADE_LEAF`` material traces with the any-hit leaf
+cutout (``leaf_cutout`` = ``MaterialRegistry.has_leaf``, as in the JAX
+package): primary, AO and reflection rays skip a leaf hit outside the
+procedural leaf, shadow rays stay opaque. ``reflection_half_rate`` traces
+reflections for every other pixel (``ops.trace.reflections_half_rate``).
+
 Not ported yet, refused with ``NotImplementedError``: animation
-(``animate``/``anim_resplit``, ROADMAP Queue 1 item 7), half-rate
-reflections and the leaf any-hit cutout (item 9); textured materials are
-refused by the registry (item 4). ``compact_secondary``, ``compact_refl``,
+(``animate``/``anim_resplit``, ROADMAP Queue 1 item 4) and the XLA route
+(``use_pallas=False``, item 8); textured materials are refused by the
+registry (item 3). ``render(time=)`` is accepted and has no effect until
+animation is ported. ``compact_secondary``, ``compact_refl``,
 ``packet_pack`` and ``bvh_wide`` are TPU scheduling knobs that leave every
 result unchanged: they are accepted and ignored.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..core.camera import Camera, CameraMatrices
-from ..core.material import SHADE_LEAF, MaterialInstance, MaterialRegistry
+from ..core.material import MaterialInstance, MaterialRegistry
 from ..core.model import ModelInstance
 from ..core.scene import InstanceArrays, Scene
 from ..ops import accel as ACC
@@ -42,7 +50,7 @@ from ..ops.shading import Lights
 from ..ops.tonemap import TonemapParams, tonemap
 from ..ops.trace import RTParams, trace_frame
 from ..utils import random as rnd
-from ..utils.device import require_device
+from ..utils.device import check_use_pallas, require_device
 
 
 class AccelCache:
@@ -108,7 +116,8 @@ def render_frame_rt(blasset, meta, instances: InstanceArrays, inst_blas,
     ctx = ACC.make_scene_tracer(
         blasset, meta, instances, inst_blas, masks, tri_attr, slot_materials,
         materials, tlas_index=tlas_index, stack_size=stack_size, paged=paged,
-        inst_mask=inst_mask, inst_opaque=inst_opaque)
+        inst_mask=inst_mask, inst_opaque=inst_opaque,
+        leaf_cutout=params.leaf_cutout)
     hdr = trace_frame(ctx, materials, lights, camera, key, width=width,
                       height=height, params=params)
     return tonemap(hdr, tonemap_params), {"hdr": hdr}
@@ -135,6 +144,7 @@ class RayTraceRender:
         seed: int = 0,
         animate=None,
         anim_resplit: bool = False,
+        use_pallas: Optional[bool] = None,
         reflection_half_rate: bool = False,
         fuse_bounce: bool = False,
         cull_mask: int = 0xFF,
@@ -147,11 +157,8 @@ class RayTraceRender:
         if animate is not None or anim_resplit:
             raise NotImplementedError(
                 "animated (unique-geometry) instances are not ported yet "
-                "(ROADMAP Queue 1 item 7)")
-        if reflection_half_rate:
-            raise NotImplementedError(
-                "half-rate reflections are not ported yet (ROADMAP Queue 1 "
-                "item 9)")
+                "(ROADMAP Queue 1 item 4)")
+        check_use_pallas(use_pallas)
         self.scene = scene
         self.materials = materials
         self.device = scene.device
@@ -166,6 +173,7 @@ class RayTraceRender:
             reflection_samples=reflection_samples, ao_samples=ao_samples,
             ao_radius=ao_radius, cull_mask=int(cull_mask) & 0xFF,
             shadow_cull_mask=int(shadow_cull_mask) & 0xFF,
+            reflection_half_rate=reflection_half_rate,
             fuse_bounce=fuse_bounce)
         self._key = rnd.prng_key(seed)
         self._frame = 0
@@ -242,11 +250,6 @@ class RayTraceRender:
         """(slot materials i32[N, S], TLAS masks, MaterialTable, instance
         masks i32[N], force-opaque bool[N], lights, tonemap params)."""
         if self._cache_dirty or capacity != self._cached_capacity:
-            if any(row["shading_model"] == SHADE_LEAF
-                   for row in self.materials.rows()):
-                raise NotImplementedError(
-                    "the any-hit leaf cutout is not ported yet (ROADMAP "
-                    "Queue 1 item 9)")
             s = max(1, self.scene.max_slots)
             slots = np.zeros((capacity, s), np.int32)
             masks = []
@@ -277,9 +280,10 @@ class RayTraceRender:
         return self._cached
 
     def render(self, camera: Camera | CameraMatrices, *, tlas: int = 0,
-               paged: Optional[bool] = None):
+               time: float = 0.0, paged: Optional[bool] = None):
         """Trace one frame; returns (ldr f32[H, W, 3], {"hdr": ...}).
-        ``paged`` forces a layout (None: ``accel.prefer_paged``'s)."""
+        ``paged`` forces a layout (None: ``accel.prefer_paged``'s);
+        ``time`` is the animation time, unused until animation is ported."""
         require_device(self.device)
         cam = camera.matrices if isinstance(camera, Camera) else camera
         instances = self.scene.flush()
@@ -295,4 +299,6 @@ class RayTraceRender:
             slots, tm, rnd.fold_in(self._key, self._frame), inst_mask, opaque,
             width=self.width, height=self.height,
             stack_size=self.accel.stack_size(instances.capacity),
-            params=self.params, tlas_index=tlas, paged=paged)
+            params=dataclasses.replace(self.params,
+                                       leaf_cutout=self.materials.has_leaf),
+            tlas_index=tlas, paged=paged)

@@ -24,7 +24,7 @@ the reference's GPU-driven preprocess:
       -> resolve_gbuffer -> shade_gbuffer [-> supersample box resolve]
       -> tonemap
 
-Textures are not ported yet (ROADMAP Queue 1 item 4): registering a
+Textures are not ported yet (ROADMAP Queue 1 item 3): registering a
 textured material raises ``NotImplementedError``.
 """
 
@@ -50,7 +50,7 @@ from ..ops.static_batch import (
     StaticMapping, _tier, build_static_mapping, expand_static)
 from ..ops.tonemap import TonemapParams, tonemap
 from ..ops.translucency import composite_translucency, non_opaque_mask
-from ..utils.device import require_device
+from ..utils.device import check_use_pallas, require_device
 from ..utils.stats import Timer
 
 
@@ -214,7 +214,9 @@ class RenderPass:
         translucent_layers: int = 0,
         supersample: int = 1,
         device=None,
+        use_pallas: Optional[bool] = None,
     ):
+        check_use_pallas(use_pallas)
         self.scene = scene
         self.materials = materials
         self.device = require_device(device if device is not None

@@ -10,9 +10,13 @@ the paged layout) and ``examples/render_hybrid.py::build_hybrid_scene``
 (the hybrid frame) — same meshes, materials, transforms, lights, camera and
 seed — with a ``device`` that defaults to the card.
 ``build_translucent_grid`` is config 2's grid with glass and leaf
-instances, drawn through sorted translucency; ``build_big_model_scene`` is
-the big-model recipe of ``tests/test_trace_paged.py`` (a sphere cut into
-BLAS chunks among cubes) with the sphere's size as a parameter.
+instances, drawn through sorted translucency, and ``build_leaf_rt_grid``
+the same grid ray-traced and lit by the hybrid frame, which meet its leaves
+through the any-hit leaf cutout; ``build_leaf_scene`` is a small scene
+whose primary, AO and reflection rays all meet the cutout.
+``build_big_model_scene`` is the big-model recipe of
+``tests/test_trace_paged.py`` (a sphere cut into BLAS chunks among cubes)
+with the sphere's size as a parameter.
 """
 
 from __future__ import annotations
@@ -143,6 +147,68 @@ def build_translucent_grid(n_instances: int, width: int, height: int,
             rp.add_instance(inst, {0: glass})
     rp.translucent_layers = layers
     return eng, rp, cam
+
+
+def build_leaf_rt_grid(n_instances: int, width: int, height: int,
+                       seed: int = 0, device="cuda"):
+    """The translucent grid (``build_translucent_grid``: one instance in
+    sixteen a leaf cutout) mirrored into a RayTraceRender and a
+    HybridRender through ``add_instances_from``, each with 1 shadow, 1 AO
+    and 1 reflection sample; returns (engine, rt, hybrid, camera)."""
+    eng, rp, cam = build_translucent_grid(n_instances, width, height,
+                                          seed=seed, device=device)
+    samples = dict(width=width, height=height, lights=rp.lights,
+                   shadow_samples=1, ao_samples=1, reflection_samples=1)
+    rt = eng.create_ray_trace_render(**samples)
+    rt.add_instances_from(rp)
+    hy = eng.create_hybrid_render(**samples)
+    hy.add_instances_from(rp)
+    return eng, rt, hy, cam
+
+
+def build_leaf_scene(width: int = 48, height: int = 32, device="cuda"):
+    """A ground plane, two upright leaf panels (2 x 2 planes, SHADE_LEAF;
+    the second one force-opaque in the RT pass), a red cube behind the
+    first and a gold mirror sphere behind both, in a RayTraceRender and a
+    HybridRender that share the instances (1 shadow, 1 AO and 1
+    reflection sample): camera, AO and reflection rays all meet the leaf
+    cutout. Returns (engine, rt, hybrid, camera)."""
+    eng = RenderEngine(device=device, device_check=False)
+    ground = Model.from_mesh(eng.scene.arena, *make_plane(size=30.0))
+    panel = Model.from_mesh(eng.scene.arena, *make_plane(size=2.0))
+    cube = Model.from_mesh(eng.scene.arena, *make_cube(size=1.0))
+    sphere = Model.from_mesh(
+        eng.scene.arena, *make_uv_sphere(radius=0.8, rings=12, sectors=16))
+    settings = dict(
+        width=width, height=height,
+        lights=Lights.make(
+            [{"position": (3.0, -4.0, 6.0), "color": (160.0, 150.0, 130.0),
+              "bounds": 60.0, "radius": 0.4}],
+            ambient=(0.6, 0.7, 1.0, 0.3)),
+        shadow_samples=1, reflection_samples=1, ao_samples=1, ao_radius=2.0)
+    rt = eng.create_ray_trace_render(**settings)
+    hy = eng.create_hybrid_render(**settings)
+    white = Material("white", albedo=(0.75, 0.75, 0.78), roughness=0.9)
+    red = Material("red", albedo=(0.85, 0.1, 0.08), roughness=0.4)
+    gold = Material("gold", albedo=(1.0, 0.78, 0.35), roughness=0.1,
+                    metallic=1.0)
+    leaf = Material("leaf", albedo=(0.25, 0.7, 0.2), roughness=0.6,
+                    shading_model=SHADE_LEAF)
+    upright = (0.7071068, 0.7071068, 0.0, 0.0)   # the plane's +z -> -y
+    for model, pos, quat, mat, opaque in (
+            (ground, (0.0, 0.0, 0.0), None, white, False),
+            (cube, (-1.3, 0.9, 0.5), (0.924, 0.0, 0.0, 0.383), red, False),
+            (sphere, (0.3, 1.3, 0.8), None, gold, False),
+            (panel, (-1.1, -0.4, 1.1), upright, leaf, False),
+            (panel, (1.1, -0.9, 1.1), upright, leaf, True)):
+        inst = ModelInstance(model)
+        inst.set_transform(pos=pos, quat=quat)
+        binds = {0: mat.instance()}
+        rt.add_instance(inst, binds, force_opaque=opaque)
+        hy.add_instance(inst, binds)
+    cam = Camera(yfov_deg=55.0, aspect=width / height, near=0.1, far=200.0)
+    cam.look_at((0.0, -6.5, 3.0), (0.0, 0.5, 0.9), up=(0, 0, 1))
+    return eng, rt, hy, cam
 
 
 def build_rt_scene(width: int = 192, height: int = 192, device="cuda"):

@@ -15,3 +15,13 @@ def require_device(device) -> torch.device:
             f"device {device} requested but CUDA is not available here; "
             "pass device='cpu' to run on the CPU")
     return device
+
+
+def check_use_pallas(use_pallas) -> None:
+    """The JAX package's ``use_pallas`` keyword. None or True runs the port's
+    kernels, its counterpart of the Pallas route; False asks for the XLA
+    route, which the port does not have."""
+    if use_pallas is not None and not use_pallas:
+        raise NotImplementedError(
+            "use_pallas=False (the XLA route) is not ported yet (ROADMAP "
+            "Queue 1 item 8)")

@@ -198,3 +198,29 @@ def test_import_leaves_jax_out():
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+def test_model_instance_keywords():
+    """``ModelInstance(model, unique_geometry=, anim_phase=)`` as the JAX
+    package takes them: the phase is stored, and a unique-geometry
+    (animated) instance is refused until animation is ported."""
+    scene = T.Scene(device="cpu")
+    model = T.Model.from_mesh(scene.arena, *T.make_cube(size=1.0))
+    inst = T.ModelInstance(model, unique_geometry=False, anim_phase=0.25)
+    ref = J.ModelInstance(J.Model.from_mesh(J.Scene().arena,
+                                            *J.make_cube(size=1.0)),
+                          anim_phase=0.25)
+    assert inst.anim_phase == ref.anim_phase == 0.25
+    assert inst.unique_geometry is ref.unique_geometry is False
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+        T.ModelInstance(model, unique_geometry=True)
+
+
+def test_engine_buffer_index():
+    """``RenderEngine.buffer_index`` is frame % 2, as in the JAX package."""
+    eng = T.RenderEngine(device="cpu", device_check=False)
+    ref = J.RenderEngine(device_check=False)
+    for _ in range(3):
+        assert eng.buffer_index == ref.buffer_index == eng.frame_number % 2
+        eng.end_frame()
+        ref.end_frame()

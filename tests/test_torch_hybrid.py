@@ -20,8 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from paperrenderer_tpu_torch import Material, RenderEngine
-from paperrenderer_tpu_torch.core.material import SHADE_LEAF
+from paperrenderer_tpu_torch import RenderEngine
 from paperrenderer_tpu_torch.io import read_image
 from paperrenderer_tpu_torch.scenes import build_hybrid_scene, build_rt_scene
 
@@ -99,19 +98,40 @@ def test_instance_api_delegates():
     assert hy2._rp._visible == rp._visible
 
 
-@pytest.mark.parametrize("case", ["half_rate", "animate", "leaf"])
+@pytest.mark.parametrize("case", ["animate"])
 def test_unported_hybrid_options_raise(case):
     eng = RenderEngine(device="cpu", device_check=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        if case == "half_rate":
-            eng.create_hybrid_render(reflection_half_rate=True)
-        elif case == "animate":
-            eng.create_hybrid_render(animate=lambda v, t: v)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+        eng.create_hybrid_render(animate=lambda v, t: v)
+
+
+@pytest.mark.parametrize("use_pallas", [None, True, False])
+def test_use_pallas_keyword(use_pallas):
+    """``use_pallas`` as the JAX constructors take it: None or True runs
+    the port's kernels, False (the XLA route) is refused."""
+    from paperrenderer_tpu_torch import HybridRender, RayTraceRender, RenderPass
+
+    eng = RenderEngine(device="cpu", device_check=False)
+    for cls in (RenderPass, RayTraceRender, HybridRender):
+        if use_pallas is False:
+            with pytest.raises(NotImplementedError,
+                               match="ROADMAP Queue 1 item 8"):
+                cls(eng.scene, eng.materials, use_pallas=use_pallas)
         else:
-            _, hy, cam = build_hybrid_scene(16, 16, device="cpu")
-            hy.materials.register(Material("leaf", shading_model=SHADE_LEAF))
-            hy.invalidate()
-            hy.render(cam)
+            assert cls(eng.scene, eng.materials, width=8,
+                       use_pallas=use_pallas).width == 8
+
+
+def test_render_time_keyword():
+    """``render(cam, time=)`` as the JAX renders take it: accepted, and
+    with no animation it leaves the frame as it is."""
+    _, rt, cam = build_rt_scene(16, 16, device="cpu")
+    _, hy, camh = build_hybrid_scene(16, 16, device="cpu")
+    for render, c in ((rt, cam), (hy, camh)):
+        a = render.render(c, time=0.5)[1]["hdr"]
+        render._frame = 0
+        np.testing.assert_array_equal(render.render(c)[1]["hdr"].numpy(),
+                                      a.numpy())
 
 
 @pytest.mark.parametrize("bvh_wide", [False, True])

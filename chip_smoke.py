@@ -4,8 +4,8 @@
 Phases, each reported as one JSON line:
   device   the card (nvidia-smi name and power limit), torch and CUDA versions;
   build    every CUDA kernel (csrc/raster_exact.cu, csrc/raster_tiles.cu,
-           csrc/trace.cu), one nvcc per source, all started together; ptxas
-           registers/spills/smem;
+           csrc/trace.cu, csrc/probes.cu), one nvcc per source, all started
+           together; ptxas registers/spills/smem;
   compare  the raster kernel against its plain PyTorch version on the inputs
            the main path gives it at config 1, config 2 and a ragged image
            size (bitwise equality), both timed with CUDA events;
@@ -93,6 +93,19 @@ Phases, each reported as one JSON line:
            with half-rate reflections off and on: median frame ms and one
            frame's launches; a reduced copy of each (400 instances or the RT
            scene, 96x64) on the card against the CPU with the golden bands;
+  probes   the profiling path (paperrenderer_tpu_torch.utils.probes.measure,
+           the counterpart of scripts/probe_smem_dma.py, probe_smem_dma2.py
+           and prof_rt_floor2.py), its launches counted: K12a's three copy
+           forms and K12b's five cases (us per copy step by CUDA events and
+           by the kernel's own %globaltimer), K12c at 2,073,600 and 1,024
+           rays beside five Tensor.copy_ calls of the same bytes, K7 on the
+           1080p RT scene's primary rays all dead (closest, any hit) and
+           live, and the step-count forms of K7 and K10 (every dead any-hit
+           ray counts 0 steps); then, uncounted, every K12 form bitwise
+           against its plain version, and the step forms of K7 (the 1080p
+           primary rays) and K10 (config 2's grid on the paged layout),
+           live and dead, bitwise in every output against the plain walk;
+           plain ms and bounds;
   launches every kernel was launched by the phases of its path (K1: config1,
            config2, translucent, supersample; K2: translucent, keyed_entry;
            K3/K4: keyed_entry; K5: draw_list; K6: compare_tiles; traversal:
@@ -101,7 +114,8 @@ Phases, each reported as one JSON line:
            from the frame phases, K3/K4 from keyed_entry, K5 from draw_list,
            K6 from compare_tiles (no frame runs it), K7-K9 from rt_frame,
            K10/K11 from crowd, hybrid and big_model, the alpha forms of K8
-           and K11 from leaf_rt;
+           and K11 from leaf_rt, K12 and the step forms of K7/K10 from
+           probes;
   sync     cost of the raster frame's one device-to-host read (the pair
            count): frame time as is vs. with the count supplied.
 
@@ -137,6 +151,7 @@ GOLDENS = os.path.join(HERE, "tests", "goldens")
 TRACE_CU = "paperrenderer_tpu_torch/csrc/trace.cu"
 RASTER_CU = "paperrenderer_tpu_torch/csrc/raster_exact.cu"
 TILES_CU = "paperrenderer_tpu_torch/csrc/raster_tiles.cu"
+PROBES_CU = "paperrenderer_tpu_torch/csrc/probes.cu"
 KERNELS = [dict(name="raster_exact", route="cuda", source=RASTER_CU,
                 replaces="paperrenderer_tpu/ops/raster_exact.py:231"),
            dict(name="raster_peel", route="cuda", source=RASTER_CU,
@@ -158,7 +173,13 @@ KERNELS = [dict(name="raster_exact", route="cuda", source=RASTER_CU,
            dict(name="trace_scene_paged", route="cuda", source=TRACE_CU,
                 replaces="paperrenderer_tpu/ops/trace_paged.py:214"),
            dict(name="trace_resolve_paged", route="cuda", source=TRACE_CU,
-                replaces="paperrenderer_tpu/ops/trace_paged.py:575")]
+                replaces="paperrenderer_tpu/ops/trace_paged.py:575"),
+           dict(name="chunk_stream", route="cuda", source=PROBES_CU,
+                replaces="scripts/probe_smem_dma.py:25"),
+           dict(name="chunk_stream_sweep", route="cuda", source=PROBES_CU,
+                replaces="scripts/probe_smem_dma2.py:23"),
+           dict(name="pass_through", route="cuda", source=PROBES_CU,
+                replaces="scripts/prof_rt_floor2.py:73")]
 
 # Least-time bounds (published H100 SXM peaks):
 # bytes at the HBM rate, FP32 operations at the published FP32 peak.
@@ -593,8 +614,9 @@ def leaf_wavefronts(rt, cam, paged):
     import torch
     from paperrenderer_tpu_torch.ops import trace as TR
     from paperrenderer_tpu_torch.utils import random as rnd
+    from paperrenderer_tpu_torch.utils.probes import primary_wavefront
 
-    ctx, o, d, far, _ = rt_tracer(rt, cam, paged, leaf_cutout=True)
+    ctx, o, d, far, _ = primary_wavefront(rt, cam, paged, leaf_cutout=True)
     surf = ctx.trace_resolve(o, d, far, use_alpha=True)
     key = rnd.fold_in(rt._key, 1)
     ao_ds, _ = TR._ao_samples(surf, key, 1, rt.params.ao_radius)
@@ -812,29 +834,6 @@ def paged_bytes(scene, n_rays, per_ray_bytes, resolve=False):
         + n_rays * per_ray_bytes
 
 
-def rt_tracer(rt, cam, paged, leaf_cutout=False):
-    """The tracer and the camera's primary rays of one RayTraceRender frame,
-    built as render_frame_rt builds them, on the layout `paged` names."""
-    import torch
-    from paperrenderer_tpu_torch.ops import accel as ACC
-    from paperrenderer_tpu_torch.ops import trace as TR
-
-    instances = rt.scene.flush()
-    blasset, meta = rt.accel.blas()
-    slots, masks, table, inst_mask, opaque, lights, _ = rt._device_inputs(
-        instances.capacity)
-    ctx = ACC.make_scene_tracer(
-        blasset, meta, instances, rt.accel.inst_blas(instances.capacity),
-        masks, rt.accel.tri_attr(), slots, table, tlas_index=0,
-        stack_size=rt.accel.stack_size(instances.capacity), paged=paged,
-        inst_mask=inst_mask, inst_opaque=opaque, leaf_cutout=leaf_cutout)
-    c = cam.matrices.to(rt.device)
-    o, d = TR.raygen(c, rt.width, rt.height,
-                     tile_order=TR.pick_tile(rt.width, rt.height))
-    far = torch.full((o.shape[0],), 1000.0, device=o.device)
-    return ctx, o.contiguous(), d, far, lights
-
-
 def compare_paged(crowd, grid, big, leaf, reps=10):
     """K10/K11 against their plain versions (bitwise) on the main path's
     wavefronts: K11 on the 10k crowd's primary rays and K10 any hit on its
@@ -851,6 +850,7 @@ def compare_paged(crowd, grid, big, leaf, reps=10):
     from paperrenderer_tpu_torch.ops import trace_kernel as TK
     from paperrenderer_tpu_torch.ops import trace_paged as TPG
     from paperrenderer_tpu_torch.utils import random as rnd
+    from paperrenderer_tpu_torch.utils.probes import primary_wavefront
 
     out = {}
 
@@ -899,7 +899,7 @@ def compare_paged(crowd, grid, big, leaf, reps=10):
 
     # the crowd: primary rays (K11), then its shadow wavefront (K10 any hit)
     rt, cam = crowd
-    ctx, o, d, far, lights = rt_tracer(rt, cam, paged=True)
+    ctx, o, d, far, lights = primary_wavefront(rt, cam, paged=True)
     rec, attrs = case("k11_crowd_primary", ctx, o, d, far, "k11")
     surf = ctx.trace_resolve(o, d, far)
     dirs, caps, actives, _ = TR._occlusion_samples(
@@ -911,9 +911,9 @@ def compare_paged(crowd, grid, big, leaf, reps=10):
 
     # config 2's grid: K10 closest, and K7 on the flat layout of the rays
     rt, cam = grid
-    ctx, o, d, far, _ = rt_tracer(rt, cam, paged=True)
+    ctx, o, d, far, _ = primary_wavefront(rt, cam, paged=True)
     k10 = case("k10_grid_primary", ctx, o, d, far, "k10")
-    flat, o, d, far, _ = rt_tracer(rt, cam, paged=False)
+    flat, o, d, far, _ = primary_wavefront(rt, cam, paged=False)
     k7 = TK.trace_scene_kernel(flat.scene, o, d, far,
                                root_code=flat.root_code,
                                stack_size=flat.stack_size)
@@ -927,7 +927,7 @@ def compare_paged(crowd, grid, big, leaf, reps=10):
 
     # the big model: K10 and K11 on the primary rays
     rt, cam = big
-    ctx, o, d, far, _ = rt_tracer(rt, cam, paged=True)
+    ctx, o, d, far, _ = primary_wavefront(rt, cam, paged=True)
     case("k10_big_primary", ctx, o, d, far, "k10")
     case("k11_big_primary", ctx, o, d, far, "k11")
 
@@ -944,6 +944,110 @@ def compare_paged(crowd, grid, big, leaf, reps=10):
     case("k10_alpha_leaf_primary", ctx, lw["o"], lw["d"], lw["far"], "k10",
          alpha=True)
     out["ok"] = all(v["bitwise"] for k, v in out.items() if "bitwise" in v)
+    return out
+
+
+def compare_probes(rt_cam, grid, reps=3):
+    """K12a-c and the step-count forms of K7/K10 against their plain
+    versions, bitwise, on the profiling path's inputs: K12a in each copy
+    form, K12b in each case, K12c at both ray counts; K7's step form on the
+    1080p RT scene's primary rays (`rt_cam`) and K10's on config 2's grid
+    (`grid`, paged), live and dead, in every output. Plain ms (CUDA
+    events) and the bound: the bytes of the blocks the order touches (K12a/
+    b), 48 B a ray (K12c)."""
+    import torch
+    from paperrenderer_tpu_torch.ops import trace_kernel as TK
+    from paperrenderer_tpu_torch.ops import trace_paged as TPG
+    from paperrenderer_tpu_torch.utils import probes as PR
+
+    out = {}
+
+    def copy_case(name, got, ref, plain, n_steps, touched_bytes):
+        val, span = got
+        b, by = bound(touched_bytes + 4 * (n_steps + 1), 3 * n_steps)
+        out[name] = dict(bitwise=same_bits(val, ref), sum=float(val),
+                         max_abs_err=float((val - ref).abs().max()),
+                         completed=int(span) >= 0,
+                         plain_ms=timed(plain, reps), bound_ms=b, bound_by=by)
+
+    hf, hi, order = PR.chunk_stream_inputs("cuda")
+    touched = int(order.unique().numel()) * (PR.BLK + PR.IBLK) * 4
+    ref = PR.chunk_stream_plain(hf, hi, order)
+    for form in PR.FORMS:
+        got = PR.chunk_stream(hf, hi, order, form=form)
+        PR.finish()
+        copy_case(f"k12a_{form}", got, ref,
+                  lambda: PR.chunk_stream_plain(hf, hi, order), PR.N_STEPS,
+                  touched)
+    for blk, dbuf in PR.SWEEP_CASES:
+        shf, sorder = PR.sweep_inputs(blk, "cuda")
+        n = PR.SWEEP_ITERS - 1 if dbuf else PR.SWEEP_ITERS
+        got = PR.chunk_stream_sweep(shf, sorder, blk=blk, dbuf=dbuf)
+        PR.finish()
+        plain = functools.partial(PR.chunk_stream_sweep_plain, shf, sorder,
+                                  blk, dbuf)
+        # the blocks started: the double-buffered chain also fetches one
+        started = sorder[:n + 1] if dbuf else sorder[:n]
+        copy_case(f"k12b_{'dbuf' if dbuf else 'chained'}_{blk}", got,
+                  plain(), plain, n, int(started.unique().numel()) * blk * 4)
+    for r in PR.PASS_RAYS:
+        planes = PR.pass_through_inputs(r, "cuda")
+        got = PR.pass_through(planes)
+        PR.finish()
+        ref = PR.pass_through_plain(planes)
+        mism = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                   for a, b in zip(got, ref))
+        b, by = bound(48 * r, 0)
+        out[f"k12c_r{r}"] = dict(
+            bitwise=mism == 0, mismatches=mism, max_abs_err=0.0 if mism == 0
+            else float("nan"), rays=r,
+            plain_ms=timed(lambda: PR.pass_through_plain(planes), reps),
+            bound_ms=b, bound_by=by)
+
+    def steps_case(name, ctx, o, d, far, plain, **kw):
+        got = PR.steps_kernel(ctx, o, d, far, **kw)
+        counts = {}
+        ref, plain_ms = timed_once(lambda: plain(counts=counts, **kw))
+        ok, mism, err = rec_check(got, ref)
+        steps = got.bary[:, 0]
+        out[name] = dict(bitwise=ok, mismatches=mism, max_abs_err=err,
+                         rays=o.shape[0], steps_max=float(steps.max()),
+                         steps_mean=float(steps.double().mean()),
+                         plain_ms=plain_ms, visits=counts,
+                         ms=timed(lambda: PR.steps_kernel(ctx, o, d, far,
+                                                          **kw), reps))
+        return steps
+
+    rt, cam = rt_cam
+    ctx, o, d, far, _ = PR.primary_wavefront(rt, cam, paged=False)
+    dead = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+    k7 = functools.partial(TK.trace_scene, ctx.scene, o, d, far,
+                           root_code=ctx.root_code, stack_size=ctx.stack_size,
+                           debug_steps=True)
+    steps_case("k7_steps_primary", ctx, o, d, far, k7)
+    steps_case("k7_steps_any_primary", ctx, o, d, far, k7, any_hit=True)
+    dead_steps = steps_case("k7_steps_any_dead", ctx, o, d, far, k7,
+                            any_hit=True, active=dead)
+    out["k7_steps_any_dead"]["all_zero"] = bool((dead_steps == 0).all())
+    b, by = bound(walk_bytes(ctx.scene, o.shape[0], 48),
+                  walk_ops(out["k7_steps_primary"]["visits"]))
+    out["k7_steps_primary"].update(bound_ms=b, bound_by=by)
+
+    rt, cam = grid
+    ctx, o, d, far, _ = PR.primary_wavefront(rt, cam, paged=True)
+    k10 = functools.partial(TPG.trace_scene_paged_plain, ctx.scene, o, d,
+                            far, root_code=ctx.root_code,
+                            stack_size=ctx.stack_size,
+                            max_steps=ctx._step_bound(),
+                            flat=ctx.flat_view(), debug_steps=True)
+    steps_case("k10_steps_grid_primary", ctx, o, d, far, k10)
+    steps_case("k10_steps_grid_dead", ctx, o, d, far, k10, active=dead)
+    b, by = bound(paged_bytes(ctx.scene, o.shape[0], 48),
+                  walk_ops(out["k10_steps_grid_primary"]["visits"]))
+    out["k10_steps_grid_primary"].update(bound_ms=b, bound_by=by)
+    out["ok"] = (all(v["bitwise"] for v in out.values())
+                 and all(v.get("completed", True) for v in out.values())
+                 and out["k7_steps_any_dead"]["all_zero"])
     return out
 
 
@@ -1203,9 +1307,10 @@ def main():
         build_example_scene, build_hybrid_scene, build_leaf_rt_grid,
         build_rt_scene, build_translucent_grid)
     from paperrenderer_tpu_torch.utils import cuda_build
+    from paperrenderer_tpu_torch.utils import probes as PR
 
     def build():
-        libs = ("raster_exact", "trace", "raster_tiles")
+        libs = ("raster_exact", "trace", "raster_tiles", "probes")
         with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
             list(pool.map(cuda_build.load_library, libs))
         out = {}
@@ -1513,7 +1618,7 @@ def main():
             rt_scenes["big"] = (rt, cam, time.perf_counter() - t0)
         return rt_scenes["big"][:2]
 
-    counters = (TK.LAUNCHES, TPG.LAUNCHES, RE.LAUNCHES)
+    counters = (TK.LAUNCHES, TPG.LAUNCHES, RE.LAUNCHES, PR.LAUNCHES)
 
     def reset_counts():
         for counter in counters:
@@ -1747,6 +1852,25 @@ def main():
     launch_path.update({k: paged_path for k in paged_keys})
     alpha_launches = {k: rt_launches.get("leaf_rt", {}).get(k + "_alpha", 0)
                       for k in ("trace_resolve", "trace_resolve_paged")}
+
+    probe_keys = tuple(PR.LAUNCHES) + ("trace_scene_steps",
+                                       "trace_scene_paged_steps")
+
+    def probes():
+        """The profiling path, its launches counted, then the bitwise
+        comparisons (uncounted)."""
+        reset_counts()
+        measured = PR.measure()
+        launched = read_counts()
+        out = compare_probes(rt_1080(), grid_rt())
+        ok = out.pop("ok") and all(launched.get(k, 0) > 0
+                                   for k in probe_keys)
+        return dict(ok=ok, measured=measured, launches=launched, **out)
+
+    phase("probes", probes)
+    probe_launches = results["probes"].get("launches", {})
+    launches.update({k: probe_launches.get(k, 0) for k in PR.LAUNCHES})
+    launch_path.update({k: ("probes",) for k in PR.LAUNCHES})
     raster_needs = dict(config1=["raster_exact"], config2=["raster_exact"],
                         translucent=["raster_exact", "raster_peel"],
                         supersample=["raster_exact"],
@@ -1770,8 +1894,9 @@ def main():
             and all(hyb.get("grid10k", {}).get("launches_one_frame", {})
                     .get(k, 0) > 0 for k in ("raster_exact",
                                              "trace_scene_paged",
-                                             "trace_resolve_paged"))),
-        **raster_launches, **rt_launches))
+                                             "trace_resolve_paged"))
+            and all(probe_launches.get(k, 0) > 0 for k in probe_keys)),
+        **raster_launches, **rt_launches, probes=probe_launches))
     phase("sync", lambda: {f"config{c}": sync_cost(*get(c)) for c in (1, 2)})
     if args.profile:
         out_dir = os.path.join(HERE, "chiprun_out")
@@ -1824,6 +1949,41 @@ def main():
                     trace_resolve_paged="k11_crowd_primary")
     prefix = dict(trace_scene="k7", trace_resolve="k8", trace_bundle="k9",
                   trace_scene_paged="k10", trace_resolve_paged="k11")
+    pb = results.get("probes", {})
+    # the probes' cases of each K12 kernel, as (compare_probes case,
+    # measure() entry); the first is the row's
+    probe_cases = dict(
+        chunk_stream=[(f"k12a_{f}", f) for f in ("bulk", "plain", "cp_async")],
+        chunk_stream_sweep=[
+            (f"k12b_{n}", n) for n in ["chained_6144"] + [
+                f"{'dbuf' if dbuf else 'chained'}_{blk}"
+                for blk, dbuf in PR.SWEEP_CASES
+                if (blk, dbuf) != (6144, False)]],
+        pass_through=[(f"k12c_r{r}", f"r{r}") for r in PR.PASS_RAYS])
+    # the step-count forms of K7/K10: the compare_probes case timed
+    steps_on = dict(trace_scene="k7_steps_primary",
+                    trace_scene_paged="k10_steps_grid_primary")
+
+    def probe_row(name):
+        cases = probe_cases[name]
+        meas = pb.get("measured", {}).get(name, {})
+        first, m0 = pb.get(cases[0][0], {}), meas.get(cases[0][1], {})
+        row = dict(
+            max_abs_err=max(pb.get(c, {}).get("max_abs_err", float("nan"))
+                            for c, _ in cases),
+            ms=m0.get("ms"), plain_ms=first.get("plain_ms"),
+            bound_ms=first.get("bound_ms"), bound_by=first.get("bound_by"),
+            library_ms=m0.get("copy_ms"), timed_on=cases[0][0])
+        for c, m in cases:
+            row["ms_" + c] = meas.get(m, {}).get("ms")
+            if "us_per_step_events" in meas.get(m, {}):
+                row["us_per_step_" + c] = meas[m]["us_per_step_events"]
+                row["us_per_step_globaltimer_" + c] = \
+                    meas[m]["us_per_step_globaltimer"]
+            if "copy_ms" in meas.get(m, {}):
+                row["library_ms_" + c] = meas[m]["copy_ms"]
+        return row
+
     rows = []
     for k in KERNELS:
         if k["name"] == "raster_exact":
@@ -1833,6 +1993,8 @@ def main():
                 ms=cmp2.get("ms"), plain_ms=cmp2.get("plain_ms"),
                 bound_ms=cmp2.get("bound_ms"), bound_by=cmp2.get("bound_by"),
                 ms_config1=cmp1.get("ms"), plain_ms_config1=cmp1.get("plain_ms"))
+        elif k["name"] in probe_cases:
+            row = probe_row(k["name"])
         elif k["name"] in keyed_cases or k["name"] in tile_cases:
             names, ck_ = ((keyed_cases[k["name"]], ck) if k["name"] in keyed_cases
                           else (tile_cases[k["name"]], ctl))
@@ -1872,15 +2034,30 @@ def main():
                     timed_on=prefix[k["name"]] + "_alpha_leaf_primary",
                     launches=alpha_launches[k["name"]],
                     launches_from=["leaf_rt"])
+            if k["name"] in steps_on:   # the step-count form: probes
+                case = pb.get(steps_on[k["name"]], {})
+                row["steps"] = dict(
+                    ms=case.get("ms"), plain_ms=case.get("plain_ms"),
+                    bound_ms=case.get("bound_ms"),
+                    bound_by=case.get("bound_by"),
+                    steps_mean=case.get("steps_mean"),
+                    steps_max=case.get("steps_max"),
+                    timed_on=steps_on[k["name"]],
+                    launches=probe_launches.get(k["name"] + "_steps", 0),
+                    launches_from=["probes"])
         if k["name"] in RE.LAUNCHES:
             row["launches_keyed_entry"] = raster_launches.get(
                 "keyed_entry", {}).get(k["name"], 0)
         n_alpha = alpha_launches.get(k["name"], 0)
-        rows.append(dict(k, launches=launches.get(k["name"], 0) + n_alpha,
+        n_steps = (probe_launches.get(k["name"] + "_steps", 0)
+                   if k["name"] in steps_on else 0)
+        rows.append(dict(k, launches=launches.get(k["name"], 0) + n_alpha
+                         + n_steps,
                          launches_from=list(launch_path[k["name"]])
                          + (["leaf_rt"] if k["name"] in alpha_launches
-                            else []),
-                         library_ms=None, **row))
+                            else [])
+                         + (["probes"] if n_steps else []),
+                         library_ms=row.pop("library_ms", None), **row))
     emit(kernels=rows)
     print(smi, flush=True)
     if failures:

@@ -30,6 +30,16 @@
 // re-derive the uv from their packet's ratio state; this walk has u and v.
 // A null shading-model pointer selects the instantiation without the gate.
 //
+// K7 and K10 also have a step-count form, the TPU kernels' debug_steps
+// (_make_kernel(debug_steps=True), trace_kernel.py:229, output :489-491;
+// _make_kernel_paged(debug_steps=True), trace_paged.py:218, output :563):
+// the STEPS template flag of trace_kernel. Its u output carries the trip
+// count of the ray's walk loop as f32 (0 for a dead ray), every other output
+// is the plain form's. The TPU kernels count a packet's steps, shared by its
+// 1024 rays; a thread here walks one ray, so the count is that ray's. The
+// paged TPU kernel also packs its leaf and instance pop counts into v; the
+// port's v stays the hit's (the plain walk's `counts` gives the pops).
+//
 // Design: one thread per ray (per origin for K9), each walking its own stack
 // in local memory with the pop/push machine of accel.trace_scene (the plain
 // PyTorch version in paperrenderer_tpu_torch/ops/accel.py): pop a tagged
@@ -128,6 +138,7 @@ struct Hit {
   int prim, inst;
   float u, v;
   int irow;   // paged: TLAS chunk row of the hit's instance
+  int steps;  // trip count of the walk loop
 };
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
@@ -210,7 +221,8 @@ __device__ Hit traverse(const SceneView& sc, const ResolveView& rv,
 
   // the step bound is the paged tracer's (PagedSceneTracer._step_bound);
   // the flat walk has none, as before
-  for (int step = 0; sp > 0 && (!PAGED || step < sc.max_steps); ++step) {
+  int step = 0;
+  for (; sp > 0 && (!PAGED || step < sc.max_steps); ++step) {
     const int top = sp - 1;
     const int code = top < s ? stack[top] : 0;
     sp = top;
@@ -361,6 +373,7 @@ __device__ Hit traverse(const SceneView& sc, const ResolveView& rv,
   h.u = bu;
   h.v = bv;
   h.irow = best_row;
+  h.steps = step;
   return h;
 }
 
@@ -421,7 +434,7 @@ __device__ __forceinline__ void store_resolved(const ResolveView& rv,
   material[i] = mat;
 }
 
-template <bool PAGED, bool ANY_HIT, bool RESOLVE, bool ALPHA>
+template <bool PAGED, bool ANY_HIT, bool RESOLVE, bool ALPHA, bool STEPS>
 __global__ void __launch_bounds__(THREADS)
 trace_kernel(SceneView sc, ResolveView rv, const float* __restrict__ ray_o,
              const float* __restrict__ ray_d, const float* __restrict__ t_max,
@@ -434,8 +447,9 @@ trace_kernel(SceneView sc, ResolveView rv, const float* __restrict__ ray_o,
   load3(ray_o, i, o);
   load3(ray_d, i, d);
   const bool act = active == nullptr || active[i] != 0;
-  const Hit h = traverse<PAGED, ANY_HIT, ALPHA>(sc, rv, o, d,
-                                                __ldg(t_max + i), act);
+  Hit h = traverse<PAGED, ANY_HIT, ALPHA>(sc, rv, o, d, __ldg(t_max + i),
+                                          act);
+  if (STEPS) h.u = (float)h.steps;
   store_hit(h, i, out_t, out_prim, out_inst, out_bary);
   if (RESOLVE) store_resolved<PAGED>(rv, h, i, out_uv, out_normal, out_mat);
 }
@@ -550,24 +564,29 @@ ResolveView resolve_view(const float* tri_attr, const float* inv_rows,
 
 inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
 
-// one trace_kernel launch; a shading model selects the alpha form
+// one trace_kernel launch; a shading model selects the alpha form, `steps`
+// the step-count form (K7/K10 only, never with the alpha form)
 template <bool PAGED, bool ANY_HIT, bool RESOLVE>
-int launch(const SceneView& sc, const ResolveView& rv, const float* ray_o,
-           const float* ray_d, const float* t_max,
+int launch(const SceneView& sc, const ResolveView& rv, bool steps,
+           const float* ray_o, const float* ray_d, const float* t_max,
            const unsigned char* active, int n_rays, float* out_t,
            int* out_prim, int* out_inst, float* out_bary, float* out_uv,
            float* out_normal, int* out_mat, cudaStream_t stream) {
+  if (steps && (RESOLVE || rv.shading_model != nullptr))
+    return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
+  using Kernel = void (*)(SceneView, ResolveView, const float*, const float*,
+                         const float*, const unsigned char*, int, float*,
+                         int*, int*, float*, float*, float*, int*);
+  Kernel kernel = trace_kernel<PAGED, ANY_HIT, RESOLVE, false, false>;
   if (rv.shading_model != nullptr)
-    trace_kernel<PAGED, ANY_HIT, RESOLVE, true>
-        <<<blocks(n_rays), THREADS, 0, stream>>>(
-            sc, rv, ray_o, ray_d, t_max, active, n_rays, out_t, out_prim,
-            out_inst, out_bary, out_uv, out_normal, out_mat);
-  else
-    trace_kernel<PAGED, ANY_HIT, RESOLVE, false>
-        <<<blocks(n_rays), THREADS, 0, stream>>>(
-            sc, rv, ray_o, ray_d, t_max, active, n_rays, out_t, out_prim,
-            out_inst, out_bary, out_uv, out_normal, out_mat);
+    kernel = trace_kernel<PAGED, ANY_HIT, RESOLVE, true, false>;
+  if constexpr (!RESOLVE) {
+    if (steps) kernel = trace_kernel<PAGED, ANY_HIT, false, false, true>;
+  }
+  kernel<<<blocks(n_rays), THREADS, 0, stream>>>(
+      sc, rv, ray_o, ray_d, t_max, active, n_rays, out_t, out_prim, out_inst,
+      out_bary, out_uv, out_normal, out_mat);
   return (int)cudaGetLastError();
 }
 
@@ -578,10 +597,12 @@ extern "C" {
 int trace_stack_max() { return STACK_MAX; }
 
 // K7: closest hit (any_hit = 0) or any hit (any_hit = 1); with a shading
-// model (and the resolve tables the cutout reads) its alpha form
+// model (and the resolve tables the cutout reads) its alpha form; with
+// steps = 1 its step-count form
 int trace_launch(const float* nodes, const int* codes, const float* leaf,
                  const int* leaf_prim, int nn, int nl, int root,
                  int stack_size, int cull_mask, float t_min, int any_hit,
+                 int steps,
                  const float* tri_attr, const float* inv_rows,
                  const int* slot_mats, int n_inst, int n_slots,
                  const int* shading_model, int n_mats, const float* ray_o,
@@ -594,8 +615,8 @@ int trace_launch(const float* nodes, const int* codes, const float* leaf,
   const ResolveView rv = resolve_view(tri_attr, inv_rows, slot_mats, n_inst,
                                       n_slots, shading_model, n_mats);
   return (any_hit ? launch<false, true, false> : launch<false, false, false>)(
-      sc, rv, ray_o, ray_d, t_max, active, n_rays, out_t, out_prim, out_inst,
-      out_bary, nullptr, nullptr, nullptr, stream);
+      sc, rv, steps != 0, ray_o, ray_d, t_max, active, n_rays, out_t,
+      out_prim, out_inst, out_bary, nullptr, nullptr, nullptr, stream);
 }
 
 // K8: closest hit + resolve; with a shading model its alpha form
@@ -615,8 +636,8 @@ int trace_resolve_launch(const float* nodes, const int* codes,
                                   root, stack_size, cull_mask, t_min);
   const ResolveView rv = resolve_view(tri_attr, inv_rows, slot_mats, n_inst,
                                       n_slots, shading_model, n_mats);
-  return launch<false, false, true>(sc, rv, ray_o, ray_d, t_max, active,
-                                    n_rays, out_t, out_prim, out_inst,
+  return launch<false, false, true>(sc, rv, false, ray_o, ray_d, t_max,
+                                    active, n_rays, out_t, out_prim, out_inst,
                                     out_bary, out_uv, out_normal, out_mat,
                                     stream);
 }
@@ -663,14 +684,16 @@ int trace_bundle_launch(const float* nodes, const int* codes,
 
 // K10: closest hit (any_hit = 0) or any hit (any_hit = 1) over a
 // PagedScene; with a shading model (and the resolve tables the cutout
-// reads: chunk_smat, smat_blk ints per chunk) its alpha form
+// reads: chunk_smat, smat_blk ints per chunk) its alpha form; with
+// steps = 1 its step-count form
 int trace_paged_launch(const float* nodes, const int* codes, const float* leaf,
                        const int* leaf_prim, int nn, int nl, int root,
                        int stack_size, int cull_mask, float t_min,
                        const float* cboxes, const int* ccodes, int nct,
                        const float* bnodes, const int* bcodes, int nbn,
                        const float* blpos, const int* blprim, int nbl,
-                       int max_steps, int any_hit, const float* tri_attr,
+                       int max_steps, int any_hit, int steps,
+                       const float* tri_attr,
                        const float* inv_rows, const int* chunk_smat,
                        int n_inst, int n_slots, int smat_blk,
                        const int* shading_model, int n_mats,
@@ -686,8 +709,8 @@ int trace_paged_launch(const float* nodes, const int* codes, const float* leaf,
                                       n_slots, shading_model, n_mats,
                                       smat_blk);
   return (any_hit ? launch<true, true, false> : launch<true, false, false>)(
-      sc, rv, ray_o, ray_d, t_max, active, n_rays, out_t, out_prim, out_inst,
-      out_bary, nullptr, nullptr, nullptr, stream);
+      sc, rv, steps != 0, ray_o, ray_d, t_max, active, n_rays, out_t,
+      out_prim, out_inst, out_bary, nullptr, nullptr, nullptr, stream);
 }
 
 // K11: closest hit + resolve over a PagedScene; the material comes from
@@ -712,8 +735,8 @@ int trace_resolve_paged_launch(
   const ResolveView rv = resolve_view(tri_attr, inv_rows, chunk_smat, n_inst,
                                       n_slots, shading_model, n_mats,
                                       smat_blk);
-  return launch<true, false, true>(sc, rv, ray_o, ray_d, t_max, active,
-                                   n_rays, out_t, out_prim, out_inst,
+  return launch<true, false, true>(sc, rv, false, ray_o, ray_d, t_max,
+                                   active, n_rays, out_t, out_prim, out_inst,
                                    out_bary, out_uv, out_normal, out_mat,
                                    stream);
 }

@@ -1003,6 +1003,7 @@ def trace_scene(
     max_steps: Optional[int] = None,
     slot_materials: Optional[torch.Tensor] = None,
     shading_model: Optional[torch.Tensor] = None,
+    debug_steps: bool = False,
 ) -> HitRecord2:
     """Two-level traversal, the plain version of the traversal kernels
     (``csrc/trace.cu``) and the port of ``accel.trace_scene``.
@@ -1020,7 +1021,10 @@ def trace_scene(
     pops with the best hit so far. With ``shading_model`` (i32[M], and the
     frame's ``slot_materials`` i32[N, S]) a leaf's candidates first pass
     the any-hit leaf cutout (``leaf_cutout_keep``; ``counts["alpha_rejected"]``
-    counts the candidates it drops)."""
+    counts the candidates it drops). With ``debug_steps``, ``bary[:, 0]``
+    carries each ray's walk-loop trip count as f32 (its pops, a paged
+    walk's chunk rows included; 0 for a dead ray), the plain version of
+    the kernels' step-count form; the other outputs are unchanged."""
     r = ray_o.shape[0]
     dev = ray_o.device
     nn = scene.nodes.shape[0]
@@ -1031,6 +1035,7 @@ def trace_scene(
     best_prim = torch.full((r,), -1, dtype=torch.int32, device=dev)
     best_inst = torch.full((r,), -1, dtype=torch.int32, device=dev)
     best_bary = torch.zeros((r, 2), dtype=torch.float32, device=dev)
+    steps = torch.zeros((r,), dtype=torch.int32, device=dev)
 
     w = (torch.arange(r, device=dev) if active is None
          else torch.nonzero(active).flatten())
@@ -1128,6 +1133,7 @@ def trace_scene(
             wd_ = w[done]
             best_t[wd_], best_prim[wd_] = bt[done], bp[done]
             best_inst[wd_], best_bary[wd_] = bi[done], bb[done]
+            steps[wd_] = step   # every ray of the working set started at 0
             keep = ~done
             w, o, d, oo, do, ci = w[keep], o[keep], d[keep], oo[keep], do[keep], ci[keep]
             bt, bp, bi, bb = bt[keep], bp[keep], bi[keep], bb[keep]
@@ -1135,6 +1141,8 @@ def trace_scene(
             m = w.shape[0]
 
     miss = best_prim < 0
+    if debug_steps:
+        best_bary[:, 0] = steps.to(torch.float32)
     return HitRecord2(t=torch.where(miss, float("inf"), best_t),
                       prim=best_prim,
                       inst=torch.where(miss, -1, best_inst),

@@ -8,7 +8,9 @@ PyTorch versions.
 
 K7 and K8 take ``shading_model`` (i32[M]): with it they run their alpha
 form, the any-hit leaf cutout (``accel.leaf_cutout_keep``), counted apart
-as ``trace_scene_alpha`` / ``trace_resolve_alpha``.
+as ``trace_scene_alpha`` / ``trace_resolve_alpha``. K7 takes
+``debug_steps``: its step-count form (u = each ray's walk-loop trip count),
+counted apart as ``trace_scene_steps``.
 
 On a CUDA tensor each wrapper launches its kernel (built at first use) and
 counts the launch in ``LAUNCHES``; on a CPU tensor it runs the plain
@@ -29,7 +31,8 @@ from .accel import HitRecord2, RTScene, resolve_attrs, trace_scene
 
 # launches of each kernel wrapper, counted where the kernel is launched
 LAUNCHES = {"trace_scene": 0, "trace_resolve": 0, "trace_bundle": 0,
-            "trace_scene_alpha": 0, "trace_resolve_alpha": 0}
+            "trace_scene_alpha": 0, "trace_resolve_alpha": 0,
+            "trace_scene_steps": 0}
 
 T_MIN = 1e-3
 _P = ctypes.c_void_p
@@ -53,8 +56,8 @@ def _lib():
         lib = load_library("trace")
         lib.trace_stack_max.restype = _I
         lib.trace_launch.argtypes = (
-            _SCENE_ARGS + [_I] + _RESOLVE_ARGS + _ALPHA_ARGS + [_P] * 4 + [_I]
-            + [_P] * 4 + [_P])
+            _SCENE_ARGS + [_I, _I] + _RESOLVE_ARGS + _ALPHA_ARGS + [_P] * 4
+            + [_I] + [_P] * 4 + [_P])
         lib.trace_resolve_launch.argtypes = (
             _SCENE_ARGS + _RESOLVE_ARGS + _ALPHA_ARGS + [_P] * 4 + [_I]
             + [_P] * 7 + [_P])
@@ -117,8 +120,12 @@ def _alpha_args(shading_model: Optional[torch.Tensor], dev):
     return shading_model.data_ptr(), shading_model.shape[0]
 
 
-def alpha_key(name: str, shading_model) -> str:
-    """The launch counter of a kernel's plain or alpha form."""
+def form_key(name: str, shading_model, debug_steps: bool = False) -> str:
+    """The launch counter of a kernel's plain, alpha or step-count form."""
+    if debug_steps:
+        if shading_model is not None:
+            raise ValueError("the step-count form has no leaf cutout")
+        return name + "_steps"
     return name if shading_model is None else name + "_alpha"
 
 
@@ -168,16 +175,23 @@ def _device(x: torch.Tensor, name: str) -> str:
 def trace_scene_kernel(scene: RTScene, o, d, t_max, *, root_code: int,
                        stack_size: int, any_hit: bool = False,
                        active=None, cull_mask: int = 0xFF,
-                       slot_materials=None, shading_model=None) -> HitRecord2:
+                       slot_materials=None, shading_model=None,
+                       debug_steps: bool = False) -> HitRecord2:
     """Two-level traversal (closest or any hit): kernel K7 on CUDA tensors,
     ``accel.trace_scene`` on CPU tensors. With ``shading_model`` (and the
-    frame's ``slot_materials``) its alpha form: the any-hit leaf cutout."""
+    frame's ``slot_materials``) its alpha form: the any-hit leaf cutout.
+    With ``debug_steps`` its step-count form (``trace_scene_pallas(
+    debug_steps=True)``): ``bary[:, 0]`` is each ray's walk-loop trip count
+    as f32. The TPU kernel counts the steps a 1024-ray packet shares; here a
+    thread walks one ray, so the count is the ray's own."""
+    key = form_key("trace_scene", shading_model, debug_steps)
     if _device(o, "trace_scene") == "cpu":
         return trace_scene(scene, o, d, t_max, root_code=root_code,
                            stack_size=stack_size, t_min=T_MIN,
                            any_hit=any_hit, active=active,
                            cull_mask=cull_mask, slot_materials=slot_materials,
-                           shading_model=shading_model)
+                           shading_model=shading_model,
+                           debug_steps=debug_steps)
     lib = _lib()
     o, d, t, act = _rays(o, d, t_max, active)
     r = o.shape[0]
@@ -186,11 +200,12 @@ def trace_scene_kernel(scene: RTScene, o, d, t_max, *, root_code: int,
            else _resolve_args(scene, slot_materials))
     rc = lib.trace_launch(
         *_scene_args(lib, scene, root_code, stack_size, cull_mask),
-        int(any_hit), *res, *_alpha_args(shading_model, o.device),
+        int(any_hit), int(debug_steps), *res,
+        *_alpha_args(shading_model, o.device),
         o.data_ptr(), d.data_ptr(), t.data_ptr(), _ptr(act), r,
         *(x.data_ptr() for x in out),
         torch.cuda.current_stream(o.device).cuda_stream)
-    _raise_on(rc, alpha_key("trace_scene", shading_model))
+    _raise_on(rc, key)
     return HitRecord2(*out)
 
 
@@ -236,7 +251,7 @@ def trace_resolve_kernel(scene: RTScene, slot_materials, o, d, t_max, *,
         o.data_ptr(), d.data_ptr(), t.data_ptr(), _ptr(act), r,
         *(x.data_ptr() for x in hit_out + res_out),
         torch.cuda.current_stream(o.device).cuda_stream)
-    _raise_on(rc, alpha_key("trace_resolve", shading_model))
+    _raise_on(rc, form_key("trace_resolve", shading_model))
     return HitRecord2(*hit_out), res_out
 
 

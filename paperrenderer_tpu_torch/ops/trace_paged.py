@@ -8,7 +8,9 @@ plain PyTorch versions.
 Both take ``shading_model`` (i32[M]): with it they run their alpha form,
 the any-hit leaf cutout (``accel.leaf_cutout_keep``), the kernel reading
 each candidate's material from the chunk's slot-material block; counted
-apart as ``trace_scene_paged_alpha`` / ``trace_resolve_paged_alpha``.
+apart as ``trace_scene_paged_alpha`` / ``trace_resolve_paged_alpha``. K10
+takes ``debug_steps``: its step-count form (u = each ray's walk-loop trip
+count), counted apart as ``trace_scene_paged_steps``.
 
 On a CUDA tensor each wrapper launches its kernel (built at first use) and
 counts the launch in ``LAUNCHES``; on a CPU tensor it runs the plain
@@ -32,7 +34,8 @@ from .accel import (
 
 # launches of each kernel wrapper, counted where the kernel is launched
 LAUNCHES = {"trace_scene_paged": 0, "trace_resolve_paged": 0,
-            "trace_scene_paged_alpha": 0, "trace_resolve_paged_alpha": 0}
+            "trace_scene_paged_alpha": 0, "trace_resolve_paged_alpha": 0,
+            "trace_scene_paged_steps": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PAGED_ARGS = ([_P] * 4 + [_I] * 5 + [_F] + [_P] * 2 + [_I] + [_P] * 2 + [_I]
@@ -46,7 +49,7 @@ def _lib():
     lib = TK._lib()
     if not _DECLARED:
         lib.trace_paged_launch.argtypes = (
-            _PAGED_ARGS + [_I] + _SMAT_ARGS + [_P] * 4 + [_I] + [_P] * 4
+            _PAGED_ARGS + [_I, _I] + _SMAT_ARGS + [_P] * 4 + [_I] + [_P] * 4
             + [_P])
         lib.trace_resolve_paged_launch.argtypes = (
             _PAGED_ARGS + _SMAT_ARGS + [_P] * 4 + [_I] + [_P] * 7 + [_P])
@@ -131,34 +134,41 @@ def trace_scene_paged_plain(scene: PagedScene, o, d, t_max, *, root_code: int,
                             any_hit: bool = False, active=None,
                             cull_mask: int = 0xFF, counts=None,
                             flat=None, slot_materials=None,
-                            shading_model=None) -> HitRecord2:
+                            shading_model=None,
+                            debug_steps: bool = False) -> HitRecord2:
     """Plain version of K10: ``accel.trace_scene`` on the flat view
     (``flat`` = (RTScene, root code) when already built); with
-    ``shading_model`` through the leaf cutout."""
+    ``shading_model`` through the leaf cutout; with ``debug_steps`` each
+    ray's walk-loop trip count in ``bary[:, 0]`` (the flat view holds a box
+    row where the paged walk pops a chunk, so the counts agree)."""
     view, root = _flat(scene, root_code, flat)
     return trace_scene(view, o, d, t_max, root_code=root,
                        stack_size=stack_size, t_min=TK.T_MIN, any_hit=any_hit,
                        active=active, cull_mask=cull_mask, counts=counts,
                        max_steps=max_steps, slot_materials=slot_materials,
-                       shading_model=shading_model)
+                       shading_model=shading_model, debug_steps=debug_steps)
 
 
 def trace_scene_paged_kernel(scene: PagedScene, o, d, t_max, *,
                              root_code: int, stack_size: int, max_steps: int,
                              any_hit: bool = False, active=None,
                              cull_mask: int = 0xFF, flat=None,
-                             slot_materials=None,
-                             shading_model=None) -> HitRecord2:
+                             slot_materials=None, shading_model=None,
+                             debug_steps: bool = False) -> HitRecord2:
     """Two-level traversal of a PagedScene (closest or any hit): kernel K10
     on CUDA tensors, ``trace_scene_paged_plain`` on CPU tensors; with
     ``shading_model`` (and the frame's ``slot_materials``) its alpha form,
-    the any-hit leaf cutout."""
+    the any-hit leaf cutout; with ``debug_steps`` its step-count form
+    (``trace_scene_paged_pallas(debug_steps=True)``): ``bary[:, 0]`` is
+    each ray's walk-loop trip count as f32, the ray's own where the TPU
+    kernel counts its packet's."""
+    key = TK.form_key("trace_scene_paged", shading_model, debug_steps)
     if TK._device(o, "trace_scene_paged") == "cpu":
         return trace_scene_paged_plain(
             scene, o, d, t_max, root_code=root_code, stack_size=stack_size,
             max_steps=max_steps, any_hit=any_hit, active=active,
             cull_mask=cull_mask, flat=flat, slot_materials=slot_materials,
-            shading_model=shading_model)
+            shading_model=shading_model, debug_steps=debug_steps)
     lib = _lib()
     dev = o.device
     res = ((None, None, None, 1, 1, 0, None, 1) if shading_model is None
@@ -168,10 +178,10 @@ def trace_scene_paged_kernel(scene: PagedScene, o, d, t_max, *,
     out = TK._hit_outputs(r, dev)
     rc = lib.trace_paged_launch(
         *_paged_args(lib, scene, root_code, stack_size, cull_mask, max_steps),
-        int(any_hit), *res, o.data_ptr(), d.data_ptr(), t.data_ptr(),
-        TK._ptr(act), r, *(x.data_ptr() for x in out),
+        int(any_hit), int(debug_steps), *res, o.data_ptr(), d.data_ptr(),
+        t.data_ptr(), TK._ptr(act), r, *(x.data_ptr() for x in out),
         torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, TK.alpha_key("trace_scene_paged", shading_model))
+    _raise_on(rc, key)
     return HitRecord2(*out)
 
 
@@ -220,6 +230,6 @@ def trace_resolve_paged_kernel(scene: PagedScene, slot_materials, o, d,
         *res, o.data_ptr(), d.data_ptr(), t.data_ptr(), TK._ptr(act), r,
         *(x.data_ptr() for x in hit_out + res_out),
         torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, TK.alpha_key("trace_resolve_paged", shading_model))
+    _raise_on(rc, TK.form_key("trace_resolve_paged", shading_model))
     return HitRecord2(*hit_out), res_out
 

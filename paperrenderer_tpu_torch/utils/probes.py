@@ -1,0 +1,419 @@
+"""The copy and plumbing probes (K12, ``csrc/probes.cu``) and the
+measurements of the three TPU probe scripts on the card.
+
+  * ``chunk_stream``        K12a (``scripts/probe_smem_dma.py``): one CTA
+    copies the chunk blocks that ``order`` names into shared memory, one
+    after another, in one of three copy forms (``FORMS``), and sums
+    ``acc + f[0] + f[BLK-1] + f32(i[0])`` a step;
+  * ``chunk_stream_sweep``  K12b (``scripts/probe_smem_dma2.py``): the bulk
+    copy chain at one block size, chained or double-buffered, summing the
+    first float of each block;
+  * ``pass_through``        K12c (``scripts/prof_rt_floor2.py`` ``ident``):
+    seven f32 ray planes in, five hit planes out (two as their i32 bits).
+
+On a CUDA tensor each wrapper launches its kernel (built at first use) and
+counts the launch in ``LAUNCHES``; on a CPU tensor it runs its plain version
+beside it. The copy kernels also return their own ``%globaltimer`` span in
+ns (-1 when a copy never completed; the plain versions return None).
+
+``measure()`` runs the scripts' measurements on the card, and
+``python -m paperrenderer_tpu_torch.utils.probes`` prints them as JSON lines:
+µs per copy step of each K12a form and K12b case, K12c's ms at 1080p's
+2,073,600 rays and at 1,024 (the empty-launch floor) beside the five
+``Tensor.copy_`` calls of the same bytes (device ms, and the host's ms to
+issue a call), K7 on the 1080p RT scene's primary rays all dead (closest and
+any hit) and live, and the step-count forms of K7 and K10 (``debug_steps``):
+every ray of the dead any-hit wave counts 0 steps.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..ops import trace_kernel as TK
+from ..ops import trace_paged as TPG
+from .cuda_build import load_library
+from .device import require_device
+from .profiling import device_time, host_time
+
+# the TPU probes' sizes (scripts/probe_smem_dma.py:20-22, probe_smem_dma2.py:
+# 111-112, the 256-step order of probe_smem_dma.py:50)
+NC = 64            # chunks
+BLK = 6144         # f32 per block (24 KiB)
+IBLK = 1024        # i32 per block (4 KiB)
+N_STEPS = 256
+SWEEP_ITERS = 256
+# K12b's cases: (floats per block, double-buffered)
+SWEEP_CASES = ((1024, False), (2048, False), (6144, False), (24576, False),
+               (6144, True))
+FORMS = ("plain", "cp_async", "bulk")
+PASS_RAYS = (1920 * 1080, 1024)
+WAIT_S = 30.0      # host-side limit on one probe launch
+REPS = 10          # timed calls a measurement
+SEED = 0           # the scripts' numpy seed
+
+# launches of each kernel wrapper, counted where the kernel is launched
+LAUNCHES = {"chunk_stream": 0, "chunk_stream_sweep": 0, "pass_through": 0}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_LIB = []
+
+
+def _lib():
+    """The built ``csrc/probes.cu`` with its C signatures declared."""
+    if not _LIB:
+        lib = load_library("probes")
+        lib.chunk_stream_launch.argtypes = [_P] * 3 + [_I] * 5 + [_P] * 3
+        lib.chunk_stream_sweep_launch.argtypes = [_P] * 2 + [_I] * 4 + [_P] * 3
+        lib.pass_through_launch.argtypes = [_P] * 7 + [_I] + [_P] * 6
+        for fn in (lib.chunk_stream_launch, lib.chunk_stream_sweep_launch,
+                   lib.pass_through_launch):
+            fn.restype = _I
+        _LIB.append(lib)
+    return _LIB[0]
+
+
+def _check(name: str, t: torch.Tensor, dtype, device, numel=None):
+    if (t.device != device or t.dtype != dtype or not t.is_contiguous()
+            or t.dim() != 1):
+        raise ValueError(f"{name} must be a contiguous 1-D {dtype} tensor on "
+                         f"{device}")
+    if numel is not None and t.numel() != numel:
+        raise ValueError(f"{name} must hold {numel} elements, got {t.numel()}")
+    if t.device.type == "cuda" and t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned for the bulk copy")
+
+
+def _device(x: torch.Tensor, name: str) -> str:
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return x.device.type
+
+
+def _raise_on(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _sequential_sum(terms: torch.Tensor) -> torch.Tensor:
+    """f32[T] -> f32[1]: 0 + t0 + t1 + ..., one f32 add at a time."""
+    acc = torch.zeros((), dtype=torch.float32, device=terms.device)
+    for x in terms.unbind():
+        acc = acc + x
+    return acc.reshape(1)
+
+
+def _blocks(order: torch.Tensor, nc: int) -> torch.Tensor:
+    return order.long().clamp(0, nc - 1)
+
+
+def _chunk_count(hf: torch.Tensor, blk: int) -> int:
+    if blk <= 0 or blk % 4 or hf.numel() % blk:
+        raise ValueError("blocks must be whole multiples of 4 floats that "
+                         "tile hf")
+    return hf.numel() // blk
+
+
+# ---------------------------------------------------------------------------
+# K12a
+# ---------------------------------------------------------------------------
+
+def chunk_stream_plain(hf, hi, order) -> torch.Tensor:
+    """Plain version of K12a: for each chunk c of ``order`` (clamped to the
+    chunks), acc + hf[c, 0] + hf[c, BLK-1] + f32(hi[c, 0]), accumulated
+    in f32 left to right from 0 -> f32[1]."""
+    nc = _chunk_count(hf, BLK)
+    c = _blocks(order, nc)
+    f, i = hf.view(nc, BLK), hi.view(nc, IBLK)
+    terms = torch.stack([f[c, 0], f[c, BLK - 1], i[c, 0].to(torch.float32)],
+                        dim=1)
+    return _sequential_sum(terms.reshape(-1))
+
+
+def chunk_stream(hf, hi, order, *, form: str = "bulk"):
+    """Chained copies of the chunk blocks ``order`` names (f32 blocks of
+    BLK, i32 blocks of IBLK) into shared memory, in one copy ``form`` of
+    ``FORMS``: kernel K12a on CUDA tensors, its plain version on CPU
+    tensors. Returns (sum f32[1], kernel span i64[1] in ns or None)."""
+    if form not in FORMS:
+        raise ValueError(f"form must be one of {FORMS}, got {form!r}")
+    if _device(hf, "chunk_stream") == "cpu":
+        return chunk_stream_plain(hf, hi, order), None
+    dev = hf.device
+    nc = _chunk_count(hf, BLK)
+    _check("hf", hf, torch.float32, dev)
+    _check("hi", hi, torch.int32, dev, nc * IBLK)
+    _check("order", order, torch.int32, dev)
+    out = torch.empty(1, dtype=torch.float32, device=dev)
+    span = torch.empty(1, dtype=torch.int64, device=dev)
+    rc = _lib().chunk_stream_launch(
+        hf.data_ptr(), hi.data_ptr(), order.data_ptr(), order.numel(), nc,
+        BLK, IBLK, FORMS.index(form), out.data_ptr(), span.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "chunk_stream")
+    return out, span
+
+
+# ---------------------------------------------------------------------------
+# K12b
+# ---------------------------------------------------------------------------
+
+def chunk_stream_sweep_plain(hf, order, blk: int, dbuf: bool) -> torch.Tensor:
+    """Plain version of K12b: the sum, in f32 left to right from 0, of the
+    first float of block order[k] over the steps the chain sums
+    (SWEEP_ITERS chained, SWEEP_ITERS - 1 double-buffered) -> f32[1]."""
+    nc = _chunk_count(hf, blk)
+    c = _blocks(order[:SWEEP_ITERS - 1 if dbuf else SWEEP_ITERS], nc)
+    return _sequential_sum(hf.view(nc, blk)[c, 0])
+
+
+def chunk_stream_sweep(hf, order, *, blk: int, dbuf: bool = False):
+    """The bulk-copy chain of SWEEP_ITERS steps at one block size (``blk``
+    floats), chained or double-buffered (the copy of step k+1 started
+    before step k is waited on): kernel K12b on CUDA tensors, its plain
+    version on CPU tensors. Returns (sum f32[1], kernel span i64[1] in ns
+    or None)."""
+    if order.numel() < SWEEP_ITERS + (1 if dbuf else 0):
+        raise ValueError("order must name a block for every step started")
+    if _device(hf, "chunk_stream_sweep") == "cpu":
+        return chunk_stream_sweep_plain(hf, order, blk, dbuf), None
+    dev = hf.device
+    nc = _chunk_count(hf, blk)
+    _check("hf", hf, torch.float32, dev)
+    _check("order", order, torch.int32, dev)
+    out = torch.empty(1, dtype=torch.float32, device=dev)
+    span = torch.empty(1, dtype=torch.int64, device=dev)
+    rc = _lib().chunk_stream_sweep_launch(
+        hf.data_ptr(), order.data_ptr(), SWEEP_ITERS, nc, blk, int(dbuf),
+        out.data_ptr(), span.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "chunk_stream_sweep")
+    return out, span
+
+
+# ---------------------------------------------------------------------------
+# K12c
+# ---------------------------------------------------------------------------
+
+def pass_through_plain(planes: Sequence[torch.Tensor]):
+    """Plain version of K12c: (a0, a1 bits, a2 bits, a3, a4) as new
+    tensors; a5 and a6 are read by the kernel only."""
+    a0, a1, a2, a3, a4 = planes[:5]
+    return (a0.clone(), a1.view(torch.int32).clone(),
+            a2.view(torch.int32).clone(), a3.clone(), a4.clone())
+
+
+def pass_through(planes: Sequence[torch.Tensor]):
+    """Seven f32[R] ray planes -> five hit planes (f32, i32, i32, f32, f32):
+    kernel K12c on CUDA tensors, its plain version on CPU tensors."""
+    if len(planes) != 7:
+        raise ValueError("pass_through takes seven planes")
+    if _device(planes[0], "pass_through") == "cpu":
+        return pass_through_plain(planes)
+    dev, r = planes[0].device, planes[0].numel()
+    for k, a in enumerate(planes):
+        _check(f"a{k}", a, torch.float32, dev, r)
+    outs = tuple(torch.empty(r, dtype=dt, device=dev) for dt in (
+        torch.float32, torch.int32, torch.int32, torch.float32, torch.float32))
+    rc = _lib().pass_through_launch(
+        *(a.data_ptr() for a in planes), r, *(o.data_ptr() for o in outs),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "pass_through")
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# Inputs, made with numpy from a seed as the scripts make them
+# ---------------------------------------------------------------------------
+
+def chunk_stream_inputs(device):
+    """probe_smem_dma.py's hf f32[NC*BLK] (arange * 0.001), hi i32[NC*IBLK]
+    (block c holds c*1000 + arange(IBLK)) and order i32[N_STEPS]."""
+    hf = np.arange(NC * BLK, dtype=np.float32) * np.float32(0.001)
+    hi = (np.arange(IBLK, dtype=np.int32)[None, :]
+          + np.arange(NC, dtype=np.int32)[:, None] * 1000).reshape(-1)
+    order = np.random.default_rng(SEED).integers(0, NC, N_STEPS).astype(
+        np.int32)
+    return tuple(torch.from_numpy(x).to(device) for x in (hf, hi, order))
+
+
+def sweep_inputs(blk: int, device):
+    """probe_smem_dma2.py's hf f32[NC*blk] (arange * 0.001) and order
+    i32[SWEEP_ITERS + 1]."""
+    hf = np.arange(NC * blk, dtype=np.float32) * np.float32(0.001)
+    order = np.random.default_rng(SEED).integers(
+        0, NC, SWEEP_ITERS + 1).astype(np.int32)
+    return torch.from_numpy(hf).to(device), torch.from_numpy(order).to(device)
+
+
+def pass_through_inputs(r: int, device):
+    """Seven f32[r] planes of standard normal values."""
+    a = np.random.default_rng(SEED).standard_normal((7, r), dtype=np.float32)
+    return tuple(torch.from_numpy(a[k]).to(device) for k in range(7))
+
+
+def primary_wavefront(rt, cam, paged: bool, leaf_cutout: bool = False):
+    """(tracer, o, d, far, lights): the tracer and the camera's primary rays
+    of one RayTraceRender frame, built as render_frame_rt builds them, on
+    the layout ``paged`` names."""
+    from ..ops import accel as ACC
+    from ..ops import trace as TR
+
+    instances = rt.scene.flush()
+    blasset, meta = rt.accel.blas()
+    slots, masks, table, inst_mask, opaque, lights, _ = rt._device_inputs(
+        instances.capacity)
+    ctx = ACC.make_scene_tracer(
+        blasset, meta, instances, rt.accel.inst_blas(instances.capacity),
+        masks, rt.accel.tri_attr(), slots, table, tlas_index=0,
+        stack_size=rt.accel.stack_size(instances.capacity), paged=paged,
+        inst_mask=inst_mask, inst_opaque=opaque, leaf_cutout=leaf_cutout)
+    c = cam.matrices.to(rt.device)
+    o, d = TR.raygen(c, rt.width, rt.height,
+                     tile_order=TR.pick_tile(rt.width, rt.height))
+    far = torch.full((o.shape[0],), 1000.0, device=o.device)
+    return ctx, o.contiguous(), d, far, lights
+
+
+def steps_kernel(ctx, o, d, far, *, any_hit=False, active=None):
+    """The step-count form of the tracer's traversal kernel (K10 for a
+    ``PagedSceneTracer``, else K7): its HitRecord2 with each ray's walk-loop
+    trip count in ``bary[:, 0]``."""
+    from ..ops.accel import PagedSceneTracer
+
+    kw = dict(any_hit=any_hit, active=active, debug_steps=True, **ctx._walk())
+    if isinstance(ctx, PagedSceneTracer):
+        return TPG.trace_scene_paged_kernel(ctx.scene, o, d, far, **kw)
+    return TK.trace_scene_kernel(ctx.scene, o, d, far, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The measurements
+# ---------------------------------------------------------------------------
+
+def finish():
+    """Wait for the current stream's work, raising TimeoutError after
+    WAIT_S instead of hanging."""
+    ev = torch.cuda.Event()
+    ev.record()
+    deadline = time.monotonic() + WAIT_S
+    while not ev.query():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"a probe kernel ran past {WAIT_S} s")
+        time.sleep(1e-3)
+
+
+def _copy_probe(fn, n_steps: int) -> dict:
+    """µs per copy step of one copy kernel: CUDA events over REPS
+    launches, and the kernel's own %globaltimer span of one launch."""
+    out, span = fn()
+    finish()
+    if int(span) < 0:
+        raise RuntimeError("a bulk copy never completed (mbarrier wait timed "
+                           "out)")
+    ms = device_time(fn, iters=REPS, warmup=1) * 1e3
+    return dict(sum=float(out), ms=ms, us_per_step_events=ms * 1e3 / n_steps,
+                us_per_step_globaltimer=int(span) / 1e3 / n_steps)
+
+
+def measure() -> dict:
+    """The three probe scripts' measurements on the card (see the module
+    docstring); raises when no card is present, a probe does not finish,
+    or a dead any-hit ray counts a step."""
+    from ..scenes import build_rt_scene
+
+    dev = require_device("cuda")
+    out = {}
+    hf, hi, order = chunk_stream_inputs(dev)
+    out["chunk_stream"] = {
+        form: _copy_probe(lambda f=form: chunk_stream(hf, hi, order, form=f),
+                          N_STEPS) for form in FORMS}
+    sweep = {}
+    for blk, dbuf in SWEEP_CASES:
+        shf, sorder = sweep_inputs(blk, dev)
+        sweep[f"{'dbuf' if dbuf else 'chained'}_{blk}"] = _copy_probe(
+            lambda: chunk_stream_sweep(shf, sorder, blk=blk, dbuf=dbuf),
+            SWEEP_ITERS - 1 if dbuf else SWEEP_ITERS)
+    out["chunk_stream_sweep"] = sweep
+    passes = {}
+    for r in PASS_RAYS:
+        planes = pass_through_inputs(r, dev)
+        pass_through(planes)
+        finish()
+        dst = pass_through_plain(planes)
+
+        def copies():
+            for o, a in zip(dst, planes):
+                o.copy_(a if o.dtype == a.dtype else a.view(o.dtype))
+            return dst
+
+        passes[f"r{r}"] = dict(
+            ms=device_time(pass_through, planes, iters=REPS) * 1e3,
+            copy_ms=device_time(copies, iters=REPS) * 1e3,
+            host_ms=host_time(pass_through, planes, iters=REPS) * 1e3,
+            copy_host_ms=host_time(copies, iters=REPS) * 1e3)
+    out["pass_through"] = passes
+
+    # prof_rt_floor2.py (b) and (c): K7 on the 1080p RT scene's primary rays
+    _, rt, cam = build_rt_scene(1920, 1080, device=dev)
+    ctx, o, d, far, _ = primary_wavefront(rt, cam, paged=False)
+    dead = torch.zeros(o.shape[0], dtype=torch.bool, device=dev)
+    out["k7_floor"] = dict(
+        rays=o.shape[0],
+        dead_closest_ms=device_time(
+            lambda: ctx.trace(o, d, far, active=dead), iters=REPS) * 1e3,
+        dead_any_hit_ms=device_time(
+            lambda: ctx.trace(o, d, far, any_hit=True, active=dead),
+            iters=REPS) * 1e3,
+        live_ms=device_time(lambda: ctx.trace(o, d, far), iters=REPS) * 1e3,
+        host_ms=host_time(lambda: ctx.trace(o, d, far, active=dead),
+                          iters=REPS) * 1e3)
+    dead_steps = steps_kernel(ctx, o, d, far, any_hit=True,
+                              active=dead).bary[:, 0]
+    if bool((dead_steps != 0).any()):
+        raise RuntimeError("a dead any-hit ray counted traversal steps")
+    out["k7_steps"] = dict(dead_any_hit_max=float(dead_steps.max()),
+                           **_step_stats(ctx, o, d, far))
+    pctx, po, pd, pfar, _ = primary_wavefront(rt, cam, paged=True)
+    out["k10_steps"] = _step_stats(pctx, po, pd, pfar)
+    return out
+
+
+def _step_stats(ctx, o, d, far) -> dict:
+    """The live closest-hit wave's step counts and what a step costs: the
+    plain form's kernel ms over the steps walked."""
+    steps = steps_kernel(ctx, o, d, far).bary[:, 0]
+    ms = device_time(lambda: ctx.trace(o, d, far), iters=REPS) * 1e3
+    total = float(steps.double().sum())
+    return dict(steps_total=total, steps_mean=total / steps.numel(),
+                steps_max=float(steps.max()),
+                steps_form_ms=device_time(lambda: steps_kernel(ctx, o, d, far),
+                                          iters=REPS) * 1e3,
+                plain_form_ms=ms, ps_per_step=ms * 1e9 / max(total, 1.0))
+
+
+def main() -> int:
+    """Print the card (nvidia-smi name and power limit), then one JSON line
+    per measurement of ``measure()``."""
+    require_device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(json.dumps(dict(device=torch.cuda.get_device_name(0),
+                          nvidia_smi=smi)), flush=True)
+    for key, value in measure().items():
+        print(json.dumps({key: value}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

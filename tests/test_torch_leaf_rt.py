@@ -44,6 +44,17 @@ EDGE = 1e-5
 PANELS = ((-1.1, -0.4, 1.1), (1.1, -0.9, 1.1))   # leaf, force-opaque leaf
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread for this module's tests: the tier-1 run
+    puts several pytest workers on the machine's cores, and torch's default
+    of one thread per core then oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_leaf_scene(width, height):
     """``scenes.build_leaf_scene`` through the JAX package's API."""
     from paperrenderer_tpu.core import (
@@ -116,7 +127,7 @@ def sweep(jax_scene):
     """Rays along +y through a 40x24 grid over both panels; the port's
     flat and paged tracers of the leaf scene; the JAX package's tracer on
     the port's RTScene (the assembly itself is held to the JAX package's by
-    tests/test_torch_trace.py) and its cutout hits; each ray's signed
+    tests/test_torch_parity.py) and its cutout hits; each ray's signed
     distance to the first panel's cutout edge in uv."""
     rtj = jax_scene[0]
     rt = build_leaf_scene(W, H, device="cpu")[1]

@@ -10,10 +10,11 @@ chunks) and the big-model scene of ``tests/test_trace_paged.py`` (a
 cubes). The JAX side runs its CPU route for a paged scene: the flat view
 (``paged_to_flat``) walked by its XLA ``trace_scene``.
 
-Tolerances (tests/test_torch_trace.py's): the host-built BLAS tables and
-every integer table exactly; the per-frame float rows (instance matrices,
-chunk and root boxes) at 1e-6 relative, since XLA contracts
-``transform_aabb``'s einsums into FMAs and the port does not. Hit flags
+Tolerances (those of tests/test_torch_parity.py's ray-tracing section):
+the host-built BLAS tables and every integer table exactly; the per-frame
+float rows (instance matrices, chunk and root boxes) at 1e-6 relative,
+since XLA contracts ``transform_aabb``'s einsums into FMAs and the port
+does not. Hit flags
 exactly, t at 1e-5 relative, triangle and instance ids equal unless the two
 t tie within that. The paged HDR frame within a mean |diff| of 1e-3 of the
 JAX package's; the 128x128 frame within ``crowd_paged.png``'s golden bands.
@@ -43,6 +44,17 @@ PAGED_FIELDS = ("static_nodes", "static_codes", "chunk_boxes", "chunk_codes",
                 "chunk_smat", "leaf_rows", "leaf_prim", "inv_rows", "tri_attr",
                 "bch_nodes", "bch_codes", "bch_lpos", "bch_lprim", "bch_luv")
 BCH_FIELDS = ("bch_nodes", "bch_codes", "bch_lpos", "bch_lprim", "bch_luv")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread for this module's tests: the tier-1 run
+    puts several pytest workers on the machine's cores, and torch's default
+    of one thread per core then oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _jax_big_model_scene():

@@ -25,6 +25,17 @@ from paperrenderer_tpu_torch.scenes import build_rt_scene
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "rt_example.png")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread for this module's tests: the tier-1 run
+    puts several pytest workers on the machine's cores, and torch's default
+    of one thread per core then oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _bands(img, ref, mean_tol=0.004, frac_tol=0.002, pix_thresh=0.06):
     diff = np.abs(np.asarray(img, np.float32) - ref).max(axis=-1)
     assert diff.mean() <= mean_tol, diff.mean()

@@ -28,8 +28,11 @@ Phases, each reported as one JSON line:
            shadow+AO bundle without and with the resolve sample; and the
            alpha forms (the any-hit leaf cutout) on the 1920x1080 leaf grid's
            flat layout: K8 on its primary and reflection rays, K7 on its
-           primary rays; kernel and plain ms, rays, mismatches, the box/leaf
-           visits of the walk and the candidates the cutout rejected;
+           primary rays, and K8 on the primary rays in a seeded random
+           order, put back in order and held bitwise to the launch-order
+           run (and timed: incoherent rays); kernel and plain ms, rays,
+           mismatches, the box/leaf visits of the walk and the candidates
+           the cutout rejected;
   config1  the example scene through RenderPass.render at 512x512 and
            128x128, held to tests/goldens/raster_512.png and
            raster_example.png with the golden bands; median frame time;
@@ -69,9 +72,10 @@ Phases, each reported as one JSON line:
            on config 2's grid at 1920x1080 with K7 on the flat layout of the
            same rays beside it, K10 and K11 on the big model's primary rays,
            and the alpha forms on the leaf grid's paged layout: K11 on its
-           primary and AO rays, K10 on its primary rays; kernel and plain
-           ms, rays, mismatches, visits, candidates the cutout rejected,
-           bound;
+           primary and AO rays, K10 on its primary rays, and K11 on the
+           primary rays in a seeded random order (held bitwise to the
+           launch-order run, timed); kernel and plain ms, rays, mismatches,
+           visits, candidates the cutout rejected, bound;
   crowd    the 10k crowd through RayTraceRender.render at 1024x1024 (paged
            by prefer_paged): median frame ms, Mrays/s with the nominal 2WH
            rays and with the live rays; the 600-instance crowd at 128x128
@@ -104,8 +108,10 @@ Phases, each reported as one JSON line:
            ray counts 0 steps); then, uncounted, every K12 form bitwise
            against its plain version, and the step forms of K7 (the 1080p
            primary rays) and K10 (config 2's grid on the paged layout),
-           live and dead, bitwise in every output against the plain walk;
-           plain ms and bounds;
+           live and dead, and of both on the leaf grid's primary rays
+           (without the cutout), bitwise in every output against the plain
+           walk, each with the warp efficiency of its step counts in launch
+           order (utils.probes.warp_efficiency); plain ms and bounds;
   launches every kernel was launched by the phases of its path (K1: config1,
            config2, translucent, supersample; K2: translucent, keyed_entry;
            K3/K4: keyed_entry; K5: draw_list; K6: compare_tiles; traversal:
@@ -556,6 +562,33 @@ def resolve_check(a, b):
     return ok and same, mism + (0 if same else 1), err
 
 
+def permuted_case(kernel, o, d, t_max, reps, active=None):
+    """`kernel(o, d, t_max, active)` on the rays in a seeded random order
+    (utils.probes.ray_order), its outputs put back in launch order, against
+    the same kernel in launch order: the order in which the rays reach the
+    card must not leak into any output bit. The permuted run is timed
+    (incoherent rays)."""
+    import torch
+    from paperrenderer_tpu_torch.utils import probes as PR
+
+    r = o.shape[0]
+    perm = PR.ray_order(r, o.device)
+    t_max = torch.as_tensor(t_max, dtype=torch.float32,
+                            device=o.device).expand(r)
+    rays = [x if x is None else x[perm].contiguous()
+            for x in (o, d, t_max, active)]
+    want = PR.tensors_of(kernel(o, d, t_max, active))
+    mism = 0
+    for w, g in zip(want, PR.tensors_of(kernel(*rays))):
+        back = torch.empty_like(g)
+        back[perm] = g
+        diff = back.view(torch.int32) != w.view(torch.int32)
+        mism += int(diff.reshape(r, -1).any(-1).sum())
+    return dict(bitwise=mism == 0, mismatches=mism, max_abs_err=0.0
+                if mism == 0 else float("nan"), rays=r,
+                ms=timed(lambda: kernel(*rays), reps))
+
+
 def walk_bytes(scene, n_rays, per_ray_bytes):
     """Bytes a traversal must move: the scene tables once, and each ray's
     inputs and outputs once."""
@@ -570,66 +603,6 @@ def walk_ops(counts, n_resolved=0):
             + counts.get("inst", 0) * INST_OPS + n_resolved * RESOLVE_OPS)
 
 
-def rt_wavefronts(rt, cam):
-    """The tracer and the wavefronts of one RT frame, built exactly as
-    RayTraceRender.render and ops.trace.trace_frame build them."""
-    import torch
-    from paperrenderer_tpu_torch.ops import accel as ACC
-    from paperrenderer_tpu_torch.ops import trace as TR
-    from paperrenderer_tpu_torch.utils import random as rnd
-
-    instances = rt.scene.flush()
-    blasset, meta = rt.accel.blas()
-    slots, masks, table, inst_mask, opaque, lights, _ = rt._device_inputs(
-        instances.capacity)
-    cam = cam.matrices.to(rt.device)
-    scene, roots = ACC.assemble_scene(
-        blasset, meta, instances, rt.accel.inst_blas(instances.capacity),
-        masks, rt.accel.tri_attr(), inst_mask=inst_mask, inst_opaque=opaque)
-    ctx = ACC.SceneTracer(scene, slots, table, root_code=roots[0],
-                          stack_size=rt.accel.stack_size(instances.capacity))
-    w, h, p = rt.width, rt.height, rt.params
-    o, d = TR.raygen(cam, w, h, tile_order=TR.pick_tile(w, h))
-    r = o.shape[0]
-    far = torch.full((r,), 1000.0, device=o.device)
-    surf = ctx.trace_resolve(o, d, far, cull_mask=p.cull_mask)
-    key = rnd.fold_in(rt._key, 1)
-    refl_key = rnd.fold_in(key, 7)
-    origin = surf.world_pos + surf.normal * 5e-3
-    dirs, caps, actives, _ = TR._occlusion_samples(
-        surf, lights, key, max(1, p.shadow_samples))
-    ao_ds, ao_caps = TR._ao_samples(surf, key, p.ao_samples, p.ao_radius)
-    rdir = TR._reflection_dir(surf, table, cam.cam_pos, refl_key, 0)
-    return dict(ctx=ctx, o=o.contiguous(), d=d, far=far, surf=surf,
-                origin=origin, dirs=dirs, caps=caps, actives=actives,
-                ao_ds=ao_ds, ao_caps=ao_caps, rdir=rdir, slots=slots,
-                cull=p.cull_mask, roots=roots)
-
-
-def leaf_wavefronts(rt, cam, paged):
-    """The leaf cutout's wavefronts of one RayTraceRender frame, built as
-    render_frame_rt and ops.trace build them, on the layout `paged` names:
-    the tracer (leaf cutout on), the camera's primary rays, and from their
-    hits (through the cutout) the reflection rays and the first AO rays."""
-    import torch
-    from paperrenderer_tpu_torch.ops import trace as TR
-    from paperrenderer_tpu_torch.utils import random as rnd
-    from paperrenderer_tpu_torch.utils.probes import primary_wavefront
-
-    ctx, o, d, far, _ = primary_wavefront(rt, cam, paged, leaf_cutout=True)
-    surf = ctx.trace_resolve(o, d, far, use_alpha=True)
-    key = rnd.fold_in(rt._key, 1)
-    ao_ds, _ = TR._ao_samples(surf, key, 1, rt.params.ao_radius)
-    return dict(
-        ctx=ctx, o=o, d=d, far=far, surf=surf,
-        refl_o=(surf.world_pos + surf.normal * 5e-3).contiguous(),
-        rdir=TR._reflection_dir(surf, ctx.materials,
-                                cam.matrices.to(rt.device).cam_pos,
-                                rnd.fold_in(key, 7), 0),
-        ao_o=(surf.world_pos + surf.normal * 1e-3).contiguous(),
-        ao_d=ao_ds[0], ao_cap=torch.full_like(far, rt.params.ao_radius))
-
-
 def compare_trace(rt, cam, leaf, reps=10):
     """K7/K8/K9 vs their plain versions on the 1080p RT frame's wavefronts,
     and K8's and K7's alpha forms on the 1080p leaf grid's (`leaf` = (rt,
@@ -638,8 +611,9 @@ def compare_trace(rt, cam, leaf, reps=10):
     rejected (from the plain version) and the least-time bound."""
     import torch
     from paperrenderer_tpu_torch.ops import trace_kernel as TK
+    from paperrenderer_tpu_torch.utils import probes as PR
 
-    wf = rt_wavefronts(rt, cam)
+    wf = PR.rt_wavefronts(rt, cam)
     ctx, sc = wf["ctx"], wf["ctx"].scene
     walk = dict(root_code=ctx.root_code, stack_size=ctx.stack_size,
                 cull_mask=wf["cull"])
@@ -723,7 +697,7 @@ def compare_trace(rt, cam, leaf, reps=10):
 
     # the alpha forms on the leaf grid (flat): K8 on the primary rays and
     # on the reflection rays of their hits, K7 (closest) on the primary rays
-    lw = leaf_wavefronts(*leaf, paged=False)
+    lw = PR.leaf_wavefronts(*leaf, paged=False)
     lc = lw["ctx"]
     lsc, smat, sm = lc.scene, lc.slot_materials, lc.materials.shading_model
     lwalk = dict(root_code=lc.root_code, stack_size=lc.stack_size)
@@ -758,6 +732,11 @@ def compare_trace(rt, cam, leaf, reps=10):
                                       shading_model=sm, counts=counts,
                                       **lwalk),
         rec_check, 48, extra_bytes=alpha_bytes, scene=lsc, rays=lr)
+    # K8's alpha form on the primary rays in a random order
+    out["k8_alpha_leaf_primary_permuted"] = permuted_case(
+        lambda ro, rd, t, act: TK.trace_resolve_kernel(
+            lsc, smat, ro, rd, t, active=act, shading_model=sm, **lwalk),
+        lw["o"], lw["d"], lw["far"], reps)
     for name in ("k8_alpha_leaf_primary", "k8_alpha_leaf_reflection",
                  "k7_alpha_leaf_primary"):
         out[name]["alpha_rejected"] = out[name]["visits"].get(
@@ -850,6 +829,7 @@ def compare_paged(crowd, grid, big, leaf, reps=10):
     from paperrenderer_tpu_torch.ops import trace_kernel as TK
     from paperrenderer_tpu_torch.ops import trace_paged as TPG
     from paperrenderer_tpu_torch.utils import random as rnd
+    from paperrenderer_tpu_torch.utils import probes as PR
     from paperrenderer_tpu_torch.utils.probes import primary_wavefront
 
     out = {}
@@ -934,7 +914,7 @@ def compare_paged(crowd, grid, big, leaf, reps=10):
     # the leaf grid: the alpha forms of K11 (primary rays, and the first AO
     # rays of their hits, which trace_resolve(use_alpha=True) carries) and
     # of K10 (primary rays); K11's plain form on the same primary rays
-    lw = leaf_wavefronts(*leaf, paged=True)
+    lw = PR.leaf_wavefronts(*leaf, paged=True)
     ctx = lw["ctx"]
     case("k11_alpha_leaf_primary", ctx, lw["o"], lw["d"], lw["far"], "k11",
          alpha=True)
@@ -943,18 +923,28 @@ def compare_paged(crowd, grid, big, leaf, reps=10):
          "k11", active=lw["surf"].valid, alpha=True)
     case("k10_alpha_leaf_primary", ctx, lw["o"], lw["d"], lw["far"], "k10",
          alpha=True)
+    # K11's alpha form on the primary rays in a random order
+    out["k11_alpha_leaf_primary_permuted"] = permuted_case(
+        lambda ro, rd, t, act: TPG.trace_resolve_paged_kernel(
+            ctx.scene, ctx.slot_materials, ro, rd, t, active=act,
+            shading_model=ctx.materials.shading_model,
+            root_code=ctx.root_code, stack_size=ctx.stack_size,
+            max_steps=ctx._step_bound()),
+        lw["o"], lw["d"], lw["far"], reps)
     out["ok"] = all(v["bitwise"] for k, v in out.items() if "bitwise" in v)
     return out
 
 
-def compare_probes(rt_cam, grid, reps=3):
+def compare_probes(rt_cam, grid, leaf, reps=3):
     """K12a-c and the step-count forms of K7/K10 against their plain
     versions, bitwise, on the profiling path's inputs: K12a in each copy
     form, K12b in each case, K12c at both ray counts; K7's step form on the
     1080p RT scene's primary rays (`rt_cam`) and K10's on config 2's grid
-    (`grid`, paged), live and dead, in every output. Plain ms (CUDA
-    events) and the bound: the bytes of the blocks the order touches (K12a/
-    b), 48 B a ray (K12c)."""
+    (`grid`, paged), live and dead, and both on the leaf grid's primary
+    rays (`leaf` = (rt, camera), without the cutout), in every output, each
+    with the warp efficiency of its step counts in launch order. Plain ms
+    (CUDA events) and the bound: the bytes of the blocks the order touches
+    (K12a/b), 48 B a ray (K12c)."""
     import torch
     from paperrenderer_tpu_torch.ops import trace_kernel as TK
     from paperrenderer_tpu_torch.ops import trace_paged as TPG
@@ -1013,6 +1003,7 @@ def compare_probes(rt_cam, grid, reps=3):
         out[name] = dict(bitwise=ok, mismatches=mism, max_abs_err=err,
                          rays=o.shape[0], steps_max=float(steps.max()),
                          steps_mean=float(steps.double().mean()),
+                         warp_efficiency=PR.warp_efficiency(steps),
                          plain_ms=plain_ms, visits=counts,
                          ms=timed(lambda: PR.steps_kernel(ctx, o, d, far,
                                                           **kw), reps))
@@ -1045,6 +1036,24 @@ def compare_probes(rt_cam, grid, reps=3):
     b, by = bound(paged_bytes(ctx.scene, o.shape[0], 48),
                   walk_ops(out["k10_steps_grid_primary"]["visits"]))
     out["k10_steps_grid_primary"].update(bound_ms=b, bound_by=by)
+
+    # the leaf grid's primary rays (the walk of K8's and K11's alpha forms,
+    # without the cutout, which the step form does not take)
+    rt, cam = leaf
+    for paged in (False, True):
+        ctx, o, d, far, _ = PR.primary_wavefront(rt, cam, paged=paged)
+        if paged:
+            plain = functools.partial(
+                TPG.trace_scene_paged_plain, ctx.scene, o, d, far,
+                root_code=ctx.root_code, stack_size=ctx.stack_size,
+                max_steps=ctx._step_bound(), flat=ctx.flat_view(),
+                debug_steps=True)
+        else:
+            plain = functools.partial(
+                TK.trace_scene, ctx.scene, o, d, far, root_code=ctx.root_code,
+                stack_size=ctx.stack_size, debug_steps=True)
+        steps_case(f"k{10 if paged else 7}_steps_leaf_primary", ctx, o, d,
+                   far, plain)
     out["ok"] = (all(v["bitwise"] for v in out.values())
                  and all(v.get("completed", True) for v in out.values())
                  and out["k7_steps_any_dead"]["all_zero"])
@@ -1862,7 +1871,8 @@ def main():
         reset_counts()
         measured = PR.measure()
         launched = read_counts()
-        out = compare_probes(rt_1080(), grid_rt())
+        out = compare_probes(rt_1080(), grid_rt(),
+                             (leaf_grid()[0], leaf_grid()[2]))
         ok = out.pop("ok") and all(launched.get(k, 0) > 0
                                    for k in probe_keys)
         return dict(ok=ok, measured=measured, launches=launched, **out)

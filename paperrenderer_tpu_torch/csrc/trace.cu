@@ -40,20 +40,57 @@
 // paged TPU kernel also packs its leaf and instance pop counts into v; the
 // port's v stays the hit's (the plain walk's `counts` gives the pops).
 //
-// Design: one thread per ray (per origin for K9), each walking its own stack
-// in local memory with the pop/push machine of accel.trace_scene (the plain
-// PyTorch version in paperrenderer_tpu_torch/ops/accel.py): pop a tagged
-// code; an instance code moves the ray to object space (the direction is not
-// normalized, so t is shared by both spaces) and pushes the BLAS root when
-// the instance mask meets the cull mask; a box row slab-tests both children
-// and pushes the far hit child, then the near one; a leaf tests its 8
-// triangles and keeps the first of the closest candidates with t < best_t.
-// The TPU kernels share one scalar stack across a 1024-ray packet because
-// the TPU has one scalar unit per core; a Hopper thread has its own control
-// flow, so the packet, its union footprint and its (8,128) tiling are gone.
-// K9 walks its samples one after another in the same thread: the origin is
-// read once and every sample's result is the one its own walk gives, which
-// is what the plain version (one trace per sample) computes.
+// Design: each ray walks its own stack in local memory with the pop/push
+// machine of accel.trace_scene (the plain PyTorch version in
+// paperrenderer_tpu_torch/ops/accel.py): pop a tagged code; an instance code
+// moves the ray to object space (the direction is not normalized, so t is
+// shared by both spaces) and pushes the BLAS root when the instance mask
+// meets the cull mask; a box row slab-tests both children and pushes the far
+// hit child, then the near one; a leaf tests its 8 triangles and keeps the
+// first of the closest candidates with t < best_t. The TPU kernels share one
+// scalar stack across a 1024-ray packet because the TPU has one scalar unit
+// per core; a Hopper thread has its own control flow, so the packet, its
+// union footprint and its (8,128) tiling are gone. K9 walks its samples one
+// after another in the same thread: the origin is read once and every
+// sample's result is the one its own walk gives, which is what the plain
+// version (one trace per sample) computes.
+//
+// What a step costs, and what the walk does about it. On the 10k grid at
+// 1080p a primary ray pops 52.7 codes, 98% of them box rows, and a warp
+// runs one pop of each lane's ray at a time, so the box pop is the walk:
+//   - 1/d is computed once per ray for the world ray, and once per instance
+//     pop for the object-space ray, with the plain version's expression (so
+//     the bits are the same), and carried in registers: a box pop selects
+//     one instead of paying three IEEE divides (-fmad=false, -prec-div);
+//   - a node or instance row is read as three 16-byte vectors and its codes
+//     as one 8-byte vector through the read-only path, and so are the rows
+//     the resolve and the leaf cutout read (every table starts 16-byte
+//     aligned: the wrappers check); leaf rows stay scalar (a 4-triangle
+//     group in 16-byte vectors held ~100 registers and was slower);
+//   - a leaf skips its padding slots (tag < 0), which are never candidates;
+//   - the stack stays in local memory, served from L1: a stack in shared
+//     memory ([entry][thread], conflict-free) and a top entry held in a
+//     register were both slower on the card.
+// Two kernels run the walk, split on the wave's active mask:
+//   - trace_kernel (no mask: the camera's rays) walks ray i in thread i.
+//     The rays come in 8x128 (1080p) or 32x32 screen tiles, so a warp's 32
+//     rays are neighbours that walk mostly the same nodes, and their step
+//     counts keep 85% of a warp's lane-steps busy (the 10k grid);
+//   - trace_kernel_fetch (a mask: shadow, AO and reflection rays, dead
+//     where the camera ray missed) is persistent: its warps claim rays from
+//     work counters, write dead rays out as they are claimed and refill
+//     lanes whose ray ended, so the live rays of a sparse wave fill whole
+//     warps; a claimed batch of 32 live rays is walked whole, in lane
+//     order. On the camera's dense waves refilling was slower: a refilled
+//     lane's ray is no neighbour of its warp's others. The mask, not the
+//     live count, picks the kernel (the count is not known before the
+//     launch): on a wave that is 71% live (config 3's reflection rays) the
+//     persistent kernel is 8% slower than trace_kernel on the same rays,
+//     on the 5-20%-live waves 23-53% faster.
+// Which thread runs a ray, and when, never changes the ray's result: each
+// ray walks from its root with its own stack, best hit and step count, and
+// the work counters only hand out ray indices. No result is combined across
+// rays, so no atomic touches one.
 //
 // K10/K11 are the same walk templated on the layout (PAGED). A paged scene
 // has three row tables: the static rows (BLAS top trees, root BVH over the
@@ -74,12 +111,13 @@
 // (left-to-right sums of products, IEEE division), so t, prim, inst, u, v,
 // the occlusion bits, AO t and the resolved attributes are bit-identical.
 //
-// What bounds it: FP32 issue. A box row costs two slab tests (~40 FP32
-// operations), a leaf eight Moller-Trumbore tests (~45 each); the scene
-// tables are a few MB and stay in L2, the rays are read once (28 B) and the
-// hits written once (20 B). Threads of a warp diverge where their rays take
-// different paths; rays come in 8x128 (1080p) or 32x32 screen tiles, so
-// neighbouring threads mostly walk the same nodes.
+// What bounds it: instruction issue and the latency of each pop's row load,
+// not bytes. The scene tables are a few MB and stay in L2; a ray reads 28 B
+// and writes 20 B (0.030 ms for 1080p's 2,073,600 rays at 3.35 TB/s), while
+// a live wave costs about 9 ps of the card a pop (K7 on the 10k grid's
+// 109.4 M pops in 0.97 ms; K10 11 ps), and rays in a random order cost 2.1x
+// the screen-tiled ones. An all-dead wave takes 0.042 ms, the claims'
+// atomics above the 0.030 ms of its bytes.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -104,6 +142,32 @@ constexpr int INST_ID_MASK = 0x007FFFFF;
 constexpr int INST_OPAQUE_BIT = 1 << 23;
 constexpr int SHADE_LEAF = 1;
 constexpr int THREADS = 128;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int COUNTER_STRIDE = 32;   // ints between work counters (128 B)
+// The persistent kernel's tuning constants, each the best of the values
+// timed on an H100 (PERF.md, PR 8) on the 1080p leaf grid's AO and
+// reflection waves (20% of the rays live) and on config 3's and hybrid
+// config 4's reflection waves (71% live):
+//   REFILL: refill a warp once 8 of its lanes are idle (4: 1% slower, 16:
+//     2%, 32: 6-11%);
+//   BATCH: claim 32 rays at once (64: 3% slower, 128: 10%, though both
+//     take the all-dead wave 15% faster);
+//   SEGMENTS: spread the claims over 8 counters (1: the all-dead wave 1.7x
+//     slower; 4 and 16: within 1% live, slower dead);
+//   FETCH_BLOCKS: cap registers at 7 blocks of 128 threads a SM (6: the
+//     71%-live waves 3-4% slower; 8: 64 registers with spills, the sparse
+//     waves up to 12% slower);
+//   WHOLE: walk a batch whole once all 32 of its rays are live (24, 16
+//     or 8: no faster on the 71%-live waves, up to 30% slower on the
+//     sparse ones).
+// REFILL, BATCH and SEGMENTS were timed before the whole-batch rule and
+// the deferred writes, WHOLE before the deferred writes, at 6 blocks.
+constexpr int REFILL = 8;
+constexpr int BATCH = 32;
+constexpr int SEGMENTS = 8;
+constexpr int FETCH_BLOCKS = 7;
+constexpr int WHOLE = 32;
+static_assert(BATCH == 32, "a batch of live rays fills one warp");
 
 struct SceneView {
   const float* __restrict__ nodes;      // f32[nn, 12] (paged: static rows)
@@ -145,20 +209,43 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// slab test of one child box: (hit, tn) as _slab2's `one`
+__device__ __forceinline__ float inv_dir(float x) {
+  return 1.0f / (fabsf(x) < 1e-12f ? 1e-12f : x);
+}
+
+// a 12-float row (a node's two child boxes, an instance's inverse matrix):
+// three 16-byte loads through the read-only path
+__device__ __forceinline__ void load_row12(const float* p, float* r) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float4 x = __ldg(q + k);
+    r[4 * k] = x.x;
+    r[4 * k + 1] = x.y;
+    r[4 * k + 2] = x.z;
+    r[4 * k + 3] = x.w;
+  }
+}
+
+__device__ __forceinline__ int2 load_codes(const int* p) {
+  return __ldg(reinterpret_cast<const int2*>(p));
+}
+
+// slab test of one child box (lo: b[0:3], hi: b[3:6]): (hit, tn) as
+// _slab2's `one`
 __device__ __forceinline__ bool slab(const float* b, const float* o,
                                      const float* inv_d, float t_max,
                                      float* tn_out) {
   float tn = -CUDART_INF_F, tf = CUDART_INF_F;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    float t0 = (__ldg(b + k) - o[k]) * inv_d[k];
-    float t1 = (__ldg(b + 3 + k) - o[k]) * inv_d[k];
+    float t0 = (b[k] - o[k]) * inv_d[k];
+    float t1 = (b[3 + k] - o[k]) * inv_d[k];
     tn = fmaxf(tn, fminf(t0, t1));
     tf = fminf(tf, fmaxf(t0, t1));
   }
   *tn_out = tn;
-  return (tf >= fmaxf(tn, 0.0f)) && (tn <= t_max) && (__ldg(b) <= __ldg(b + 3));
+  return (tf >= fmaxf(tn, 0.0f)) && (tn <= t_max) && (b[0] <= b[3]);
 }
 
 // a child code of a chunk block row, rebased to an absolute row of its
@@ -198,183 +285,256 @@ __device__ __forceinline__ bool alpha_keep(const ResolveView& rv, int tag,
   if (__ldg(rv.shading_model + clampi(mat, 0, rv.n_mats - 1)) != SHADE_LEAF)
     return true;
   const float* a = rv.tri_attr + (size_t)(tag & 0x00FFFFFF) * 16;
+  const float4 p = __ldg(reinterpret_cast<const float4*>(a) + 2);
+  const float4 q = __ldg(reinterpret_cast<const float4*>(a) + 3);
+  const float a9 = p.y, a10 = p.z, a11 = p.w, a12 = q.x, a13 = q.y,
+              a14 = q.z;
   const float w0 = 1.0f - u - v;
-  const float x = w0 * __ldg(a + 9) + u * __ldg(a + 11) + v * __ldg(a + 13);
-  const float y = w0 * __ldg(a + 10) + u * __ldg(a + 12) + v * __ldg(a + 14);
+  const float x = w0 * a9 + u * a11 + v * a13;
+  const float y = w0 * a10 + u * a12 + v * a14;
   const float e = 1.0f - 2.0f * x;
   const float curve = (-(e * e) + 1.0f) * 0.2f;
   return fabsf(y - 0.5f) < curve;
 }
 
+// A thread's traversal stack (local memory; a walk writes an entry before
+// it reads it)
+struct Stack {
+  int s[STACK_MAX];
+  __device__ __forceinline__ int get(int e) const { return s[e]; }
+  __device__ __forceinline__ void set(int e, int c) { s[e] = c; }
+};
+
+// One ray's walk: its world ray, its object-space ray (after an instance
+// pop), 1/d of both, its best hit so far, its stack pointer and its trip
+// count.
+struct Walk {
+  float o[3], d[3], oo[3], dd[3];
+  float iw[3], io[3];
+  float best_t, bu, bv;
+  int best_prim, best_inst, cur_inst, cur_row, best_row;
+  int sp, steps;
+};
+
+// a live ray's walk from the root
+__device__ __forceinline__ void walk_begin(Walk& w, Stack& st,
+                                           const SceneView& sc,
+                                           const float* o, const float* d,
+                                           float t_max) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    w.o[k] = w.oo[k] = o[k];
+    w.d[k] = w.dd[k] = d[k];
+    w.iw[k] = w.io[k] = inv_dir(d[k]);
+  }
+  w.sp = 1;
+  if (sc.stack_size > 0) st.set(0, sc.root);
+  w.best_t = t_max;
+  w.bu = w.bv = 0.0f;
+  w.best_prim = w.best_inst = -1;
+  w.cur_inst = w.cur_row = w.best_row = 0;
+  w.steps = 0;
+}
+
+// the step bound is the paged tracer's (PagedSceneTracer._step_bound);
+// the flat walk has none, as before
+template <bool PAGED>
+__device__ __forceinline__ bool walk_live(const Walk& w, const SceneView& sc) {
+  return w.sp > 0 && (!PAGED || w.steps < sc.max_steps);
+}
+
+__device__ __forceinline__ void push(Walk& w, Stack& st, int s, int c) {
+  if (w.sp < s) st.set(w.sp, c);
+  ++w.sp;
+}
+
+// One trip of the walk loop: pop a code (0 for an entry dropped past the
+// bound) and handle it.
+template <bool PAGED, bool ANY_HIT, bool ALPHA>
+__device__ __forceinline__ void walk_step(Walk& w, Stack& st,
+                                          const SceneView& sc,
+                                          const ResolveView& rv) {
+  const int s = sc.stack_size;
+  const int top = w.sp - 1;
+  const int code = top < s ? st.get(top) : 0;
+  w.sp = top;
+  ++w.steps;
+  const int typ = (code >> 28) & 3;
+  const bool local = PAGED && (typ == TYPE_CHUNK || ((code >> 27) & 1));
+  const bool obj = ((code >> 30) & 1) != 0;
+  if (typ == TYPE_INST) {
+    const float* mp;
+    const int* cp;
+    if (PAGED) {   // instance rows live in the TLAS chunk blocks only
+      const int p = clampi(code & PAYLOAD_MASK_P, 0, sc.nct - 1);
+      mp = sc.cboxes + (size_t)p * 12;
+      cp = sc.ccodes + 2 * (size_t)p;
+      w.cur_row = p;
+    } else {
+      const int p = clampi(code & PAYLOAD_MASK, 0, sc.nn - 1);
+      mp = sc.nodes + (size_t)p * 12;
+      cp = sc.codes + 2 * (size_t)p;
+    }
+    float m[12];
+    load_row12(mp, m);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      w.oo[k] = m[4 * k] * w.o[0] + m[4 * k + 1] * w.o[1] +
+                m[4 * k + 2] * w.o[2] + m[4 * k + 3];
+      w.dd[k] = m[4 * k] * w.d[0] + m[4 * k + 1] * w.d[1] +
+                m[4 * k + 2] * w.d[2];
+      w.io[k] = inv_dir(w.dd[k]);
+    }
+    const int2 c = load_codes(cp);
+    w.cur_inst = c.y;   // the record word: data, not a code
+    if (((w.cur_inst >> 24) & sc.cull_mask) != 0) push(w, st, s, c.x);
+  } else if (typ == TYPE_BOX || (PAGED && typ == TYPE_CHUNK)) {
+    const float* row;
+    const int* cp;
+    int base_row = 0, base_leaf = 0;
+    if (!PAGED || !local) {
+      const int p = clampi(code & (PAGED ? PAYLOAD_MASK_P : PAYLOAD_MASK),
+                           0, sc.nn - 1);
+      row = sc.nodes + (size_t)p * 12;
+      cp = sc.codes + 2 * (size_t)p;
+    } else {
+      int pay = code & PAYLOAD_MASK_P;
+      if (typ == TYPE_CHUNK) pay *= obj ? BL_NROWS : BROWS;   // row 0
+      if (obj) {   // a BLAS chunk block
+        const int p = clampi(pay, 0, sc.nbn - 1);
+        row = sc.bnodes + (size_t)p * 12;
+        cp = sc.bcodes + 2 * (size_t)p;
+        base_row = p - p % BL_NROWS;
+        base_leaf = p / BL_NROWS * BL_LEAVES;
+      } else {     // a TLAS chunk block
+        const int p = clampi(pay, 0, sc.nct - 1);
+        row = sc.cboxes + (size_t)p * 12;
+        cp = sc.ccodes + 2 * (size_t)p;
+        base_row = p - p % BROWS;
+      }
+    }
+    float b[12];
+    load_row12(row, b);
+    float ot[3], inv[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      ot[k] = obj ? w.oo[k] : w.o[k];
+      inv[k] = obj ? w.io[k] : w.iw[k];
+    }
+    float tn0, tn1;
+    const bool h0 = slab(b, ot, inv, w.best_t, &tn0);
+    const bool h1 = slab(b + 6, ot, inv, w.best_t, &tn1);
+    int2 c = load_codes(cp);
+    if (local) {
+      c.x = rebase(c.x, base_row, base_leaf);
+      c.y = rebase(c.y, base_row, base_leaf);
+    }
+    const bool first0 = tn0 <= tn1;
+    const int near_c = first0 ? c.x : c.y, far_c = first0 ? c.y : c.x;
+    const bool near_h = first0 ? h0 : h1, far_h = first0 ? h1 : h0;
+    if (far_h) push(w, st, s, far_c);
+    if (near_h) push(w, st, s, near_c);
+  } else if (typ == TYPE_LEAF) {
+    const float* row;
+    const int* prim;
+    if (local) {   // a BLAS chunk leaf: positions only (72 floats)
+      const int p = clampi(code & PAYLOAD_MASK_P, 0, sc.nbl - 1);
+      row = sc.blpos + (size_t)p * 72;
+      prim = sc.blprim + (size_t)p * K;
+    } else {
+      const int p = clampi(code & (PAGED ? PAYLOAD_MASK_P : PAYLOAD_MASK),
+                           0, sc.nl - 1);
+      row = sc.leaf + (size_t)p * LEAF_ROW;
+      prim = sc.leaf_prim + (size_t)p * K;
+    }
+    float kt = CUDART_INF_F, ku = 0.0f, kv = 0.0f;
+    int ktag = -1;
+    bool win = false;
+#pragma unroll 1
+    for (int j = 0; j < K; ++j) {
+      const int tag = __ldg(prim + j);
+      if (tag < 0) continue;   // a padding slot is never a candidate
+      const float* tri = row + 9 * j;
+      const float a0 = __ldg(tri), a1 = __ldg(tri + 1), a2 = __ldg(tri + 2);
+      const float e10 = __ldg(tri + 3), e11 = __ldg(tri + 4),
+                  e12 = __ldg(tri + 5);
+      const float e20 = __ldg(tri + 6), e21 = __ldg(tri + 7),
+                  e22 = __ldg(tri + 8);
+      // Moller-Trumbore on (a, e1, e2), bvh.moller_trumbore_edges' order
+      const float p0 = w.dd[1] * e22 - w.dd[2] * e21;
+      const float p1 = w.dd[2] * e20 - w.dd[0] * e22;
+      const float p2 = w.dd[0] * e21 - w.dd[1] * e20;
+      const float det = e10 * p0 + e11 * p1 + e12 * p2;
+      const bool ok = fabsf(det) > 1e-12f;
+      const float inv = 1.0f / (ok ? det : 1.0f);
+      const float s0 = w.oo[0] - a0, s1 = w.oo[1] - a1, s2 = w.oo[2] - a2;
+      const float u = (s0 * p0 + s1 * p1 + s2 * p2) * inv;
+      const float q0 = s1 * e12 - s2 * e11;
+      const float q1 = s2 * e10 - s0 * e12;
+      const float q2 = s0 * e11 - s1 * e10;
+      const float v = (w.dd[0] * q0 + w.dd[1] * q1 + w.dd[2] * q2) * inv;
+      const float t = (e20 * q0 + e21 * q1 + e22 * q2) * inv;
+      const bool hit = ok && u >= 0.0f && v >= 0.0f && (u + v) <= 1.0f &&
+                       t > sc.t_min;
+      // first of the closest candidates (argmin over t where cand) that
+      // the leaf cutout keeps
+      if (hit && t < w.best_t && t < kt &&
+          (!ALPHA || alpha_keep<PAGED>(rv, tag, w.cur_inst, w.cur_row, u,
+                                       v))) {
+        kt = t;
+        ku = u;
+        kv = v;
+        ktag = tag;
+        win = true;
+      }
+    }
+    if (win) {
+      w.best_t = kt;
+      w.best_prim = ktag & 0x00FFFFFF;
+      w.best_inst = w.cur_inst & INST_ID_MASK;
+      w.best_row = w.cur_row;
+      w.bu = ku;
+      w.bv = kv;
+      if (ANY_HIT) w.sp = 0;
+    }
+  }
+}
+
+__device__ __forceinline__ Hit walk_hit(const Walk& w) {
+  Hit h;
+  h.prim = w.best_prim;
+  h.t = w.best_prim < 0 ? CUDART_INF_F : w.best_t;
+  h.inst = w.best_prim < 0 ? -1 : w.best_inst;
+  h.u = w.bu;
+  h.v = w.bv;
+  h.irow = w.best_row;
+  h.steps = w.steps;
+  return h;
+}
+
+// the hit of a ray that never walks (active == 0), as its walk would give
+__device__ __forceinline__ Hit dead_hit() {
+  Hit h;
+  h.prim = h.inst = -1;
+  h.t = CUDART_INF_F;
+  h.u = h.v = 0.0f;
+  h.irow = 0;
+  h.steps = 0;
+  return h;
+}
+
+// one ray's whole walk, in the calling thread
 template <bool PAGED, bool ANY_HIT, bool ALPHA>
 __device__ Hit traverse(const SceneView& sc, const ResolveView& rv,
                         const float* o, const float* d, float t_max,
                         bool active) {
-  int stack[STACK_MAX];
-  const int s = sc.stack_size;
-  int sp = active ? 1 : 0;
-  stack[0] = sc.root;
-  float best_t = t_max, bu = 0.0f, bv = 0.0f;
-  int best_prim = -1, best_inst = -1, cur_inst = 0, cur_row = 0, best_row = 0;
-  float oo[3] = {o[0], o[1], o[2]};
-  float dd[3] = {d[0], d[1], d[2]};
-
-  // the step bound is the paged tracer's (PagedSceneTracer._step_bound);
-  // the flat walk has none, as before
-  int step = 0;
-  for (; sp > 0 && (!PAGED || step < sc.max_steps); ++step) {
-    const int top = sp - 1;
-    const int code = top < s ? stack[top] : 0;
-    sp = top;
-    const int typ = (code >> 28) & 3;
-    const bool local = PAGED && (typ == TYPE_CHUNK || ((code >> 27) & 1));
-    const bool obj = ((code >> 30) & 1) != 0;
-    if (typ == TYPE_INST) {
-      const float* m;
-      const int* cp;
-      if (PAGED) {   // instance rows live in the TLAS chunk blocks only
-        const int p = clampi(code & PAYLOAD_MASK_P, 0, sc.nct - 1);
-        m = sc.cboxes + (size_t)p * 12;
-        cp = sc.ccodes + 2 * (size_t)p;
-        cur_row = p;
-      } else {
-        const int p = clampi(code & PAYLOAD_MASK, 0, sc.nn - 1);
-        m = sc.nodes + (size_t)p * 12;
-        cp = sc.codes + 2 * (size_t)p;
-      }
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float m0 = __ldg(m + 4 * k), m1 = __ldg(m + 4 * k + 1);
-        const float m2 = __ldg(m + 4 * k + 2), m3 = __ldg(m + 4 * k + 3);
-        oo[k] = m0 * o[0] + m1 * o[1] + m2 * o[2] + m3;
-        dd[k] = m0 * d[0] + m1 * d[1] + m2 * d[2];
-      }
-      const int root = __ldg(cp);
-      cur_inst = __ldg(cp + 1);   // the record word: data, not a code
-      if (((cur_inst >> 24) & sc.cull_mask) != 0) {
-        if (sp < s) stack[sp] = root;
-        ++sp;
-      }
-    } else if (typ == TYPE_BOX || (PAGED && typ == TYPE_CHUNK)) {
-      const float* row;
-      const int* cp;
-      int base_row = 0, base_leaf = 0;
-      if (!PAGED || !local) {
-        const int p = clampi(code & (PAGED ? PAYLOAD_MASK_P : PAYLOAD_MASK),
-                             0, sc.nn - 1);
-        row = sc.nodes + (size_t)p * 12;
-        cp = sc.codes + 2 * (size_t)p;
-      } else {
-        int pay = code & PAYLOAD_MASK_P;
-        if (typ == TYPE_CHUNK) pay *= obj ? BL_NROWS : BROWS;   // row 0
-        if (obj) {   // a BLAS chunk block
-          const int p = clampi(pay, 0, sc.nbn - 1);
-          row = sc.bnodes + (size_t)p * 12;
-          cp = sc.bcodes + 2 * (size_t)p;
-          base_row = p - p % BL_NROWS;
-          base_leaf = p / BL_NROWS * BL_LEAVES;
-        } else {     // a TLAS chunk block
-          const int p = clampi(pay, 0, sc.nct - 1);
-          row = sc.cboxes + (size_t)p * 12;
-          cp = sc.ccodes + 2 * (size_t)p;
-          base_row = p - p % BROWS;
-        }
-      }
-      const float* ot = obj ? oo : o;
-      const float* dt = obj ? dd : d;
-      float inv_d[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-        inv_d[k] = 1.0f / (fabsf(dt[k]) < 1e-12f ? 1e-12f : dt[k]);
-      float tn0, tn1;
-      const bool h0 = slab(row, ot, inv_d, best_t, &tn0);
-      const bool h1 = slab(row + 6, ot, inv_d, best_t, &tn1);
-      int c0 = __ldg(cp), c1 = __ldg(cp + 1);
-      if (local) {
-        c0 = rebase(c0, base_row, base_leaf);
-        c1 = rebase(c1, base_row, base_leaf);
-      }
-      const bool first0 = tn0 <= tn1;
-      const int near_c = first0 ? c0 : c1, far_c = first0 ? c1 : c0;
-      const bool near_h = first0 ? h0 : h1, far_h = first0 ? h1 : h0;
-      if (far_h) {
-        if (sp < s) stack[sp] = far_c;
-        ++sp;
-      }
-      if (near_h) {
-        if (sp < s) stack[sp] = near_c;
-        ++sp;
-      }
-    } else if (typ == TYPE_LEAF) {
-      const float* row;
-      const int* prim;
-      if (local) {   // a BLAS chunk leaf: positions only (72 floats)
-        const int p = clampi(code & PAYLOAD_MASK_P, 0, sc.nbl - 1);
-        row = sc.blpos + (size_t)p * 72;
-        prim = sc.blprim + (size_t)p * K;
-      } else {
-        const int p = clampi(code & (PAGED ? PAYLOAD_MASK_P : PAYLOAD_MASK),
-                             0, sc.nl - 1);
-        row = sc.leaf + (size_t)p * LEAF_ROW;
-        prim = sc.leaf_prim + (size_t)p * K;
-      }
-      float kt = CUDART_INF_F, ku = 0.0f, kv = 0.0f;
-      int ktag = -1;
-      bool win = false;
-#pragma unroll 1
-      for (int k = 0; k < K; ++k) {
-        const int tag = __ldg(prim + k);
-        const float* tri = row + 9 * k;
-        const float a0 = __ldg(tri), a1 = __ldg(tri + 1), a2 = __ldg(tri + 2);
-        const float e10 = __ldg(tri + 3), e11 = __ldg(tri + 4), e12 = __ldg(tri + 5);
-        const float e20 = __ldg(tri + 6), e21 = __ldg(tri + 7), e22 = __ldg(tri + 8);
-        // Moller-Trumbore on (a, e1, e2), bvh.moller_trumbore_edges' order
-        const float p0 = dd[1] * e22 - dd[2] * e21;
-        const float p1 = dd[2] * e20 - dd[0] * e22;
-        const float p2 = dd[0] * e21 - dd[1] * e20;
-        const float det = e10 * p0 + e11 * p1 + e12 * p2;
-        const bool ok = fabsf(det) > 1e-12f;
-        const float inv = 1.0f / (ok ? det : 1.0f);
-        const float s0 = oo[0] - a0, s1 = oo[1] - a1, s2 = oo[2] - a2;
-        const float u = (s0 * p0 + s1 * p1 + s2 * p2) * inv;
-        const float q0 = s1 * e12 - s2 * e11;
-        const float q1 = s2 * e10 - s0 * e12;
-        const float q2 = s0 * e11 - s1 * e10;
-        const float v = (dd[0] * q0 + dd[1] * q1 + dd[2] * q2) * inv;
-        const float t = (e20 * q0 + e21 * q1 + e22 * q2) * inv;
-        const bool hit = ok && u >= 0.0f && v >= 0.0f && (u + v) <= 1.0f &&
-                         t > sc.t_min;
-        // first of the closest candidates (argmin over t where cand) that
-        // the leaf cutout keeps
-        if (hit && tag >= 0 && t < best_t && t < kt &&
-            (!ALPHA || alpha_keep<PAGED>(rv, tag, cur_inst, cur_row, u, v))) {
-          kt = t;
-          ku = u;
-          kv = v;
-          ktag = tag;
-          win = true;
-        }
-      }
-      if (win) {
-        best_t = kt;
-        best_prim = ktag & 0x00FFFFFF;
-        best_inst = cur_inst & INST_ID_MASK;
-        best_row = cur_row;
-        bu = ku;
-        bv = kv;
-        if (ANY_HIT) sp = 0;
-      }
-    }
-  }
-  Hit h;
-  h.prim = best_prim;
-  h.t = best_prim < 0 ? CUDART_INF_F : best_t;
-  h.inst = best_prim < 0 ? -1 : best_inst;
-  h.u = bu;
-  h.v = bv;
-  h.irow = best_row;
-  h.steps = step;
-  return h;
+  if (!active) return dead_hit();
+  Stack st;
+  Walk w;
+  walk_begin(w, st, sc, o, d, t_max);
+  while (walk_live<PAGED>(w, sc))
+    walk_step<PAGED, ANY_HIT, ALPHA>(w, st, sc, rv);
+  return walk_hit(w);
 }
 
 // accel.resolve_attrs: uv, world normal (before normalization), material.
@@ -387,20 +547,28 @@ __device__ void resolve(const ResolveView& rv, const Hit& h, float* uv,
   const int iid = clampi(h.inst, 0, rv.n_inst - 1);
   const float u = h.u, v = h.v;
   const float w0 = 1.0f - u - v;
-  const float* a = rv.tri_attr + (size_t)pid * 16;
-  const float* inv = rv.inv_rows + (size_t)iid * 12;
+  float a[16], inv[12];
+  const float4* a4 =
+      reinterpret_cast<const float4*>(rv.tri_attr) + (size_t)pid * 4;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float4 x = __ldg(a4 + k);
+    a[4 * k] = x.x;
+    a[4 * k + 1] = x.y;
+    a[4 * k + 2] = x.z;
+    a[4 * k + 3] = x.w;
+  }
+  load_row12(rv.inv_rows + (size_t)iid * 12, inv);
   float no[3];
 #pragma unroll
-  for (int k = 0; k < 3; ++k)
-    no[k] = w0 * __ldg(a + k) + u * __ldg(a + 3 + k) + v * __ldg(a + 6 + k);
+  for (int k = 0; k < 3; ++k) no[k] = w0 * a[k] + u * a[3 + k] + v * a[6 + k];
 #pragma unroll
   for (int k = 0; k < 3; ++k)
-    n[k] = __ldg(inv + k) * no[0] + __ldg(inv + k + 4) * no[1] +
-           __ldg(inv + k + 8) * no[2];
+    n[k] = inv[k] * no[0] + inv[k + 4] * no[1] + inv[k + 8] * no[2];
 #pragma unroll
   for (int k = 0; k < 2; ++k)
-    uv[k] = w0 * __ldg(a + 9 + k) + u * __ldg(a + 11 + k) + v * __ldg(a + 13 + k);
-  const int slot = clampi((int)__ldg(a + 15), 0, rv.n_slots - 1);
+    uv[k] = w0 * a[9 + k] + u * a[11 + k] + v * a[13 + k];
+  const int slot = clampi((int)a[15], 0, rv.n_slots - 1);
   *material = h.prim >= 0 ? slot_material<PAGED>(rv, iid, h.irow, slot) : 0;
 }
 
@@ -415,8 +583,7 @@ __device__ __forceinline__ void store_hit(const Hit& h, int i, float* t,
   t[i] = h.t;
   prim[i] = h.prim;
   inst[i] = h.inst;
-  bary[2 * (size_t)i] = h.u;
-  bary[2 * (size_t)i + 1] = h.v;
+  reinterpret_cast<float2*>(bary)[i] = make_float2(h.u, h.v);
 }
 
 template <bool PAGED>
@@ -426,32 +593,154 @@ __device__ __forceinline__ void store_resolved(const ResolveView& rv,
   float a[2], n[3];
   int mat;
   resolve<PAGED>(rv, h, a, n, &mat);
-  uv[2 * (size_t)i] = a[0];
-  uv[2 * (size_t)i + 1] = a[1];
+  reinterpret_cast<float2*>(uv)[i] = make_float2(a[0], a[1]);
   normal[3 * (size_t)i] = n[0];
   normal[3 * (size_t)i + 1] = n[1];
   normal[3 * (size_t)i + 2] = n[2];
   material[i] = mat;
 }
 
+struct RayArgs {
+  const float* __restrict__ o;          // f32[R, 3]
+  const float* __restrict__ d;          // f32[R, 3]
+  const float* __restrict__ t_max;      // f32[R]
+  const unsigned char* __restrict__ active;   // u8[R] or null: all live
+  int n;
+};
+
+struct Outputs {
+  float* t;
+  int* prim;
+  int* inst;
+  float* bary;
+  float* uv;       // RESOLVE only
+  float* normal;
+  int* mat;
+};
+
+template <bool PAGED, bool RESOLVE, bool STEPS>
+__device__ __forceinline__ void finish(const ResolveView& rv, Hit h, int i,
+                                       const Outputs& out) {
+  if (STEPS) h.u = (float)h.steps;
+  store_hit(h, i, out.t, out.prim, out.inst, out.bary);
+  if (RESOLVE) store_resolved<PAGED>(rv, h, i, out.uv, out.normal, out.mat);
+}
+
+// One thread per ray: thread i walks ray i (`work` is unused; both kernels
+// take the same arguments).
 template <bool PAGED, bool ANY_HIT, bool RESOLVE, bool ALPHA, bool STEPS>
 __global__ void __launch_bounds__(THREADS)
-trace_kernel(SceneView sc, ResolveView rv, const float* __restrict__ ray_o,
-             const float* __restrict__ ray_d, const float* __restrict__ t_max,
-             const unsigned char* __restrict__ active, int n_rays,
-             float* out_t, int* out_prim, int* out_inst, float* out_bary,
-             float* out_uv, float* out_normal, int* out_mat) {
+trace_kernel(SceneView sc, ResolveView rv, RayArgs ra, Outputs out,
+             int* __restrict__ work) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
+  if (i >= ra.n) return;
   float o[3], d[3];
-  load3(ray_o, i, o);
-  load3(ray_d, i, d);
-  const bool act = active == nullptr || active[i] != 0;
-  Hit h = traverse<PAGED, ANY_HIT, ALPHA>(sc, rv, o, d, __ldg(t_max + i),
-                                          act);
-  if (STEPS) h.u = (float)h.steps;
-  store_hit(h, i, out_t, out_prim, out_inst, out_bary);
-  if (RESOLVE) store_resolved<PAGED>(rv, h, i, out_uv, out_normal, out_mat);
+  load3(ra.o, i, o);
+  load3(ra.d, i, d);
+  const bool act = ra.active == nullptr || ra.active[i] != 0;
+  const Hit h = traverse<PAGED, ANY_HIT, ALPHA>(sc, rv, o, d,
+                                                __ldg(ra.t_max + i), act);
+  finish<PAGED, RESOLVE, STEPS>(rv, h, i, out);
+}
+
+// Persistent warps with dynamic ray fetch (Aila and Laine, "Understanding
+// the Efficiency of Ray Traversal on GPUs", HPG 2009). The grid holds as
+// many blocks as fit on the card at once. Each warp steps its lanes' rays
+// one pop at a time; when at least REFILL of its lanes are idle, it
+// hands them the next rays of its queue, in lane order: BATCH
+// consecutive rays that it claims at once with one atomicAdd on a work
+// counter. A ray that is dead (active == 0) is written out when it is
+// handed out, and its lane stays idle for the next one, so the live rays
+// of a sparse wave fill whole warps. A batch whose 32 rays are all live
+// (WHOLE: a dense stretch of a mostly live wave, such as the reflection
+// rays of surfaces that fill the screen) waits until every lane is idle
+// and is walked in lane order, as trace_kernel walks its rays: refilling
+// single lanes would break its warp's screen-space coherence. A lane whose
+// walk ends keeps its hit until the warp next hands out rays, and the idle
+// lanes write theirs together there (K8 and K11 resolve each hit as it is
+// written: one lane at a time, that was 4% of a sparse wave's time). The
+// rays are cut into SEGMENTS slices, each with its own counter (128 B
+// apart, so the claims spread over L2); a warp starts on slice (warp id %
+// SEGMENTS) and moves to the next when its slice runs dry. Each ray still
+// walks from its root with its own stack,
+// best hit and step count, so which lane runs a ray, and when, never
+// changes its result: the counters order work, not results.
+template <bool PAGED, bool ANY_HIT, bool RESOLVE, bool ALPHA, bool STEPS>
+__global__ void __launch_bounds__(THREADS, FETCH_BLOCKS)
+trace_kernel_fetch(SceneView sc, ResolveView rv, RayArgs ra, Outputs out,
+                   int* __restrict__ work) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int warp = (blockIdx.x * THREADS + threadIdx.x) >> 5;
+  Stack st;
+  Walk w;
+  int ray = -1;                 // this lane's ray, -1 when idle
+  int done = -1;                // an ended ray whose hit is not written yet
+  // warp-uniform: the slice being claimed, the slices not yet dry, and the
+  // claimed rays [qnext, qend) not yet handed out
+  int seg = warp % SEGMENTS, segs_left = SEGMENTS, qnext = 0, qend = 0;
+  bool whole = false;   // warp-uniform: the queue is one batch of live rays
+  unsigned idle = FULL;
+  for (;;) {
+    if (__popc(idle) >= (whole ? 32 : REFILL)) {
+      // the idle lanes write their ended rays out together (K8/K11 resolve
+      // them), not each in the step its walk ended
+      if (done >= 0) finish<PAGED, RESOLVE, STEPS>(rv, walk_hit(w), done, out);
+      done = -1;
+      while (idle != 0) {
+        if (qnext == qend) {   // claim the next batch of the slice
+          if (segs_left == 0) break;
+          const int lo = (int)((long long)ra.n * seg / SEGMENTS);
+          const int hi = (int)((long long)ra.n * (seg + 1) / SEGMENTS);
+          int base = 0;
+          if (lane == 0) base = atomicAdd(work + seg * COUNTER_STRIDE,
+                                          BATCH);
+          base = lo + __shfl_sync(FULL, base, 0);
+          qnext = base < hi ? base : hi;
+          qend = base + BATCH < hi ? base + BATCH : hi;
+          if (base + BATCH >= hi) {   // this slice is dry
+            seg = seg + 1 == SEGMENTS ? 0 : seg + 1;
+            --segs_left;
+          }
+          // a batch of at least WHOLE live rays (a dense stretch of the
+          // wave) waits for every lane to be idle and is walked in lane
+          // order, as trace_kernel walks it: refilled lanes would break its
+          // coherence
+          const bool live = qend - qnext == 32 && ra.active[qnext + lane];
+          whole = __popc(__ballot_sync(FULL, live)) >= WHOLE;
+          if (whole && idle != FULL) break;
+          continue;
+        }
+        const int i = qnext + __popc(idle & below);
+        if (((idle >> lane) & 1) && i < qend) {
+          if (ra.active != nullptr && ra.active[i] == 0) {
+            finish<PAGED, RESOLVE, STEPS>(rv, dead_hit(), i, out);
+          } else {
+            float o[3], d[3];
+            load3(ra.o, i, o);
+            load3(ra.d, i, d);
+            walk_begin(w, st, sc, o, d, __ldg(ra.t_max + i));
+            if (walk_live<PAGED>(w, sc))
+              ray = i;
+            else   // a paged walk bounded to no step
+              finish<PAGED, RESOLVE, STEPS>(rv, walk_hit(w), i, out);
+          }
+        }
+        qnext = qnext + __popc(idle) < qend ? qnext + __popc(idle) : qend;
+        idle = __ballot_sync(FULL, ray < 0);
+        if (whole) break;   // a whole batch's dead lanes stay idle
+      }
+      if (idle == FULL && qnext == qend && segs_left == 0) break;   // done
+    }
+    if (ray >= 0) {
+      walk_step<PAGED, ANY_HIT, ALPHA>(w, st, sc, rv);
+      if (!walk_live<PAGED>(w, sc)) {
+        done = ray;
+        ray = -1;
+      }
+    }
+    idle = __ballot_sync(FULL, ray < 0);
+  }
 }
 
 struct BundleArgs {
@@ -564,30 +853,93 @@ ResolveView resolve_view(const float* tri_attr, const float* inv_rows,
 
 inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
 
-// one trace_kernel launch; a shading model selects the alpha form, `steps`
-// the step-count form (K7/K10 only, never with the alpha form)
+// blocks of `kernel` the card runs at once: the occupancy calculator's
+// blocks per SM times the SM count, read once per kernel for the library's
+// life (the wrappers launch from one host thread)
+int resident_blocks(const void* kernel, int* out) {
+  static int sms = 0;
+  static struct { const void* k; int blocks; } cache[32];
+  static int n_cache = 0;
+  for (int j = 0; j < n_cache; ++j)
+    if (cache[j].k == kernel) {
+      *out = cache[j].blocks;
+      return 0;
+    }
+  cudaError_t e;
+  if (sms == 0) {
+    int dev = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
+                                                    0);
+  if (e != cudaSuccess) return (int)e;
+  *out = (per_sm > 0 ? per_sm : 1) * sms;
+  if (n_cache < 32) cache[n_cache++] = {kernel, *out};
+  return 0;
+}
+
+// one traversal launch: a wave with an active mask runs on the persistent
+// warps of trace_kernel_fetch (as many blocks as the card holds at once),
+// one without on trace_kernel (a thread per ray); a shading model selects
+// the alpha form, `steps` the step-count form (K7/K10 only, never with the
+// alpha form)
 template <bool PAGED, bool ANY_HIT, bool RESOLVE>
 int launch(const SceneView& sc, const ResolveView& rv, bool steps,
-           const float* ray_o, const float* ray_d, const float* t_max,
-           const unsigned char* active, int n_rays, float* out_t,
-           int* out_prim, int* out_inst, float* out_bary, float* out_uv,
-           float* out_normal, int* out_mat, cudaStream_t stream) {
+           const RayArgs& ra, const Outputs& out, int* work,
+           cudaStream_t stream) {
   if (steps && (RESOLVE || rv.shading_model != nullptr))
     return (int)cudaErrorInvalidValue;
-  if (n_rays <= 0) return 0;
-  using Kernel = void (*)(SceneView, ResolveView, const float*, const float*,
-                         const float*, const unsigned char*, int, float*,
-                         int*, int*, float*, float*, float*, int*);
-  Kernel kernel = trace_kernel<PAGED, ANY_HIT, RESOLVE, false, false>;
+  if (ra.n <= 0) return 0;
+  using Kernel = void (*)(SceneView, ResolveView, RayArgs, Outputs, int*);
+  const bool fetch = ra.active != nullptr;
+  Kernel kernel = fetch
+      ? trace_kernel_fetch<PAGED, ANY_HIT, RESOLVE, false, false>
+      : trace_kernel<PAGED, ANY_HIT, RESOLVE, false, false>;
   if (rv.shading_model != nullptr)
-    kernel = trace_kernel<PAGED, ANY_HIT, RESOLVE, true, false>;
+    kernel = fetch ? trace_kernel_fetch<PAGED, ANY_HIT, RESOLVE, true, false>
+                   : trace_kernel<PAGED, ANY_HIT, RESOLVE, true, false>;
   if constexpr (!RESOLVE) {
-    if (steps) kernel = trace_kernel<PAGED, ANY_HIT, false, false, true>;
+    if (steps)
+      kernel = fetch ? trace_kernel_fetch<PAGED, ANY_HIT, false, false, true>
+                     : trace_kernel<PAGED, ANY_HIT, false, false, true>;
   }
-  kernel<<<blocks(n_rays), THREADS, 0, stream>>>(
-      sc, rv, ray_o, ray_d, t_max, active, n_rays, out_t, out_prim, out_inst,
-      out_bary, out_uv, out_normal, out_mat);
+  int grid = blocks(ra.n);
+  if (fetch) {
+    int resident = 0;
+    const int e = resident_blocks((const void*)kernel, &resident);
+    if (e != 0) return e;
+    if (resident < grid) grid = resident;
+  }
+  kernel<<<grid, THREADS, 0, stream>>>(sc, rv, ra, out, work);
   return (int)cudaGetLastError();
+}
+
+RayArgs ray_args(const float* ray_o, const float* ray_d, const float* t_max,
+                 const unsigned char* active, int n_rays) {
+  RayArgs ra;
+  ra.o = ray_o;
+  ra.d = ray_d;
+  ra.t_max = t_max;
+  ra.active = active;
+  ra.n = n_rays;
+  return ra;
+}
+
+Outputs outputs(float* t, int* prim, int* inst, float* bary,
+                float* uv = nullptr, float* normal = nullptr,
+                int* mat = nullptr) {
+  Outputs out;
+  out.t = t;
+  out.prim = prim;
+  out.inst = inst;
+  out.bary = bary;
+  out.uv = uv;
+  out.normal = normal;
+  out.mat = mat;
+  return out;
 }
 
 }  // namespace
@@ -595,6 +947,11 @@ int launch(const SceneView& sc, const ResolveView& rv, bool steps,
 extern "C" {
 
 int trace_stack_max() { return STACK_MAX; }
+
+// ints of the work counters a launch of a wave with an active mask takes
+// (`work`, zeroed by the caller for each launch; null for a wave without a
+// mask)
+int trace_work_ints() { return SEGMENTS * COUNTER_STRIDE; }
 
 // K7: closest hit (any_hit = 0) or any hit (any_hit = 1); with a shading
 // model (and the resolve tables the cutout reads) its alpha form; with
@@ -608,15 +965,15 @@ int trace_launch(const float* nodes, const int* codes, const float* leaf,
                  const int* shading_model, int n_mats, const float* ray_o,
                  const float* ray_d, const float* t_max,
                  const unsigned char* active, int n_rays, float* out_t,
-                 int* out_prim, int* out_inst, float* out_bary,
+                 int* out_prim, int* out_inst, float* out_bary, int* work,
                  cudaStream_t stream) {
   const SceneView sc = scene_view(nodes, codes, leaf, leaf_prim, nn, nl,
                                   root, stack_size, cull_mask, t_min);
   const ResolveView rv = resolve_view(tri_attr, inv_rows, slot_mats, n_inst,
                                       n_slots, shading_model, n_mats);
   return (any_hit ? launch<false, true, false> : launch<false, false, false>)(
-      sc, rv, steps != 0, ray_o, ray_d, t_max, active, n_rays, out_t,
-      out_prim, out_inst, out_bary, nullptr, nullptr, nullptr, stream);
+      sc, rv, steps != 0, ray_args(ray_o, ray_d, t_max, active, n_rays),
+      outputs(out_t, out_prim, out_inst, out_bary), work, stream);
 }
 
 // K8: closest hit + resolve; with a shading model its alpha form
@@ -630,16 +987,16 @@ int trace_resolve_launch(const float* nodes, const int* codes,
                          const float* t_max, const unsigned char* active,
                          int n_rays, float* out_t, int* out_prim,
                          int* out_inst, float* out_bary, float* out_uv,
-                         float* out_normal, int* out_mat,
+                         float* out_normal, int* out_mat, int* work,
                          cudaStream_t stream) {
   const SceneView sc = scene_view(nodes, codes, leaf, leaf_prim, nn, nl,
                                   root, stack_size, cull_mask, t_min);
   const ResolveView rv = resolve_view(tri_attr, inv_rows, slot_mats, n_inst,
                                       n_slots, shading_model, n_mats);
-  return launch<false, false, true>(sc, rv, false, ray_o, ray_d, t_max,
-                                    active, n_rays, out_t, out_prim, out_inst,
-                                    out_bary, out_uv, out_normal, out_mat,
-                                    stream);
+  return launch<false, false, true>(
+      sc, rv, false, ray_args(ray_o, ray_d, t_max, active, n_rays),
+      outputs(out_t, out_prim, out_inst, out_bary, out_uv, out_normal,
+              out_mat), work, stream);
 }
 
 // K9: occlusion bitmask + AO t + optional resolve sample, one origin per ray
@@ -700,7 +1057,7 @@ int trace_paged_launch(const float* nodes, const int* codes, const float* leaf,
                        const float* ray_o, const float* ray_d,
                        const float* t_max, const unsigned char* active,
                        int n_rays, float* out_t, int* out_prim, int* out_inst,
-                       float* out_bary, cudaStream_t stream) {
+                       float* out_bary, int* work, cudaStream_t stream) {
   const SceneView sc = paged_view(
       scene_view(nodes, codes, leaf, leaf_prim, nn, nl, root, stack_size,
                  cull_mask, t_min),
@@ -709,8 +1066,8 @@ int trace_paged_launch(const float* nodes, const int* codes, const float* leaf,
                                       n_slots, shading_model, n_mats,
                                       smat_blk);
   return (any_hit ? launch<true, true, false> : launch<true, false, false>)(
-      sc, rv, steps != 0, ray_o, ray_d, t_max, active, n_rays, out_t,
-      out_prim, out_inst, out_bary, nullptr, nullptr, nullptr, stream);
+      sc, rv, steps != 0, ray_args(ray_o, ray_d, t_max, active, n_rays),
+      outputs(out_t, out_prim, out_inst, out_bary), work, stream);
 }
 
 // K11: closest hit + resolve over a PagedScene; the material comes from
@@ -727,7 +1084,7 @@ int trace_resolve_paged_launch(
     int n_mats, const float* ray_o, const float* ray_d, const float* t_max,
     const unsigned char* active, int n_rays, float* out_t, int* out_prim,
     int* out_inst, float* out_bary, float* out_uv, float* out_normal,
-    int* out_mat, cudaStream_t stream) {
+    int* out_mat, int* work, cudaStream_t stream) {
   const SceneView sc = paged_view(
       scene_view(nodes, codes, leaf, leaf_prim, nn, nl, root, stack_size,
                  cull_mask, t_min),
@@ -735,10 +1092,10 @@ int trace_resolve_paged_launch(
   const ResolveView rv = resolve_view(tri_attr, inv_rows, chunk_smat, n_inst,
                                       n_slots, shading_model, n_mats,
                                       smat_blk);
-  return launch<true, false, true>(sc, rv, false, ray_o, ray_d, t_max,
-                                   active, n_rays, out_t, out_prim, out_inst,
-                                   out_bary, out_uv, out_normal, out_mat,
-                                   stream);
+  return launch<true, false, true>(
+      sc, rv, false, ray_args(ray_o, ray_d, t_max, active, n_rays),
+      outputs(out_t, out_prim, out_inst, out_bary, out_uv, out_normal,
+              out_mat), work, stream);
 }
 
 }  // extern "C"

@@ -16,7 +16,11 @@ On a CUDA tensor each wrapper launches its kernel (built at first use) and
 counts the launch in ``LAUNCHES``; on a CPU tensor it runs the plain
 version: ``accel.trace_scene`` (K7), ``trace_scene`` then
 ``accel.resolve_attrs`` (K8), one ``trace_scene`` per sample (K9). There is
-no other fallback: a build or launch failure raises.
+no other fallback: a build or launch failure raises. A wave with an active
+mask runs on persistent warps that claim rays from work counters, which
+the wrapper allocates zeroed for the launch; a wave without one runs a
+thread per ray (``csrc/trace.cu``). The scene and resolve tables must start
+16-byte aligned (the kernels read their rows as 16-byte vectors).
 """
 
 from __future__ import annotations
@@ -47,25 +51,36 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+_PAGED_ARGS = ([_P] * 4 + [_I] * 5 + [_F] + [_P] * 2 + [_I] + [_P] * 2 + [_I]
+               + [_P] * 2 + [_I] + [_I])
+_SMAT_ARGS = [_P] * 3 + [_I] * 3 + _ALPHA_ARGS
 _LIB = []
 
 
 def _lib():
-    """The built ``csrc/trace.cu`` with its C signatures declared."""
+    """The built ``csrc/trace.cu`` with the C signatures of its five entry
+    points declared."""
     if not _LIB:
         lib = load_library("trace")
         lib.trace_stack_max.restype = _I
+        lib.trace_work_ints.restype = _I
         lib.trace_launch.argtypes = (
             _SCENE_ARGS + [_I, _I] + _RESOLVE_ARGS + _ALPHA_ARGS + [_P] * 4
-            + [_I] + [_P] * 4 + [_P])
+            + [_I] + [_P] * 4 + [_P, _P])
         lib.trace_resolve_launch.argtypes = (
             _SCENE_ARGS + _RESOLVE_ARGS + _ALPHA_ARGS + [_P] * 4 + [_I]
-            + [_P] * 7 + [_P])
+            + [_P] * 7 + [_P, _P])
         lib.trace_bundle_launch.argtypes = (
             _SCENE_ARGS + _RESOLVE_ARGS + [_P, _I] + [_P] * 3 + [_I]
             + [_P] * 3 + [_I] + [_P] * 3 + [_P] * 9 + [_P])
+        lib.trace_paged_launch.argtypes = (
+            _PAGED_ARGS + [_I, _I] + _SMAT_ARGS + [_P] * 4 + [_I] + [_P] * 4
+            + [_P, _P])
+        lib.trace_resolve_paged_launch.argtypes = (
+            _PAGED_ARGS + _SMAT_ARGS + [_P] * 4 + [_I] + [_P] * 7 + [_P, _P])
         for fn in (lib.trace_launch, lib.trace_resolve_launch,
-                   lib.trace_bundle_launch):
+                   lib.trace_bundle_launch, lib.trace_paged_launch,
+                   lib.trace_resolve_paged_launch):
             fn.restype = _I
         _LIB.append(lib)
     return _LIB[0]
@@ -80,17 +95,39 @@ def _check(name: str, t: torch.Tensor, dtype, device, shape=None):
                          f"{tuple(t.shape)}")
 
 
+def check_table(name: str, t: torch.Tensor, dtype, device, shape=None):
+    """``_check`` for a scene or resolve table, which the kernels read in
+    16-byte rows: it must also start 16-byte aligned."""
+    _check(name, t, dtype, device, shape)
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start 16-byte aligned (the kernels "
+                         "read it in 16-byte vectors)")
+
+
+def work_counters(lib, active: Optional[torch.Tensor]):
+    """The zeroed work counters of one traversal launch of a wave with an
+    active mask, from which its persistent warps claim their rays; None
+    for a wave without one, which runs a thread per ray."""
+    if active is None:
+        return None
+    return torch.zeros(lib.trace_work_ints(), dtype=torch.int32,
+                       device=active.device)
+
+
 def _scene_args(lib, scene: RTScene, root_code: int, stack_size: int,
                 cull_mask: int):
     dev = scene.nodes.device
     if stack_size > lib.trace_stack_max():
         raise ValueError(f"scene needs a traversal stack of {stack_size}; "
                          f"csrc/trace.cu holds {lib.trace_stack_max()}")
-    _check("nodes", scene.nodes, torch.float32, dev)
-    _check("codes", scene.codes, torch.int32, dev, (scene.nodes.shape[0], 2))
-    _check("leaf_rows", scene.leaf_rows, torch.float32, dev)
-    _check("leaf_prim", scene.leaf_prim, torch.int32, dev,
-           (scene.leaf_rows.shape[0], 8))
+    check_table("nodes", scene.nodes, torch.float32, dev,
+                (scene.nodes.shape[0], 12))
+    check_table("codes", scene.codes, torch.int32, dev,
+                (scene.nodes.shape[0], 2))
+    check_table("leaf_rows", scene.leaf_rows, torch.float32, dev,
+                (scene.leaf_rows.shape[0], 120))
+    check_table("leaf_prim", scene.leaf_prim, torch.int32, dev,
+                (scene.leaf_rows.shape[0], 8))
     return (scene.nodes.data_ptr(), scene.codes.data_ptr(),
             scene.leaf_rows.data_ptr(), scene.leaf_prim.data_ptr(),
             scene.nodes.shape[0], scene.leaf_rows.shape[0], root_code,
@@ -100,8 +137,9 @@ def _scene_args(lib, scene: RTScene, root_code: int, stack_size: int,
 def _resolve_args(scene: RTScene, slot_materials: torch.Tensor):
     dev = scene.nodes.device
     n = scene.inv_rows.shape[0]
-    _check("tri_attr", scene.tri_attr, torch.float32, dev)
-    _check("inv_rows", scene.inv_rows, torch.float32, dev, (n, 12))
+    check_table("tri_attr", scene.tri_attr, torch.float32, dev,
+                (scene.tri_attr.shape[0], 16))
+    check_table("inv_rows", scene.inv_rows, torch.float32, dev, (n, 12))
     _check("slot_materials", slot_materials, torch.int32, dev)
     if slot_materials.shape[0] != n:
         raise ValueError("slot_materials must have one row per instance")
@@ -198,12 +236,13 @@ def trace_scene_kernel(scene: RTScene, o, d, t_max, *, root_code: int,
     out = _hit_outputs(r, o.device)
     res = ((None, None, None, 1, 1) if shading_model is None
            else _resolve_args(scene, slot_materials))
+    work = work_counters(lib, act)
     rc = lib.trace_launch(
         *_scene_args(lib, scene, root_code, stack_size, cull_mask),
         int(any_hit), int(debug_steps), *res,
         *_alpha_args(shading_model, o.device),
         o.data_ptr(), d.data_ptr(), t.data_ptr(), _ptr(act), r,
-        *(x.data_ptr() for x in out),
+        *(x.data_ptr() for x in out), _ptr(work),
         torch.cuda.current_stream(o.device).cuda_stream)
     _raise_on(rc, key)
     return HitRecord2(*out)
@@ -244,12 +283,13 @@ def trace_resolve_kernel(scene: RTScene, slot_materials, o, d, t_max, *,
     r = o.shape[0]
     hit_out = _hit_outputs(r, o.device)
     res_out = _resolve_outputs(r, o.device)
+    work = work_counters(lib, act)
     rc = lib.trace_resolve_launch(
         *_scene_args(lib, scene, root_code, stack_size, cull_mask),
         *_resolve_args(scene, slot_materials),
         *_alpha_args(shading_model, o.device),
         o.data_ptr(), d.data_ptr(), t.data_ptr(), _ptr(act), r,
-        *(x.data_ptr() for x in hit_out + res_out),
+        *(x.data_ptr() for x in hit_out + res_out), _ptr(work),
         torch.cuda.current_stream(o.device).cuda_stream)
     _raise_on(rc, form_key("trace_resolve", shading_model))
     return HitRecord2(*hit_out), res_out

@@ -22,7 +22,6 @@ fallback: a build or launch failure raises.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -37,27 +36,6 @@ LAUNCHES = {"trace_scene_paged": 0, "trace_resolve_paged": 0,
             "trace_scene_paged_alpha": 0, "trace_resolve_paged_alpha": 0,
             "trace_scene_paged_steps": 0}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_PAGED_ARGS = ([_P] * 4 + [_I] * 5 + [_F] + [_P] * 2 + [_I] + [_P] * 2 + [_I]
-               + [_P] * 2 + [_I] + [_I])
-_SMAT_ARGS = [_P] * 3 + [_I] * 3 + TK._ALPHA_ARGS
-_DECLARED = []
-
-
-def _lib():
-    """The built ``csrc/trace.cu`` with the paged entry points declared."""
-    lib = TK._lib()
-    if not _DECLARED:
-        lib.trace_paged_launch.argtypes = (
-            _PAGED_ARGS + [_I, _I] + _SMAT_ARGS + [_P] * 4 + [_I] + [_P] * 4
-            + [_P])
-        lib.trace_resolve_paged_launch.argtypes = (
-            _PAGED_ARGS + _SMAT_ARGS + [_P] * 4 + [_I] + [_P] * 7 + [_P])
-        for fn in (lib.trace_paged_launch, lib.trace_resolve_paged_launch):
-            fn.restype = _I
-        _DECLARED.append(True)
-    return lib
-
 
 def _paged_args(lib, scene: PagedScene, root_code: int, stack_size: int,
                 cull_mask: int, max_steps: int):
@@ -71,10 +49,12 @@ def _paged_args(lib, scene: PagedScene, root_code: int, stack_size: int,
     if max(nct, nbn, scene.static_nodes.shape[0]) >= 1 << 27:
         raise ValueError("a paged row table exceeds the 27-bit payload")
     for name, t, dtype, shape in (
-            ("static_nodes", scene.static_nodes, torch.float32, None),
+            ("static_nodes", scene.static_nodes, torch.float32,
+             (scene.static_nodes.shape[0], 12)),
             ("static_codes", scene.static_codes, torch.int32,
              (scene.static_nodes.shape[0], 2)),
-            ("leaf_rows", scene.leaf_rows, torch.float32, None),
+            ("leaf_rows", scene.leaf_rows, torch.float32,
+             (scene.leaf_rows.shape[0], 120)),
             ("leaf_prim", scene.leaf_prim, torch.int32,
              (scene.leaf_rows.shape[0], K)),
             ("chunk_boxes", scene.chunk_boxes, torch.float32, (nct * 12,)),
@@ -83,7 +63,7 @@ def _paged_args(lib, scene: PagedScene, root_code: int, stack_size: int,
             ("bch_codes", scene.bch_codes, torch.int32, (nbn * 2,)),
             ("bch_lpos", scene.bch_lpos, torch.float32, (nbl * 72,)),
             ("bch_lprim", scene.bch_lprim, torch.int32, (nbl * K,))):
-        TK._check(name, t, dtype, dev, shape)
+        TK.check_table(name, t, dtype, dev, shape)
     if nct % BROWS or nbn % (2 * BL_LEAVES):
         raise ValueError("chunk tables must hold whole blocks")
     return (scene.static_nodes.data_ptr(), scene.static_codes.data_ptr(),
@@ -101,8 +81,9 @@ def _smat_args(scene: PagedScene, slot_materials, shading_model, dev):
     sizes, and the leaf cutout's shading model."""
     n, s = slot_materials.shape
     nc = scene.chunk_boxes.shape[0] // (BROWS * 12)
-    TK._check("tri_attr", scene.tri_attr, torch.float32, dev)
-    TK._check("inv_rows", scene.inv_rows, torch.float32, dev, (n, 12))
+    TK.check_table("tri_attr", scene.tri_attr, torch.float32, dev,
+                   (scene.tri_attr.shape[0], 16))
+    TK.check_table("inv_rows", scene.inv_rows, torch.float32, dev, (n, 12))
     TK._check("chunk_smat", scene.chunk_smat, torch.int32, dev,
               (nc * smat_block(s),))
     return (scene.tri_attr.data_ptr(), scene.inv_rows.data_ptr(),
@@ -169,17 +150,19 @@ def trace_scene_paged_kernel(scene: PagedScene, o, d, t_max, *,
             max_steps=max_steps, any_hit=any_hit, active=active,
             cull_mask=cull_mask, flat=flat, slot_materials=slot_materials,
             shading_model=shading_model, debug_steps=debug_steps)
-    lib = _lib()
+    lib = TK._lib()
     dev = o.device
     res = ((None, None, None, 1, 1, 0, None, 1) if shading_model is None
            else _smat_args(scene, slot_materials, shading_model, dev))
     o, d, t, act = TK._rays(o, d, t_max, active)
     r = o.shape[0]
     out = TK._hit_outputs(r, dev)
+    work = TK.work_counters(lib, act)
     rc = lib.trace_paged_launch(
         *_paged_args(lib, scene, root_code, stack_size, cull_mask, max_steps),
         int(any_hit), int(debug_steps), *res, o.data_ptr(), d.data_ptr(),
         t.data_ptr(), TK._ptr(act), r, *(x.data_ptr() for x in out),
+        TK._ptr(work),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, key)
     return HitRecord2(*out)
@@ -218,17 +201,18 @@ def trace_resolve_paged_kernel(scene: PagedScene, slot_materials, o, d,
             scene, slot_materials, o, d, t_max, root_code=root_code,
             stack_size=stack_size, max_steps=max_steps, active=active,
             cull_mask=cull_mask, flat=flat, shading_model=shading_model)
-    lib = _lib()
+    lib = TK._lib()
     dev = o.device
     res = _smat_args(scene, slot_materials, shading_model, dev)
     o, d, t, act = TK._rays(o, d, t_max, active)
     r = o.shape[0]
     hit_out = TK._hit_outputs(r, dev)
     res_out = TK._resolve_outputs(r, dev)
+    work = TK.work_counters(lib, act)
     rc = lib.trace_resolve_paged_launch(
         *_paged_args(lib, scene, root_code, stack_size, cull_mask, max_steps),
         *res, o.data_ptr(), d.data_ptr(), t.data_ptr(), TK._ptr(act), r,
-        *(x.data_ptr() for x in hit_out + res_out),
+        *(x.data_ptr() for x in hit_out + res_out), TK._ptr(work),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, TK.form_key("trace_resolve_paged", shading_model))
     return HitRecord2(*hit_out), res_out

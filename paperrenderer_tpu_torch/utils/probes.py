@@ -24,11 +24,18 @@ ns (-1 when a copy never completed; the plain versions return None).
 issue a call), K7 on the 1080p RT scene's primary rays all dead (closest and
 any hit) and live, and the step-count forms of K7 and K10 (``debug_steps``):
 every ray of the dead any-hit wave counts 0 steps.
+
+The traversal kernels' waves are built here once, for ``chip_smoke.py`` and
+``walk_bench.py`` alike: ``primary_wavefront``, ``rt_wavefronts``,
+``leaf_wavefronts``, ``masked_waves`` (the masked launches of one frame)
+and ``headline_waves``, the cases the walk's design is timed on.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import json
 import subprocess
 import time
@@ -58,6 +65,7 @@ PASS_RAYS = (1920 * 1080, 1024)
 WAIT_S = 30.0      # host-side limit on one probe launch
 REPS = 10          # timed calls a measurement
 SEED = 0           # the scripts' numpy seed
+ORDER_SEED = 8     # the seed of ray_order's random order of a wave
 
 # launches of each kernel wrapper, counted where the kernel is launched
 LAUNCHES = {"chunk_stream": 0, "chunk_stream_sweep": 0, "pass_through": 0}
@@ -283,6 +291,205 @@ def primary_wavefront(rt, cam, paged: bool, leaf_cutout: bool = False):
     return ctx, o.contiguous(), d, far, lights
 
 
+def rt_wavefronts(rt, cam):
+    """The tracer and the wavefronts of one RT frame, built exactly as
+    RayTraceRender.render and ops.trace.trace_frame build them."""
+    from ..ops import accel as ACC
+    from ..ops import trace as TR
+    from . import random as rnd
+
+    instances = rt.scene.flush()
+    blasset, meta = rt.accel.blas()
+    slots, masks, table, inst_mask, opaque, lights, _ = rt._device_inputs(
+        instances.capacity)
+    cam = cam.matrices.to(rt.device)
+    scene, roots = ACC.assemble_scene(
+        blasset, meta, instances, rt.accel.inst_blas(instances.capacity),
+        masks, rt.accel.tri_attr(), inst_mask=inst_mask, inst_opaque=opaque)
+    ctx = ACC.SceneTracer(scene, slots, table, root_code=roots[0],
+                          stack_size=rt.accel.stack_size(instances.capacity))
+    w, h, p = rt.width, rt.height, rt.params
+    o, d = TR.raygen(cam, w, h, tile_order=TR.pick_tile(w, h))
+    r = o.shape[0]
+    far = torch.full((r,), 1000.0, device=o.device)
+    surf = ctx.trace_resolve(o, d, far, cull_mask=p.cull_mask)
+    key = rnd.fold_in(rt._key, 1)
+    refl_key = rnd.fold_in(key, 7)
+    origin = surf.world_pos + surf.normal * 5e-3
+    dirs, caps, actives, _ = TR._occlusion_samples(
+        surf, lights, key, max(1, p.shadow_samples))
+    ao_ds, ao_caps = TR._ao_samples(surf, key, p.ao_samples, p.ao_radius)
+    rdir = TR._reflection_dir(surf, table, cam.cam_pos, refl_key, 0)
+    return dict(ctx=ctx, o=o.contiguous(), d=d, far=far, surf=surf,
+                origin=origin, dirs=dirs, caps=caps, actives=actives,
+                ao_ds=ao_ds, ao_caps=ao_caps, rdir=rdir, slots=slots,
+                cull=p.cull_mask, roots=roots)
+
+
+def leaf_wavefronts(rt, cam, paged):
+    """The leaf cutout's wavefronts of one RayTraceRender frame, built as
+    render_frame_rt and ops.trace build them, on the layout `paged` names:
+    the tracer (leaf cutout on), the camera's primary rays, and from their
+    hits (through the cutout) the reflection rays and the first AO rays."""
+    from ..ops import trace as TR
+    from . import random as rnd
+
+    ctx, o, d, far, _ = primary_wavefront(rt, cam, paged, leaf_cutout=True)
+    surf = ctx.trace_resolve(o, d, far, use_alpha=True)
+    key = rnd.fold_in(rt._key, 1)
+    ao_ds, _ = TR._ao_samples(surf, key, 1, rt.params.ao_radius)
+    return dict(
+        ctx=ctx, o=o, d=d, far=far, surf=surf,
+        refl_o=(surf.world_pos + surf.normal * 5e-3).contiguous(),
+        rdir=TR._reflection_dir(surf, ctx.materials,
+                                cam.matrices.to(rt.device).cam_pos,
+                                rnd.fold_in(key, 7), 0),
+        ao_o=(surf.world_pos + surf.normal * 1e-3).contiguous(),
+        ao_d=ao_ds[0], ao_cap=torch.full_like(far, rt.params.ao_radius))
+
+
+def masked_waves(render, cam):
+    """[(wrapper name, its kernel wrapper, args, kwargs)] of every traversal
+    launch with an active mask (the shadow, AO and reflection rays) that one
+    frame of ``render`` (a RayTraceRender or HybridRender) makes through
+    K7, K8, K10 or K11, in launch order. The frame runs as it always does;
+    only the calls' inputs are kept."""
+    calls, saved = [], []
+    for mod, name in ((TK, "trace_scene_kernel"), (TK, "trace_resolve_kernel"),
+                      (TPG, "trace_scene_paged_kernel"),
+                      (TPG, "trace_resolve_paged_kernel")):
+        fn = getattr(mod, name)
+
+        def keep(*a, name=name, fn=fn, **k):
+            if k.get("active") is not None:
+                calls.append((name, fn, a, k))
+            return fn(*a, **k)
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, keep)
+    try:
+        render.render(cam)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return calls
+
+
+def ray_order(n: int, device) -> torch.Tensor:
+    """A seeded random order of ``n`` rays (ORDER_SEED): the incoherent
+    form of a wave, whose outputs put back in order must equal the
+    launch-order run's bit for bit."""
+    return torch.from_numpy(
+        np.random.default_rng(ORDER_SEED).permutation(n)).to(device)
+
+
+def tensors_of(x):
+    """The tensors of a traversal result (a tensor, a HitRecord2, tuples of
+    them), in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if dataclasses.is_dataclass(x):
+        x = [getattr(x, f.name) for f in dataclasses.fields(x)]
+    return [t for y in x for t in tensors_of(y)]
+
+
+def headline_waves(device, width: int = 1920, height: int = 1080,
+                   n: int = 10_000) -> dict:
+    """{case: a function that launches its traversal kernel once on its
+    wave}: the waves that the traversal kernels' design is timed on, at
+    ``width`` x ``height`` (1080p: the frames' shape) with ``n``
+    instances a grid.
+
+    The leaf grid (``scenes.build_leaf_rt_grid``, paged layout): K11's
+    alpha form on its primary rays, in launch order and in ``ray_order``,
+    and on its first AO rays; the same grid on the flat layout: K8's alpha
+    form on its primary and reflection rays. Config 2's grid: K10 (paged)
+    and K7 (flat) on its primary rays. The RT scene (config 3): K7 on its
+    primary rays, live and all dead, K9 on its 2 shadow + 1 AO bundle.
+    Then every masked wave (``masked_waves``) of one frame of config 3,
+    hybrid config 4 and the hybrid grid: the mostly live waves beside the
+    sparse ones of the leaf grid."""
+    from ..ops import trace as TR
+    from ..scenes import (build_dynamic_scene, build_hybrid_scene,
+                          build_leaf_rt_grid, build_rt_scene)
+    from . import random as rnd
+
+    out = {}
+    rt, _, cam = build_leaf_rt_grid(n, width, height, device=device)[1:]
+    for paged in (True, False):
+        lw = leaf_wavefronts(rt, cam, paged)
+        ctx, o, d, far, surf = (lw[k] for k in ("ctx", "o", "d", "far",
+                                                 "surf"))
+        walk = dict(root_code=ctx.root_code, stack_size=ctx.stack_size,
+                    shading_model=ctx.materials.shading_model)
+        sc, smat = ctx.scene, ctx.slot_materials
+        if paged:
+            walk["max_steps"] = ctx._step_bound()
+            perm = ray_order(o.shape[0], o.device)
+            po, pd = o[perm].contiguous(), d[perm].contiguous()
+            k11 = functools.partial(TPG.trace_resolve_paged_kernel, sc, smat,
+                                    **walk)
+            out["k11_alpha_leaf_primary"] = functools.partial(k11, o, d, far)
+            out["k11_alpha_leaf_primary_permuted"] = functools.partial(
+                k11, po, pd, far)
+            out["k11_alpha_leaf_ao"] = functools.partial(
+                k11, lw["ao_o"], lw["ao_d"], lw["ao_cap"], active=surf.valid)
+        else:
+            k8 = functools.partial(TK.trace_resolve_kernel, sc, smat, **walk)
+            out["k8_alpha_leaf_primary"] = functools.partial(k8, o, d, far)
+            out["k8_alpha_leaf_reflection"] = functools.partial(
+                k8, lw["refl_o"], lw["rdir"], far, active=surf.valid)
+
+    eng, rp, gcam = build_dynamic_scene(n, width, height, device=device)
+    grid = eng.create_ray_trace_render(width=width, height=height,
+                                       lights=rp.lights)
+    grid.add_instances_from(rp)
+    for paged in (True, False):
+        ctx, o, d, far, _ = primary_wavefront(grid, gcam, paged)
+        out[f"k{10 if paged else 7}_grid_primary"] = functools.partial(
+            ctx.trace, o, d, far)
+
+    _, rt3, cam3 = build_rt_scene(width, height, device=device)
+    w = rt_wavefronts(rt3, cam3)
+    ctx, o, d, far = w["ctx"], w["o"], w["d"], w["far"]
+    dead = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+    out["k7_rt_primary"] = functools.partial(ctx.trace, o, d, far)
+    out["k7_rt_primary_dead"] = functools.partial(ctx.trace, o, d, far,
+                                                  active=dead)
+    out["k9_rt_shadow_ao"] = functools.partial(
+        ctx.trace_shadow_ao_bundle, w["origin"].contiguous(), w["dirs"],
+        w["caps"], w["ao_ds"], w["ao_caps"], occ_actives=w["actives"],
+        ao_actives=[w["surf"].valid] * len(w["ao_ds"]))
+
+    hy4, cam4 = build_hybrid_scene(width, height, device=device)[1:]
+    hgrid = eng.create_hybrid_render(width=width, height=height,
+                                     lights=rp.lights)
+    hgrid.add_instances_from(rp)
+    short = {"trace_scene_kernel": "k7", "trace_resolve_kernel": "k8",
+             "trace_scene_paged_kernel": "k10",
+             "trace_resolve_paged_kernel": "k11"}
+    for frame, render, c in (("rt", rt3, cam3), ("hybrid4", hy4, cam4),
+                             ("hybrid_grid", hgrid, gcam)):
+        for j, (name, fn, a, k) in enumerate(masked_waves(render, c)):
+            out[f"{short[name]}_{frame}_masked{j}"] = functools.partial(
+                fn, *a, **k)
+    return out
+
+
+def warp_efficiency(steps: torch.Tensor, width: int = 32) -> float:
+    """The lane share a lockstep walk keeps busy: per-ray step counts in
+    launch order, cut into groups of ``width`` rays (the last one padded
+    with zeros), give sum(steps) / (width x the sum of each group's
+    maximum). A warp that walks its rays fixed to its lanes runs until its
+    longest ray ends, so this is the share of its lane-steps that do work
+    (0 when no ray steps)."""
+    s = steps.detach().to("cpu", torch.float64).reshape(-1)
+    pad = (-s.numel()) % width
+    groups = torch.cat([s, s.new_zeros(pad)]).reshape(-1, width)
+    busiest = float(groups.max(dim=1).values.sum())
+    return float(s.sum()) / (width * busiest) if busiest > 0 else 0.0
+
+
 def steps_kernel(ctx, o, d, far, *, any_hit=False, active=None):
     """The step-count form of the tracer's traversal kernel (K10 for a
     ``PagedSceneTracer``, else K7): its HitRecord2 with each ray's walk-loop
@@ -395,6 +602,7 @@ def _step_stats(ctx, o, d, far) -> dict:
     total = float(steps.double().sum())
     return dict(steps_total=total, steps_mean=total / steps.numel(),
                 steps_max=float(steps.max()),
+                warp_efficiency=warp_efficiency(steps),
                 steps_form_ms=device_time(lambda: steps_kernel(ctx, o, d, far),
                                           iters=REPS) * 1e3,
                 plain_form_ms=ms, ps_per_step=ms * 1e9 / max(total, 1.0))

@@ -38,6 +38,7 @@ from paperrenderer_tpu_torch.ops import accel as TA
 from paperrenderer_tpu_torch.ops import trace_kernel as TK
 from paperrenderer_tpu_torch.ops import trace_paged as TP
 from paperrenderer_tpu_torch.scenes import build_leaf_scene
+from paperrenderer_tpu_torch.utils import probes as PR
 
 W, H = 48, 32
 EDGE = 1e-5
@@ -230,6 +231,39 @@ def test_plain_k11_alpha_matches_jax(sweep):
         shading_model=ctx.materials.shading_model, **ctx._walk())
     _assert_cutout_matches(sweep, rec, attrs)
     _assert_force_opaque_hits(sweep, ctx, rec)
+
+
+@pytest.mark.parametrize("layout", ["flat", "paged"])
+def test_plain_walk_ignores_ray_order(sweep, layout):
+    """The plain versions of K8's (flat) or K11's (paged) alpha form and of
+    K7's or K10's step-count form, on the sweep's rays with every fifth one
+    dead, in ``probes.ray_order`` and put back in order, equal the
+    launch-order run bit for bit, step counts included. The plain walk is
+    order-free by construction, so this pins the reference that the card's
+    permuted cases (chip_smoke.py's compare_trace and compare_paged) hold
+    the persistent kernel to, on the same order."""
+    ctx = sweep[layout]
+    o, d, t = _rays(sweep)
+    act = torch.arange(o.shape[0]) % 5 != 4
+    resolve = (TK.trace_resolve_plain if layout == "flat"
+               else TP.trace_resolve_paged_plain)
+
+    def run(o, d, t, act):
+        rec, attrs = resolve(ctx.scene, ctx.slot_materials, o, d, t,
+                             active=act,
+                             shading_model=ctx.materials.shading_model,
+                             **ctx._walk())
+        steps = PR.steps_kernel(ctx, o, d, t, active=act)
+        return [rec.t, rec.prim, rec.inst, rec.bary, *attrs, steps.t,
+                steps.prim, steps.inst, steps.bary]
+
+    want = run(o, d, t, act)
+    assert want[-1][:, 0].max() > 3   # the walks take several steps
+    perm = PR.ray_order(o.shape[0], o.device)
+    for w, g in zip(want, run(o[perm], d[perm], t[perm], act[perm])):
+        back = torch.empty_like(g)
+        back[perm] = g
+        assert torch.equal(back.view(torch.int32), w.view(torch.int32))
 
 
 @pytest.fixture(scope="module")

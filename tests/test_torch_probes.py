@@ -161,13 +161,11 @@ def test_k12c_plain_matches_jax_ident():
             x.numpy().view(np.int32))
 
 
-def test_plain_walk_step_counts():
-    """The step-count forms of K7 and K10 on the CPU (the plain walk): on a
-    one-instance scene (a 2-triangle plane, one BLAS leaf) a ray that hits
-    the plane pops the TLAS boxes down to its leaf (log2 of the leaf count:
-    the capacity's power of two flat, CHUNK paged), the instance and the
-    BLAS leaf; a ray pointing away pops the root only; a dead ray counts 0.
-    The other outputs are the plain form's."""
+@pytest.fixture(scope="module")
+def plane_walk():
+    """A one-instance scene (a 2-triangle plane, one BLAS leaf) and three
+    rays: one that hits the plane, one pointing away, one dead. -> (rt,
+    camera, o, d, far, active)."""
     eng = RenderEngine(device="cpu", device_check=False)
     plane = Model.from_mesh(eng.scene.arena, *make_plane(size=2.0))
     rt = eng.create_ray_trace_render(width=8, height=8)
@@ -178,10 +176,26 @@ def test_plain_walk_step_counts():
     d = torch.tensor([[0.0, 0.0, -1.0], [0.0, 0.0, 1.0], [0.0, 0.0, -1.0]])
     far = torch.full((3,), 1000.0)
     act = torch.tensor([True, True, False])
-    capacity = rt.scene.flush().capacity
-    for paged, leaves in ((False, capacity), (True, CHUNK)):
+    return rt, cam, o, d, far, act
+
+
+def _levels(rt, paged: bool) -> int:
+    """The TLAS levels above a leaf: log2 of the leaf count's power of two
+    (the capacity's flat, CHUNK paged)."""
+    leaves = CHUNK if paged else rt.scene.flush().capacity
+    return (leaves - 1).bit_length()
+
+
+def test_plain_walk_step_counts(plane_walk):
+    """The step-count forms of K7 and K10 on the CPU (the plain walk): on
+    the plane scene a ray that hits the plane pops the TLAS boxes down to
+    its leaf, the instance and the BLAS leaf; a ray pointing away pops the
+    root only; a dead ray counts 0. The other outputs are the plain
+    form's."""
+    rt, cam, o, d, far, act = plane_walk
+    for paged in (False, True):
         ctx = PR.primary_wavefront(rt, cam, paged)[0]
-        levels = (leaves - 1).bit_length()   # log2 of its power of two
+        levels = _levels(rt, paged)
         for any_hit in (False, True):
             rec = PR.steps_kernel(ctx, o, d, far, any_hit=any_hit, active=act)
             plain = ctx.trace(o, d, far, any_hit=any_hit, active=act)
@@ -191,6 +205,55 @@ def test_plain_walk_step_counts():
             for a, b in ((rec.t, plain.t), (rec.inst, plain.inst),
                          (rec.bary[:, 1], plain.bary[:, 1])):
                 assert torch.equal(a, b)
+
+
+def test_warp_efficiency_hand_made():
+    """warp_efficiency on hand-made counts: width 2 cuts (1, 2, 3, 4, 5)
+    into (1, 2), (3, 4), (5, 0), whose maxima sum to 11: 15 / (2 x 11).
+    One lane a group wastes nothing; no step gives 0."""
+    steps = torch.tensor([1.0, 2.0, 3.0, 4.0, 5.0])
+    assert PR.warp_efficiency(steps, width=2) == 15 / 22
+    assert PR.warp_efficiency(steps, width=1) == 1.0
+    assert PR.warp_efficiency(torch.zeros(7)) == 0.0
+
+
+def test_warp_efficiency_of_plain_steps(plane_walk):
+    """warp_efficiency of the plain walk's step counts on the plane scene:
+    (levels + 2, 1, 0) in one 32-lane warp busies its lanes for levels + 2
+    steps, and a 3-lane group for the same."""
+    rt, cam, o, d, far, act = plane_walk
+    for paged in (False, True):
+        ctx = PR.primary_wavefront(rt, cam, paged)[0]
+        steps = PR.steps_kernel(ctx, o, d, far, active=act).bary[:, 0]
+        n = _levels(rt, paged) + 2
+        assert PR.warp_efficiency(steps) == (n + 1) / (32 * n)
+        assert PR.warp_efficiency(steps, width=3) == (n + 1) / (3 * n)
+
+
+def test_headline_waves_on_cpu():
+    """headline_waves at 32x24 with 16 instances a grid: every headline
+    case and a masked wave of each frame (config 3's and hybrid config 4's
+    K8 reflection rays) launch on the CPU; the masked waves carry their
+    active masks, the dead wave none live; the frame's kernel wrappers are
+    restored after their launches are captured."""
+    from paperrenderer_tpu_torch.ops import trace_kernel as TK
+
+    wrapper = TK.trace_resolve_kernel
+    waves = PR.headline_waves("cpu", 32, 24, n=16)
+    assert TK.trace_resolve_kernel is wrapper
+    for name in ("k11_alpha_leaf_primary", "k11_alpha_leaf_primary_permuted",
+                 "k11_alpha_leaf_ao", "k8_alpha_leaf_primary",
+                 "k8_alpha_leaf_reflection", "k10_grid_primary",
+                 "k7_grid_primary", "k7_rt_primary", "k7_rt_primary_dead",
+                 "k9_rt_shadow_ao", "k8_rt_masked0", "k8_hybrid4_masked0"):
+        assert name in waves, name
+    for name, fn in waves.items():
+        out = PR.tensors_of(fn())
+        assert out and all(t.shape[0] == 32 * 24 for t in out), name
+    assert not waves["k7_rt_primary_dead"].keywords["active"].any()
+    for name in ("k8_rt_masked0", "k8_hybrid4_masked0"):
+        act = waves[name].keywords["active"]
+        assert 0 < int(act.sum()) < act.numel()
 
 
 def test_profiling_helpers_on_cpu(tmp_path):

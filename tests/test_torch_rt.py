@@ -121,3 +121,17 @@ def test_unported_rt_options_raise(case):
     eng = RenderEngine(device="cpu", device_check=False)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
         eng.create_ray_trace_render(animate=lambda v, t: v)
+
+
+def test_kernel_tables_must_be_aligned():
+    """The traversal kernels read their scene and resolve tables in 16-byte
+    vectors: the wrappers' table check refuses one that does not start
+    16-byte aligned (here a view one float into its storage) and takes the
+    same rows copied to a fresh tensor."""
+    from paperrenderer_tpu_torch.ops import trace_kernel as TK
+
+    cpu = torch.device("cpu")
+    rows = torch.zeros(4 * 12 + 1)[1:].view(4, 12)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        TK.check_table("nodes", rows, torch.float32, cpu, (4, 12))
+    TK.check_table("nodes", rows.clone(), torch.float32, cpu, (4, 12))

@@ -20,8 +20,15 @@ Phases, each reported as one JSON line:
            draw-list batches (bitwise): K5 at config 1, config 2 and a ragged
            image size; K6 at config 2 on the morton-sorted batch and on the
            batch as it comes (presorted form), each also against K5 on the
-           same setup; K6's required work against a numpy count of the
-           (tile, chunk) pairs; kernel and plain ms, pairs, candidates, bound;
+           same setup; K5 and K6 on an adversarial coefficient table (the
+           CPU rejection test's kinds of rows, every list split, depth ties
+           across ranges); K6's required work against a numpy count of the
+           (tile, chunk) pairs; kernel and plain ms, pairs, the plain
+           versions' candidates, the tile lists' and their split ranges'
+           lengths (mean, p99, max), the exact per-warp rejection's tests
+           and the candidates it keeps (raster_pallas.tile_may_cover on the
+           card), and the bound of that work (the inputs from
+           walk_bench.tile_inputs);
   compare_trace  the traversal kernels against their plain versions on the
            wavefronts of the 1920x1080 RT frame (bitwise): K7 closest and any
            hit on primary rays, K8 on primary and reflection rays, K9 on the
@@ -198,7 +205,9 @@ KEYED_OPS_PER_CANDIDATE = 20    # 5 planes x (2 mul + 2 add); the divide of
 #                                 the few covering candidates is left out
 TILE_OPS_PER_CANDIDATE = 20     # 5 planes x (2 mul + 2 add); the depth
 #                                 divide, esum and the 2 bary divides of the
-#                                 few covering candidates are left out
+#                                 few covering candidates are left out; as
+#                                 many in a rejection test (5 planes at one
+#                                 corner of a warp's footprint)
 SLAB_OPS_PER_BOX_ROW = 49       # 3 div + 2 x (6 sub, 6 mul, 6 min/max,
 #                                 4 min/max reductions, 1 max)
 MT_OPS_PER_LEAF = 8 * 46        # 8 x (two crosses 18, four dots 20, 3 sub,
@@ -310,14 +319,6 @@ def raster_bound(b, width, height):
     return bound(nbytes, ops)
 
 
-def draw_list_batch(rp, cam):
-    """The triangle batch of RenderPass.render(cam, static_path=False): the
-    function render_frame builds it with, on the pass's own inputs."""
-    from paperrenderer_tpu_torch.render.renderpass import draw_list_batch
-
-    return draw_list_batch(**rp.draw_list_inputs(cam))[1]
-
-
 def pair_count_numpy(chunk_aabb, width, height):
     """The (tile, chunk) overlap count from the chunk boxes on the host: the
     kernels' inclusive compares against every 8 x 128 tile rect in float32
@@ -335,77 +336,215 @@ def pair_count_numpy(chunk_aabb, width, height):
     return int((in_y[:, None, :] & in_x[None, :, :]).sum())
 
 
-def compare_tiles(cases, reps=10):
-    """K5 and K6 against their plain versions on the draw-list batches;
-    bitwise checks, kernel ms (CUDA events), plain ms (one call), pairs,
-    candidates and the least-time bound. `cases`: name -> (RenderPass,
-    camera); K6 runs on config2 only."""
+def adversarial_tiles(width=400, height=100, n_chunks=24, seed=9):
+    """(coef, chunk_aabb): a coefficient table of the kinds of rows that
+    the CPU test of the tile kernels' rejection probes
+    (tests/test_torch_parity.py, test_tile_may_cover_is_exact), made from
+    `seed`: small triangles around warp-footprint and tile corners (some
+    degenerate: +-inf or NaN coefficients), slivers one column wide on
+    footprint borders, and rows with one plane replaced by -0.0
+    coefficients, +-inf, NaN, products that overflow at some pixels only,
+    or wn near 1e-12. Every chunk's box covers the image but the last one's,
+    which is inverted: its rows cover every pixel nearest, and no kernel may
+    visit it. So every tile's list is longer than a split range: chunks 16
+    to 19 repeat chunks 0 to 3 (depth ties between ranges), and chunk 21
+    repeats 16 small triangles of chunk 2 at depth -0.0 where chunk 2 has
+    them at +0.0 (a -0.0 depth after an equal +0.0 one)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n = n_chunks * 128
+    f32 = np.float32
+
+    def triangles(m):
+        """e0, e1, e2 planes of m small triangles around footprint corners
+        (a degenerate one gives +-inf or NaN coefficients)."""
+        c = np.stack([rng.integers(0, width // 16 + 1, m) * 16.0,
+                      rng.integers(0, height // 8 + 1, m) * 8.0], -1)
+        v = np.round((c[:, None] + rng.normal(0.0, 5.0, (m, 3, 2))) * 2) / 2
+        e = np.zeros((m, 9))
+        with np.errstate(divide="ignore", invalid="ignore"):
+            det = ((v[:, 1, 0] - v[:, 0, 0]) * (v[:, 2, 1] - v[:, 0, 1])
+                   - (v[:, 1, 1] - v[:, 0, 1]) * (v[:, 2, 0] - v[:, 0, 0]))
+            for i in range(3):    # edge function opposite vertex i, 1 at it
+                a, b = v[:, (i + 1) % 3], v[:, (i + 2) % 3]
+                e[:, 3 * i] = -(b[:, 1] - a[:, 1]) / det
+                e[:, 3 * i + 1] = (b[:, 0] - a[:, 0]) / det
+                e[:, 3 * i + 2] = ((b[:, 1] - a[:, 1]) * a[:, 0]
+                                   - (b[:, 0] - a[:, 0]) * a[:, 1]) / det
+        return e
+
+    rows = np.zeros((n, 16), np.float64)
+    rows[:, 0:9] = triangles(n)
+    rows[:, 9:12] = np.stack([rng.normal(0, 1e-3, n), rng.normal(0, 1e-3, n),
+                              rng.uniform(0.2, 0.9, n)], -1)
+    rows[:, 12:15] = np.stack([rng.normal(0, 1e-3, n), rng.normal(0, 1e-3, n),
+                               rng.uniform(1.0, 4.0, n)], -1)
+    rows = rows.astype(f32)
+    big = f32(3.4e38 / 400)             # px * big overflows past px ~400
+    w12 = f32(1e-12)
+    special = [(-0.0, -0.0, 0.0), (0.0, 0.0, -0.0), (float("inf"), 0, -1),
+               (float("-inf"), 0, 1), (float("inf"), float("-inf"), 0),
+               (float("nan"), 0, 0), (0, 0, float("nan")),
+               (big, 0, -big * 200), (-big, 0, big * 200),
+               (big, -big * 2, 0), (0, 0, w12),
+               (0, 0, np.nextafter(w12, f32(1))),
+               (0, 0, np.nextafter(w12, f32(0))),
+               (1e-14, 0, w12 - 1e-14 * 64)]
+    for r in rng.choice(n, n // 3, replace=False):
+        at = 12 if rng.random() < 0.25 else 3 * rng.integers(0, 4)
+        rows[r, at:at + 3] = np.asarray(special[rng.integers(len(special))],
+                                        f32)
+    for r in rng.choice(n, n // 8, replace=False):   # one-column slivers
+        x = f32(rng.integers(1, width // 16) * 16 - rng.integers(0, 2)) + 0.5
+        rows[r, 0:9] = (1, 0, -x, -1, 0, x, 0, 0, 1)
+    chunk = rows.reshape(n_chunks, 128, 16)
+    chunk[16:20] = chunk[0:4]
+    chunk[2, :16, 0:9] = triangles(16)
+    chunk[2, :16, 9:12] = (0, 0, 0.0)
+    chunk[21, :16] = chunk[2, :16]
+    chunk[21, :16, 11] = -0.0
+    rows[-128:] = (0, 0, 1, 0, 0, 1, 0, 0, 1, 0, 0, 0.01, 0, 0, 1, 0)
+    boxes = np.tile(np.asarray([-1, -1, width + 1, height + 1], f32),
+                    (n_chunks, 1))
+    boxes[-1] = (1e9, 1e9, -1e9, -1e9)
+    return (torch.from_numpy(rows).cuda().contiguous(),
+            torch.from_numpy(boxes).cuda().contiguous())
+
+
+def tile_work(t):
+    """The tile lists' length stats (mean, p99, max) of TileInputs `t`, the
+    same of the ranges the kernels' blocks walk once each list is split, and
+    the work of the kernels' exact per-warp rejection: `tested`, the
+    (warp footprint, triangle) pairs it tests (every triangle of a tile's
+    listed chunks against each footprint of the tile), and `kept`, those it
+    keeps (raster_pallas.tile_may_cover on the card), each of whose
+    footprint's pixels is then a candidate evaluated."""
+    import numpy as np
     import torch
     from paperrenderer_tpu_torch.ops import raster_pallas as TP
-    from paperrenderer_tpu_torch.ops.raster import triangle_coefficients
+    from paperrenderer_tpu_torch.utils.walk_bench import length_stats
+
+    fw, fh = TP.WARP_FOOT
+    tile_of = torch.repeat_interleave(
+        torch.arange(t.lens.numel(), device=t.lens.device), t.lens.long())
+    rows = t.coef.view(-1, TP.CHUNK, 16)
+    n_tx = -(-t.width // TP.TILE_W)
+    kept = 0
+    for s in range(0, t.tile_chunks.numel(), 2048):
+        tile = tile_of[s:s + 2048, None]
+        r = rows[t.tile_chunks[s:s + 2048].long()]
+        for fx in range(0, TP.TILE_W, fw):
+            for fy in range(0, TP.TILE_H, fh):
+                x0 = (tile % n_tx) * TP.TILE_W + fx
+                y0 = (tile // n_tx) * TP.TILE_H + fy
+                kept += int(TP.tile_may_cover(r, x0, x0 + fw - 1, y0,
+                                              y0 + fh - 1).sum())
+    tested = t.n_pairs * TP.CHUNK * (TP.TILE_W * TP.TILE_H // (fw * fh))
+    n = t.lens.cpu().numpy().astype(np.int64)
+    split = TP.split_ranges(n.size)
+    rl = np.maximum(TP.RANGE_MIN, -(-n // split))   # the kernels' range_len
+    full = n // rl
+    ranges = np.concatenate([np.repeat(rl, full), (n % rl)[n % rl > 0],
+                             np.zeros(int((n == 0).sum()), np.int64)])
+    return dict(lists=t.lists, split=split, ranges=length_stats(ranges),
+                split_tiles=int((n > rl).sum()), tested=tested, kept=kept,
+                kept_share=kept / max(tested, 1),
+                candidates_evaluated=kept * fw * fh)
+
+
+def compare_tiles(scenes, reps=10):
+    """K5 and K6 against their plain versions on the draw-list batches and
+    on an adversarial coefficient table; bitwise checks, kernel ms (CUDA
+    events), plain ms (one call), pairs, `candidates` (the plain version's
+    (pixel, triangle) candidates: every triangle of every listed chunk at
+    every pixel of its tile), list lengths, the rejection's work
+    (`tile_work`) and the least-time bound of that work. `scenes`: name ->
+    (RenderPass, camera) as walk_bench.tile_scenes, whose inputs
+    walk_bench.tile_inputs builds; K6 runs on config2 (sorted and
+    presorted) and the adversarial table."""
+    import torch
+    from paperrenderer_tpu_torch.ops import raster_pallas as TP
+    from paperrenderer_tpu_torch.utils.walk_bench import (TileInputs,
+                                                          tile_inputs)
 
     out = {}
 
     def check(got, ref):
+        """(bitwise, tid mismatches, the largest difference where the bits
+        differ: 0 when they do not; NaN bary of an adversarial row, equal
+        on both sides, counts as no difference)."""
         (dk, tk, bk), (dp, tp, bp) = got, ref
-        both = (tk >= 0) & (tp >= 0)
-        err = max(float((dk[both] - dp[both]).abs().max()) if both.any() else 0.0,
-                  float((bk - bp).abs().max()) if bk.numel() else 0.0)
-        return (same_bits(dk, dp) and torch.equal(tk, tp)
-                and same_bits(bk, bp)), int((tk != tp).sum()), err
 
-    def case(name, f, w, h, lists):
-        tile_start, tile_chunks, n_pairs = lists
+        def err(a, b):
+            d = torch.where(a.view(torch.int32) == b.view(torch.int32), 0.0,
+                            (a - b).abs())
+            return float(d.max()) if d.numel() else 0.0
+
+        both = (tk >= 0) & (tp >= 0)
+        return (same_bits(dk, dp) and torch.equal(tk, tp)
+                and same_bits(bk, bp)), int((tk != tp).sum()), \
+            max(err(dk[both], dp[both]), err(bk, bp))
+
+    def case(name, t):
+        w, h = t.width, t.height
         if name.startswith("k6"):
-            args = (f.coef, tile_start, tile_chunks, w, h)
+            args = (t.coef, t.tile_start, t.tile_chunks, w, h)
             kernel, plain = TP.rasterize_chunk_lists, TP.rasterize_chunk_lists_plain
-            extra = (tile_start.numel() + tile_chunks.numel()) * 4
+            extra = (t.tile_start.numel() + t.tile_chunks.numel()) * 4
         else:
-            args = (f.coef, f.chunk_aabb, w, h)
+            args = (t.coef, t.chunk_aabb, w, h)
             kernel, plain = TP.rasterize_chunks, TP.rasterize_chunks_plain
-            extra = f.chunk_aabb.numel() * 4
+            extra = t.chunk_aabb.numel() * 4
         got = kernel(*args)
         ref, plain_ms = timed_once(lambda: plain(*args))
         ok, mism, err = check(got, ref)
-        cand = n_pairs * TP.CHUNK * TP.TILE_H * TP.TILE_W
-        b_ms, b_by = bound(f.coef.numel() * 4 + extra + w * h * 16,
-                           cand * TILE_OPS_PER_CANDIDATE)
+        work = tile_work(t)
+        # the work the kernels cannot skip: the rejection's plane tests and
+        # the candidates it keeps, each as dear as a candidate of the plain
+        # version; each input read once, the outputs written once
+        b_ms, b_by = bound(t.coef.numel() * 4 + extra + w * h * 16,
+                           (work["tested"] + work["candidates_evaluated"])
+                           * TILE_OPS_PER_CANDIDATE)
         out[name] = dict(bitwise=ok, tid_mismatch=mism, max_abs_err=err,
                          ms=timed(lambda: kernel(*args), reps),
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         n_pairs=n_pairs, candidates=cand,
-                         chunks=f.chunk_aabb.shape[0],
-                         coverage=float((got[1] >= 0).float().mean()))
+                         n_pairs=t.n_pairs,
+                         candidates=t.n_pairs * TP.CHUNK * TP.TILE_H * TP.TILE_W,
+                         chunks=t.chunk_aabb.shape[0],
+                         coverage=float((got[1] >= 0).float().mean()),
+                         **work)
         return got
 
-    for name, (rp, cam) in cases.items():
-        w, h = rp.width, rp.height
-        batch = draw_list_batch(rp, cam)
-        coeffs, ok, (lo, hi) = triangle_coefficients(batch, w, h)
-        f = TP.tile_setup(coeffs, ok, lo, hi, w, h)
-        lists = TP.tile_lists(f.chunk_aabb, w, h)
-        k5 = case(f"k5_{name}", f, w, h, lists)
-        if name != "config2":
-            continue
-        k6 = case("k6_config2", f, w, h, lists)
-        out["k6_config2"]["equals_k5"] = check(k6, k5)[0]
-        fp = TP.tile_setup(coeffs, ok, lo, hi, w, h, presorted=True)
-        lp = TP.tile_lists(fp.chunk_aabb, w, h)
-        k5p = TP.rasterize_chunks(fp.coef, fp.chunk_aabb, w, h)
-        k6p = case("k6_config2_presorted", fp, w, h, lp)
-        out["k6_config2_presorted"]["equals_k5"] = check(k6p, k5p)[0]
-        # required work: the wrapper's against the host count
-        n_tiles = lists[0].numel() - 1
-        req = TP.rasterize_tiles_binned(batch, w, h)[3]
-        req_pre = TP.rasterize_tiles_binned(batch, w, h, presorted=True)[3]
-        out["required"] = dict(
-            k6=req, numpy=n_tiles + pair_count_numpy(f.chunk_aabb, w, h),
-            k6_presorted=req_pre,
-            numpy_presorted=n_tiles + pair_count_numpy(fp.chunk_aabb, w, h))
+    ins = tile_inputs(scenes)
+    k5 = {name: case(f"k5_{name}", ins[name]) for name in scenes}
+    t, p = ins["config2"], ins["config2_presorted"]
+    out["k6_config2"]["equals_k5"] = check(case("k6_config2", t),
+                                           k5["config2"])[0]
+    k5p = TP.rasterize_chunks(p.coef, p.chunk_aabb, p.width, p.height)
+    out["k6_config2_presorted"]["equals_k5"] = check(
+        case("k6_config2_presorted", p), k5p)[0]
+    # required work: the wrapper's against the host count
+    n_tiles = t.lens.numel()
+    out["required"] = dict(
+        k6=TP.rasterize_tiles_binned(t.batch, t.width, t.height)[3],
+        numpy=n_tiles + pair_count_numpy(t.chunk_aabb, t.width, t.height),
+        k6_presorted=TP.rasterize_tiles_binned(t.batch, t.width, t.height,
+                                               presorted=True)[3],
+        numpy_presorted=n_tiles + pair_count_numpy(p.chunk_aabb, p.width,
+                                                   p.height))
+    # the adversarial table, ragged 400 x 100
+    coef, boxes = adversarial_tiles()
+    adv = TileInputs(None, coef, boxes, *TP.tile_lists(boxes, 400, 100),
+                     400, 100)
+    out["k6_adversarial"]["equals_k5"] = check(
+        case("k6_adversarial", adv), case("k5_adversarial", adv))[0]
     req = out.get("required", {})
     out["ok"] = (all(v["bitwise"] for k, v in out.items() if k != "required")
                  and all(out[k]["equals_k5"] for k in (
-                     "k6_config2", "k6_config2_presorted"))
+                     "k6_config2", "k6_config2_presorted", "k6_adversarial"))
+                 and out["k5_adversarial"]["coverage"] > 0.0
                  and req.get("k6") == req.get("numpy")
                  and req.get("k6_presorted") == req.get("numpy_presorted"))
     return out
@@ -1947,9 +2086,11 @@ def main():
                        raster_keyed=["k3"], raster_classic=["k4", "k4_peel"])
     ctl = results.get("compare_tiles", {})
     # the compare_tiles cases of each tile kernel; the first is timed
-    tile_cases = dict(raster_tiles=["k5_config2", "k5_config1", "k5_ragged"],
+    tile_cases = dict(raster_tiles=["k5_config2", "k5_config1", "k5_ragged",
+                                    "k5_adversarial"],
                       raster_tiles_binned=["k6_config2",
-                                           "k6_config2_presorted"])
+                                           "k6_config2_presorted",
+                                           "k6_adversarial"])
     ct = results.get("compare_trace", {})
     # the wavefront each traversal kernel is timed on (all cases in the
     # compare_trace line)
@@ -2016,6 +2157,10 @@ def main():
                 bound_ms=case.get("bound_ms"), bound_by=case.get("bound_by"),
                 timed_on=names[0])
             row.update({"ms_" + c: ck_.get(c, {}).get("ms") for c in names[1:]})
+            if k["name"] in tile_cases:   # the work the rejection leaves
+                row.update({f: case.get(f) for f in (
+                    "candidates", "tested", "candidates_evaluated", "lists",
+                    "ranges")})
         else:
             src = ct if prefix[k["name"]] in ("k7", "k8", "k9") else \
                 results.get("compare_paged", {})

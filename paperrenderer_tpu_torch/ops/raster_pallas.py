@@ -9,13 +9,16 @@ triangle per pixel, with perspective-correct barycentrics. Per frame:
      triangle-major rows f32[T_pad, 16], and the screen box of every
      CHUNK = 128 consecutive sorted triangles (empty chunks get an inverted
      box that overlaps nothing);
-  2. ``rasterize_chunks`` (K5): one 8 x 128 tile per block walks every chunk
-     in ascending order and skips those whose box misses the tile; or
+  2. ``rasterize_chunks`` (K5): each 8 x 128 tile walks every chunk in
+     ascending order and skips those whose box misses the tile; or
      ``tile_lists`` + ``rasterize_chunk_lists`` (K6): the overlapping
      (tile, chunk) pairs as one list per tile, built on the device, and the
      same walk over each tile's list only. Both evaluate a chunk's
      triangles in order with a strict ``<`` on the divided depth zn / wn, so
-     K6's result is K5's, bit for bit;
+     K6's result is K5's, bit for bit. The kernels skip the triangles that
+     ``tile_may_cover`` rules out for a warp's 16 x 8 pixels (exactly: no
+     pixel of the footprint could accept them), and cut a tile's list into
+     ordered ranges on separate blocks whose results fold in order;
   3. sorted ids map back to batch rows through the sort's permutation.
 
 A CUDA tensor launches the kernels of ``csrc/raster_tiles.cu``; a CPU
@@ -52,6 +55,15 @@ from .raster import TriangleBatch, triangle_coefficients
 TILE_H = 8
 TILE_W = 128
 CHUNK = 128      # triangles per chunk, of K5 and of K6 alike
+WARP_FOOT = (16, 8)   # the pixels (columns, rows) of a kernel warp, whose
+#                       triangles the kernels reject by ``tile_may_cover``
+# The kernels cut each tile's chunk list into `split` ordered ranges (one
+# block each) of at least RANGE_MIN chunks (the constant of
+# csrc/raster_tiles.cu, mirrored here for the count of the ranges' lengths):
+# SPLIT_MIN to SPLIT_MAX ranges, the more the fewer the tiles, so that a
+# launch has about SPLIT_BLOCKS blocks.
+SPLIT_MIN, SPLIT_MAX, SPLIT_BLOCKS = 2, 8, 2048
+RANGE_MIN = 4
 DEAD_CODE = 0xFFFFFFFF   # morton code of dead triangles: after every live one
 
 # launches of each kernel wrapper, counted where the kernel is launched
@@ -205,6 +217,35 @@ def rasterize_chunks_plain(coef, chunk_aabb, width: int, height: int):
                                        height)
 
 
+def tile_may_cover(rows, x_lo, x_hi, y_lo, y_hi):
+    """The tile kernels' exact triangle rejection, in plain PyTorch: False
+    where coefficient row ``rows[..., :15]`` accepts no pixel centre of the
+    footprint of pixel columns ``x_lo..x_hi`` and rows ``y_lo..y_hi``
+    (inclusive integer bounds; tensors broadcast against ``rows[..., 0]``).
+
+    Each plane is evaluated at one corner of the footprint's pixel centres,
+    x at the high end where its x coefficient is >= 0 and at the low end
+    otherwise, y likewise, with the kernels' rounding ((px * c0 + py * c1) +
+    c2, each operation rounded). Round-to-nearest is monotone, so no pixel
+    of the footprint computes a larger value: a corner with e0, e1, e2 or zn
+    < 0, or wn <= 1e-12, rules out every pixel. A NaN corner keeps the row.
+    The kernels skip the rows this rejects; nothing else calls it."""
+    def centre(i):
+        return torch.as_tensor(i, device=rows.device).to(torch.float32) + 0.5
+
+    xs, ys = (centre(x_lo), centre(x_hi)), (centre(y_lo), centre(y_hi))
+
+    def corner(i):
+        c0, c1, c2 = rows[..., i], rows[..., i + 1], rows[..., i + 2]
+        px = torch.where(c0 >= 0.0, xs[1], xs[0])
+        py = torch.where(c1 >= 0.0, ys[1], ys[0])
+        return px * c0 + py * c1 + c2
+
+    e0, e1, e2, zn, wn = (corner(i) for i in (0, 3, 6, 9, 12))
+    return ~((e0 < 0.0) | (e1 < 0.0) | (e2 < 0.0) | (zn < 0.0)
+             | (wn <= 1e-12))
+
+
 _LIB = []
 
 
@@ -213,16 +254,25 @@ def _lib():
     if not _LIB:
         lib = load_library("raster_tiles")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.raster_tiles_launch.argtypes = [P, P, I, I, I, P, P, P, P]
-        lib.raster_tiles_list_launch.argtypes = [P, P, P, I, I, P, P, P, P]
+        lib.raster_tiles_launch.argtypes = [P, P, I, I, I, I, P, P, P, P, P,
+                                            P, P]
+        lib.raster_tiles_list_launch.argtypes = [P, P, P, I, I, I, P, P, P,
+                                                 P, P, P, P]
         lib.raster_tiles_launch.restype = I
         lib.raster_tiles_list_launch.restype = I
         _LIB.append(lib)
     return _LIB[0]
 
 
+def split_ranges(n_tiles: int) -> int:
+    """The ranges the kernels cut each tile's list into, for n_tiles."""
+    return min(SPLIT_MAX, max(SPLIT_MIN, -(-SPLIT_BLOCKS // max(n_tiles, 1))))
+
+
 def _launch(name, coef, planes, width, height, call):
-    """Checks the inputs, allocates the outputs and launches ``call``."""
+    """Checks the inputs, allocates the outputs and the split ranges'
+    scratch, and launches ``call(lib, split, depth, tid, bary, part_z,
+    part_tid, tile_len, stream)`` (pointers)."""
     for what, t, dtype in [("coef", coef, torch.float32)] + planes:
         if t.device != coef.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be a contiguous {dtype} "
@@ -234,8 +284,16 @@ def _launch(name, coef, planes, width, height, call):
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     tid = torch.empty((height, width), dtype=torch.int32, device=dev)
     bary = torch.empty((height, width, 2), dtype=torch.float32, device=dev)
+    n_tx, n_ty = tile_grid(width, height)
+    split = split_ranges(n_tx * n_ty)
+    parts = n_tx * n_ty * (split - 1) * TILE_H * TILE_W
+    # one allocation: part_z f32[parts], part_tid i32[parts], tile_len
+    scratch = torch.empty(2 * parts + n_tx * n_ty, dtype=torch.int32,
+                          device=dev)
+    ptr = scratch.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = call(_lib(), depth.data_ptr(), tid.data_ptr(), bary.data_ptr(), stream)
+    rc = call(_lib(), split, depth.data_ptr(), tid.data_ptr(),
+              bary.data_ptr(), ptr, ptr + 4 * parts, ptr + 8 * parts, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
@@ -248,7 +306,8 @@ def rasterize_chunks(coef, chunk_aabb, width: int, height: int):
     ``coef`` f32[T_pad, 16] and ``chunk_aabb`` f32[T_pad / 128, 4] from
     ``tile_setup``. Returns (depth f32[H, W], +inf where empty; tid i32[H, W]
     coefficient-row ids, -1 where empty; bary f32[H, W, 2]). A CUDA tensor
-    launches the kernel of ``csrc/raster_tiles.cu``; a CPU tensor runs
+    launches the kernel of ``csrc/raster_tiles.cu`` (after a count of each
+    tile's list, before the merge of the split ranges); a CPU tensor runs
     ``rasterize_chunks_plain``."""
     if coef.device.type == "cpu":
         return rasterize_chunks_plain(coef, chunk_aabb, width, height)

@@ -1,22 +1,32 @@
-"""Card times of the traversal kernels on their headline waves, for timing
-two checkouts against each other.
+"""Card times of the traversal and tile kernels on their headline inputs,
+for timing two checkouts against each other.
 
   python paperrenderer_tpu_torch/utils/walk_bench.py \\
-      [--root DIR] [--rounds N] [--out FILE] [--same-as FILE]
+      [--root DIR] [--group all|trace|tiles] [--rounds N] [--out FILE]
+      [--same-as FILE]
 
-times every case of ``probes.headline_waves`` (1080p) in the checkout at
-``--root`` (default: the one that holds this file), with that checkout's
-own build of ``csrc/trace.cu``: ``rounds`` times each,
-``profiling.device_time`` (CUDA events behind a sleep kernel). Two
-checkouts (e.g. a parent commit unpacked with ``git archive``) are
+times, in the checkout at ``--root`` (default: the one that holds this
+file) and with that checkout's own builds of ``csrc/trace.cu`` and
+``csrc/raster_tiles.cu``, every case of ``probes.headline_waves`` (the
+traversal kernels at 1080p) and of ``tile_cases`` (K5 on the draw-list
+inputs of config 1, config 2 and the ragged 200x150 image; K6 on config
+2's sorted and presorted setups, and on its longest lists alone; the
+inputs by ``tile_inputs``, which ``chip_smoke.py`` checks the kernels on):
+``rounds`` times each, ``profiling.device_time`` (CUDA events behind a
+sleep kernel), and the draw-list frames of configs 1 and 2 (median host
+ms of 20 synchronized frames). ``--group`` picks one of the two sets.
+Two checkouts (e.g. a parent commit unpacked with ``git archive``) are
 compared by running this on each in turns on one card (parent, change,
 change, parent), each run with ``--same-as`` the first run's ``--out``:
 every case's outputs must then hash to the same digest, or the run fails.
 
 Prints one JSON line per case ({case: [ms per round], "live": the share of
-its rays that are live, "digest": sha256 of its outputs' bytes}), one with
-the registers, spills and stack frame of each kernel of the build (ptxas),
-the card (nvidia-smi name and power limit), and last {"ok": ...}.
+its rays that are live (traversal), "host_ms": the host's ms to issue one
+call (tiles), "lists": the mean, p99 and max of its tiles' chunk-list
+lengths (K6), "digest": sha256 of its outputs' bytes}),
+one with the registers, spills, stack frame and shared memory of each
+kernel of the builds (ptxas), the card (nvidia-smi name and power limit),
+and last {"ok": ...}.
 """
 
 from __future__ import annotations
@@ -30,10 +40,14 @@ if __name__ == "__main__":   # run as a file: its folder (utils/, with its
                    if os.path.abspath(p or ".") != here]   # standard library
 
 import argparse  # noqa: E402
+import dataclasses  # noqa: E402
+import functools  # noqa: E402
 import hashlib  # noqa: E402
 import json  # noqa: E402
 import re  # noqa: E402
+import statistics  # noqa: E402
 import subprocess  # noqa: E402
+import time  # noqa: E402
 
 REPS = 10           # timed launches a measurement
 
@@ -41,6 +55,8 @@ REPS = 10           # timed launches a measurement
 def _args():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--group", choices=("all", "trace", "tiles"),
+                    default="all", help="the kernels timed")
     ap.add_argument("--root", default=None,
                     help="the checkout whose package is timed")
     ap.add_argument("--out", default=None, help="also write the lines here")
@@ -53,15 +69,18 @@ def _args():
 def ptxas_table(log: str) -> dict:
     """{kernel: {registers, spill_stores, spill_loads, stack, smem}} from a
     ptxas -v log; a kernel is named by its function and template flags
-    (e.g. trace_kernel<10110>)."""
+    (e.g. trace_kernel<10110>, raster_tiles_kernel<0>), or by its mangled
+    name where that is not a ..._kernel function."""
     table, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"(trace_kernel_fetch|trace_kernel|bundle_kernel)"
-                          r"(I((?:Lb[01]E)+)E)?", m.group(1))
-            flags = "".join(re.findall(r"Lb([01])E", k.group(3) or ""))
-            name = k.group(1) + (f"<{flags}>" if flags else "")
+            k = re.search(r"([a-z_]+_kernel(?:_[a-z]+)?)(I((?:Lb[01]E)+)E)?",
+                          m.group(1))
+            flags = "".join(re.findall(r"Lb([01])E", k.group(3) or "")) \
+                if k else ""
+            name = (k.group(1) if k else m.group(1)) + \
+                (f"<{flags}>" if flags else "")
             table[name] = {}
         elif name and "stack frame" in line:
             n = [int(x) for x in re.findall(r"(\d+) bytes", line)]
@@ -74,6 +93,143 @@ def ptxas_table(log: str) -> dict:
     return table
 
 
+def _first(fn, *args, **kwargs):
+    return fn(*args, **kwargs)[0]
+
+
+def wall_ms(fn, frames: int = 20, warmup: int = 3) -> float:
+    """Median host ms of one synchronized call of ``fn`` (a frame)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def length_stats(lens) -> dict:
+    """{mean, p99, max} of list lengths (an integer tensor or array)."""
+    import numpy as np
+
+    v = np.asarray(lens.cpu() if hasattr(lens, "cpu") else lens, np.int64)
+    return dict(mean=float(v.mean()), p99=float(np.percentile(v, 99)),
+                max=int(v.max()))
+
+
+@dataclasses.dataclass
+class TileInputs:
+    """One setup of the tile kernels: ``coef`` and ``chunk_aabb`` from
+    ``tile_setup``, the lists of ``tile_lists`` (``n_pairs`` (tile, chunk)
+    pairs), the image size and the triangle batch they come from (None
+    for a table made by hand)."""
+    batch: object
+    coef: object
+    chunk_aabb: object
+    tile_start: object
+    tile_chunks: object
+    n_pairs: int
+    width: int
+    height: int
+
+    @property
+    def lens(self):
+        """Each tile's list length."""
+        return self.tile_start[1:] - self.tile_start[:-1]
+
+    @property
+    def lists(self) -> dict:
+        return length_stats(self.lens)
+
+
+def tile_scenes(device) -> dict:
+    """{name: (RenderPass, camera)} of the tile kernels' headline inputs:
+    config 1 (512x512), config 2 (10k instances at 1080p) and the example
+    scene at 200x150 (ragged right and bottom tiles)."""
+    from paperrenderer_tpu_torch.scenes import (build_dynamic_scene,
+                                                build_example_scene)
+
+    return dict(config1=build_example_scene(512, 512, device=device),
+                config2=build_dynamic_scene(10_000, 1920, 1080,
+                                            device=device)[1:],
+                ragged=build_example_scene(200, 150, device=device))
+
+
+def tile_inputs(scenes: dict) -> dict:
+    """{setup: TileInputs}: the inputs the tile kernels are timed and
+    checked on, built once for this script and ``chip_smoke.py``'s
+    ``compare_tiles``. ``scenes``: {name: (RenderPass, camera)}
+    (``tile_scenes``); each scene's draw-list batch
+    (``RenderPass.draw_list_inputs``, ``draw_list_batch``) through
+    ``triangle_coefficients``, ``tile_setup`` and ``tile_lists``, and
+    config2's also with ``tile_setup(presorted=True)`` (the batch as it
+    comes) as ``config2_presorted``."""
+    from paperrenderer_tpu_torch.ops import raster_pallas as TP
+    from paperrenderer_tpu_torch.ops.raster import triangle_coefficients
+    from paperrenderer_tpu_torch.render.renderpass import draw_list_batch
+
+    out = {}
+    for name, (rp, cam) in scenes.items():
+        w, h = rp.width, rp.height
+        batch = draw_list_batch(**rp.draw_list_inputs(cam))[1]
+        coeffs, ok, (lo, hi) = triangle_coefficients(batch, w, h)
+        for setup, presorted in ((name, False), (name + "_presorted", True)):
+            if presorted and name != "config2":
+                continue
+            f = TP.tile_setup(coeffs, ok, lo, hi, w, h, presorted=presorted)
+            out[setup] = TileInputs(batch, f.coef, f.chunk_aabb,
+                                    *TP.tile_lists(f.chunk_aabb, w, h), w, h)
+    return out
+
+
+def tile_cases(device) -> dict:
+    """{case: a function that launches its tile kernel once}: K5 on the
+    ``tile_inputs`` of config 1, config 2 and the ragged image; K6 on config
+    2's sorted and presorted setups, and on its sorted lists with every
+    list shorter than the 99th percentile emptied (the longest tiles alone:
+    the tail of the full launch); the draw-list frames of configs 1 and 2
+    (``RenderPass.render(static_path=False)``, their LDR image; ``wall``:
+    timed by ``wall_ms``). Each K6 function has ``lists``, the mean, p99
+    and max of its tiles' list lengths."""
+    import torch
+    from paperrenderer_tpu_torch.ops import raster_pallas as TP
+
+    def k6(t, tile_start, tile_chunks):
+        fn = functools.partial(TP.rasterize_chunk_lists, t.coef, tile_start,
+                               tile_chunks, t.width, t.height)
+        fn.lists = length_stats(tile_start[1:] - tile_start[:-1])
+        return fn
+
+    scenes = tile_scenes(device)
+    ins = tile_inputs(scenes)
+    out = {}
+    for name in ("config1", "config2", "ragged"):
+        t = ins[name]
+        out[f"k5_{name}"] = functools.partial(TP.rasterize_chunks, t.coef,
+                                              t.chunk_aabb, t.width, t.height)
+    for name in ("config1", "config2"):
+        rp, cam = scenes[name]
+        frame = functools.partial(_first, rp.render, cam, static_path=False)
+        frame.wall = True
+        out[f"frame_{name}_draw_list"] = frame
+    t, p = ins["config2"], ins["config2_presorted"]
+    out["k6_config2"] = k6(t, t.tile_start, t.tile_chunks)
+    out["k6_config2_presorted"] = k6(p, p.tile_start, p.tile_chunks)
+    lens = t.lens
+    keep = lens >= torch.quantile(lens.double(), 0.99)
+    tail_start = torch.nn.functional.pad(
+        torch.cumsum(lens * keep, 0), (1, 0)).to(torch.int32)
+    tail = torch.repeat_interleave(keep, lens.long())
+    out["k6_config2_tail"] = k6(t, tail_start,
+                                t.tile_chunks[tail].contiguous())
+    return out
+
+
 def main() -> int:
     args = _args()
     root = os.path.abspath(args.root or os.path.join(
@@ -84,10 +240,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("walk_bench: no CUDA device", file=sys.stderr)
         return 2
+    from paperrenderer_tpu_torch.ops import raster_pallas as TP
     from paperrenderer_tpu_torch.ops import trace_kernel as TK
     from paperrenderer_tpu_torch.utils import cuda_build
     from paperrenderer_tpu_torch.utils import probes as PR
-    from paperrenderer_tpu_torch.utils.profiling import device_time
+    from paperrenderer_tpu_torch.utils.profiling import device_time, host_time
 
     want = {}
     if args.same_as:
@@ -106,22 +263,34 @@ def main() -> int:
             out.write(line + "\n")
             out.flush()
 
-    TK._lib()
-    emit({"root": root,
-          "ptxas": ptxas_table(cuda_build.BUILD_INFO["trace"]["log"])})
+    groups = dict(trace=(TK._lib, "trace", PR.headline_waves),
+                  tiles=(TP._lib, "raster_tiles", tile_cases))
+    if args.group != "all":
+        groups = {args.group: groups[args.group]}
+    ptxas = {}
+    for lib, name, _ in groups.values():
+        lib()
+        ptxas.update(ptxas_table(cuda_build.BUILD_INFO[name]["log"]))
+    emit({"root": root, "ptxas": ptxas})
     ok = True
-    for case, fn in PR.headline_waves("cuda").items():
-        digest = hashlib.sha256()
-        for t in PR.tensors_of(fn()):
-            digest.update(t.contiguous().view(torch.uint8).cpu().numpy())
-        act = getattr(fn, "keywords", {}).get("active")
-        live = 1.0 if act is None else float(act.float().mean())
-        times = [device_time(fn, iters=REPS) * 1e3
-                 for _ in range(args.rounds)]
-        same = want.get(case, digest.hexdigest()) == digest.hexdigest()
-        ok &= same
-        emit({case: times, "live": live, "digest": digest.hexdigest(),
-              "same": same})
+    for group, (_, _, cases) in groups.items():
+        for case, fn in cases("cuda").items():
+            digest = hashlib.sha256()
+            for t in PR.tensors_of(fn()):
+                digest.update(t.contiguous().view(torch.uint8).cpu().numpy())
+            act = getattr(fn, "keywords", {}).get("active")
+            timer = (wall_ms if getattr(fn, "wall", False) else
+                     lambda f: device_time(f, iters=REPS) * 1e3)
+            line = {case: [timer(fn) for _ in range(args.rounds)]}
+            if group == "trace":
+                line["live"] = 1.0 if act is None else float(act.float().mean())
+            else:   # what a call costs the host to issue
+                line["host_ms"] = host_time(fn, iters=REPS) * 1e3
+                if hasattr(fn, "lists"):
+                    line["lists"] = fn.lists
+            same = want.get(case, digest.hexdigest()) == digest.hexdigest()
+            ok &= same
+            emit(dict(line, digest=digest.hexdigest(), same=same))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

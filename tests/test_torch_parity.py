@@ -1127,6 +1127,8 @@ def test_supersample2_golden():
 #     <= 0.1% of pixels, tid equal except where depths tie;
 #   * K6's plain version: bitwise equal to K5's, sorted and presorted;
 #     ``required`` equal to the JAX package's;
+#   * ``tile_may_cover`` (the CUDA kernels' per-warp rejection, port only):
+#     exact, no footprint it rejects holds a pixel that accepts the row;
 #   * the reference rasterizer against the tile kernel on one batch: depth
 #     equal except on stray sliver pixels, which the tile kernel culls by
 #     chunk box and the reference does not (<= 1e-4 of the pixels);
@@ -1364,6 +1366,106 @@ def test_k6_plain_matches_k5(triangles, jax_tiles, presorted):
     assert torch.equal(d6.view(torch.int32), d5.view(torch.int32))
     assert torch.equal(t6, t5)
     assert torch.equal(b6.view(torch.int32), b5.view(torch.int32))
+
+
+def _handmade_rows():
+    """Coefficient rows built to probe the rejection's corners: an accepting
+    base row (every plane constant and positive) with one plane replaced by
+    slivers one column or one diagonal wide, -0.0 coefficients, +-inf and
+    NaN, products or sums that overflow at some pixels only, and wn just
+    above, at and just below 1e-12 (constant, and sloped across a
+    footprint)."""
+    inf, nan = float("inf"), float("nan")
+    big = np.float32(3.4e38 / 40)           # px * big overflows for px > ~40
+    w12 = np.float32(1e-12)
+    up, down = np.nextafter(w12, np.float32(1)), np.nextafter(w12, np.float32(0))
+    base = np.array([0, 0, 1, 0, 0, 1, 0, 0, 1, 0, 0, 0.5, 0, 0, 1, 0],
+                    np.float32)
+    planes = {0: [(1, 0, -20.5), (1, -1, 3.0), (0.5, -0.5, 1.5),
+                  (-0.0, -0.0, 0.0), (0.0, 0.0, -0.0), (-0.0, 1.0, -0.0),
+                  (inf, 0, -1), (-inf, 0, 1), (inf, -inf, 0), (0, 0, inf),
+                  (0, 0, -inf), (inf, 0, -inf), (nan, 0, 0), (0, 0, nan),
+                  (0, nan, -1), (big, 0, -big * 30), (-big, 0, big * 30),
+                  (big, big * 4, -3.0e38), (big, -big * 8, 0.0),
+                  (-big, -big, 3.3e38), (1e-30, 0, -1e-29), (3.0, 5.0, -400.0)],
+              1: [(-1, 0, 20.5), (-1, 1, -3.0), (-0.5, 0.5, -1.5)],
+              9: [(0, 0, -0.0), (0, 0, -1e-38), (-1, 0, 10.0), (0, -1, 5.0)],
+              12: [(0, 0, w12), (0, 0, up), (0, 0, down), (0, 0, 0.0),
+                   (0, 0, -0.0), (1e-14, 0, w12 - 1e-14 * 8),
+                   (0, -1e-14, w12 + 1e-14 * 4), (-1e-13, 1e-13, w12),
+                   (0, 0, nan), (0, 0, inf), (0, 0, -inf)]}
+    rows = [base]
+    for at, coefs in planes.items():
+        for c in coefs:
+            r = base.copy()
+            r[at:at + 3] = np.asarray(c, np.float32)
+            rows.append(r)
+    # the slivers of plane 1 pair with the first three of plane 0
+    for c0, c1 in zip(planes[0][:3], planes[1]):
+        r = base.copy()
+        r[0:3], r[3:6] = np.asarray(c0, np.float32), np.asarray(c1, np.float32)
+        rows.append(r)
+    return torch.from_numpy(np.stack(rows))
+
+
+def _accepts(rows, xs, ys):
+    """[P, N]: pixel (xs[p], ys[p]) accepts row n, evaluated as the plain
+    tile rasterizer evaluates it."""
+    px, py = (v.to(torch.float32)[:, None] + 0.5 for v in (xs, ys))
+    e0, e1, e2, zn, wn = (px * rows[:, i] + py * rows[:, i + 1] + rows[:, i + 2]
+                          for i in (0, 3, 6, 9, 12))
+    return ((e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0) & (wn > 1e-12)
+            & (zn >= 0.0))
+
+
+@pytest.mark.parametrize("foot", [(32, 4), (16, 8)], ids=["32x4", "16x8"])
+@pytest.mark.parametrize("source", ["fixture", "handmade"])
+def test_tile_may_cover_is_exact(triangles, source, foot):
+    """``tile_may_cover`` (the tile kernels' per-warp triangle rejection)
+    against every pixel of every footprint, evaluated with the kernels'
+    rounding: a footprint it rejects holds no accepting pixel. On the
+    fixture's sorted rows each 8 x 128 tile's footprints are tested against
+    the rows of the chunks whose box meets the tile (the kernels'
+    candidates), and more than half of those are rejected; the handmade
+    rows are tested against every footprint of two 128 x 16 regions, one at
+    the origin and one at the far corner of a 1920 x 1080 image."""
+    fw, fh = foot
+    if source == "fixture":
+        batch = _port("TriangleBatch", triangles)
+        coeffs, ok, (lo, hi) = TR.triangle_coefficients(batch, W, H)
+        f = TRP.tile_setup(coeffs, ok, lo, hi, W, H)
+        start, chunks, _ = TRP.tile_lists(f.chunk_aabb, W, H)
+        rows = f.coef.reshape(-1, TRP.CHUNK, 16)
+        n_tx = W // TRP.TILE_W
+        work = []
+        for t in range(start.numel() - 1):
+            ks = chunks[start[t]:start[t + 1]].long()
+            origin = ((t % n_tx) * TRP.TILE_W, (t // n_tx) * TRP.TILE_H)
+            work.append((origin, TRP.TILE_W, TRP.TILE_H, rows[ks].reshape(-1, 16)))
+    else:
+        rows = _handmade_rows()
+        work = [(origin, 128, 16, rows) for origin in ((0, 0), (1792, 1064))]
+    kept = tested = 0
+    for (x0, y0), rw, rh, r in work:
+        for fx in range(x0, x0 + rw, fw):
+            for fy in range(y0, y0 + rh, fh):
+                may = TRP.tile_may_cover(r, fx, fx + fw - 1, fy, fy + fh - 1)
+                ys, xs = torch.meshgrid(torch.arange(fy, fy + fh),
+                                        torch.arange(fx, fx + fw),
+                                        indexing="ij")
+                hit = _accepts(r, xs.reshape(-1), ys.reshape(-1)).any(dim=0)
+                assert not (hit & ~may).any(), (
+                    f"rejected a covering row at footprint ({fx}, {fy}): "
+                    f"{torch.nonzero(hit & ~may).flatten().tolist()}")
+                kept += int(may.sum())
+                tested += may.numel()
+    if source == "fixture":
+        assert tested > 0 and kept < 0.5 * tested, (kept, tested)
+    else:
+        # some rows are rejected somewhere; a row with a NaN is kept
+        assert kept < tested
+        nan_rows = torch.isnan(rows).any(dim=1)
+        assert TRP.tile_may_cover(rows[nan_rows], 0, fw - 1, 0, fh - 1).all()
 
 
 def test_rasterize_matches_jax_and_tiles(triangles):

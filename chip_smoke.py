@@ -32,7 +32,17 @@ Phases, each reported as one JSON line:
   compare_trace  the traversal kernels against their plain versions on the
            wavefronts of the 1920x1080 RT frame (bitwise): K7 closest and any
            hit on primary rays, K8 on primary and reflection rays, K9 on the
-           shadow+AO bundle without and with the resolve sample; and the
+           shadow+AO bundle without and with the resolve sample, on the
+           reflection hits' bundle of config 3's frame and on both bundles
+           of hybrid config 4's (the four K9 waves of the frames, each with
+           its live share), and on an adversarial bundle (30 occlusion
+           samples: duplicate, opposite, axis and zero-component
+           directions, caps of 0, t_min and exactly a hit's t, inactive
+           samples between active ones, an all-inactive stretch; with the
+           AO and resolve samples), each also holding the plain union walk
+           (trace_kernel.occlusion_union_plain) to the per-sample bits,
+           bounded by the bytes of its active samples and the union's
+           work, and the plain union's group held to the kernel's; and the
            alpha forms (the any-hit leaf cutout) on the 1920x1080 leaf grid's
            flat layout: K8 on its primary and reflection rays, K7 on its
            primary rays, and K8 on the primary rays in a seeded random
@@ -213,6 +223,16 @@ SLAB_OPS_PER_BOX_ROW = 49       # 3 div + 2 x (6 sub, 6 mul, 6 min/max,
 MT_OPS_PER_LEAF = 8 * 46        # 8 x (two crosses 18, four dots 20, 3 sub,
 #                                 3 mul, 1 div, 1 add)
 INST_OPS = 33                   # origin 3 x 6, direction 3 x 5
+# K9's bound counts what each piece of the work needs once: 1/d once a
+# walking sample and once an instance pop a sample; a union's box pop the
+# planes less the shared origin once and the rest a sample; a union's
+# triangle s, q and e2.q once and the rest a sample
+INV_OPS = 3
+SLAB_SHARED_OPS = 12            # b - o
+SLAB_SAMPLE_OPS = SLAB_OPS_PER_BOX_ROW - INV_OPS - SLAB_SHARED_OPS
+INST_ORIGIN_OPS = 18
+MT_SHARED_OPS = 17              # s 3 sub, q 6 mul + 3 sub, e2.q 5
+MT_SAMPLE_OPS = MT_OPS_PER_LEAF // 8 - MT_SHARED_OPS
 RESOLVE_OPS = 42                # w0 2, normal 15 + 15, uv 10
 
 
@@ -736,6 +756,54 @@ def walk_bytes(scene, n_rays, per_ray_bytes):
     return tables + n_rays * per_ray_bytes
 
 
+def k9_bytes(scene, args, resolve):
+    """(bytes, [active occlusion, AO, resolve samples]) of a K9 call: the
+    scene tables once; each pixel's activity flags and outputs; the origin
+    of a pixel with an active sample, and the direction and cap of each
+    active sample."""
+    import torch
+
+    o, dirs, _, occ_act, _, _, ao_act = args
+    r, n_a = o.shape[0], len(args[4])
+    ones = torch.ones(r, dtype=torch.bool, device=o.device)
+    acts = [[ones if a is None else a.bool()
+             for a in (occ_act or [None] * len(dirs))],
+            [ones if a is None else a.bool()
+             for a in (ao_act or [None] * n_a)],
+            [] if resolve is None else
+            [ones if resolve[3] is None else resolve[3].bool()]]
+    walks = [int(sum(int(a.sum()) for a in kind)) for kind in acts]
+    live = torch.zeros(r, dtype=torch.bool, device=o.device)
+    for a in acts[0] + acts[1] + acts[2]:
+        live = live | a
+    flags = len(dirs) + n_a + len(acts[2])
+    outputs = 4 + 4 * n_a + 44 * len(acts[2])
+    nbytes = (walk_bytes(scene, r, flags + outputs)
+              + 12 * int(live.sum()) + 16 * sum(walks))
+    return nbytes, walks
+
+
+def union_ops(u):
+    """FP32 operations of K9's union walks (TK.occlusion_union_plain's
+    counts)."""
+    return (u.get("walks", 0) * INV_OPS + u.get("box", 0) * SLAB_SHARED_OPS
+            + u.get("box_tests", 0) * SLAB_SAMPLE_OPS
+            + u.get("inst", 0) * INST_ORIGIN_OPS
+            + u.get("inst_tests", 0) * (INST_OPS - INST_ORIGIN_OPS + INV_OPS)
+            + u.get("leaf_tris", 0) * MT_SHARED_OPS
+            + u.get("tri_tests", 0) * MT_SAMPLE_OPS)
+
+
+def k9_walk_ops(counts, walks, n_resolved=0):
+    """FP32 operations of `walks` one-sample walks (trace_scene's counts),
+    1/d once a walk and once an instance pop."""
+    return (walks * INV_OPS
+            + counts.get("box", 0) * (SLAB_OPS_PER_BOX_ROW - INV_OPS)
+            + counts.get("leaf", 0) * MT_OPS_PER_LEAF
+            + counts.get("inst", 0) * (INST_OPS + INV_OPS)
+            + n_resolved * RESOLVE_OPS)
+
+
 def walk_ops(counts, n_resolved=0):
     return (counts.get("box", 0) * SLAB_OPS_PER_BOX_ROW
             + counts.get("leaf", 0) * MT_OPS_PER_LEAF
@@ -743,13 +811,16 @@ def walk_ops(counts, n_resolved=0):
 
 
 def compare_trace(rt, cam, leaf, reps=10):
-    """K7/K8/K9 vs their plain versions on the 1080p RT frame's wavefronts,
-    and K8's and K7's alpha forms on the 1080p leaf grid's (`leaf` = (rt,
+    """K7/K8/K9 vs their plain versions on the 1080p RT frame's wavefronts
+    (K9 also on the reflection hits' bundle of config 3's frame, both
+    bundles of hybrid config 4's and an adversarial bundle), and K8's and
+    K7's alpha forms on the 1080p leaf grid's (`leaf` = (rt,
     camera); flat layout, forced): bitwise checks, kernel ms (CUDA events),
     plain ms (one call), the walk's visits and the candidates the cutout
     rejected (from the plain version) and the least-time bound."""
     import torch
     from paperrenderer_tpu_torch.ops import trace_kernel as TK
+    from paperrenderer_tpu_torch.scenes import build_hybrid_scene, build_rt_scene
     from paperrenderer_tpu_torch.utils import probes as PR
 
     wf = PR.rt_wavefronts(rt, cam)
@@ -803,36 +874,83 @@ def compare_trace(rt, cam, leaf, reps=10):
                 counts=counts, **walk),
             resolve_check, 48 + 24, resolved=r, extra_bytes=res_bytes)
 
-    # K9: the primary-side shadow+AO bundle, without and with the bounce
+    # K9: the primary-side shadow+AO bundle, without and with the bounce;
+    # the reflection hits' bundle of config 3's frame and both bundles of
+    # hybrid config 4's (each captured from one frame); an adversarial
+    # bundle (30 occlusion samples, PR.adversarial_bundle) with the AO and
+    # resolve samples. Bound: k9_bytes, and the union walk's work
+    # (occlusion, TK.occlusion_union_plain) with the AO and resolve walks'
+    # (k9_walk_ops); the plain walk's (one walk a sample) beside it.
+    def bundle_check(a, b):
+        ok = same_bits(a[0], b[0]) and all(
+            same_bits(x, y) for x, y in zip(a[1], b[1]))
+        mism = int((a[0] != b[0]).sum()) + sum(
+            int((x.view(torch.int32) != y.view(torch.int32)).sum())
+            for x, y in zip(a[1], b[1]))
+        err = max([float((x - y).abs().max()) for x, y in zip(a[1], b[1])]
+                  or [0.0])
+        if a[2] is not None:
+            ok2, m2, e2 = resolve_check(a[2], b[2])
+            ok, mism, err = ok and ok2, mism + m2, max(err, e2)
+        return ok, mism, err
+
+    def bundle_case(name, bsc, args, bwalk, rs=None):
+        bo, dirs, caps, occ_act, ao_ds, ao_caps, ao_act = args
+        counts, union = {}, {}
+        got = TK.trace_bundle_kernel(bsc, *args, resolve=rs, **bwalk)
+        ref, plain_ms = timed_once(lambda: TK.trace_bundle_plain(
+            bsc, *args, resolve=rs, counts=counts, **bwalk))
+        ok, mism, err = bundle_check(got, ref)
+        ubits = TK.occlusion_union_plain(bsc, bo, dirs, caps, occ_act,
+                                         counts=union, **bwalk)
+        nbytes, walks = k9_bytes(bsc, args, rs)
+        nbytes += 0 if rs is None else res_bytes
+        rest = {k: v for k, v in counts.items() if k != "occlusion"}
+        resolved = 0 if rs is None else int(walks[2])
+        bb, by = bound(nbytes, union_ops(union)
+                       + k9_walk_ops(rest, walks[1] + walks[2], resolved))
+        plain_ops = k9_walk_ops(counts["occlusion"], walks[0]) + k9_walk_ops(
+            rest, walks[1] + walks[2], resolved)
+        out[name] = dict(
+            bitwise=ok, mismatches=mism, max_abs_err=err, rays=bo.shape[0],
+            samples=[len(dirs), len(ao_ds), int(rs is not None)],
+            live=PR.bundle_live(bo, occ_act, ao_act, rs),
+            active_samples=walks, bytes=nbytes,
+            ms=timed(lambda: TK.trace_bundle_kernel(bsc, *args, resolve=rs,
+                                                    **bwalk), reps),
+            plain_ms=plain_ms, visits=counts, union_visits=union,
+            union_bits_equal=same_bits(ubits, ref[0]), bound_ms=bb,
+            bound_by=by, plain_walk_bound_ms=bound(nbytes, plain_ops)[0],
+            plain_walk_bound_by=bound(nbytes, plain_ops)[1])
+        out[name]["bitwise"] = ok and out[name]["union_bits_equal"]
+
+    # the union walks' partition: the plain walk's counts are the kernel's
+    # only if both take the same group
+    group = TK._lib().trace_union_group()
+    out["union_group"] = dict(kernel=group, plain=TK.UNION_GROUP,
+                              bitwise=group == TK.UNION_GROUP)
     n_s, n_a = len(wf["dirs"]), len(wf["ao_ds"])
     acts = [surf.valid] * n_a
-    for name, rs in (("k9_shadow_ao", None),
-                     ("k9_shadow_ao_resolve",
-                      (wf["slots"], wf["rdir"], wf["far"], surf.valid))):
-        args = (sc, wf["origin"], wf["dirs"], wf["caps"], wf["actives"],
-                wf["ao_ds"], wf["ao_caps"], acts)
-
-        def bundle_check(a, b):
-            ok = same_bits(a[0], b[0]) and all(
-                same_bits(x, y) for x, y in zip(a[1], b[1]))
-            mism = int((a[0] != b[0]).sum()) + sum(
-                int((x != y).sum()) for x, y in zip(a[1], b[1]))
-            err = max([float((x - y).abs().max()) for x, y in zip(a[1], b[1])]
-                      or [0.0])
-            if a[2] is not None:
-                ok2, m2, e2 = resolve_check(a[2], b[2])
-                ok, mism, err = ok and ok2, mism + m2, max(err, e2)
-            return ok, mism, err
-
-        per_ray = 12 + 4 + (n_s + n_a) * 17 + n_a * 4 + (
-            0 if rs is None else 17 + 44)
-        walk_case(name,
-                  lambda args=args, rs=rs: TK.trace_bundle_kernel(
-                      *args, resolve=rs, **walk),
-                  lambda counts, args=args, rs=rs: TK.trace_bundle_plain(
-                      *args, resolve=rs, counts=counts, **walk),
-                  bundle_check, per_ray, resolved=0 if rs is None else r,
-                  extra_bytes=0 if rs is None else res_bytes)
+    primary = (wf["origin"].contiguous(), wf["dirs"], wf["caps"],
+               wf["actives"], wf["ao_ds"], wf["ao_caps"], acts)
+    bundle_case("k9_shadow_ao", sc, primary, walk)
+    bundle_case("k9_shadow_ao_resolve", sc, primary, walk,
+                (wf["slots"], wf["rdir"], wf["far"], surf.valid))
+    size = dict(width=rt.width, height=rt.height, device=o.device)
+    for frame, (render, fcam) in (("rt", build_rt_scene(**size)[1:]),
+                                  ("hybrid4", build_hybrid_scene(**size)[1:])):
+        bundles = [c for c in PR.masked_waves(render, fcam)
+                   if c[0] == "trace_bundle_kernel"]
+        for side, (_, _, a, k) in zip(("shadow_ao", "reflection_bundle"),
+                                      bundles):
+            if (frame, side) != ("rt", "shadow_ao"):
+                bundle_case(f"k9_{frame}_{side}", a[0], a[1:], k)
+    adv = PR.adversarial_bundle(
+        sc, wf["origin"].contiguous(),
+        [wf["dirs"][0], wf["ao_ds"][0], wf["rdir"]], surf.valid, walk=walk)
+    bundle_case("k9_adversarial", sc,
+                (wf["origin"].contiguous(), *adv, wf["ao_ds"], wf["ao_caps"],
+                 acts), walk, (wf["slots"], wf["rdir"], wf["far"], surf.valid))
 
     # the alpha forms on the leaf grid (flat): K8 on the primary rays and
     # on the reflection rays of their hits, K7 (closest) on the primary rays
@@ -2175,6 +2293,13 @@ def main():
                 timed_on=timed_on[k["name"]])
             row.update({"ms_" + c: src[c].get("ms") for c in names
                         if c != timed_on[k["name"]]})
+            if k["name"] == "trace_bundle":   # every wave's bound and live
+                for c in names:                 # share, the walks' pops
+                    row.update({f"{f}_{c}": src[c].get(f) for f in (
+                        "bound_ms", "plain_walk_bound_ms", "live")})
+                row.update({f: case.get(f) for f in (
+                    "plain_walk_bound_ms", "live", "active_samples", "bytes",
+                    "visits", "union_visits")})
             if k["name"] == "trace_scene_paged":   # K7 on the same rays
                 row["ms_k7_grid_primary_flat"] = src.get(
                     "k7_grid_primary_flat", {}).get("ms")

@@ -50,10 +50,28 @@
 // first of the closest candidates with t < best_t. The TPU kernels share one
 // scalar stack across a 1024-ray packet because the TPU has one scalar unit
 // per core; a Hopper thread has its own control flow, so the packet, its
-// union footprint and its (8,128) tiling are gone. K9 walks its samples one
-// after another in the same thread: the origin is read once and every
-// sample's result is the one its own walk gives, which is what the plain
-// version (one trace per sample) computes.
+// union footprint and its (8,128) tiling are gone.
+//
+// K9 keeps the TPU kernel's union walk (_make_bundle_kernel: one traversal
+// over the union footprint of a pixel's samples) for its occlusion samples,
+// inside one thread: a ray's occlusion samples walk two at a time as one
+// union walk (bundle_occlusion), each stack entry with the mask of the
+// samples that reached it, each sample tested with its own 1/d and cap. An
+// any-hit bit is "some triangle in (t_min, cap) under boxes whose slab
+// tests pass at the cap", whatever the order of the visits, so each bit is
+// the one the sample's own walk gives (the plain version walks each sample
+// alone; ops/trace_kernel.py occlusion_union_plain is the union walk in
+// PyTorch). A sample equal to the one before it (a point light's samples)
+// shares that walk. The AO and resolve samples are closest-t walks, whose
+// result the visit order can change: they walk one after another
+// (traverse), as the plain version does. What the union shares is a pop's
+// row load, its decode and stack work and the box planes less the origin;
+// the slab tests stay one a sample, and they are most of a pop's
+// instructions: on config 3 the union halves the occlusion pops and takes
+// K9 5-7% down, on hybrid config 4 (four samples, two of them one ray)
+// 12-16%. Chaining a ray's phases in one loop, and persistent warps that
+// claim rays, were slower on all four of the frames' bundles (PERF.md,
+// K9's design steps).
 //
 // What a step costs, and what the walk does about it. On the 10k grid at
 // 1080p a primary ray pops 52.7 codes, 98% of them box rows, and a warp
@@ -246,6 +264,23 @@ __device__ __forceinline__ bool slab(const float* b, const float* o,
   }
   *tn_out = tn;
   return (tf >= fmaxf(tn, 0.0f)) && (tn <= t_max) && (b[0] <= b[3]);
+}
+
+// slab's test of one child box from its planes less the ray origin (r[0:3]
+// = lo - o, r[3:6] = hi - o), without the box's own lo <= hi check: the
+// same t0, t1, tn and tf as slab
+__device__ __forceinline__ bool slab_rel(const float* r, const float* inv_d,
+                                         float t_max, float* tn_out) {
+  float tn = -CUDART_INF_F, tf = CUDART_INF_F;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float t0 = r[k] * inv_d[k];
+    float t1 = r[3 + k] * inv_d[k];
+    tn = fmaxf(tn, fminf(t0, t1));
+    tf = fminf(tf, fmaxf(t0, t1));
+  }
+  *tn_out = tn;
+  return (tf >= fmaxf(tn, 0.0f)) && (tn <= t_max);
 }
 
 // a child code of a chunk block row, rebased to an absolute row of its
@@ -743,6 +778,18 @@ trace_kernel_fetch(SceneView sc, ResolveView rv, RayArgs ra, Outputs out,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K9: the origin-shared sample bundle
+// ---------------------------------------------------------------------------
+
+// K9's union walks take GROUP occlusion samples (4 held more registers and
+// was slower on 2-sample bundles, PERF.md), and its kernel is held to
+// 64 registers, BUNDLE_BLOCKS blocks of THREADS a SM: the walk waits on its
+// loads, and uncapped (73-92 registers) it ran 3-8% slower.
+constexpr int GROUP = 2;
+constexpr int BUNDLE_BLOCKS = 8;
+static_assert(GROUP >= 1 && GROUP <= 30, "a stack entry's mask");
+
 struct BundleArgs {
   const float* origin;                // f32[R, 3]
   const float* occ_d;                 // f32[S, R, 3]
@@ -757,41 +804,248 @@ struct BundleArgs {
   const float* rs_cap;                // f32[R]
   const unsigned char* rs_act;        // u8[R]
   int n_rays;
+  int* bits;                          // i32[R]
+  float* ao_t;                        // f32[A, R]
+  Outputs rs;                         // the resolve sample's hit + attributes
 };
 
-__global__ void __launch_bounds__(THREADS)
-bundle_kernel(SceneView sc, ResolveView rv, BundleArgs b, int* out_bits,
-              float* out_ao_t, float* rs_t, int* rs_prim, int* rs_inst,
-              float* rs_bary, float* rs_uv, float* rs_normal, int* rs_mat) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+// An any-hit walk of up to GROUP occlusion samples from one origin (a
+// union walk). Every stack entry carries the mask of the samples that
+// reached it; each sample is slab- and leaf-tested with its own 1/d,
+// object-space direction and cap (bt), in the expressions of walk_step,
+// and leaves at its first winning leaf (won). A sample equal to the one
+// before it (direction and cap, bit for bit) does not walk (alias): its
+// bit is that sample's. The world directions are read again at an
+// instance pop. A box pop pushes at most its two children, as walk_step's,
+// so the stack holds one pending entry a level and stack_size bounds it.
+struct Union {
+  float o[3], oo[3];
+  float iw[GROUP][3], io[GROUP][3], dd[GROUP][3], bt[GROUP];
+  const float* dir;   // sample 0's world direction; sample g at + g * dstride
+  size_t dstride;
+  unsigned alive, won, alias;
+  int sp;
+};
+
+// a union walk's stack: (code, mask) entries, one 8-byte access each
+struct UStack {
+  int2 e[STACK_MAX];
+};
+
+__device__ __forceinline__ void upush(Union& u, UStack& st, int s, int c,
+                                      unsigned m) {
+  if (u.sp < s) st.e[u.sp] = make_int2(c, (int)m);
+  ++u.sp;
+}
+
+__device__ __forceinline__ bool union_live(const Union& u) {
+  return u.sp > 0 && u.alive != 0;
+}
+
+// One trip of the union walk: pop a code and its mask (an entry dropped
+// past the bound is code 0 for every sample, as walk_step's), and handle it
+// for the mask's live samples; an entry none of whose samples is live is
+// dropped without a load.
+__device__ __forceinline__ void union_step(Union& u, UStack& st,
+                                           const SceneView& sc) {
+  const int s = sc.stack_size;
+  const int top = u.sp - 1;
+  int code = 0;
+  unsigned m = ~0u;
+  if (top < s) {
+    const int2 e = st.e[top];
+    code = e.x;
+    m = (unsigned)e.y;
+  }
+  u.sp = top;
+  m &= u.alive;
+  if (m == 0) return;
+  const int typ = (code >> 28) & 3;
+  const bool obj = ((code >> 30) & 1) != 0;
+  if (typ == TYPE_INST) {
+    const int p = clampi(code & PAYLOAD_MASK, 0, sc.nn - 1);
+    float mm[12];
+    load_row12(sc.nodes + (size_t)p * 12, mm);
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      u.oo[k] = mm[4 * k] * u.o[0] + mm[4 * k + 1] * u.o[1] +
+                mm[4 * k + 2] * u.o[2] + mm[4 * k + 3];
+#pragma unroll
+    for (int g = 0; g < GROUP; ++g) {
+      if (!((m >> g) & 1)) continue;
+      const float* dp = u.dir + g * u.dstride;
+      const float d0 = __ldg(dp), d1 = __ldg(dp + 1), d2 = __ldg(dp + 2);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        u.dd[g][k] = mm[4 * k] * d0 + mm[4 * k + 1] * d1 + mm[4 * k + 2] * d2;
+        u.io[g][k] = inv_dir(u.dd[g][k]);
+      }
+    }
+    const int2 c = load_codes(sc.codes + 2 * (size_t)p);
+    if (((c.y >> 24) & sc.cull_mask) != 0) upush(u, st, s, c.x, m);
+  } else if (typ == TYPE_BOX) {
+    const int p = clampi(code & PAYLOAD_MASK, 0, sc.nn - 1);
+    float rel[12];
+    load_row12(sc.nodes + (size_t)p * 12, rel);
+    const bool ok0 = rel[0] <= rel[3], ok1 = rel[6] <= rel[9];
+    // the children's planes less the origin, which the samples share
+    // (slab's b - o, done once)
+#pragma unroll
+    for (int k = 0; k < 12; ++k)
+      rel[k] = rel[k] - (obj ? u.oo[k % 3] : u.o[k % 3]);
+    unsigned m0 = 0, m1 = 0;
+    bool first0 = true, led = false;
+#pragma unroll
+    for (int g = 0; g < GROUP; ++g) {
+      if (!((m >> g) & 1)) continue;
+      float inv[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) inv[k] = obj ? u.io[g][k] : u.iw[g][k];
+      float tn0, tn1;
+      const bool h0 = slab_rel(rel, inv, u.bt[g], &tn0) && ok0;
+      const bool h1 = slab_rel(rel + 6, inv, u.bt[g], &tn1) && ok1;
+      m0 |= (unsigned)h0 << g;
+      m1 |= (unsigned)h1 << g;
+      // the near/far order of the lowest sample that hits a child (any
+      // order gives the same bits)
+      if (!led && (h0 || h1)) {
+        led = true;
+        first0 = tn0 <= tn1;
+      }
+    }
+    const int2 c = load_codes(sc.codes + 2 * (size_t)p);
+    const int near_c = first0 ? c.x : c.y, far_c = first0 ? c.y : c.x;
+    const unsigned near_m = first0 ? m0 : m1, far_m = first0 ? m1 : m0;
+    if (far_m) upush(u, st, s, far_c, far_m);
+    if (near_m) upush(u, st, s, near_c, near_m);
+  } else if (typ == TYPE_LEAF) {
+    const int p = clampi(code & PAYLOAD_MASK, 0, sc.nl - 1);
+    const float* row = sc.leaf + (size_t)p * LEAF_ROW;
+    const int* prim = sc.leaf_prim + (size_t)p * K;
+#pragma unroll 1
+    for (int j = 0; j < K && m != 0; ++j) {
+      const int tag = __ldg(prim + j);
+      if (tag < 0) continue;   // a padding slot is never a candidate
+      const float* tri = row + 9 * j;
+      const float a0 = __ldg(tri), a1 = __ldg(tri + 1), a2 = __ldg(tri + 2);
+      const float e10 = __ldg(tri + 3), e11 = __ldg(tri + 4),
+                  e12 = __ldg(tri + 5);
+      const float e20 = __ldg(tri + 6), e21 = __ldg(tri + 7),
+                  e22 = __ldg(tri + 8);
+      // Moller-Trumbore on (a, e1, e2), bvh.moller_trumbore_edges' order;
+      // s, q and e2.q do not depend on the direction: one per triangle
+      const float s0 = u.oo[0] - a0, s1 = u.oo[1] - a1, s2 = u.oo[2] - a2;
+      const float q0 = s1 * e12 - s2 * e11;
+      const float q1 = s2 * e10 - s0 * e12;
+      const float q2 = s0 * e11 - s1 * e10;
+      const float tq = e20 * q0 + e21 * q1 + e22 * q2;
+#pragma unroll
+      for (int g = 0; g < GROUP; ++g) {
+        if (!((m >> g) & 1)) continue;
+        const float dx = u.dd[g][0], dy = u.dd[g][1], dz = u.dd[g][2];
+        const float p0 = dy * e22 - dz * e21;
+        const float p1 = dz * e20 - dx * e22;
+        const float p2 = dx * e21 - dy * e20;
+        const float det = e10 * p0 + e11 * p1 + e12 * p2;
+        const bool ok = fabsf(det) > 1e-12f;
+        const float inv = 1.0f / (ok ? det : 1.0f);
+        const float uu = (s0 * p0 + s1 * p1 + s2 * p2) * inv;
+        const float vv = (dx * q0 + dy * q1 + dz * q2) * inv;
+        const float t = tq * inv;
+        // a candidate that walk_step's any-hit walk takes: its first win
+        if (ok && uu >= 0.0f && vv >= 0.0f && (uu + vv) <= 1.0f &&
+            t > sc.t_min && t < u.bt[g])
+          m &= ~(1u << g), u.won |= 1u << g;
+      }
+    }
+    u.alive &= ~u.won;   // the occluded samples' walks end
+  }
+}
+
+// The occlusion bits of ray i (origin o): its samples in union walks of
+// GROUP. An inactive sample sets its bit and never walks; a sample equal
+// to the one before it in its group takes that one's bit.
+__device__ __forceinline__ int bundle_occlusion(const SceneView& sc,
+                                                const BundleArgs& b, int i,
+                                                const float* o) {
   const size_t r = (size_t)b.n_rays;
+  int bits = 0;
+  Union u;
+  UStack st;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) u.o[k] = o[k];
+  u.dstride = r * 3;
+  for (int s0 = 0; s0 < b.n_occ; s0 += GROUP) {
+    u.alive = u.won = u.alias = 0;
+    u.dir = b.occ_d + (size_t)s0 * r * 3 + 3 * (size_t)i;
+#pragma unroll
+    for (int g = 0; g < GROUP; ++g) {
+      const int smp = s0 + g;
+      if (smp >= b.n_occ) break;
+      if (b.occ_act[smp * r + i] == 0) {
+        bits |= 1 << smp;
+        continue;
+      }
+      const float* dp = u.dir + g * u.dstride;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) u.dd[g][k] = __ldg(dp + k);
+      u.bt[g] = __ldg(b.occ_cap + smp * r + i);
+      // equal to the group's sample before (dd and bt are still its world
+      // direction and cap): that sample's walk is this one's
+      if (g > 0 && (((u.alive | u.alias) >> (g - 1)) & 1) &&
+          __float_as_int(u.bt[g]) == __float_as_int(u.bt[g - 1]) &&
+          __float_as_int(u.dd[g][0]) == __float_as_int(u.dd[g - 1][0]) &&
+          __float_as_int(u.dd[g][1]) == __float_as_int(u.dd[g - 1][1]) &&
+          __float_as_int(u.dd[g][2]) == __float_as_int(u.dd[g - 1][2])) {
+        u.alias |= 1u << g;
+        continue;
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        u.iw[g][k] = u.io[g][k] = inv_dir(u.dd[g][k]);
+      u.alive |= 1u << g;
+    }
+    if (u.alive != 0) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) u.oo[k] = u.o[k];
+      u.sp = 1;
+      if (sc.stack_size > 0) st.e[0] = make_int2(sc.root, (int)u.alive);
+      while (union_live(u)) union_step(u, st, sc);
+    }
+    unsigned won = u.won;
+#pragma unroll
+    for (int g = 1; g < GROUP; ++g)
+      if ((u.alias >> g) & 1) won |= ((won >> (g - 1)) & 1) << g;
+    bits |= (int)(won << s0);
+  }
+  return bits;
+}
+
+// K9: one thread a ray: the occlusion samples, then each AO sample's and
+// the resolve sample's closest-hit walk (traverse).
+__global__ void __launch_bounds__(THREADS, BUNDLE_BLOCKS)
+bundle_kernel(SceneView sc, ResolveView rv, BundleArgs b) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= b.n_rays) return;
+  const size_t r = (size_t)b.n_rays;
   float o[3], d[3];
   load3(b.origin, i, o);
-  int bits = 0;
-  for (int s = 0; s < b.n_occ; ++s) {
-    const bool act = b.occ_act[s * r + i] != 0;
-    load3(b.occ_d + s * r * 3, i, d);
-    const Hit h = traverse<false, true, false>(
-        sc, rv, o, d, __ldg(b.occ_cap + s * r + i), act);
-    bits |= (int)(h.prim >= 0 || !act) << s;
-  }
-  out_bits[i] = bits;
+  b.bits[i] = bundle_occlusion(sc, b, i, o);
   for (int j = 0; j < b.n_ao; ++j) {
     const bool act = b.ao_act[j * r + i] != 0;
     const float cap = __ldg(b.ao_cap + j * r + i);
     load3(b.ao_d + j * r * 3, i, d);
     const Hit h = traverse<false, false, false>(sc, rv, o, d, cap, act);
     const float t = h.prim >= 0 ? h.t : cap;
-    out_ao_t[j * r + i] = act ? t : -3e38f;
+    b.ao_t[j * r + i] = act ? t : -3e38f;
   }
   if (b.rs_d != nullptr) {
     load3(b.rs_d, i, d);
     const Hit h = traverse<false, false, false>(sc, rv, o, d,
                                                 __ldg(b.rs_cap + i),
                                                 b.rs_act[i] != 0);
-    store_hit(h, i, rs_t, rs_prim, rs_inst, rs_bary);
-    store_resolved<false>(rv, h, i, rs_uv, rs_normal, rs_mat);
+    store_hit(h, i, b.rs.t, b.rs.prim, b.rs.inst, b.rs.bary);
+    store_resolved<false>(rv, h, i, b.rs.uv, b.rs.normal, b.rs.mat);
   }
 }
 
@@ -953,6 +1207,10 @@ int trace_stack_max() { return STACK_MAX; }
 // mask)
 int trace_work_ints() { return SEGMENTS * COUNTER_STRIDE; }
 
+// the occlusion samples one K9 union walk takes (trace_kernel.UNION_GROUP
+// mirrors it)
+int trace_union_group() { return GROUP; }
+
 // K7: closest hit (any_hit = 0) or any hit (any_hit = 1); with a shading
 // model (and the resolve tables the cutout reads) its alpha form; with
 // steps = 1 its step-count form
@@ -1016,6 +1274,7 @@ int trace_bundle_launch(const float* nodes, const int* codes,
                         int* rs_inst, float* rs_bary, float* rs_uv,
                         float* rs_normal, int* rs_mat, cudaStream_t stream) {
   if (n_rays <= 0) return 0;
+  if (n_occ < 0 || n_occ > 30 || n_ao < 0) return (int)cudaErrorInvalidValue;
   SceneView sc = scene_view(nodes, codes, leaf, leaf_prim, nn, nl, root,
                             stack_size, cull_mask, t_min);
   ResolveView rv = resolve_view(tri_attr, inv_rows, slot_mats, n_inst, n_slots);
@@ -1033,9 +1292,10 @@ int trace_bundle_launch(const float* nodes, const int* codes,
   b.rs_cap = rs_cap;
   b.rs_act = rs_act;
   b.n_rays = n_rays;
-  bundle_kernel<<<blocks(n_rays), THREADS, 0, stream>>>(
-      sc, rv, b, out_bits, out_ao_t, rs_t, rs_prim, rs_inst, rs_bary, rs_uv,
-      rs_normal, rs_mat);
+  b.bits = out_bits;
+  b.ao_t = out_ao_t;
+  b.rs = outputs(rs_t, rs_prim, rs_inst, rs_bary, rs_uv, rs_normal, rs_mat);
+  bundle_kernel<<<blocks(n_rays), THREADS, 0, stream>>>(sc, rv, b);
   return (int)cudaGetLastError();
 }
 

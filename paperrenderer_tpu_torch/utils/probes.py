@@ -66,6 +66,7 @@ WAIT_S = 30.0      # host-side limit on one probe launch
 REPS = 10          # timed calls a measurement
 SEED = 0           # the scripts' numpy seed
 ORDER_SEED = 8     # the seed of ray_order's random order of a wave
+ADVERSARIAL_SEED = 10   # the seed of adversarial_bundle's random samples
 
 # launches of each kernel wrapper, counted where the kernel is launched
 LAUNCHES = {"chunk_stream": 0, "chunk_stream_sweep": 0, "pass_through": 0}
@@ -352,16 +353,18 @@ def masked_waves(render, cam):
     """[(wrapper name, its kernel wrapper, args, kwargs)] of every traversal
     launch with an active mask (the shadow, AO and reflection rays) that one
     frame of ``render`` (a RayTraceRender or HybridRender) makes through
-    K7, K8, K10 or K11, in launch order. The frame runs as it always does;
-    only the calls' inputs are kept."""
+    K7, K8, K10 or K11, and of every K9 launch (its samples all have one),
+    in launch order. The frame runs as it always does; only the calls'
+    inputs are kept."""
     calls, saved = [], []
     for mod, name in ((TK, "trace_scene_kernel"), (TK, "trace_resolve_kernel"),
+                      (TK, "trace_bundle_kernel"),
                       (TPG, "trace_scene_paged_kernel"),
                       (TPG, "trace_resolve_paged_kernel")):
         fn = getattr(mod, name)
 
         def keep(*a, name=name, fn=fn, **k):
-            if k.get("active") is not None:
+            if k.get("active") is not None or name == "trace_bundle_kernel":
                 calls.append((name, fn, a, k))
             return fn(*a, **k)
 
@@ -375,6 +378,75 @@ def masked_waves(render, cam):
     return calls
 
 
+def bundle_live(o, occ_actives, ao_actives, resolve=None) -> float:
+    """The share of a K9 wave's pixels with an active sample."""
+    live = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+    for a in list(occ_actives or []) + list(ao_actives or []) + (
+            [] if resolve is None else [resolve[3]]):
+        live = live | (torch.ones_like(live) if a is None else a)
+    return float(live.float().mean())
+
+
+def adversarial_bundle(scene, o, base, active, *, walk, n: int = 30):
+    """An origin-shared occlusion bundle made to trip a union walk, from
+    origins ``o`` f32[R, 3], ``base`` (at least three f32[R, 3] directions
+    of a frame's samples: shadow, AO, reflection) and ``active`` bool[R]:
+    ``n`` samples (30, the bitmask's limit, by default) with duplicate and
+    exactly opposite directions, axis directions and directions with a
+    zero component (1/d at inv_dir's clamp), seeded random ones
+    (ADVERSARIAL_SEED); caps of 0, of T_MIN, of exactly a direction's
+    closest hit t as the plain walk gives it (``walk``: root_code,
+    stack_size, cull_mask) and of the next float above it; samples
+    inactive on every other pixel between active ones, one sample inactive
+    everywhere, and a stretch of pixels with every sample inactive.
+    Returns (dirs, caps, actives), lists of n."""
+    from ..ops.accel import trace_scene
+
+    r, dev = o.shape[0], o.device
+    d0, a0, rd = base[0], base[1], base[2]
+
+    def hit_t(d):
+        rec = trace_scene(scene, o, d, 1000.0, t_min=TK.T_MIN, **walk)
+        return torch.where(rec.hit, rec.t, 1000.0)
+
+    def axis(*v):
+        return torch.tensor(v, dtype=torch.float32, device=dev).expand(r, 3)
+
+    full = torch.full((r,), 1000.0, device=dev)
+    t0, tr = hit_t(d0), hit_t(rd)
+    above = torch.nextafter(t0, torch.full_like(t0, float("inf")))
+    zx = d0.clone()
+    zx[:, 0] = 0.0
+    kinds = [(d0, full), (d0, full), (-d0, full), (d0, torch.zeros_like(full)),
+             (d0, torch.full_like(full, TK.T_MIN)), (d0, t0), (d0, above),
+             (axis(0.0, 0.0, 1.0), full), (axis(1.0, 0.0, 0.0), full),
+             (axis(0.0, -1.0, 0.0), full), (zx, full), (a0, full),
+             (-a0, full), (rd, full), (rd, tr), (-rd, tr)]
+    g = torch.Generator().manual_seed(ADVERSARIAL_SEED)
+    while len(kinds) < n:
+        d = torch.randn((r, 3), generator=g).to(dev)
+        if len(kinds) % 3 == 0:
+            d[:, len(kinds) % 2] = 0.0
+        cap = (torch.rand((r,), generator=g) * 10.0).to(dev)
+        kinds.append((d, cap))
+        if len(kinds) < n:
+            kinds.append((d.clone(), cap.clone()))   # a duplicate
+    kinds = kinds[:n]
+    idx = torch.arange(r, device=dev)
+    stretch = (idx >= r // 3) & (idx < r // 3 + max(1, r // 16))
+    dirs, caps, actives = [], [], []
+    for s, (d, cap) in enumerate(kinds):
+        act = active & ~stretch
+        if s % 3 == 1:
+            act = act & (idx % 2 == 1)
+        if s == 13:
+            act = torch.zeros_like(act)
+        dirs.append(d.contiguous())
+        caps.append(cap.contiguous())
+        actives.append(act)
+    return dirs, caps, actives
+
+
 def ray_order(n: int, device) -> torch.Tensor:
     """A seeded random order of ``n`` rays (ORDER_SEED): the incoherent
     form of a wave, whose outputs put back in order must equal the
@@ -385,7 +457,9 @@ def ray_order(n: int, device) -> torch.Tensor:
 
 def tensors_of(x):
     """The tensors of a traversal result (a tensor, a HitRecord2, tuples of
-    them), in order."""
+    them; None for an output a call does not make), in order."""
+    if x is None:
+        return []
     if isinstance(x, torch.Tensor):
         return [x]
     if dataclasses.is_dataclass(x):
@@ -405,10 +479,13 @@ def headline_waves(device, width: int = 1920, height: int = 1080,
     and on its first AO rays; the same grid on the flat layout: K8's alpha
     form on its primary and reflection rays. Config 2's grid: K10 (paged)
     and K7 (flat) on its primary rays. The RT scene (config 3): K7 on its
-    primary rays, live and all dead, K9 on its 2 shadow + 1 AO bundle.
-    Then every masked wave (``masked_waves``) of one frame of config 3,
-    hybrid config 4 and the hybrid grid: the mostly live waves beside the
-    sparse ones of the leaf grid."""
+    primary rays, live and all dead. Then every masked wave
+    (``masked_waves``) of one frame of config 3, hybrid config 4 and the
+    hybrid grid: the mostly live waves beside the sparse ones of the leaf
+    grid, and K9 on both bundles of config 3's and of hybrid config 4's
+    frame (the primary side's 2 or 4 shadow + 1 or 2 AO samples and the
+    reflection hits'), each K9 function with ``live``, the share of its
+    pixels with an active sample, and ``host`` (its issue cost is timed)."""
     from ..ops import trace as TR
     from ..scenes import (build_dynamic_scene, build_hybrid_scene,
                           build_leaf_rt_grid, build_rt_scene)
@@ -456,10 +533,6 @@ def headline_waves(device, width: int = 1920, height: int = 1080,
     out["k7_rt_primary"] = functools.partial(ctx.trace, o, d, far)
     out["k7_rt_primary_dead"] = functools.partial(ctx.trace, o, d, far,
                                                   active=dead)
-    out["k9_rt_shadow_ao"] = functools.partial(
-        ctx.trace_shadow_ao_bundle, w["origin"].contiguous(), w["dirs"],
-        w["caps"], w["ao_ds"], w["ao_caps"], occ_actives=w["actives"],
-        ao_actives=[w["surf"].valid] * len(w["ao_ds"]))
 
     hy4, cam4 = build_hybrid_scene(width, height, device=device)[1:]
     hgrid = eng.create_hybrid_render(width=width, height=height,
@@ -470,9 +543,19 @@ def headline_waves(device, width: int = 1920, height: int = 1080,
              "trace_resolve_paged_kernel": "k11"}
     for frame, render, c in (("rt", rt3, cam3), ("hybrid4", hy4, cam4),
                              ("hybrid_grid", hgrid, gcam)):
-        for j, (name, fn, a, k) in enumerate(masked_waves(render, c)):
+        calls = masked_waves(render, c)
+        bundles = [x for x in calls if x[0] == "trace_bundle_kernel"]
+        calls = [x for x in calls if x[0] != "trace_bundle_kernel"]
+        for j, (name, fn, a, k) in enumerate(calls):
             out[f"{short[name]}_{frame}_masked{j}"] = functools.partial(
                 fn, *a, **k)
+        # K9 (not in the grid's paged frame): the primary side's shadow +
+        # AO bundle and the reflection hits' one
+        for side, (_, fn, a, k) in zip(("shadow_ao", "reflection_bundle"),
+                                       bundles):
+            case = out[f"k9_{frame}_{side}"] = functools.partial(fn, *a, **k)
+            case.live = bundle_live(a[1], a[4], a[7], k.get("resolve"))
+            case.host = True   # walk_bench times its issue cost too
     return out
 
 

@@ -13,17 +13,19 @@ inputs of config 1, config 2 and the ragged 200x150 image; K6 on config
 2's sorted and presorted setups, and on its longest lists alone; the
 inputs by ``tile_inputs``, which ``chip_smoke.py`` checks the kernels on):
 ``rounds`` times each, ``profiling.device_time`` (CUDA events behind a
-sleep kernel), and the draw-list frames of configs 1 and 2 (median host
-ms of 20 synchronized frames). ``--group`` picks one of the two sets.
+sleep kernel), and the frames of config 3, hybrid config 4 (``frame_cases``:
+each launches K9 twice) and the draw-list frames of configs 1 and 2 (median
+host ms of 20 synchronized frames). ``--group`` picks one of the two sets.
 Two checkouts (e.g. a parent commit unpacked with ``git archive``) are
 compared by running this on each in turns on one card (parent, change,
 change, parent), each run with ``--same-as`` the first run's ``--out``:
 every case's outputs must then hash to the same digest, or the run fails.
 
 Prints one JSON line per case ({case: [ms per round], "live": the share of
-its rays that are live (traversal), "host_ms": the host's ms to issue one
-call (tiles), "lists": the mean, p99 and max of its tiles' chunk-list
-lengths (K6), "digest": sha256 of its outputs' bytes}),
+its rays (K9: of its pixels) that are live (traversal), "host_ms": the
+host's ms to issue one call (tiles, K9), "lists": the mean, p99 and max
+of its tiles' chunk-list lengths (K6), "digest": sha256 of its outputs'
+bytes}),
 one with the registers, spills, stack frame and shared memory of each
 kernel of the builds (ptxas), the card (nvidia-smi name and power limit),
 and last {"ok": ...}.
@@ -230,6 +232,24 @@ def tile_cases(device) -> dict:
     return out
 
 
+def frame_cases(device) -> dict:
+    """{case: one frame of config 3 (RayTraceRender) or of hybrid config 4
+    (HybridRender) at 1080p, their LDR image; ``wall``: timed by
+    ``wall_ms``}: the frames that launch K9 twice each."""
+    from paperrenderer_tpu_torch.scenes import (build_hybrid_scene,
+                                                build_rt_scene)
+
+    out = {}
+    for name, (render, cam) in (
+            ("frame_rt_config3", build_rt_scene(1920, 1080,
+                                                device=device)[1:]),
+            ("frame_hybrid4", build_hybrid_scene(1920, 1080,
+                                                 device=device)[1:])):
+        out[name] = functools.partial(_first, render.render, cam)
+        out[name].wall = True
+    return out
+
+
 def main() -> int:
     args = _args()
     root = os.path.abspath(args.root or os.path.join(
@@ -263,7 +283,9 @@ def main() -> int:
             out.write(line + "\n")
             out.flush()
 
-    groups = dict(trace=(TK._lib, "trace", PR.headline_waves),
+    groups = dict(trace=(TK._lib, "trace",
+                         lambda dev: {**PR.headline_waves(dev),
+                                      **frame_cases(dev)}),
                   tiles=(TP._lib, "raster_tiles", tile_cases))
     if args.group != "all":
         groups = {args.group: groups[args.group]}
@@ -282,9 +304,11 @@ def main() -> int:
             timer = (wall_ms if getattr(fn, "wall", False) else
                      lambda f: device_time(f, iters=REPS) * 1e3)
             line = {case: [timer(fn) for _ in range(args.rounds)]}
-            if group == "trace":
-                line["live"] = 1.0 if act is None else float(act.float().mean())
-            else:   # what a call costs the host to issue
+            if group == "trace" and not getattr(fn, "wall", False):
+                line["live"] = getattr(fn, "live", None) or (
+                    1.0 if act is None else float(act.float().mean()))
+            if group == "tiles" or getattr(fn, "host", False):
+                # what a call costs the host to issue
                 line["host_ms"] = host_time(fn, iters=REPS) * 1e3
                 if hasattr(fn, "lists"):
                     line["lists"] = fn.lists

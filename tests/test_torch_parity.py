@@ -1808,6 +1808,56 @@ def test_plain_k9_matches_jax_per_sample_path(scenes, rays):
     assert 0 < (bits_t.numpy() & 1).mean() < 1
 
 
+@pytest.mark.parametrize("case", ["samples", "tlas1_cull2", "adversarial"])
+def test_k9_union_walk_matches_per_sample_bits(scenes, rays, case,
+                                               monkeypatch):
+    """K9's occlusion samples walked as one union walk a group
+    (``occlusion_union_plain``, the kernel's schedule) against one any-hit
+    walk a sample (``trace_bundle_plain``): equal bits on the fixture's rays
+    (camera rays and random rays from inside the scene) with random,
+    duplicate and opposite directions, on the masked TLAS 1 with a cull
+    mask that only the cube meets, and on ``probes.adversarial_bundle``'s 30
+    samples (caps of 0, t_min and exactly a hit's t; axis and
+    zero-component directions; inactive samples and pixels); a sample
+    equal to the one before it shares its walk. A group of one sample
+    walks exactly the per-sample walk: the same pops, one sample test a
+    pop, and a triangle test a triangle."""
+    from paperrenderer_tpu_torch.utils import probes as PR
+
+    o, d, t, active = (_t(x) for x in rays)
+    active = active.bool()
+    g = np.random.default_rng(11)
+    rnd_d = [_t(g.normal(size=d.shape).astype(np.float32)) for _ in range(2)]
+    tlas, cull = (1, 0x02) if case == "tlas1_cull2" else (0, 0xFF)
+    walk = dict(root_code=scenes["roots_j"][tlas], stack_size=scenes["stack"],
+                cull_mask=cull)
+    sc = scenes["scene"]
+    if case == "adversarial":
+        dirs, caps, acts = PR.adversarial_bundle(sc, o, [d] + rnd_d, active,
+                                                 walk=walk)
+    else:
+        dirs = [rnd_d[0], rnd_d[0], d, -rnd_d[0], rnd_d[1]]
+        caps = [t, t, t, torch.full_like(t, 2.0), t]
+        acts = [None, active, active, active, ~active]
+    want, _, _ = TK.trace_bundle_plain(sc, o, dirs, caps, acts, [], [], None,
+                                       **walk)
+    got = TK.occlusion_union_plain(sc, o, dirs, caps, acts, **walk)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert 0 < (want.numpy() & 1).mean() < 1
+    if case == "samples":
+        per_sample, one = {}, {}
+        TK.trace_bundle_plain(sc, o, dirs, caps, acts, [], [], None,
+                              counts=per_sample, **walk)
+        monkeypatch.setattr(TK, "UNION_GROUP", 1)
+        TK.occlusion_union_plain(sc, o, dirs, caps, acts, counts=one,
+                                 **walk)
+        per_sample = per_sample.pop("occlusion")
+        assert {k: one[k] for k in per_sample} == per_sample
+        assert [one[k + "_tests"] for k in ("box", "leaf", "inst")] == [
+            one[k] for k in ("box", "leaf", "inst")]
+        assert one["tri_tests"] == one["leaf_tris"] > 0
+
+
 # ===========================================================================
 # Hybrid frame
 #

@@ -6,16 +6,22 @@ Phases, each reported as one JSON line:
   build    every CUDA kernel (csrc/raster_exact.cu, csrc/raster_tiles.cu,
            csrc/trace.cu, csrc/probes.cu), one nvcc per source, all started
            together; ptxas registers/spills/smem;
-  compare  the raster kernel against its plain PyTorch version on the inputs
-           the main path gives it at config 1, config 2 and a ragged image
-           size (bitwise equality), both timed with CUDA events;
+  compare  K1 against its plain PyTorch version on the inputs the main path
+           gives it at config 1, config 2, config 2 at supersample 2
+           (3840x2160) and a ragged image size (bitwise equality), both
+           timed with CUDA events; each case with its cells' list lengths,
+           the exact per-warp rejection's tests and the share it keeps
+           (raster_pallas.tile_may_cover on the card), and the bound of that
+           work beside the plain version's candidates (the inputs from
+           walk_bench.raster_inputs);
   compare_keyed  the keyed raster kernels against their plain versions at
            1920x1080 (bitwise): on config 2's triangles K3 (8x32 cells), K4
            (8x128 cells), K2 on a two-layer depth-peel chain built from
            K3's own output, and K4's peel form on the chain's first window;
-           on the translucent grid K2's first two peel layers with the
-           frame's own bins and windows (ceiling: the opaque depth's key);
-           kernel and plain ms, candidates, bound;
+           on the translucent grid K2's four peel layers with the frame's
+           own bins and windows (ceiling: the opaque depth's key); kernel
+           and plain ms, candidates, the rejection's work as in compare,
+           the share of warps K2 skips (no open window), bound;
   compare_tiles  the tile kernels against their plain versions on the
            draw-list batches (bitwise): K5 at config 1, config 2 and a ragged
            image size; K6 at config 2 on the morton-sorted batch and on the
@@ -272,71 +278,100 @@ def frame_ms(rp, cam, frames=20, warmup=5, **kw):
     return statistics.median(times)
 
 
-def frame_batch(rp, cam):
-    """The triangle batch RenderPass.render rasterizes (opaque frame)."""
-    from paperrenderer_tpu_torch.ops.raster import attach_cull
-    from paperrenderer_tpu_torch.ops.static_batch import expand_static
+def raster_work(case, bins=None):
+    """The work of the binned raster kernels' exact per-warp rejection on
+    RasterCase `case` (walk_bench.raster_inputs), counted on `bins` (default
+    the case's own; K4's cases count the 8x32 bins' work, which the
+    function needs): `warps`, the warps of the cells; with a window,
+    `skipped`, those none of whose pixels has an open window
+    (raster_exact.peel_window_open), which test nothing; `tested`, the
+    (warp footprint, triangle) pairs the other warps test, every triangle
+    of the cell's list; `kept`, those the test keeps
+    (raster_pallas.tile_may_cover on the card; with a window over the box
+    of the warp's open pixels), each of whose footprint's 32 pixels is then
+    a candidate evaluated."""
+    import torch
+    from paperrenderer_tpu_torch.ops import raster_exact as RE
+    from paperrenderer_tpu_torch.ops import raster_pallas as TP
 
-    mapping, inst, tables, mats, cm, slots, vis = rp.frame_inputs(cam)
-    batch, _ = expand_static(mapping, inst, tables, cm, slots, vis,
-                             do_culling=rp.do_culling)
-    return attach_cull(batch, mats)
+    b = case.bins if bins is None else bins
+    fw, fh = RE.WARP_FOOT
+    n_bx, n_by = RE.grid_cells(case.width, case.height, b.cell_w)
+    dev = b.coef.device
+    hh, ww = n_by * RE.CELL_H, n_bx * b.cell_w
+    if case.window is None:      # no window: every footprint whole
+        open_ = torch.ones((hh, ww), dtype=torch.bool, device=dev)
+    else:                        # outside the image the window is (0, 0)
+        open_ = torch.nn.functional.pad(
+            RE.peel_window_open(*case.window),
+            (0, ww - case.width, 0, hh - case.height))
+
+    def warps(img):   # [hh, ww] -> [cell, warp of the cell, 32 pixels]
+        img = img.reshape(n_by, RE.CELL_H // fh, fh, n_bx, b.cell_w // fw, fw)
+        return img.permute(0, 3, 1, 4, 2, 5).reshape(n_by * n_bx, -1, fh * fw)
+
+    op = warps(open_)
+    xs = warps(torch.arange(ww, device=dev).expand(hh, ww))
+    ys = warps(torch.arange(hh, device=dev)[:, None].expand(hh, ww))
+    box = [f(torch.where(op, v, fill), -1) for v in (xs, ys)
+           for f, fill in ((torch.amin, 1 << 30), (torch.amax, -1))]
+    live = op.any(-1)                                   # [cell, warp]
+    lens = (b.cell_start[1:] - b.cell_start[:-1]).long()
+    cell_of = torch.repeat_interleave(
+        torch.arange(lens.numel(), device=dev), lens)   # each pair's cell
+    rows = b.coef.view(-1, RE.GROUP, 16)
+    tested = kept = 0
+    for s in range(0, b.n_pairs, 4096):
+        c = cell_of[s:s + 4096]
+        r = rows[b.cell_groups[s:s + 4096].long()]     # [pairs, 8, 16]
+        for wi in range(live.shape[1]):
+            lv = live[c, wi]
+            x0, x1, y0, y1 = (v[c, wi, None] for v in box)
+            may = TP.tile_may_cover(r, x0, x1, y0, y1) & lv[:, None]
+            kept += int(may.sum())
+            tested += int(lv.sum()) * RE.GROUP
+    return dict(warps=live.numel(), skipped=int((~live).sum()),
+                skipped_share=float((~live).float().mean()),
+                tested=tested, kept=kept, kept_share=kept / max(tested, 1),
+                candidates_evaluated=kept * fw * fh)
 
 
-def kernel_inputs(rp, cam):
-    """The raster kernel's inputs exactly as RenderPass.render builds them."""
-    from paperrenderer_tpu_torch.ops.raster_exact import bin_triangles
-
-    return bin_triangles(frame_batch(rp, cam), rp.width, rp.height)
-
-
-def compare_raster(rp, cam, reps=20):
-    """K1 vs its plain version on the main path's inputs; bitwise check."""
+def compare_raster(case, needed=None, reps=20):
+    """One binned raster kernel (K1-K4, by RasterCase `case`) against its
+    plain version on the same inputs: bitwise check, kernel ms (CUDA
+    events), plain ms (one call), the cells' list lengths, the per-warp
+    rejection's work (raster_work, on `needed`'s bins for K4) and the bound
+    of that work: its plane tests x 20 and its kept candidates x 22 (K1's
+    cross-multiplied compare) or x 20 (keyed), beside `candidates`, the
+    plain version's whole count; bytes: the inputs read once (the window
+    planes too), depth and tid written once."""
     import torch
     from paperrenderer_tpu_torch.ops import raster_exact as RE
 
-    b = kernel_inputs(rp, cam)
-    w, h = rp.width, rp.height
-    args = (b.cell_start, b.cell_groups, b.coef, w, h)
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    d_k, t_k = RE.rasterize_bins(*args)        # the wrapper: launches K1
-    d_p, t_p = RE.rasterize_bins_plain(*args)
-    torch.cuda.synchronize()
-    start.record()                              # second, warm plain run
-    RE.rasterize_bins_plain(*args)
-    end.record()
-    torch.cuda.synchronize()
-    plain_ms = start.elapsed_time(end)
-    bitwise = (torch.equal(t_k, t_p)
-               and torch.equal(d_k.view(torch.int32), d_p.view(torch.int32)))
+    a, kw = case.args()
+    b, w, h = case.bins, case.width, case.height
+    d_k, t_k = RE.rasterize_bins(*a, **kw)       # the wrapper: its kernel
+    (d_p, t_p), plain_ms = timed_once(lambda: RE.rasterize_bins_plain(*a, **kw))
     both = (t_k >= 0) & (t_p >= 0)
-    err = float((d_k[both] - d_p[both]).abs().max()) if both.any() else 0.0
-    for _ in range(3):
-        RE.rasterize_bins(*args)
-    start.record()
-    for _ in range(reps):
-        RE.rasterize_bins(*args)
-    end.record()
-    torch.cuda.synchronize()
-    counts = (b.cell_start[1:] - b.cell_start[:-1])
-    bound_ms, bound_by = raster_bound(b, w, h)
-    return dict(bitwise=bool(bitwise), max_abs_err=err,
-                bound_ms=bound_ms, bound_by=bound_by,
-                tid_mismatch=int((t_k != t_p).sum()),
-                ms=start.elapsed_time(end) / reps, plain_ms=plain_ms,
-                n_pairs=b.n_pairs, max_list=int(counts.max()),
-                coverage=float((t_k >= 0).float().mean()))
-
-
-def raster_bound(b, width, height):
-    """(bound ms, bound_by) of K1 on these bins: each input read once and
-    the depth/tid planes written once, against every (pixel, triangle)
-    candidate's FP32 operations."""
-    nbytes = (b.cell_start.numel() + b.cell_groups.numel()) * 4 \
-        + b.coef.numel() * 4 + width * height * 8
-    ops = b.n_pairs * 8 * 256 * RASTER_OPS_PER_CANDIDATE
-    return bound(nbytes, ops)
+    work = raster_work(case, None if needed is None else needed.bins)
+    per_candidate = (KEYED_OPS_PER_CANDIDATE if case.keyed
+                     else RASTER_OPS_PER_CANDIDATE)
+    nbytes = ((b.cell_start.numel() + b.cell_groups.numel() + b.coef.numel())
+              * 4 + w * h * (16 if case.window is not None else 8))
+    b_ms, b_by = bound(nbytes, work["tested"] * TILE_OPS_PER_CANDIDATE
+                       + work["candidates_evaluated"] * per_candidate)
+    out = dict(
+        bitwise=same_bits(d_k, d_p) and torch.equal(t_k, t_p),
+        max_abs_err=(float((d_k[both] - d_p[both]).abs().max())
+                     if both.any() else 0.0),
+        tid_mismatch=int((t_k != t_p).sum()),
+        ms=timed(case, reps), plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, n_pairs=b.n_pairs, lists=case.lists,
+        candidates=b.n_pairs * RE.GROUP * RE.CELL_H * b.cell_w, **work,
+        coverage=float((t_k >= 0).float().mean()))
+    if case.window is not None:
+        out["finite_ceiling"] = bool((case.window[1] != RE.SENTINEL).any())
+    return out
 
 
 def pair_count_numpy(chunk_aabb, width, height):
@@ -570,83 +605,22 @@ def compare_tiles(scenes, reps=10):
     return out
 
 
-def compare_keyed(rp, cam, rp_t, cam_t, reps=20):
-    """K3, K4 and K2 against their plain versions, bitwise.
+def compare_keyed(ins):
+    """K3, K4 and K2 against their plain versions, bitwise, on the keyed
+    cases of walk_bench.raster_inputs `ins`: on config 2's triangles K3
+    and K4 on the frame's 8x32 and 8x128 bins, K2 on the 8x32 bins in a
+    two-layer peel chain (each layer's floor is the previous layer's key,
+    starting from K3's depth; no ceiling) and K4's peel form on the 8x128
+    bins in the chain's first window; on the translucent grid K2 on all
+    four peel layers exactly as composite_translucency runs them, on the
+    non-opaque set's bins with the opaque depth's key as the ceiling.
 
-    On config 2's triangles: K3 and K4 on the frame's 8x32 and 8x128 bins,
-    K2 on the 8x32 bins in a two-layer peel chain (each layer's floor is the
-    previous layer's key, starting from K3's depth; no ceiling), and K4's
-    peel form on the 8x128 bins in the chain's first window. On the
-    translucent grid (`rp_t`): K2 on the first two peel layers exactly as
-    composite_translucency runs them, on the non-opaque set's bins with the
-    opaque depth's key as the ceiling.
-
-    Kernel ms (CUDA events), plain ms (one call), and the bound. The bound
-    counts the work the function needs: every (pixel, triangle) candidate
-    of the 8x32 bins, also for K4, whose 8x128 cells evaluate ~3x as many."""
-    import torch
-    from paperrenderer_tpu_torch.ops import raster_exact as RE
-    from paperrenderer_tpu_torch.ops.translucency import non_opaque_mask
-
-    w, h = rp.width, rp.height
-    out = {}
-
-    def candidates(b):
-        return b.n_pairs * RE.GROUP * RE.CELL_H * b.cell_w
-
-    def case(name, b, needed, window=None):
-        args = (b.cell_start, b.cell_groups, b.coef, w, h)
-        kw = dict(cell_w=b.cell_w, keyed=True, window=window)
-        d_k, t_k = RE.rasterize_bins(*args, **kw)      # the wrapper's kernel
-        (d_p, t_p), plain_ms = timed_once(
-            lambda: RE.rasterize_bins_plain(*args, **kw))
-        both = (t_k >= 0) & (t_p >= 0)
-        # inputs read once (+ the window planes), depth and tid written once
-        nbytes = ((b.cell_start.numel() + b.cell_groups.numel()
-                   + b.coef.numel()) * 4 + w * h * (16 if window else 8))
-        b_ms, b_by = bound(nbytes, candidates(needed) * KEYED_OPS_PER_CANDIDATE)
-        out[name] = dict(
-            bitwise=same_bits(d_k, d_p) and torch.equal(t_k, t_p),
-            max_abs_err=(float((d_k[both] - d_p[both]).abs().max())
-                         if both.any() else 0.0),
-            tid_mismatch=int((t_k != t_p).sum()),
-            ms=timed(lambda: RE.rasterize_bins(*args, **kw), reps),
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            n_pairs=b.n_pairs, candidates_evaluated=candidates(b),
-            candidates_needed=candidates(needed),
-            coverage=float((t_k >= 0).float().mean()),
-            finite_ceiling=(window is not None and bool(
-                (window[1] != RE.SENTINEL).any())))
-        return d_k
-
-    batch = frame_batch(rp, cam)
-    bins = RE.bin_triangles(batch, w, h)
-    tiles = RE.bin_triangles(batch, w, h, RE.TILE_W)
-    depth = case("k3", bins, bins)
-    case("k4", tiles, bins)
-    ceil = torch.full((h, w), RE.SENTINEL, dtype=torch.int32, device=depth.device)
-    for layer in (1, 2):
-        window = (RE.depth_to_key(depth), ceil)
-        depth = case(f"k2_layer{layer}", bins, bins, window)
-        if layer == 1:
-            case("k4_peel", tiles, bins, window)
-
-    # the translucent frame's own K2 inputs, built as render_frame_static
-    # and composite_translucency build them
-    full = frame_batch(rp_t, cam_t)
-    mats = rp_t.frame_inputs(cam_t)[3]
-    clear = non_opaque_mask(mats, full.material)
-    opaque_depth, _, _, _ = RE.rasterize_exact(
-        dataclasses.replace(full, valid=full.valid & ~clear), w, h)
-    peel_bins = RE.bin_triangles(
-        dataclasses.replace(full, valid=full.valid & clear), w, h)
-    floor = torch.full((h, w), torch.iinfo(torch.int32).min + 1,
-                       dtype=torch.int32, device=opaque_depth.device)
-    ceil = RE.depth_to_key(opaque_depth)
-    for layer in (1, 2):
-        depth = case(f"k2_translucent_layer{layer}", peel_bins, peel_bins,
-                     (floor, ceil))
-        floor = RE.depth_to_key(depth)
+    Each case as compare_raster reports it; K4's bound counts the work of
+    the 8x32 bins, which the function needs (its 8x128 cells test more)."""
+    needed = dict(k4_config2=ins["k3_config2"],
+                  k4_peel_config2=ins["k2_config2_layer1"])
+    out = {name: compare_raster(case, needed.get(name))
+           for name, case in ins.items() if case.keyed}
     out["ok"] = all(v["bitwise"] for v in out.values())
     return out
 
@@ -1574,6 +1548,8 @@ def main():
         build_rt_scene, build_translucent_grid)
     from paperrenderer_tpu_torch.utils import cuda_build
     from paperrenderer_tpu_torch.utils import probes as PR
+    from paperrenderer_tpu_torch.utils.walk_bench import (frame_batch,
+                                                          raster_inputs)
 
     def build():
         libs = ("raster_exact", "trace", "raster_tiles", "probes")
@@ -1606,10 +1582,23 @@ def main():
                 scenes[cfg][0].supersample = 2
         return scenes[cfg]
 
+    raster_ins = {}
+
+    def raster_in():
+        """The binned raster kernels' inputs (walk_bench.raster_inputs),
+        built once for compare and compare_keyed."""
+        if not raster_ins:
+            raster_ins.update(raster_inputs(dict(
+                config1=get(1), config2=get(2),
+                # ragged right and bottom bin cells (200 = 6.25 x 32,
+                # 150 = 18.75 x 8)
+                ragged=build_example_scene(200, 150, device="cuda"),
+                translucent=get("translucent"))))
+        return raster_ins
+
     def compare():
-        out = {f"config{c}": compare_raster(*get(c)) for c in (1, 2)}
-        # ragged right and bottom bin cells (200 = 6.25 x 32, 150 = 18.75 x 8)
-        out["ragged"] = compare_raster(*build_example_scene(200, 150, device="cuda"))
+        out = {name[3:]: compare_raster(case)
+               for name, case in raster_in().items() if name.startswith("k1_")}
         out["ok"] = all(v["bitwise"] for v in out.values())
         return out
 
@@ -1626,7 +1615,7 @@ def main():
                                  for k, v in counter.items()}
 
     phase("compare", compare)
-    phase("compare_keyed", lambda: compare_keyed(*get(2), *get("translucent")))
+    phase("compare_keyed", lambda: compare_keyed(raster_in()))
     counted("compare_tiles", lambda: compare_tiles(dict(
         config1=get(1), config2=get(2),
         # ragged right and bottom tiles (200 = 1.56 x 128, 150 = 18.75 x 8)
@@ -2198,10 +2187,11 @@ def main():
     cmp1, cmp2 = cmp.get("config1", {}), cmp.get("config2", {})
     ck = results.get("compare_keyed", {})
     # the compare_keyed cases of each keyed kernel; the first is timed
-    keyed_cases = dict(raster_peel=["k2_translucent_layer1",
-                                    "k2_translucent_layer2", "k2_layer1",
-                                    "k2_layer2"],
-                       raster_keyed=["k3"], raster_classic=["k4", "k4_peel"])
+    keyed_cases = dict(raster_peel=[f"k2_translucent_layer{i}"
+                                    for i in range(1, 5)]
+                       + ["k2_config2_layer1", "k2_config2_layer2"],
+                       raster_keyed=["k3_config2"],
+                       raster_classic=["k4_config2", "k4_peel_config2"])
     ctl = results.get("compare_tiles", {})
     # the compare_tiles cases of each tile kernel; the first is timed
     tile_cases = dict(raster_tiles=["k5_config2", "k5_config1", "k5_ragged",
@@ -2256,12 +2246,20 @@ def main():
     rows = []
     for k in KERNELS:
         if k["name"] == "raster_exact":
+            k1_cases = [c for c, v in cmp.items() if isinstance(v, dict)]
             row = dict(
-                max_abs_err=max(cmp.get(c, {}).get("max_abs_err", float("nan"))
-                                for c in ("config1", "config2", "ragged")),
+                max_abs_err=max([cmp[c].get("max_abs_err", float("nan"))
+                                 for c in k1_cases] or [float("nan")]),
                 ms=cmp2.get("ms"), plain_ms=cmp2.get("plain_ms"),
                 bound_ms=cmp2.get("bound_ms"), bound_by=cmp2.get("bound_by"),
-                ms_config1=cmp1.get("ms"), plain_ms_config1=cmp1.get("plain_ms"))
+                timed_on="config2", plain_ms_config1=cmp1.get("plain_ms"))
+            row.update({"ms_" + c: cmp[c].get("ms") for c in k1_cases
+                        if c != "config2"})
+            row.update({f: cmp2.get(f) for f in (
+                "candidates", "tested", "kept_share", "candidates_evaluated",
+                "lists")})
+            row.update({f"{f}_{c}": cmp[c].get(f) for c in k1_cases
+                        if c != "config2" for f in ("bound_ms", "kept_share")})
         elif k["name"] in probe_cases:
             row = probe_row(k["name"])
         elif k["name"] in keyed_cases or k["name"] in tile_cases:
@@ -2279,6 +2277,13 @@ def main():
                 row.update({f: case.get(f) for f in (
                     "candidates", "tested", "candidates_evaluated", "lists",
                     "ranges")})
+            else:                         # the same, and each case's bound,
+                row.update({f: case.get(f) for f in (   # kept and skipped
+                    "candidates", "tested", "kept_share",
+                    "candidates_evaluated", "skipped_share", "lists")})
+                row.update({f"{f}_{c}": ck_.get(c, {}).get(f)
+                            for c in names[1:] for f in (
+                                "bound_ms", "kept_share", "skipped_share")})
         else:
             src = ct if prefix[k["name"]] in ("k7", "k8", "k9") else \
                 results.get("compare_paged", {})

@@ -1,6 +1,6 @@
 // Binned exact rasterizers: nearest covering triangle per pixel.
 //
-// Two kernels share one walk over a bin cell's candidates (walk_cell):
+// Two kernels share one walk over a bin cell's candidates (walk_list):
 //
 // raster_exact_kernel (K1) replaces the TPU kernel
 // paperrenderer_tpu/ops/raster_exact.py _make_kernel_quarter(crossz=True)
@@ -33,18 +33,43 @@
 // tiles, lane_layout planes, SMEM paging of the work list) is not carried
 // over: CW only sets the bin cell width, 32 or 128 pixels.
 //
-// Design: one block per 8 x CW-pixel cell, one thread per pixel. The block
-// stages BATCH groups' coefficient rows (512 B each, contiguous in the
-// [T_pad, 16] table) in shared memory with 16-byte loads; every thread then
-// reads the same shared address per coefficient (a broadcast, no bank
-// conflicts). The winner state stays in registers and is written once.
-//
-// What bounds them on an H100: the FP32 pipes. Each (group, cell) pair costs
-// 8 triangles x (8 x CW) pixels x ~20 FP32 ops (the keyed kernel adds one
-// divide per accepted candidate); the loads are 512 B per pair and mostly
-// hit L2. Long lists in a few cells (many small distant triangles) leave
-// their blocks running after the rest of the grid has drained; balancing
-// that is later work.
+// Design (each step timed against the others on an H100; PERF.md §6):
+//   * One block of 8 x CW threads per cell, one thread per pixel; a warp
+//     owns an 8 x 4 footprint of the cell. The warps never wait for each
+//     other: each walks the cell's list on its own, with no block-wide
+//     staging.
+//   * Exact per-warp rejection. The 32 lanes test 32 triangles at a time,
+//     four groups of the list: lane 8 * j + c holds triangle c of the j-th
+//     group, its 16-float row read as four 16-byte loads through the
+//     read-only cache (the block's 8 warps read the same rows).
+//     Each plane is evaluated at the corner of the warp's footprint that
+//     its coefficients' signs pick, in the kernel's own rounding
+//     (raster_cover.cuh's may_cover, shared with the tile kernels);
+//     round-to-nearest is monotone, so a rejected triangle accepts no
+//     pixel of the footprint. A ballot of the survivors is walked in
+//     ascending lane order, which is the list's order, and only they are
+//     evaluated per pixel, each row read by the whole warp at one address
+//     (~8% of config 2's candidates; 8 x 4 kept fewer than 16 x 2 and
+//     32 x 1 and ran 1.4x and 2.6x faster).
+//   * K2 (and K4's peel form): a warp in which no pixel's window (fl, ce)
+//     holds an integer, decided in 64 bits ((int64) fl + 1 < ce; the
+//     windows reach INT32_MIN + 1 and 0x7F800000), writes its empty outputs
+//     and ends; otherwise its footprint shrinks to the box of its open
+//     pixels.
+// What bounds them now: latency. A warp's rounds are serial, each a group
+// id load, a dependent row load, the test and a ballot, then the survivors
+// one by one, and only more resident warps hide it: 40 registers give 6
+// blocks a SM. The longest lists set the time of the peel's later
+// layers (their open windows lie in the densest cells). Lost on the card
+// and removed: the list's group ids read 32 at a time, the next round's
+// rows loaded early and several survivors' rows loaded together (more
+// registers, fewer warps), rows staged in shared memory by cp.async
+// (through L2 only: 3.8x slower; through L1 it cut the long lists' tail
+// but lost on dense cells), a 32-register cap, and K2's long lists split over
+// blocks (the extra blocks cost more than the tail). With -fmad=false every
+// product and sum issues on its own, so evaluating all of config 2's
+// 202.6 M candidates, as the plain version does, would take an H100 at
+// least 0.13 ms.
 //
 // Every product and sum is rounded on its own (__fmul_rn / __fadd_rn, the
 // divide is __fdiv_rn, and the build passes -fmad=false): the results are
@@ -55,92 +80,129 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "raster_cover.cuh"  // load_row, plane, may_cover
+
 namespace {
 
 constexpr int CELL_H = 8;
 constexpr int GROUP = 8;                 // triangles per bin entry
-constexpr int GROUP_F4 = GROUP * 16 / 4; // float4s per group (8 rows x 16)
-constexpr int BATCH = 32;                // groups staged per pass (16 KiB)
 constexpr int32_t SENTINEL = 0x7FFFFFFF;
 constexpr int32_t KEY_MASK = ~(128 - 1);
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int FOOT_W = 8;                // a warp's footprint: 8 x 4 pixels
+constexpr int FOOT_H = 32 / FOOT_W;
+// blocks a SM the 8 x 32 kernels are built for: without it ptxas aims at 32
+// registers and spills K2's state (32 with 28 B spilled, ~20% slower on K2's
+// layers; 5 gives 40 and no spill)
+constexpr int MIN_BLOCKS = 5;
 
-__device__ __forceinline__ float plane(const float* r, float px, float py) {
-    return __fadd_rn(__fadd_rn(__fmul_rn(r[0], px), __fmul_rn(r[1], py)), r[2]);
+// This thread's pixel and its warp's footprint in `cell` of 8 x CW pixels.
+struct Pixel {
+    int x, y;
+    float px, py;                        // the pixel centre
+    float x_lo, x_hi, y_lo, y_hi;        // the footprint's outer centres
+};
+
+template <int CW>
+__device__ __forceinline__ Pixel pixel_of(int cell, int n_bx) {
+    constexpr int PER_ROW = CW / FOOT_W;   // footprints across a cell
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int fx = (cell % n_bx) * CW + (warp % PER_ROW) * FOOT_W;
+    const int fy = (cell / n_bx) * CELL_H + (warp / PER_ROW) * FOOT_H;
+    Pixel p;
+    p.x = fx + lane % FOOT_W;
+    p.y = fy + lane / FOOT_W;
+    p.px = (float)p.x + 0.5f;
+    p.py = (float)p.y + 0.5f;
+    p.x_lo = (float)fx + 0.5f;
+    p.x_hi = (float)(fx + FOOT_W - 1) + 0.5f;
+    p.y_lo = (float)fy + 0.5f;
+    p.y_hi = (float)(fy + FOOT_H - 1) + 0.5f;
+    return p;
+}
+
+// Narrows the warp's footprint to the box of the pixels whose `open` is
+// set (at least one lane's); every lane of the warp calls it.
+__device__ __forceinline__ void shrink_to(Pixel& p, bool open) {
+    const unsigned big = 0x7fffffffu;
+    const int x0 = (int)__reduce_min_sync(FULL, open ? (unsigned)p.x : big);
+    const int x1 = (int)__reduce_max_sync(FULL, open ? (unsigned)p.x : 0u);
+    const int y0 = (int)__reduce_min_sync(FULL, open ? (unsigned)p.y : big);
+    const int y1 = (int)__reduce_max_sync(FULL, open ? (unsigned)p.y : 0u);
+    p.x_lo = (float)x0 + 0.5f;
+    p.x_hi = (float)x1 + 0.5f;
+    p.y_lo = (float)y0 + 0.5f;
+    p.y_hi = (float)y1 + 0.5f;
 }
 
 // Calls visit(zn, wn, global id) for every accepted candidate of the pixel
-// (px, py) of `cell`, in the cell list's order. Every thread of the block
-// must call it (it stages rows and synchronizes).
-template <int CW, typename Visit>
-__device__ __forceinline__ void walk_cell(
-        const int32_t* __restrict__ cell_start,
+// p among the list entries [begin, end) of its cell, in the list's order.
+// Every lane of the warp must call it (it votes); the warps of a block are
+// independent.
+template <typename Visit>
+__device__ __forceinline__ void walk_list(
         const int32_t* __restrict__ cell_groups,
-        const float4* __restrict__ coef, int cell, float px, float py,
-        float4* rows, int32_t* groups, Visit&& visit) {
-    constexpr int THREADS = CW * CELL_H;
-    const int begin = cell_start[cell];
-    const int end = cell_start[cell + 1];
-    for (int base = begin; base < end; base += BATCH) {
-        const int n = min(BATCH, end - base);
-        __syncthreads();  // the previous batch is fully consumed
-        if (threadIdx.x < n) groups[threadIdx.x] = cell_groups[base + threadIdx.x];
-        __syncthreads();
-        for (int i = threadIdx.x; i < n * GROUP_F4; i += THREADS) {
-            const int64_t g = groups[i / GROUP_F4];
-            rows[i] = coef[g * GROUP_F4 + i % GROUP_F4];
+        const float4* __restrict__ coef, int begin, int end, const Pixel& p,
+        Visit&& visit) {
+    const int lane = threadIdx.x % 32;
+    for (int base = begin; base < end; base += 32 / GROUP) {
+        // lane 8 * j + c: triangle c of the list's group base + j
+        const int k = base + lane / GROUP;
+        int g = 0;
+        bool may = false;
+        if (k < end) {
+            g = __ldg(cell_groups + k);
+            float r[16];
+            load_row(coef + ((int64_t)g * GROUP + lane % GROUP) * 4, r);
+            may = may_cover(r, p.x_lo, p.x_hi, p.y_lo, p.y_hi);
         }
-        __syncthreads();
-        for (int k = 0; k < n; ++k) {
-            const float* gr = reinterpret_cast<const float*>(&rows[k * GROUP_F4]);
-#pragma unroll
-            for (int c = 0; c < GROUP; ++c) {
-                const float* r = gr + 16 * c;
-                const float e0 = plane(r + 0, px, py);
-                const float e1 = plane(r + 3, px, py);
-                const float e2 = plane(r + 6, px, py);
-                const float zn = plane(r + 9, px, py);
-                const float wn = plane(r + 12, px, py);
-                if (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && wn > 1e-12f
-                    && zn >= 0.0f) {
-                    visit(zn, wn, groups[k] * GROUP + c);
-                }
+        unsigned m = __ballot_sync(FULL, may);
+        while (m) {                        // warp-uniform, ascending lanes
+            const int i = __ffs(m) - 1;
+            m &= m - 1;
+            const int32_t id = __shfl_sync(FULL, g, i) * GROUP + i % GROUP;
+            float r[16];
+            load_row(coef + (int64_t)id * 4, r);
+            const float e0 = plane(__fmul_rn(p.px, r[0]), r + 0, p.py);
+            const float e1 = plane(__fmul_rn(p.px, r[3]), r + 3, p.py);
+            const float e2 = plane(__fmul_rn(p.px, r[6]), r + 6, p.py);
+            const float zn = plane(__fmul_rn(p.px, r[9]), r + 9, p.py);
+            const float wn = plane(__fmul_rn(p.px, r[12]), r + 12, p.py);
+            if (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && wn > 1e-12f
+                && zn >= 0.0f) {
+                visit(zn, wn, id);
             }
         }
     }
 }
 
-__global__ void __launch_bounds__(32 * CELL_H)
+__global__ void __launch_bounds__(32 * CELL_H, MIN_BLOCKS)
 raster_exact_kernel(const int32_t* __restrict__ cell_start,
                     const int32_t* __restrict__ cell_groups,
                     const float4* __restrict__ coef,
                     int width, int height, int n_bx,
                     float* __restrict__ depth, int32_t* __restrict__ tid) {
-    __shared__ float4 rows[BATCH * GROUP_F4];
-    __shared__ int32_t groups[BATCH];
-
     const int cell = blockIdx.x;
-    const int x = (cell % n_bx) * 32 + (threadIdx.x & 31);
-    const int y = (cell / n_bx) * CELL_H + threadIdx.x / 32;
+    const Pixel p = pixel_of<32>(cell, n_bx);
     float zb = 1.0f, wb = 0.0f;
     int32_t best = -1;
-    walk_cell<32>(cell_start, cell_groups, coef, cell, (float)x + 0.5f,
-                  (float)y + 0.5f, rows, groups,
-                  [&](float zn, float wn, int32_t id) {
-                      if (__fmul_rn(zn, wb) < __fmul_rn(zb, wn)) {
-                          zb = zn;
-                          wb = wn;
-                          best = id;
-                      }
-                  });
-    if (x < width && y < height) {
-        const int64_t o = (int64_t)y * width + x;
+    walk_list(cell_groups, coef, cell_start[cell], cell_start[cell + 1], p,
+              [&](float zn, float wn, int32_t id) {
+                  if (__fmul_rn(zn, wb) < __fmul_rn(zb, wn)) {
+                      zb = zn;
+                      wb = wn;
+                      best = id;
+                  }
+              });
+    if (p.x < width && p.y < height) {
+        const int64_t o = (int64_t)p.y * width + p.x;
         depth[o] = best >= 0 ? __fdiv_rn(zb, fmaxf(wb, 1e-30f)) : INFINITY;
         tid[o] = best;
     }
 }
 
 template <int CW, bool PEEL>
-__global__ void __launch_bounds__(CW * CELL_H)
+__global__ void __launch_bounds__(CW * CELL_H, CW == 32 ? MIN_BLOCKS : 1)
 raster_keyed_kernel(const int32_t* __restrict__ cell_start,
                     const int32_t* __restrict__ cell_groups,
                     const float4* __restrict__ coef,
@@ -148,32 +210,40 @@ raster_keyed_kernel(const int32_t* __restrict__ cell_start,
                     const int32_t* __restrict__ floor_key,
                     const int32_t* __restrict__ ceil_key,
                     float* __restrict__ depth, int32_t* __restrict__ tid) {
-    __shared__ float4 rows[BATCH * GROUP_F4];
-    __shared__ int32_t groups[BATCH];
-
     const int cell = blockIdx.x;
-    const int x = (cell % n_bx) * CW + (threadIdx.x % CW);
-    const int y = (cell / n_bx) * CELL_H + threadIdx.x / CW;
-    const bool in_image = x < width && y < height;
-    const int64_t o = (int64_t)y * width + x;
+    Pixel p = pixel_of<CW>(cell, n_bx);
+    const bool in_image = p.x < width && p.y < height;
+    const int64_t o = (int64_t)p.y * width + p.x;
     // outside the image the empty window (0, 0) accepts nothing
     int32_t fl = 0, ce = 0;
     if (PEEL && in_image) {
         fl = floor_key[o];
         ce = ceil_key[o];
     }
+    if (PEEL) {
+        // some int32 key lies strictly inside the window (in 64 bits: the
+        // windows reach INT32_MIN + 1 below and 0x7F800000 above)
+        const bool open = (int64_t)fl + 1 < (int64_t)ce;
+        if (!__any_sync(FULL, open)) {                  // every lane votes
+            if (in_image) {                             // warp-uniform end
+                depth[o] = INFINITY;
+                tid[o] = -1;
+            }
+            return;
+        }
+        shrink_to(p, open);
+    }
     int32_t kb = SENTINEL;
     int32_t best = -1;
-    walk_cell<CW>(cell_start, cell_groups, coef, cell, (float)x + 0.5f,
-                  (float)y + 0.5f, rows, groups,
-                  [&](float zn, float wn, int32_t id) {
-                      const int32_t key =
-                          __float_as_int(__fdiv_rn(zn, wn)) & KEY_MASK;
-                      if ((!PEEL || (key > fl && key < ce)) && key < kb) {
-                          kb = key;
-                          best = id;
-                      }
-                  });
+    walk_list(cell_groups, coef, cell_start[cell], cell_start[cell + 1], p,
+              [&](float zn, float wn, int32_t id) {
+                  const int32_t key =
+                      __float_as_int(__fdiv_rn(zn, wn)) & KEY_MASK;
+                  if ((!PEEL || (key > fl && key < ce)) && key < kb) {
+                      kb = key;
+                      best = id;
+                  }
+              });
     if (in_image) {
         depth[o] = best >= 0 ? __int_as_float(kb) : INFINITY;
         tid[o] = best;

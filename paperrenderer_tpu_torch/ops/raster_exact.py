@@ -45,6 +45,10 @@ CELL_H = 8     # bin cell = one kernel block = 8 x CELL_W pixels
 CELL_W = 32    # the quarter kernels' cell width (K1, K2, K3)
 TILE_W = 128   # the classic kernel's cell width (K4)
 ROW = 32       # packed row: 15 coef + global id + 9 normal + 6 uv + material
+WARP_FOOT = (8, 4)   # the pixels (columns, rows) of a kernel warp, whose
+#                      triangles the kernels reject by
+#                      ``raster_pallas.tile_may_cover`` (csrc/raster_exact.cu
+#                      FOOT_W); the 8 x 32 cell holds 8 of them
 # Depth keys: accepted depths are nonnegative, so their f32 bits sort
 # directly as int32; the key drops the low 7 mantissa bits (the TPU kernels
 # carried a 128-lane id there). SENTINEL = int32 max never wins a min.
@@ -158,6 +162,16 @@ def _unpack_depth(key: torch.Tensor, covered: torch.Tensor) -> torch.Tensor:
     """Invert the depth key: the quantized depth, +inf where not covered."""
     z = (key & KEY_MASK).view(torch.float32)
     return torch.where(covered, z, torch.full_like(z, float("inf")))
+
+
+def peel_window_open(floor: torch.Tensor, ceil: torch.Tensor) -> torch.Tensor:
+    """True where the depth window (``floor``, ``ceil``) of i32 keys holds
+    some int32 strictly inside it, so that a key may pass ``floor < key <
+    ceil``: ``floor + 1 < ceil``, decided in 64 bits (in int32, ``ceil -
+    floor`` overflows on the windows the frames build, from ``INT32_MIN +
+    1`` to ``0x7F800000``). K2 ends a warp whose pixels' windows are all
+    closed, and narrows its rejection footprint to the open ones."""
+    return floor.to(torch.int64) + 1 < ceil.to(torch.int64)
 
 
 def rasterize_bins_plain(cell_start, cell_groups, coef, width: int,

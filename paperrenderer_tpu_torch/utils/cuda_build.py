@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C launch function. It is compiled by
 ``nvcc`` into ``build/kernels/lib<name>_<hash>.so`` at the repository root
-(the hash covers the source and the flags, so an edited kernel rebuilds and
-an unchanged one is reused) and loaded with ``ctypes``. Nothing here runs at
-import time: a CPU-only machine imports the package without ``nvcc``.
+(the hash covers the source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited kernel rebuilds and an unchanged one is reused) and
+loaded with ``ctypes``. Nothing here runs at import time: a CPU-only machine
+imports the package without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -55,8 +56,11 @@ def load_library(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     src = CSRC_DIR / f"{name}.cu"
+    # the hash also covers the shared headers, which a source may include
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
     so = BUILD_DIR / f"lib{name}_{digest}.so"
     info = {"seconds": 0.0, "log": "", "path": str(so)}
     if not so.exists():

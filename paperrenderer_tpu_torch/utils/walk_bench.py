@@ -1,21 +1,27 @@
-"""Card times of the traversal and tile kernels on their headline inputs,
-for timing two checkouts against each other.
+"""Card times of the traversal, tile and binned raster kernels on their
+headline inputs, for timing two checkouts against each other.
 
   python paperrenderer_tpu_torch/utils/walk_bench.py \\
-      [--root DIR] [--group all|trace|tiles] [--rounds N] [--out FILE]
-      [--same-as FILE]
+      [--root DIR] [--group all|trace|tiles|raster] [--rounds N]
+      [--out FILE] [--same-as FILE]
 
 times, in the checkout at ``--root`` (default: the one that holds this
-file) and with that checkout's own builds of ``csrc/trace.cu`` and
-``csrc/raster_tiles.cu``, every case of ``probes.headline_waves`` (the
-traversal kernels at 1080p) and of ``tile_cases`` (K5 on the draw-list
-inputs of config 1, config 2 and the ragged 200x150 image; K6 on config
-2's sorted and presorted setups, and on its longest lists alone; the
-inputs by ``tile_inputs``, which ``chip_smoke.py`` checks the kernels on):
+file) and with that checkout's own builds of ``csrc/trace.cu``,
+``csrc/raster_tiles.cu`` and ``csrc/raster_exact.cu``, every case of
+``probes.headline_waves`` (the traversal kernels at 1080p), of
+``tile_cases`` (K5 on the draw-list inputs of config 1, config 2 and the
+ragged 200x150 image; K6 on config 2's sorted and presorted setups, and on
+its longest lists alone; the inputs by ``tile_inputs``, which
+``chip_smoke.py`` checks the kernels on) and of ``raster_cases`` (K1 on
+configs 1 and 2, config 2 at supersample 2 and the ragged image; K2 on the
+translucent grid's four peel layers and config 2's two-layer chain; K3, K4
+and K4's peel form on config 2; the inputs by ``raster_inputs``, which
+``chip_smoke.py``'s ``compare`` and ``compare_keyed`` check):
 ``rounds`` times each, ``profiling.device_time`` (CUDA events behind a
 sleep kernel), and the frames of config 3, hybrid config 4 (``frame_cases``:
-each launches K9 twice) and the draw-list frames of configs 1 and 2 (median
-host ms of 20 synchronized frames). ``--group`` picks one of the two sets.
+each launches K9 twice), the draw-list frames of configs 1 and 2 and the
+raster frames of config 2 and the translucent grid (median host ms of 20
+synchronized frames). ``--group`` picks one of the three sets.
 Two checkouts (e.g. a parent commit unpacked with ``git archive``) are
 compared by running this on each in turns on one card (parent, change,
 change, parent), each run with ``--same-as`` the first run's ``--out``:
@@ -23,9 +29,9 @@ every case's outputs must then hash to the same digest, or the run fails.
 
 Prints one JSON line per case ({case: [ms per round], "live": the share of
 its rays (K9: of its pixels) that are live (traversal), "host_ms": the
-host's ms to issue one call (tiles, K9), "lists": the mean, p99 and max
-of its tiles' chunk-list lengths (K6), "digest": sha256 of its outputs'
-bytes}),
+host's ms to issue one call (tiles, raster, K9), "lists": the mean, p99
+and max of its tiles' chunk-list lengths (K6) or of its cells' group-list
+lengths (raster), "digest": sha256 of its outputs' bytes}),
 one with the registers, spills, stack frame and shared memory of each
 kernel of the builds (ptxas), the card (nvidia-smi name and power limit),
 and last {"ok": ...}.
@@ -57,7 +63,7 @@ REPS = 10           # timed launches a measurement
 def _args():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=1)
-    ap.add_argument("--group", choices=("all", "trace", "tiles"),
+    ap.add_argument("--group", choices=("all", "trace", "tiles", "raster"),
                     default="all", help="the kernels timed")
     ap.add_argument("--root", default=None,
                     help="the checkout whose package is timed")
@@ -71,16 +77,18 @@ def _args():
 def ptxas_table(log: str) -> dict:
     """{kernel: {registers, spill_stores, spill_loads, stack, smem}} from a
     ptxas -v log; a kernel is named by its function and template flags
-    (e.g. trace_kernel<10110>, raster_tiles_kernel<0>), or by its mangled
+    (e.g. trace_kernel<10110>, raster_tiles_kernel<0>; with an int
+    argument comma-separated, raster_keyed_kernel<32,1>), or by its mangled
     name where that is not a ..._kernel function."""
     table, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"([a-z_]+_kernel(?:_[a-z]+)?)(I((?:Lb[01]E)+)E)?",
+            k = re.search(r"([a-z_]+_kernel(?:_[a-z]+)?)(I((?:L[bi]\d+E)+)E)?",
                           m.group(1))
-            flags = "".join(re.findall(r"Lb([01])E", k.group(3) or "")) \
-                if k else ""
+            args = re.findall(r"L([bi])(\d+)E", k.group(3) or "") if k else []
+            flags = ("".join if all(t == "b" for t, _ in args) else
+                     ",".join)(v for _, v in args)
             name = (k.group(1) if k else m.group(1)) + \
                 (f"<{flags}>" if flags else "")
             table[name] = {}
@@ -232,6 +240,143 @@ def tile_cases(device) -> dict:
     return out
 
 
+def frame_batch(rp, cam):
+    """The triangle batch ``RenderPass.render`` rasterizes: every valid
+    triangle of the frame, translucent ones included (the opaque pass of a
+    translucent frame drops those; its peel keeps only them)."""
+    from paperrenderer_tpu_torch.ops.raster import attach_cull
+    from paperrenderer_tpu_torch.ops.static_batch import expand_static
+
+    mapping, inst, tables, mats, cm, slots, vis = rp.frame_inputs(cam)
+    batch, _ = expand_static(mapping, inst, tables, cm, slots, vis,
+                             do_culling=rp.do_culling)
+    return attach_cull(batch, mats)
+
+
+@dataclasses.dataclass
+class RasterCase:
+    """One launch of a binned raster kernel: ``rasterize_bins`` on ``bins``
+    (a ``BinnedFrame``) at ``width`` x ``height``; K1 unless ``keyed``, and
+    then K2 (or K4's peel form on 8x128 bins) inside ``window`` = (floor,
+    ceil) i32 key planes when it is given."""
+    bins: object
+    width: int
+    height: int
+    keyed: bool = False
+    window: object = None
+
+    def args(self):
+        b = self.bins
+        return ((b.cell_start, b.cell_groups, b.coef, self.width,
+                 self.height),
+                dict(cell_w=b.cell_w, keyed=self.keyed, window=self.window))
+
+    def __call__(self):
+        from paperrenderer_tpu_torch.ops.raster_exact import rasterize_bins
+
+        a, kw = self.args()
+        return rasterize_bins(*a, **kw)
+
+    @property
+    def lists(self) -> dict:
+        """The mean, p99 and max of its cells' list lengths."""
+        b = self.bins
+        return length_stats(b.cell_start[1:] - b.cell_start[:-1])
+
+
+def raster_scenes(device) -> dict:
+    """{name: (RenderPass, camera)} of the binned raster kernels' headline
+    inputs: config 1 (512x512), config 2 (10k instances at 1080p), the
+    example scene at 200x150 (ragged right and bottom cells) and the
+    translucent grid (config 2's with four peel layers)."""
+    from paperrenderer_tpu_torch.scenes import (build_dynamic_scene,
+                                                build_example_scene,
+                                                build_translucent_grid)
+
+    return dict(config1=build_example_scene(512, 512, device=device),
+                config2=build_dynamic_scene(10_000, 1920, 1080,
+                                            device=device)[1:],
+                ragged=build_example_scene(200, 150, device=device),
+                translucent=build_translucent_grid(10_000, 1920, 1080,
+                                                   device=device)[1:])
+
+
+def raster_inputs(scenes: dict) -> dict:
+    """{case: RasterCase}: the inputs the binned raster kernels are timed
+    and checked on, built once for this script and ``chip_smoke.py``'s
+    ``compare`` and ``compare_keyed``, from ``raster_scenes``.
+
+    K1 (``k1_*``) on the bins ``RenderPass.render`` gives it: configs 1 and
+    2, config 2 at ``supersample=2`` (3840x2160) and the ragged image. On
+    config 2's triangles: K3 on the 8x32 bins, K4 on the 8x128 ones, K2 in
+    a two-layer peel chain from K3's depth (no ceiling) and K4's peel form
+    in the chain's first window. On the translucent grid: K2's four peel
+    layers exactly as ``composite_translucency`` chains them, on the
+    non-opaque set's bins with the opaque depth's key as the ceiling. The
+    chains' windows come from the kernels themselves (the checkout's)."""
+    import torch
+    from paperrenderer_tpu_torch.ops import raster_exact as RE
+    from paperrenderer_tpu_torch.ops.translucency import non_opaque_mask
+
+    out = {}
+    for name in ("config1", "config2", "ragged"):
+        rp, cam = scenes[name]
+        batch = frame_batch(rp, cam)
+        for ss in (1, 2) if name == "config2" else (1,):
+            w, h = rp.width * ss, rp.height * ss
+            key = f"k1_ss2_{name}" if ss == 2 else f"k1_{name}"
+            out[key] = RasterCase(RE.bin_triangles(batch, w, h), w, h)
+    rp, cam = scenes["config2"]
+    w, h = rp.width, rp.height
+    bins = out["k1_config2"].bins
+    tiles = RE.bin_triangles(frame_batch(rp, cam), w, h, RE.TILE_W)
+    out["k3_config2"] = RasterCase(bins, w, h, keyed=True)
+    out["k4_config2"] = RasterCase(tiles, w, h, keyed=True)
+    depth = out["k3_config2"]()[0]
+    ceil = torch.full((h, w), RE.SENTINEL, dtype=torch.int32,
+                      device=depth.device)
+    for layer in (1, 2):
+        window = (RE.depth_to_key(depth), ceil)
+        out[f"k2_config2_layer{layer}"] = RasterCase(bins, w, h, True, window)
+        depth = out[f"k2_config2_layer{layer}"]()[0]
+        if layer == 1:
+            out["k4_peel_config2"] = RasterCase(tiles, w, h, True, window)
+
+    # the translucent frame's own K2 inputs, built as render_frame_static
+    # and composite_translucency build them
+    rp, cam = scenes["translucent"]
+    w, h = rp.width, rp.height
+    full = frame_batch(rp, cam)
+    clear = non_opaque_mask(rp.frame_inputs(cam)[3], full.material)
+    opaque_depth = RE.rasterize_exact(
+        dataclasses.replace(full, valid=full.valid & ~clear), w, h)[0]
+    peel_bins = RE.bin_triangles(
+        dataclasses.replace(full, valid=full.valid & clear), w, h)
+    floor = torch.full((h, w), torch.iinfo(torch.int32).min + 1,
+                       dtype=torch.int32, device=opaque_depth.device)
+    ceil = RE.depth_to_key(opaque_depth)
+    for layer in range(1, rp.translucent_layers + 1):
+        case = RasterCase(peel_bins, w, h, True, (floor, ceil))
+        out[f"k2_translucent_layer{layer}"] = case
+        floor = RE.depth_to_key(case()[0])
+    return out
+
+
+def raster_cases(device) -> dict:
+    """{case: a function that launches its binned raster kernel once}: every
+    ``raster_inputs`` case, and the raster frames of config 2 and the
+    translucent grid (``RenderPass.render``, their LDR image; ``wall``:
+    timed by ``wall_ms``). Each kernel case has ``lists``, the mean, p99
+    and max of its cells' list lengths."""
+    scenes = raster_scenes(device)
+    out = dict(raster_inputs(scenes))
+    for name in ("config2", "translucent"):
+        rp, cam = scenes[name]
+        out[f"frame_{name}"] = functools.partial(_first, rp.render, cam)
+        out[f"frame_{name}"].wall = True
+    return out
+
+
 def frame_cases(device) -> dict:
     """{case: one frame of config 3 (RayTraceRender) or of hybrid config 4
     (HybridRender) at 1080p, their LDR image; ``wall``: timed by
@@ -260,6 +405,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("walk_bench: no CUDA device", file=sys.stderr)
         return 2
+    from paperrenderer_tpu_torch.ops import raster_exact as RE
     from paperrenderer_tpu_torch.ops import raster_pallas as TP
     from paperrenderer_tpu_torch.ops import trace_kernel as TK
     from paperrenderer_tpu_torch.utils import cuda_build
@@ -286,7 +432,8 @@ def main() -> int:
     groups = dict(trace=(TK._lib, "trace",
                          lambda dev: {**PR.headline_waves(dev),
                                       **frame_cases(dev)}),
-                  tiles=(TP._lib, "raster_tiles", tile_cases))
+                  tiles=(TP._lib, "raster_tiles", tile_cases),
+                  raster=(RE._lib, "raster_exact", raster_cases))
     if args.group != "all":
         groups = {args.group: groups[args.group]}
     ptxas = {}
@@ -307,7 +454,7 @@ def main() -> int:
             if group == "trace" and not getattr(fn, "wall", False):
                 line["live"] = getattr(fn, "live", None) or (
                     1.0 if act is None else float(act.float().mean()))
-            if group == "tiles" or getattr(fn, "host", False):
+            if group in ("tiles", "raster") or getattr(fn, "host", False):
                 # what a call costs the host to issue
                 line["host_ms"] = host_time(fn, iters=REPS) * 1e3
                 if hasattr(fn, "lists"):

@@ -12,6 +12,7 @@ fixtures.
 
 import dataclasses
 import functools
+import itertools
 import os
 import subprocess
 import sys
@@ -1002,6 +1003,58 @@ def test_keyed_end_to_end(case, peel_triangles, jax_keyed):
     np.testing.assert_array_equal(_np(table_t)[:, 16:], table_j[:, 16:])
 
 
+@pytest.mark.parametrize("source", ["extremes", "chain"])
+def test_peel_window_open(peel_triangles, source):
+    """``peel_window_open`` (by which K2 ends a warp whose windows are all
+    closed) against a brute force, "the int32 keys strictly inside (floor,
+    ceil)", ``range(floor + 1, ceil)`` in Python's integers: at the int32
+    extremes that the frames' windows reach (INT32_MIN, -0.0's key; INT32_MIN
+    + 1, the translucent pass's first floor; 0x7F800000, +inf's key;
+    SENTINEL, config 2's ceilings), where int32 arithmetic overflows; and on
+    the windows of a four-layer peel chain over the fixture's triangles (an
+    opaque depth with +inf and -0.0 pixels as the ceiling, each layer's
+    floor the previous layer's key, as composite_translucency chains them),
+    where every pixel it calls closed gets -1 from rasterize_bins_plain."""
+    i32 = np.iinfo(np.int32)
+    if source == "extremes":
+        neg0 = int(_keys(np.float32([-0.0]))[0])
+        vals = [i32.min, i32.min + 1, i32.min + 2, -129, -128, -1, 0, 1, 127,
+                128, 0x3F000000, 0x7F800000 - 128, 0x7F800000 - 1, 0x7F800000,
+                0x7F800001, TRE.SENTINEL - 1, TRE.SENTINEL, neg0]
+        assert neg0 == i32.min
+        fl, ce = (torch.tensor(v, dtype=torch.int32)
+                  for v in zip(*itertools.product(vals, vals)))
+        want = torch.tensor([bool(range(f + 1, c)) for f, c
+                             in itertools.product(vals, vals)])
+        assert torch.equal(TRE.peel_window_open(fl, ce), want)
+        # the int32 difference gets some of them wrong
+        assert ((ce - fl > 1) != want).any()
+        return
+    rng = np.random.default_rng(13)
+    opaque = rng.uniform(0.3, 1.0, (H, W)).astype(np.float32)
+    opaque[rng.random((H, W)) < 0.25] = np.inf
+    opaque[rng.random((H, W)) < 0.02] = -0.0
+    b = TRE.bin_triangles(_port("TriangleBatch", peel_triangles), W, H)
+    floor = torch.full((H, W), i32.min + 1, dtype=torch.int32)
+    ceil = TRE.depth_to_key(torch.from_numpy(opaque))
+    closed_counts = []
+    for _ in range(4):
+        d, t = TRE.rasterize_bins_plain(b.cell_start, b.cell_groups, b.coef,
+                                        W, H, keyed=True, window=(floor, ceil))
+        open_ = TRE.peel_window_open(floor, ceil)
+        k = TRE.depth_to_key(d)
+        brute = torch.tensor([bool(range(f + 1, c)) for f, c in zip(
+            floor.flatten().tolist(), ceil.flatten().tolist())])
+        assert torch.equal(open_.flatten(), brute)
+        assert (t[~open_] == -1).all() and (t >= 0).any()
+        assert ((k[t >= 0] > floor[t >= 0]) & (k[t >= 0] < ceil[t >= 0])).all()
+        closed_counts.append(int((~open_).sum()))
+        floor = k
+    # -0.0 closes layer 1's windows; each layer closes those it left empty
+    assert 0 < closed_counts[0] < closed_counts[1] <= closed_counts[3], \
+        closed_counts
+
+
 def test_leaf_alpha_matches():
     """tests/test_leaf.py's four uvs: lens centre, beyond the half-width,
     the u edge, and inside the narrower lens at u = 0.25."""
@@ -1418,19 +1471,38 @@ def _accepts(rows, xs, ys):
             & (zn >= 0.0))
 
 
-@pytest.mark.parametrize("foot", [(32, 4), (16, 8)], ids=["32x4", "16x8"])
-@pytest.mark.parametrize("source", ["fixture", "handmade"])
+@pytest.mark.parametrize("source,foot", [
+    ("fixture", (32, 4)), ("fixture", (16, 8)), ("handmade", (32, 4)),
+    ("handmade", (16, 8)), ("bins", (8, 4)), ("bins", (16, 2)),
+    ("bins", (32, 1))], ids=["fixture-32x4", "fixture-16x8", "handmade-32x4",
+                             "handmade-16x8", "bins-8x4", "bins-16x2",
+                             "bins-32x1"])
 def test_tile_may_cover_is_exact(triangles, source, foot):
-    """``tile_may_cover`` (the tile kernels' per-warp triangle rejection)
-    against every pixel of every footprint, evaluated with the kernels'
-    rounding: a footprint it rejects holds no accepting pixel. On the
-    fixture's sorted rows each 8 x 128 tile's footprints are tested against
-    the rows of the chunks whose box meets the tile (the kernels'
-    candidates), and more than half of those are rejected; the handmade
-    rows are tested against every footprint of two 128 x 16 regions, one at
-    the origin and one at the far corner of a 1920 x 1080 image."""
+    """``tile_may_cover`` (the tile and binned raster kernels' per-warp
+    triangle rejection) against every pixel of every footprint, evaluated
+    with the kernels' rounding: a footprint it rejects holds no accepting
+    pixel. On the fixture's sorted rows each 8 x 128 tile's footprints are
+    tested against the rows of the chunks whose box meets the tile (the
+    tile kernels' candidates), and more than half of those are rejected;
+    on the fixture's ``bin_triangles`` each 8 x 32 cell's footprints (the
+    binned kernels' warps: 8 x 4 is K1-K4's, 16 x 2 and 32 x 1 the
+    shapes timed beside it) against the rows of the cell's groups, and
+    more than half of those are rejected too (kept: 2.2% at 8 x 4, 3.2% at
+    16 x 2, 7.3% at 32 x 1); the handmade rows are tested against every
+    footprint of two 128 x 16 regions, one at the origin and one at the far
+    corner of a 1920 x 1080 image."""
     fw, fh = foot
-    if source == "fixture":
+    if source == "bins":
+        b = TRE.bin_triangles(_port("TriangleBatch", triangles), W, H)
+        rows = b.coef.reshape(-1, TRE.GROUP, 16)
+        n_bx = TRE.grid_cells(W, H)[0]
+        work = []
+        for c in range(b.cell_start.numel() - 1):
+            gs = b.cell_groups[b.cell_start[c]:b.cell_start[c + 1]].long()
+            origin = ((c % n_bx) * TRE.CELL_W, (c // n_bx) * TRE.CELL_H)
+            work.append((origin, TRE.CELL_W, TRE.CELL_H,
+                         rows[gs].reshape(-1, 16)))
+    elif source == "fixture":
         batch = _port("TriangleBatch", triangles)
         coeffs, ok, (lo, hi) = TR.triangle_coefficients(batch, W, H)
         f = TRP.tile_setup(coeffs, ok, lo, hi, W, H)
@@ -1459,7 +1531,7 @@ def test_tile_may_cover_is_exact(triangles, source, foot):
                     f"{torch.nonzero(hit & ~may).flatten().tolist()}")
                 kept += int(may.sum())
                 tested += may.numel()
-    if source == "fixture":
+    if source != "handmade":
         assert tested > 0 and kept < 0.5 * tested, (kept, tested)
     else:
         # some rows are rejected somewhere; a row with a NaN is kept

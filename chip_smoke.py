@@ -120,6 +120,21 @@ Phases, each reported as one JSON line:
            with half-rate reflections off and on: median frame ms and one
            frame's launches; a reduced copy of each (400 instances or the RT
            scene, 96x64) on the card against the CPU with the golden bands;
+  textured textures (core/texture.py's atlas and samplers, plain tensor
+           ops): the 128x128 textured example (scenes.build_textured_scene)
+           held to tests/goldens/textured_example.png through the static and
+           the draw-list frame, and its static frame, a two-layer textured
+           glass frame (K2), the flat RT frame and the hybrid frame on the
+           card against the port's CPU frames (mean and max |diff|, golden
+           bands), every frame's atlas on the card; config 2's grid with
+           textured materials (scenes.build_textured_grid, a ~65 MB atlas) at
+           1920x1080: the static, draw-list, RT (paged) and hybrid frame ms
+           beside their untextured twins (config 2, the RT grid, the hybrid
+           grid) in the order untextured, textured, textured, untextured,
+           shade_gbuffer alone on its G-buffer untextured and with each
+           mip_filter (CUDA events), the atlas bytes, a frame's peak CUDA
+           memory, and a 400-instance copy on the card against the CPU; its
+           K1, K2, K5 and K8-K11 launches join the kernels line;
   probes   the profiling path (paperrenderer_tpu_torch.utils.probes.measure,
            the counterpart of scripts/probe_smem_dma.py, probe_smem_dma2.py
            and prof_rt_floor2.py), its launches counted: K12a's three copy
@@ -136,15 +151,16 @@ Phases, each reported as one JSON line:
            walk, each with the warp efficiency of its step counts in launch
            order (utils.probes.warp_efficiency); plain ms and bounds;
   launches every kernel was launched by the phases of its path (K1: config1,
-           config2, translucent, supersample; K2: translucent, keyed_entry;
-           K3/K4: keyed_entry; K5: draw_list; K6: compare_tiles; traversal:
-           rt_frame and rt_grid10k), with the launch counters reset just
+           config2, translucent, supersample, textured; K2: translucent,
+           keyed_entry, textured; K3/K4: keyed_entry; K5: draw_list,
+           textured; K6: compare_tiles; traversal: rt_frame, rt_grid10k and
+           textured), with the launch counters reset just
            before each and read just after; the kernels line counts K1/K2
            from the frame phases, K3/K4 from keyed_entry, K5 from draw_list,
            K6 from compare_tiles (no frame runs it), K7-K9 from rt_frame,
-           K10/K11 from crowd, hybrid and big_model, the alpha forms of K8
-           and K11 from leaf_rt, K12 and the step forms of K7/K10 from
-           probes;
+           K10/K11 from crowd, hybrid and big_model, K1, K2, K5 and K8-K11
+           also from textured, the alpha forms of K8 and K11 from leaf_rt,
+           K12 and the step forms of K7/K10 from probes;
   sync     cost of the raster frame's one device-to-host read (the pair
            count): frame time as is vs. with the count supplied.
 
@@ -155,8 +171,10 @@ Usage: python3 chip_smoke.py            (all phases; needs one CUDA card)
                                          2's draw-list frame, the 1080p
                                          RT frame, the crowd frame and the
                                          1080p hybrid frames and the
-                                         leaf grid's RT frame by stage,
-                                         with the tables written to
+                                         leaf grid's RT frame and the
+                                         textured grid's static and
+                                         hybrid frames by stage, with
+                                         the tables written to
                                          chiprun_out/)
 Exit code 0 only when every phase passed; the last line of stdout is then
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
@@ -1307,6 +1325,158 @@ def hybrid_grid(n, width, height, device):
     return hy, cam
 
 
+def textured_example(width, height, device):
+    """The textured example (scenes.build_textured_scene) as the raster
+    pass, the RT and the hybrid frame (1 shadow, AO and reflection sample,
+    the example's --rt settings) and a second raster pass with the ball a
+    50% textured glass over two peel layers -> (rp, rt, hybrid, glass,
+    camera)."""
+    from paperrenderer_tpu_torch import HybridRender, RayTraceRender, RenderPass
+    from paperrenderer_tpu_torch.core import SHADE_TRANSLUCENT, Material
+    from paperrenderer_tpu_torch.scenes import build_textured_scene
+
+    scene, reg, rp, cam = build_textured_scene(width, height, device=device)
+    samples = dict(width=width, height=height, lights=rp.lights,
+                   shadow_samples=1, reflection_samples=1, ao_samples=1)
+    rt = RayTraceRender(scene, reg, **samples)
+    rt.add_instances_from(rp)
+    hy = HybridRender(scene, reg, **samples)
+    hy.add_instances_from(rp)
+    glass = RenderPass(scene, reg, width=width, height=height,
+                       lights=rp.lights, translucent_layers=2)
+    glass._bindings = {i: dict(b) for i, b in rp._bindings.items()}
+    ball = scene.instances[1]
+    tex = reg.rows()[rp._bindings[ball.index][0]]["base_texture"]
+    glass.add_instance(ball, {0: Material(
+        "glass", alpha=0.5, roughness=0.2, base_texture=tex,
+        shading_model=SHADE_TRANSLUCENT).instance()})
+    return rp, rt, hy, glass, cam
+
+
+def textured_phase(twins, keep, device="cuda", n=10_000, width=1920,
+                   height=1080, small=(400, 256, 128)):
+    """The textured phase: the 128x128 textured example on `device`
+    against textured_example.png (static and draw-list frames) and
+    against the port's CPU frames of the same scene (static, a
+    two-layer textured glass, RT flat, hybrid); config 2's grid with
+    textured materials (scenes.build_textured_grid) of `n` instances at
+    `width` x `height`: each frame's ms beside its untextured twin in
+    `twins` ((render, camera) of config 2's raster pass, the grid's RT
+    and hybrid renders) in the order untextured, textured, textured,
+    untextured, shade_gbuffer alone on its G-buffer untextured and with
+    each mip filter, the atlas bytes and a frame's peak CUDA memory; a
+    `small` (n, width, height) copy on `device` against the CPU. The
+    textured grid's raster and hybrid renders go into `keep`."""
+    import torch
+
+    from paperrenderer_tpu_torch.ops.raster_exact import (
+        rasterize_exact, resolve_gbuffer_pairs)
+    from paperrenderer_tpu_torch.ops.shading import shade_gbuffer
+    from paperrenderer_tpu_torch.scenes import build_textured_grid
+    from paperrenderer_tpu_torch.utils.walk_bench import frame_batch
+
+    out, ok = {}, True
+    frames, on_card = {}, []
+    for dev in (device, "cpu"):
+        rp, rt, hy, glass, cam = textured_example(128, 128, dev)
+        frames[dev] = dict(
+            static=rp.render(cam)[0],
+            draw_list=rp.render(cam, static_path=False)[0],
+            rt_flat=rt.render(cam, paged=False)[0],
+            hybrid=hy.render(cam)[0],
+            translucent=glass.render(cam)[0])
+        if dev == device:   # every frame sampled the card's atlas
+            on_card = [r.pairs.device.type for r in (
+                rp._cached_textures, rt._cached_textures,
+                hy._rp._cached_textures, glass._cached_textures)]
+    ok &= on_card == [torch.device(device).type] * 4
+    card = {k: v.cpu().numpy() for k, v in frames[device].items()}
+    for name in ("static", "draw_list"):
+        good, mean, frac = bands(card[name], golden("textured_example"))
+        out[f"golden128_{name}"] = dict(mean=mean, frac=frac, ok=good)
+        ok &= good
+    for name in ("static", "translucent", "rt_flat", "hybrid"):
+        ref = frames["cpu"][name].numpy()
+        good, mean, frac = bands(card[name], ref)
+        out[f"card_vs_cpu_{name}"] = dict(
+            mean=mean, frac=frac, ok=good,
+            max=float(abs(card[name] - ref).max()))
+        ok &= good
+
+    # the textured grid and its untextured twins, timed in turns
+    eng, rp_t, cam = build_textured_grid(n, width, height, device=device)
+    mirror = dict(width=width, height=height, lights=rp_t.lights)
+    rt_t = eng.create_ray_trace_render(**mirror)
+    rt_t.add_instances_from(rp_t)
+    hy_t = eng.create_hybrid_render(**mirror)
+    hy_t.add_instances_from(rp_t)
+    pairs = dict(static=(twins["static"], (rp_t, cam), {}),
+                 draw_list=(twins["static"], (rp_t, cam),
+                            dict(static_path=False)),
+                 rt=(twins["rt"], (rt_t, cam), {}),
+                 hybrid=(twins["hybrid"], (hy_t, cam), {}))
+    grid = {}
+    for name, (plain, tex, kw) in pairs.items():
+        reps = 10 if name in ("static", "draw_list") else 5
+        ldr_p = plain[0].render(plain[1], **kw)[0]
+        ldr_t = tex[0].render(tex[1], **kw)[0]
+        ms = {"plain": [], "textured": []}
+        for which in ("plain", "textured", "textured", "plain"):
+            r, c = plain if which == "plain" else tex
+            ms[which].append(frame_ms(r, c, frames=reps, warmup=2, **kw))
+        changed = float(((ldr_t - ldr_p).abs().amax(dim=-1) > 1e-3)
+                        .float().mean())
+        finite = (bool(torch.isfinite(ldr_t).all())
+                  and tuple(ldr_t.shape) == (height, width, 3))
+        ok &= finite and changed > 0
+        grid[name] = dict(
+            textured_ms=ms["textured"], untextured_ms=ms["plain"],
+            textured_over_untextured=sum(ms["textured"])
+            / sum(ms["plain"]), changed_share=changed)
+    grid["rt"]["paged"] = rt_t.accel.prefer_paged(
+        rt_t.scene.flush().capacity)
+    tex = rp_t._cached_textures
+    ok &= tex.pairs.device.type == torch.device(device).type
+    grid["atlas"] = dict(bytes=tex.nbytes, texels=tex.pairs.shape[0],
+                         textures=tex.count,
+                         height=tex.pairs.shape[0] // tex.width)
+    # a frame's peak CUDA memory, textured and untextured
+    for name, (r, c) in (("static", (rp_t, cam)),
+                         ("static_untextured", twins["static"]),
+                         ("hybrid", (hy_t, cam)),
+                         ("hybrid_untextured", twins["hybrid"])):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        r.render(c)
+        torch.cuda.synchronize()
+        grid.setdefault("peak_mib", {})[name] = (
+            torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    # shade_gbuffer alone on the textured grid's G-buffer
+    batch = frame_batch(rp_t, cam)
+    mapping, inst, tables, mats, cm, slots, vis = rp_t.frame_inputs(cam)
+    depth, tid, attr, _ = rasterize_exact(batch, width, height)
+    gbuf = resolve_gbuffer_pairs(attr, depth, tid, cm)
+    shade = {"untextured": timed(lambda: shade_gbuffer(
+        gbuf, mats, rp_t.lights, cm.cam_pos), 20)}
+    for f in ("nearest", "linear", "aniso2"):
+        shade[f] = timed(lambda f=f: shade_gbuffer(
+            gbuf, mats, rp_t.lights, cm.cam_pos, textures=tex,
+            mip_filter=f), 20)
+    grid["shade_gbuffer_ms"] = shade
+    out[f"grid{n}_{width}x{height}"] = grid
+    keep.update(static=(rp_t, cam), hybrid=(hy_t, cam))
+    # a reduced copy of the textured grid, card against CPU
+    copies = [build_textured_grid(*small, device=dev)
+              for dev in (device, "cpu")]
+    good, mean, frac = bands(
+        copies[0][1].render(copies[0][2])[0].cpu().numpy(),
+        copies[1][1].render(copies[1][2])[0].numpy())
+    out["card_vs_cpu_grid%d_%dx%d" % small] = dict(mean=mean, frac=frac,
+                                                   ok=good)
+    return dict(ok=ok and good, **out)
+
+
 def sync_cost(rp, cam, frames=20, rounds=4):
     """Frame time with the per-frame pair-count read vs. with the count
     supplied (same camera, so the count is known): loops of `frames`
@@ -1603,7 +1773,8 @@ def main():
         return out
 
     # count only each path's own launches: each phase's counts start at 0
-    raster_counters = (RE.LAUNCHES, TPL.LAUNCHES)
+    # (the traversal counters too: the textured phase launches both kinds)
+    raster_counters = (RE.LAUNCHES, TPL.LAUNCHES, TK.LAUNCHES, TPG.LAUNCHES)
     raster_launches = {}
 
     def counted(name, fn):
@@ -2108,6 +2279,23 @@ def main():
     alpha_launches = {k: rt_launches.get("leaf_rt", {}).get(k + "_alpha", 0)
                       for k in ("trace_resolve", "trace_resolve_paged")}
 
+    def textured():
+        return textured_phase(dict(static=get(2), rt=grid_rt(),
+                                   hybrid=hybrid_scenes["grid10k"]),
+                              textured_scenes)
+
+    textured_scenes = {}
+    counted("textured", textured)
+    # K1, K2, K5, K8/K9 (the flat example frames) and K10/K11 (the paged
+    # grid frames); K7 runs in no default frame (config 3's cull masks
+    # launch it)
+    tex_launches = raster_launches["textured"]
+    tex_needs = ("raster_exact", "raster_peel", "raster_tiles",
+                 "trace_resolve", "trace_bundle") + paged_keys
+    for k in tex_needs:
+        launches[k] += tex_launches.get(k, 0)
+        launch_path[k] = tuple(launch_path[k]) + ("textured",)
+
     probe_keys = tuple(PR.LAUNCHES) + ("trace_scene_steps",
                                        "trace_scene_paged_steps")
 
@@ -2151,7 +2339,8 @@ def main():
                     .get(k, 0) > 0 for k in ("raster_exact",
                                              "trace_scene_paged",
                                              "trace_resolve_paged"))
-            and all(probe_launches.get(k, 0) > 0 for k in probe_keys)),
+            and all(probe_launches.get(k, 0) > 0 for k in probe_keys)
+            and all(tex_launches.get(k, 0) > 0 for k in tex_needs)),
         **raster_launches, **rt_launches, probes=probe_launches))
     phase("sync", lambda: {f"config{c}": sync_cost(*get(c)) for c in (1, 2)})
     if args.profile:
@@ -2174,6 +2363,15 @@ def main():
         phase("profile_leaf_rt", lambda: profile_frames(
             functools.partial(leaf_grid()[0].render, leaf_grid()[2]),
             leaf_rt_stages(), os.path.join(out_dir, "profile_leaf_rt.txt")))
+        for name, stages in (("static", raster_stages),
+                             ("hybrid", hybrid_stages)):
+            if name in textured_scenes:
+                r, cam = textured_scenes[name]
+                phase(f"profile_textured_{name}", lambda r=r, cam=cam,
+                      st=stages, n=name: profile_frames(
+                          functools.partial(r.render, cam), st(),
+                          os.path.join(out_dir,
+                                       f"profile_textured_grid_{n}.txt")))
         for name in ("config4", "grid10k"):
             if name in hybrid_scenes:
                 hy, cam = hybrid_scenes[name]

@@ -13,7 +13,8 @@ draw-list raster frame, ``RenderPass.render(cam, static_path=False)``, the
 ray-traced frame, ``RayTraceRender.render(cam)``, on the flat and the paged
 layout (big scenes, big models), and the hybrid frame,
 ``HybridRender.render(cam)``, both with the any-hit leaf cutout and
-half-rate reflections. Textures and animation are still to port.
+half-rate reflections, and textured materials on all of them (the atlas
+and samplers of ``core.texture``). Animation is still to port.
 """
 
 import torch as _torch

@@ -3,9 +3,9 @@
 PyTorch counterpart of ``paperrenderer_tpu/core/material.py`` (reference
 Material.h:11-53, example/src/Materials.cpp). A material is a row of a
 device SoA parameter table that the shading ops index by material id.
-
-Textures are not ported yet: a material that carries one raises
-``NotImplementedError`` when it is registered (ROADMAP Queue 1 item 3).
+Its four texture-id columns name textures in the registry's atlas
+(``core.texture.TextureAtlas``), added in row order when the table is
+built, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..utils.tree import tree_to
+from .texture import TextureArrays, TextureAtlas
 
 SHADE_PBR = 0
 SHADE_LEAF = 1
@@ -41,6 +42,10 @@ class MaterialTable:
     alpha: torch.Tensor          # f32[M]
     shading_model: torch.Tensor  # i32[M]
     cull_back: torch.Tensor      # bool[M] — raster back-face culling
+    base_tex: torch.Tensor       # i32[M] — atlas texture id, -1 = untextured
+    emissive_tex: torch.Tensor   # i32[M]
+    mr_tex: torch.Tensor         # i32[M] — metallicRoughness (linear; g=rough, b=metal)
+    occ_tex: torch.Tensor        # i32[M] — occlusion (linear; r channel)
 
     def to(self, device) -> "MaterialTable":
         return tree_to(self, device)
@@ -61,10 +66,10 @@ class Material:
         shading_model: int = SHADE_PBR,
         cull_mode: Optional[int] = None,  # None = BACK for opaque, NONE for
         #   leaf/translucent (Pipeline.h:80, main.cpp:543)
-        base_texture=None,
-        emissive_texture=None,
-        mr_texture=None,
-        occlusion_texture=None,
+        base_texture=None,       # u8/f32 [H, W, C] image (sRGB) or None
+        emissive_texture=None,   # sRGB
+        mr_texture=None,         # linear metallicRoughness (glTF: g=rough, b=metal)
+        occlusion_texture=None,  # linear occlusion (glTF: r channel)
     ):
         self.name = name
         self.albedo = tuple(albedo)
@@ -105,34 +110,51 @@ class MaterialInstance:
         return vals
 
 
-def _resolve_untextured(mat) -> Dict:
-    vals = (mat.resolved() if isinstance(mat, MaterialInstance)
+def _resolve(mat) -> Dict:
+    return (mat.resolved() if isinstance(mat, MaterialInstance)
             else Material.instance(mat).resolved())
-    if any(vals.get(k) is not None for k in _TEXTURE_KEYS):
-        raise NotImplementedError(
-            "textured materials are not ported yet (ROADMAP Queue 1 item 3: "
-            "textures)")
-    return vals
 
 
 class MaterialRegistry:
     """Assigns dense ids to (Material|MaterialInstance) and builds the table.
 
     Keys by ``id(obj)`` and holds a reference to every registered object, so
-    a collected temporary's address can never alias another material."""
+    a collected temporary's address can never alias another material. The
+    texture atlas is shared by all materials; an image is added once per
+    (``id(image)``, sRGB flag), and held as materials are."""
 
     def __init__(self):
         self._rows = []
         self._ids: Dict[int, int] = {}
         self._objects = []
+        self.textures = TextureAtlas()
+        self._tex_ids: Dict[tuple, int] = {}   # (id(image), srgb) -> atlas id
+        self._tex_refs = []
         self.default = Material("default")
         self.register(self.default)
+
+    def _texture_id(self, img, srgb: bool = True) -> int:
+        if img is None:
+            return -1
+        key = (id(img), srgb)
+        if key not in self._tex_ids:
+            self._tex_ids[key] = self.textures.add(img, srgb=srgb)
+            self._tex_refs.append(img)
+        return self._tex_ids[key]
+
+    def _row_texture_ids(self, vals: Dict) -> tuple:
+        """(base, emissive, mr, occlusion) atlas ids of a row, adding its
+        images to the atlas on first sight; mr and occlusion are linear."""
+        return (self._texture_id(vals.get("base_texture")),
+                self._texture_id(vals.get("emissive_texture")),
+                self._texture_id(vals.get("mr_texture"), srgb=False),
+                self._texture_id(vals.get("occlusion_texture"), srgb=False))
 
     def register(self, mat) -> int:
         key = id(mat)
         if key in self._ids:
             return self._ids[key]
-        vals = _resolve_untextured(mat)
+        vals = _resolve(mat)
         row = len(self._rows)
         self._rows.append(vals)
         self._ids[key] = row
@@ -144,7 +166,7 @@ class MaterialRegistry:
         key = id(mat)
         if key not in self._ids:
             raise KeyError("material not registered")
-        self._rows[self._ids[key]] = _resolve_untextured(mat)
+        self._rows[self._ids[key]] = _resolve(mat)
 
     def __len__(self) -> int:
         return len(self._rows)
@@ -161,6 +183,21 @@ class MaterialRegistry:
         frames then trace with the any-hit leaf test."""
         return any(v["shading_model"] == SHADE_LEAF for v in self._rows)
 
+    @property
+    def has_textures(self) -> bool:
+        """A registered material carries a texture."""
+        return any(v.get(k) is not None for v in self._rows
+                   for k in _TEXTURE_KEYS)
+
+    def texture_arrays(self, device="cpu") -> Optional[TextureArrays]:
+        """The atlas on ``device`` (None when no material is textured). Adds
+        the rows' images in the order ``table`` does."""
+        for vals in self._rows:
+            self._row_texture_ids(vals)
+        if self.textures.count == 0:
+            return None
+        return self.textures.device_arrays(device)
+
     def table(self, device="cpu") -> MaterialTable:
         n = max(1, len(self._rows))
         albedo = np.ones((n, 3), np.float32)
@@ -170,6 +207,7 @@ class MaterialRegistry:
         alpha = np.ones((n,), np.float32)
         shading = np.zeros((n,), np.int32)
         cull_back = np.zeros((n,), bool)
+        tex_ids = np.full((4, n), -1, np.int32)   # base, emissive, mr, occ
         for i, vals in enumerate(self._rows):
             albedo[i] = vals["albedo"]
             emissive[i] = vals["emissive"]
@@ -183,9 +221,12 @@ class MaterialRegistry:
                       if vals["shading_model"] in (SHADE_LEAF, SHADE_TRANSLUCENT)
                       else CULL_BACK)
             cull_back[i] = cm == CULL_BACK
+            tex_ids[:, i] = self._row_texture_ids(vals)
         t = lambda a: torch.from_numpy(a).to(device)
         return MaterialTable(
             albedo=t(albedo), emissive=t(emissive), roughness=t(roughness),
             metallic=t(metallic), alpha=t(alpha), shading_model=t(shading),
-            cull_back=t(cull_back),
+            cull_back=t(cull_back), base_tex=t(tex_ids[0]),
+            emissive_tex=t(tex_ids[1]), mr_tex=t(tex_ids[2]),
+            occ_tex=t(tex_ids[3]),
         )

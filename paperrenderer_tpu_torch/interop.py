@@ -4,10 +4,11 @@ The JAX package's dataclasses (``CameraMatrices``, ``InstanceArrays``, ...)
 have the same field names as the port's. Fetch their fields with
 ``np.asarray`` and hand them to ``from_numpy`` to get bit-identical inputs
 for both packages — the parity tests do exactly that. Fields the port does
-not carry (the texture ids of ``MaterialTable``, the jump-fill and
-per-triangle id fields of ``StaticMapping``, the static light flags, the
-leaf-normal and forward-matrix tables of ``BLASSet``, ``RTScene`` and
-``PagedScene`` that only the TPU kernels read) are ignored.
+not carry (the jump-fill and per-triangle id fields of ``StaticMapping``,
+the static light flags, the leaf-normal and forward-matrix tables of
+``BLASSet``, ``RTScene`` and ``PagedScene`` that only the TPU kernels
+read) are ignored. ``texture_arrays_from_numpy`` does the same for the
+texture atlas (``TextureArrays``), whose atlas width is a plain int.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from .core.camera import CameraMatrices
 from .core.geometry import GeometryArrays
 from .core.material import MaterialTable
 from .core.scene import InstanceArrays, SceneTables
+from .core.texture import TextureArrays
 from .ops.accel import BLASSet, HitRecord2, PagedScene, RTScene
 from .ops.preprocess import PreprocessResult
 from .ops.raster import TriangleBatch
@@ -47,3 +49,13 @@ def from_numpy(kind: str, arrays: Dict[str, np.ndarray], device="cuda"):
         if v is not None:  # else an optional field keeps its default
             values[f.name] = torch.from_numpy(np.array(v)).to(device)
     return cls(**values)
+
+
+def texture_arrays_from_numpy(arrays: Dict[str, np.ndarray], width: int,
+                              device="cuda") -> TextureArrays:
+    """The port's ``TextureArrays`` from the atlas's ``pairs``, ``rects``
+    and ``mip_counts`` as numpy and its ``width`` in texels."""
+    device = require_device(device)
+    return TextureArrays(
+        **{k: torch.from_numpy(np.array(arrays[k])).to(device)
+           for k in ("pairs", "rects", "mip_counts")}, width=int(width))

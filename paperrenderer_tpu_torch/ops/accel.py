@@ -1185,14 +1185,17 @@ class SceneTracer:
     (``ops/trace_kernel.py``): the CUDA kernel on a CUDA scene, its plain
     version on a CPU scene. With ``leaf_cutout``, ``trace`` and
     ``trace_resolve`` called with ``use_alpha=True`` apply the any-hit leaf
-    cutout (the kernels' alpha forms); the bundles stay opaque."""
+    cutout (the kernels' alpha forms); the bundles stay opaque.
+    ``textures`` (the atlas, or None) is read by the lighting passes to
+    shade the hits."""
 
     def __init__(self, scene: RTScene, slot_materials: torch.Tensor,
                  materials, *, root_code: int, stack_size: int,
-                 leaf_cutout: bool = False):
+                 leaf_cutout: bool = False, textures=None):
         self.scene = scene
         self.slot_materials = slot_materials
         self.materials = materials
+        self.textures = textures
         self.root_code = root_code
         self.stack_size = stack_size
         self.leaf_cutout = leaf_cutout
@@ -1282,14 +1285,15 @@ class PagedSceneTracer:
     apart, as the JAX package does for this tracer. On a CPU scene every
     method runs the plain version: the flat view (``paged_to_flat``, built
     once per tracer) walked by ``trace_scene``. ``leaf_cutout`` and
-    ``use_alpha`` work as on ``SceneTracer``."""
+    ``use_alpha`` work as on ``SceneTracer``, and so does ``textures``."""
 
     def __init__(self, scene: PagedScene, slot_materials: torch.Tensor,
                  materials, *, root_code: int, stack_size: int,
-                 leaf_cutout: bool = False):
+                 leaf_cutout: bool = False, textures=None):
         self.scene = scene
         self.slot_materials = slot_materials
         self.materials = materials
+        self.textures = textures
         self.root_code = root_code
         self.stack_size = stack_size
         self.leaf_cutout = leaf_cutout
@@ -1355,11 +1359,12 @@ class PagedSceneTracer:
 def make_scene_tracer(blasset, meta, instances, inst_blas, masks, tri_attr,
                       slot_materials, materials, *, tlas_index: int,
                       stack_size: int, paged: bool = False, inst_mask=None,
-                      inst_opaque=None, leaf_cutout: bool = False):
+                      inst_opaque=None, leaf_cutout: bool = False,
+                      textures=None):
     """Assemble this frame's scene and return its tracer: the paged layout
     over TLAS ``tlas_index`` alone (``PagedSceneTracer``) with ``paged``,
     else the flat layout over every TLAS (``SceneTracer``); ``leaf_cutout``
-    goes to the tracer."""
+    and ``textures`` go to the tracer."""
     if paged:
         scene, root = assemble_scene_paged(
             blasset, meta, instances, inst_blas, masks[tlas_index],
@@ -1367,10 +1372,10 @@ def make_scene_tracer(blasset, meta, instances, inst_blas, masks, tri_attr,
             inst_opaque=inst_opaque)
         return PagedSceneTracer(scene, slot_materials, materials,
                                 root_code=root, stack_size=stack_size,
-                                leaf_cutout=leaf_cutout)
+                                leaf_cutout=leaf_cutout, textures=textures)
     rt_scene, roots = assemble_scene(
         blasset, meta, instances, inst_blas, list(masks), tri_attr,
         inst_mask=inst_mask, inst_opaque=inst_opaque)
     return SceneTracer(rt_scene, slot_materials, materials,
                        root_code=roots[tlas_index], stack_size=stack_size,
-                       leaf_cutout=leaf_cutout)
+                       leaf_cutout=leaf_cutout, textures=textures)

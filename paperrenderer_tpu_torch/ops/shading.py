@@ -1,7 +1,7 @@
 """Deferred PBR shading: Cook-Torrance point lights + ambient + emissive.
 
-PyTorch counterpart of ``paperrenderer_tpu/ops/shading.py`` on the
-untextured path; the math is the reference example's
+PyTorch counterpart of ``paperrenderer_tpu/ops/shading.py``; the math is
+the reference example's
 (example/resources/shaders/pbr.glsl:53-136):
   * Lambertian diffuse: max(N.L, 0) * baseColor
   * GGX NDF with a2 = roughness^2 (pbr.glsl:61)
@@ -9,6 +9,11 @@ untextured path; the math is the reference example's
   * windowed inverse-square attenuation: clamp(1-(d/bounds)^4)^2 / d^2
   * specular term scaled by N.L * 2 (pbr.glsl:130)
   * roughness clamped to [mix(0.001, 0, metallic), 1]
+
+Textured materials sample the atlas (``core.texture``) per pixel:
+baseColor scales albedo, emissive adds where the material has one,
+metallicRoughness scales roughness (g) and metallic (b), occlusion (r)
+scales the ambient term.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import texture as TX
 from ..core.material import MaterialTable
 from ..utils.tree import device_constant, tree_to
 from .raster import GBuffer
@@ -150,6 +156,38 @@ def lookup_material_params(materials: MaterialTable, ids: torch.Tensor):
             materials.roughness[ids], materials.metallic[ids])
 
 
+def lookup_texture_ids(materials: MaterialTable, ids: torch.Tensor):
+    """(base_tex, emissive_tex, mr_tex, occ_tex) at material ``ids``: one
+    gather of the four packed id columns."""
+    packed = torch.stack([materials.base_tex, materials.emissive_tex,
+                          materials.mr_tex, materials.occ_tex], dim=-1)
+    return packed[ids.long()].unbind(dim=-1)
+
+
+def apply_textures(textures: TX.TextureArrays, tex_ids, albedo, emissive,
+                   roughness, metallic, sample):
+    """The textured material parameters: ``tex_ids`` is
+    ``lookup_texture_ids``'s four id tensors, ``sample(tex, tex_id)`` ->
+    f32[..., 4] samples one slot's texture (white where the id is
+    negative). The four slots are sampled one after another. Returns
+    (albedo, emissive, roughness, metallic, occlusion f32[...])."""
+    base_tex, emis_tex, mr_tex, occ_tex = tex_ids
+    albedo = albedo * sample(textures, base_tex)[..., :3]
+    emissive = emissive + torch.where((emis_tex >= 0)[..., None],
+                                      sample(textures, emis_tex)[..., :3], 0.0)
+    # glTF metallicRoughness: g = roughness factor, b = metallic factor
+    mr = sample(textures, mr_tex)
+    roughness = roughness * torch.where(mr_tex >= 0, mr[..., 1], 1.0)
+    metallic = metallic * torch.where(mr_tex >= 0, mr[..., 2], 1.0)
+    # glTF occlusion: r channel scales ambient/indirect light
+    occlusion = torch.where(occ_tex >= 0, sample(textures, occ_tex)[..., 0],
+                            1.0)
+    return albedo, emissive, roughness, metallic, occlusion
+
+
+MIP_FILTERS = ("nearest", "linear", "aniso2")
+
+
 def shade_gbuffer(
     gbuf: GBuffer,
     materials: MaterialTable,
@@ -159,14 +197,41 @@ def shade_gbuffer(
     shadow_vis: Optional[torch.Tensor] = None,          # f32[L, H, W]
     ambient_occlusion: Optional[torch.Tensor] = None,   # f32[H, W]
     background: Optional[tuple] = None,
+    textures: Optional[TX.TextureArrays] = None,
+    mip_filter: str = "linear",
 ) -> torch.Tensor:
-    """Shade the G-buffer -> HDR image f32[H, W, 3] (untextured materials).
+    """Shade the G-buffer -> HDR image f32[H, W, 3].
     The hybrid frame passes its ray-traced per-light visibility, AO factor
     and environment color (replacing the shadow-ray loop of
     raytrace.rchit:61-122); the raster frames pass none of them: full
-    visibility, no AO, black where no triangle covers the pixel."""
+    visibility, no AO, black where no triangle covers the pixel.
+
+    ``textures`` (the registry's atlas on this device) samples the
+    materials' textures, the mip level from the uv image's screen
+    derivatives, with the base texture's mip-0 extent for every slot:
+    ``mip_filter`` "nearest" (bilinear in the lod's mip, truncated),
+    "linear" (trilinear, the reference samplers' mode,
+    VulkanResources.cpp:787-794) or "aniso2" (two trilinear taps along the
+    footprint's major axis)."""
     albedo, emissive, roughness, metallic = lookup_material_params(
         materials, gbuf.material)
+    tex_occ = None
+    if textures is not None:
+        if mip_filter not in MIP_FILTERS:
+            raise ValueError(f"mip_filter {mip_filter!r} not in {MIP_FILTERS}")
+        tex_ids = lookup_texture_ids(materials, gbuf.material)
+        wh = textures.rects[:, 0, 2:4][
+            torch.clamp(tex_ids[0].long(), 0, textures.count - 1)]
+        if mip_filter == "aniso2":
+            lod, duv = TX.uv_screen_lod_aniso(gbuf.uv, wh[..., 0], wh[..., 1])
+            sample = lambda t, i: TX.sample_aniso2(t, i, gbuf.uv, lod, duv)
+        else:
+            lod = TX.uv_screen_lod(gbuf.uv, wh[..., 0], wh[..., 1])
+            fn = (TX.sample_trilinear if mip_filter == "linear"
+                  else TX.sample_bilinear)
+            sample = lambda t, i: fn(t, i, gbuf.uv, lod)
+        albedo, emissive, roughness, metallic, tex_occ = apply_textures(
+            textures, tex_ids, albedo, emissive, roughness, metallic, sample)
     view_dir = cam_pos - gbuf.world_pos
     view_dir = view_dir / torch.clamp(_norm(view_dir, keepdim=True), min=1e-9)
 
@@ -180,8 +245,11 @@ def shade_gbuffer(
             contrib = contrib * shadow_vis[i][..., None]
         total = total + contrib
     ambient = lights.ambient[:3] * lights.ambient[3] * albedo
-    if ambient_occlusion is not None:
-        ambient = ambient * ambient_occlusion[..., None]
+    ao = ambient_occlusion
+    if tex_occ is not None:
+        ao = tex_occ if ao is None else ao * tex_occ
+    if ao is not None:
+        ambient = ambient * ao[..., None]
     total = total + ambient + emissive
     bg = 0.0 if background is None else device_constant(background,
                                                          total.device)

@@ -24,8 +24,11 @@ rays trace with ``use_alpha``, shadow rays stay opaque (the reference's
 OpaqueEXT), and shadows and AO no longer share a bundle. The group
 compaction of the JAX package (``compact_secondary``/``compact_refl``)
 only reorders work for the TPU's packets and leaves every result
-unchanged; it is not ported. Not ported: textures (ROADMAP Queue 1 item
-3).
+unchanged; it is not ported. A tracer with a texture atlas
+(``ctx.textures``) shades its primary and reflection hits with the
+materials' textures, sampled bilinear at mip 0 (no screen derivatives on
+a ray hit), as the JAX package does; the reflection tint and the AO
+influence keep the untextured parameters.
 """
 
 from __future__ import annotations
@@ -36,11 +39,14 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core import texture as TX
 from ..core.camera import CameraMatrices
 from ..core.material import MaterialTable
 from ..utils import random as rnd
 from ..utils.tree import device_constant
-from .shading import Lights, lookup_material_params, point_light_contribution
+from .shading import (
+    Lights, apply_textures, lookup_material_params, lookup_texture_ids,
+    point_light_contribution)
 
 BACKGROUND_RGB = (0.1, 0.1, 0.1)  # environment color, raytrace.rgen:52
 
@@ -394,12 +400,20 @@ def shadow_ao_bounce(surf: SurfaceHits, ctx, materials: MaterialTable,
 
 def shade_surfaces(surf: SurfaceHits, materials: MaterialTable,
                    lights: Lights, viewer: torch.Tensor,
-                   shadow_vis: torch.Tensor, ao: torch.Tensor) -> torch.Tensor:
+                   shadow_vis: torch.Tensor, ao: torch.Tensor,
+                   textures: Optional[TX.TextureArrays] = None) -> torch.Tensor:
     """Direct lighting + ambient + emissive at hit points (rchit:48-122,
     :173-226 without reflections). ``viewer`` is f32[3] or f32[R, 3].
+    ``textures`` samples the materials' textures bilinear at mip 0.
     Returns f32[R, 3]; invalid rays -> 0."""
     albedo, emissive, roughness, metallic = lookup_material_params(
         materials, surf.material)
+    if textures is not None:
+        albedo, emissive, roughness, metallic, tex_occ = apply_textures(
+            textures, lookup_texture_ids(materials, surf.material), albedo,
+            emissive, roughness, metallic,
+            lambda t, i: TX.sample_bilinear(t, i, surf.uv))
+        ao = ao * tex_occ
     view_dir = viewer - surf.world_pos
     view_dir = view_dir / torch.clamp(_norm(view_dir, keepdim=True), min=1e-9)
     total = torch.zeros_like(albedo)
@@ -464,7 +478,7 @@ def reflections(surf: SurfaceHits, ctx, materials: MaterialTable,
             cull_mask=params.cull_mask,
             shadow_cull_mask=params.shadow_cull_mask)
         color2 = shade_surfaces(hit2, materials, lights, surf.world_pos, svis,
-                                ao2)
+                                ao2, getattr(ctx, "textures", None))
         acc = acc + torch.where(hit2.valid[:, None], color2, background)
     refl = acc / params.reflection_samples
     influence = torch.clamp(metal, 0.04, 1.0)[:, None]
@@ -508,7 +522,8 @@ def trace_frame(ctx, materials: MaterialTable, lights: Lights,
     svis, ao, pre_bounce = shadow_ao_bounce(
         surf, ctx, materials, lights, camera.cam_pos, key, key, refl_key,
         params=params)
-    color = shade_surfaces(surf, materials, lights, camera.cam_pos, svis, ao)
+    color = shade_surfaces(surf, materials, lights, camera.cam_pos, svis, ao,
+                           getattr(ctx, "textures", None))
     if params.reflection_half_rate and width % 2 == 0:
         color = color + reflections_half_rate(
             surf, ctx, materials, lights, camera.cam_pos, refl_key, params)

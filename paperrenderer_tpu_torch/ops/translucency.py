@@ -54,9 +54,11 @@ def composite_translucency(
     camera: CameraMatrices,
     *,
     layers: int = 4,
+    textures=None,
 ) -> Tuple[torch.Tensor, int]:
     """Depth-peel the non-opaque triangles and blend them back to front over
-    the opaque HDR image. Returns (hdr f32[H, W, 3], required int: the
+    the opaque HDR image; each layer's shade samples ``textures`` (the
+    atlas, or None). Returns (hdr f32[H, W, 3], required int: the
     translucent set's pair count, which every layer shares)."""
     h, w = opaque_depth.shape
     translucent = non_opaque_mask(materials, batch.material)
@@ -79,7 +81,8 @@ def composite_translucency(
     # shade each layer, then blend BACK to front: dst = src*a + dst*(1-a)
     out = opaque_hdr
     for gbuf in reversed(peels):
-        color = shade_gbuffer(gbuf, materials, lights, camera.cam_pos)
+        color = shade_gbuffer(gbuf, materials, lights, camera.cam_pos,
+                              textures=textures)
         ids = gbuf.material.long()
         alpha = torch.where(materials.shading_model[ids] == SHADE_LEAF,
                             leaf_alpha(gbuf.uv), materials.alpha[ids])

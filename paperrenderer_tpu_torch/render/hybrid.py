@@ -10,7 +10,8 @@ shadows and AO, K11 for reflections). A scene with a ``SHADE_LEAF``
 material traces its AO and reflection rays with the any-hit leaf cutout
 (K8/K11's alpha forms; shadows stay opaque and AO leaves the fused bundle),
 while the G-buffer stays the raster one with no cutout, as in the JAX
-package.
+package. Textured materials are sampled trilinear in the G-buffer's shade
+and bilinear at mip 0 on the reflection hits, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -43,14 +44,15 @@ def render_frame_hybrid(mapping, blasset, meta, instances, inst_blas,
                         do_culling: bool = True, shadow_samples: int = 1,
                         reflection_samples: int = 1, ao_samples: int = 1,
                         ao_radius: float = 2.0, leaf_cutout: bool = False,
-                        reflection_half_rate: bool = False):
+                        reflection_half_rate: bool = False, textures=None):
     """One hybrid frame (the body of the JAX package's ``make_hybrid_frame``):
     the static raster G-buffer through K1, the scene's tracer on the flat or
     (``paged``) the paged layout, shadows + AO + the fused-or-not bounce at
     the G-buffer surfaces, deferred shading with them, reflections (at half
     rate with ``reflection_half_rate`` on an even width), tonemap; with
-    ``leaf_cutout`` the RT passes apply the any-hit leaf cutout. Returns
-    (ldr f32[H, W, 3], aux dict)."""
+    ``leaf_cutout`` the RT passes apply the any-hit leaf cutout;
+    ``textures`` (the atlas, or None) goes to the shade and the tracer.
+    Returns (ldr f32[H, W, 3], aux dict)."""
     batch, inst_visible = expand_static(
         mapping, instances, tables, camera, slot_materials, instance_visible,
         do_culling=do_culling)
@@ -64,7 +66,7 @@ def render_frame_hybrid(mapping, blasset, meta, instances, inst_blas,
     ctx = ACC.make_scene_tracer(
         blasset, meta, instances, inst_blas, mask, tri_attr, slot_materials,
         materials, tlas_index=0, stack_size=stack_size, paged=paged,
-        leaf_cutout=leaf_cutout)
+        leaf_cutout=leaf_cutout, textures=textures)
     cov = gbuf.coverage.reshape(-1)
     surf = T.SurfaceHits(
         world_pos=gbuf.world_pos.reshape(-1, 3),
@@ -83,7 +85,7 @@ def render_frame_hybrid(mapping, blasset, meta, instances, inst_blas,
     hdr = shade_gbuffer(gbuf, materials, lights, camera.cam_pos,
                         shadow_vis=svis.reshape(-1, height, width),
                         ambient_occlusion=ao.reshape(height, width),
-                        background=T.BACKGROUND_RGB)
+                        background=T.BACKGROUND_RGB, textures=textures)
     if reflection_samples > 0:
         if reflection_half_rate and width % 2 == 0:
             refl = T.reflections_half_rate(surf, ctx, materials, lights,
@@ -211,4 +213,5 @@ class HybridRender:
             reflection_samples=self.reflection_samples,
             ao_samples=self.ao_samples, ao_radius=self.ao_radius,
             leaf_cutout=self.materials.has_leaf,
-            reflection_half_rate=self.reflection_half_rate)
+            reflection_half_rate=self.reflection_half_rate,
+            textures=rp._cached_textures)

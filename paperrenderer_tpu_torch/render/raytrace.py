@@ -24,11 +24,13 @@ package): primary, AO and reflection rays skip a leaf hit outside the
 procedural leaf, shadow rays stay opaque. ``reflection_half_rate`` traces
 reflections for every other pixel (``ops.trace.reflections_half_rate``).
 
+Textured materials shade their hits with the registry's atlas, uploaded
+with the material table and sampled bilinear at mip 0 (``ops.trace``).
+
 Not ported yet, refused with ``NotImplementedError``: animation
 (``animate``/``anim_resplit``, ROADMAP Queue 1 item 4) and the XLA route
-(``use_pallas=False``, item 8); textured materials are refused by the
-registry (item 3). ``render(time=)`` is accepted and has no effect until
-animation is ported. ``compact_secondary``, ``compact_refl``,
+(``use_pallas=False``, item 8). ``render(time=)`` is accepted and has no
+effect until animation is ported. ``compact_secondary``, ``compact_refl``,
 ``packet_pack`` and ``bvh_wide`` are TPU scheduling knobs that leave every
 result unchanged: they are accepted and ignored.
 """
@@ -108,16 +110,17 @@ def render_frame_rt(blasset, meta, instances: InstanceArrays, inst_blas,
                     camera: CameraMatrices, slot_materials, tonemap_params,
                     key, inst_mask=None, inst_opaque=None, *, width: int,
                     height: int, stack_size: int, params: RTParams,
-                    tlas_index: int = 0, paged: bool = False):
+                    tlas_index: int = 0, paged: bool = False, textures=None):
     """One ray-traced frame (the JAX package's ``make_rt_frame`` body):
     assemble this frame's TLAS on the flat or, with ``paged``, the paged
-    layout, trace, tonemap. Returns (ldr f32[H, W, 3], {"hdr": f32[H, W,
+    layout, trace, tonemap; ``textures`` is the atlas of textured
+    materials (or None). Returns (ldr f32[H, W, 3], {"hdr": f32[H, W,
     3]})."""
     ctx = ACC.make_scene_tracer(
         blasset, meta, instances, inst_blas, masks, tri_attr, slot_materials,
         materials, tlas_index=tlas_index, stack_size=stack_size, paged=paged,
         inst_mask=inst_mask, inst_opaque=inst_opaque,
-        leaf_cutout=params.leaf_cutout)
+        leaf_cutout=params.leaf_cutout, textures=textures)
     hdr = trace_frame(ctx, materials, lights, camera, key, width=width,
                       height=height, params=params)
     return tonemap(hdr, tonemap_params), {"hdr": hdr}
@@ -185,6 +188,7 @@ class RayTraceRender:
         self._cache_dirty = True
         self._cached_capacity = -1
         self._cached = None
+        self._cached_textures = None
 
     # -- TLAS management (addNewTLAS parity) ---------------------------------
     def add_tlas(self) -> int:
@@ -248,7 +252,8 @@ class RayTraceRender:
     # -- device inputs --------------------------------------------------------
     def _device_inputs(self, capacity: int):
         """(slot materials i32[N, S], TLAS masks, MaterialTable, instance
-        masks i32[N], force-opaque bool[N], lights, tonemap params)."""
+        masks i32[N], force-opaque bool[N], lights, tonemap params); the
+        texture atlas is cached beside them (``_cached_textures``)."""
         if self._cache_dirty or capacity != self._cached_capacity:
             s = max(1, self.scene.max_slots)
             slots = np.zeros((capacity, s), np.int32)
@@ -275,6 +280,8 @@ class RayTraceRender:
                             self.materials.table(self.device), dev(inst_mask),
                             dev(opaque), self.lights.to(self.device),
                             self.tonemap_params.to(self.device))
+            # after the table: it adds the rows' images to the atlas
+            self._cached_textures = self.materials.texture_arrays(self.device)
             self._cached_capacity = capacity
             self._cache_dirty = False
         return self._cached
@@ -301,4 +308,4 @@ class RayTraceRender:
             stack_size=self.accel.stack_size(instances.capacity),
             params=dataclasses.replace(self.params,
                                        leaf_cutout=self.materials.has_leaf),
-            tlas_index=tlas, paged=paged)
+            tlas_index=tlas, paged=paged, textures=self._cached_textures)

@@ -24,8 +24,11 @@ the reference's GPU-driven preprocess:
       -> resolve_gbuffer -> shade_gbuffer [-> supersample box resolve]
       -> tonemap
 
-Textures are not ported yet (ROADMAP Queue 1 item 3): registering a
-textured material raises ``NotImplementedError``.
+On both paths ``shade_gbuffer`` samples the materials' textures from the
+registry's atlas (trilinear, the mip level from the shaded uv image, so at
+s x s the resolution under ``supersample``), and so does each peel layer's
+shade. The atlas is uploaded with the material table, when the registry
+or the bindings change, never once a frame.
 """
 
 from __future__ import annotations
@@ -107,12 +110,13 @@ def render_frame(
     tri_capacity: int,
     do_culling: bool = True,
     supersample: int = 1,
+    textures=None,
 ):
     """The draw-list raster frame (the reference-parity path: a per-frame
     draw list built by the preprocess pass, IndirectDrawBuild.comp). Returns
     (ldr f32[H, W, 3], aux dict). ``tri_capacity`` rows of triangle batch
-    must hold the frame's ``total_tris``; ``supersample`` is
-    ``render_frame_static``'s."""
+    must hold the frame's ``total_tris``; ``supersample`` and ``textures``
+    are ``render_frame_static``'s."""
     ss = max(1, int(supersample))
     pre, batch = draw_list_batch(
         instances, tables, geo, materials, camera, slot_materials,
@@ -120,7 +124,8 @@ def render_frame(
         tri_capacity=tri_capacity, do_culling=do_culling)
     depth, tid, bary = rasterize_tiles(batch, width * ss, height * ss)
     gbuf = resolve_gbuffer(batch, depth, tid, bary)
-    hdr = shade_gbuffer(gbuf, materials, lights, camera.cam_pos)
+    hdr = shade_gbuffer(gbuf, materials, lights, camera.cam_pos,
+                        textures=textures)
     if ss > 1:
         hdr, depth = _box_resolve(hdr, depth, ss)
     ldr = tonemap(hdr, tonemap_params)
@@ -151,6 +156,7 @@ def render_frame_static(
     do_culling: bool = True,
     translucent_layers: int = 0,
     supersample: int = 1,
+    textures=None,
 ):
     """The static raster frame. Returns (ldr f32[H, W, 3], aux dict).
 
@@ -161,7 +167,10 @@ def render_frame_static(
     ``supersample`` = s rasterizes and shades at s x s the resolution and
     box-filters the HDR image before tonemapping (the analogue of the
     reference's MSAA sample count, RenderPass.h:61); ``aux["depth"]`` keeps
-    the top-left sample of each s x s cell."""
+    the top-left sample of each s x s cell.
+
+    ``textures`` (the registry's atlas on this device, or None when no
+    material is textured) goes to every shade of the frame."""
     ss = max(1, int(supersample))
     batch, inst_visible = expand_static(
         mapping, instances, tables, camera, slot_materials, instance_visible,
@@ -176,11 +185,12 @@ def render_frame_static(
     depth, tid, attr_table, required = rasterize_exact(
         batch, width * ss, height * ss)
     gbuf = resolve_gbuffer_pairs(attr_table, depth, tid, camera)
-    hdr = shade_gbuffer(gbuf, materials, lights, camera.cam_pos)
+    hdr = shade_gbuffer(gbuf, materials, lights, camera.cam_pos,
+                        textures=textures)
     if translucent_layers > 0:
         hdr, peel_required = composite_translucency(
             hdr, depth, full_batch, materials, lights, camera,
-            layers=translucent_layers)
+            layers=translucent_layers, textures=textures)
         required = max(required, peel_required)
     if ss > 1:
         hdr, depth = _box_resolve(hdr, depth, ss)
@@ -240,6 +250,7 @@ class RenderPass:
         self._cache_dirty = True
         self._cached_capacity = -1
         self._cached = None
+        self._cached_textures = None
         # static mapping, and the draw-list path's triangle capacity, keyed
         # on scene.version
         self._mapping = None
@@ -282,7 +293,8 @@ class RenderPass:
 
     # -- per-frame device inputs --------------------------------------------
     def _device_inputs(self, capacity: int):
-        """(slot materials i32[N, S], visible bool[N], MaterialTable)."""
+        """(slot materials i32[N, S], visible bool[N], MaterialTable); the
+        texture atlas is cached beside them (``_cached_textures``)."""
         if self._cache_dirty or capacity != self._cached_capacity:
             s = max(1, self.scene.max_slots)
             slots = np.zeros((capacity, s), np.int32)
@@ -298,6 +310,8 @@ class RenderPass:
             self._cached = (torch.from_numpy(slots).to(self.device),
                             torch.from_numpy(visible).to(self.device),
                             self.materials.table(self.device))
+            # after the table: it adds the rows' images to the atlas
+            self._cached_textures = self.materials.texture_arrays(self.device)
             self._cached_capacity = capacity
             self._cache_dirty = False
         return self._cached
@@ -340,10 +354,12 @@ class RenderPass:
             with Timer(statistics, "RenderPass Submission"):
                 return self.render(camera, static_path=static_path)
         if not static_path:
+            inputs = self.draw_list_inputs(camera)
             return render_frame(
                 lights=self.lights, tonemap_params=self.tonemap_params,
                 width=self.width, height=self.height,
-                supersample=self.supersample, **self.draw_list_inputs(camera))
+                supersample=self.supersample, textures=self._cached_textures,
+                **inputs)
         mapping, instances, tables, materials, cam, slots, visible = (
             self.frame_inputs(camera))
         return render_frame_static(
@@ -351,13 +367,14 @@ class RenderPass:
             visible, self.tonemap_params,
             width=self.width, height=self.height, do_culling=self.do_culling,
             translucent_layers=self.translucent_layers,
-            supersample=self.supersample,
+            supersample=self.supersample, textures=self._cached_textures,
         )
 
     def frame_inputs(self, camera: Camera | CameraMatrices):
         """The device inputs of one static frame, as ``render`` hands them to
         ``render_frame_static``: (mapping, instances, tables, materials,
-        camera, slot materials, visible). Flushes pending scene changes."""
+        camera, slot materials, visible); the atlas is then
+        ``_cached_textures``. Flushes pending scene changes."""
         cam = camera.matrices if isinstance(camera, Camera) else camera
         instances = self.scene.flush()
         slots, visible, materials = self._device_inputs(instances.capacity)

@@ -16,7 +16,11 @@ through the any-hit leaf cutout; ``build_leaf_scene`` is a small scene
 whose primary, AO and reflection rays all meet the cutout.
 ``build_big_model_scene`` is the big-model recipe of
 ``tests/test_trace_paged.py`` (a sphere cut into BLAS chunks among cubes)
-with the sphere's size as a parameter.
+with the sphere's size as a parameter. ``build_textured_scene`` is
+``examples/render_textured.py::build_textured_scene`` (procedural
+baseColor, emissive and metallicRoughness textures), and
+``build_textured_grid`` config 2's grid with its four materials given
+seeded procedural textures of a real texture set's size.
 """
 
 from __future__ import annotations
@@ -89,8 +93,10 @@ def build_example_scene(width: int = 512, height: int = 512, device="cuda"):
 
 
 def build_dynamic_scene(n_instances: int, width: int, height: int,
-                        seed: int = 0, device="cuda"):
-    """The instanced grid of config 2 (and 5); returns (engine, pass, camera)."""
+                        seed: int = 0, device="cuda", textures=None):
+    """The instanced grid of config 2 (and 5); returns (engine, pass, camera).
+    ``textures`` (four dicts of ``Material`` texture keywords) textures the
+    four materials."""
     eng = RenderEngine(device=device, device_check=False)
     cube = Model.from_mesh(eng.scene.arena, *make_cube(size=0.5), name="cube")
     ball = Model.from_mesh(
@@ -105,11 +111,13 @@ def build_dynamic_scene(n_instances: int, width: int, height: int,
             ambient=(0.7, 0.8, 1.0, 0.15),
         ),
     )
+    tex = textures or [{}] * 4
     mats = [
-        Material("a", albedo=(0.9, 0.2, 0.15), roughness=0.5),
-        Material("b", albedo=(0.2, 0.5, 0.9), roughness=0.4),
-        Material("c", albedo=(0.95, 0.8, 0.3), roughness=0.3, metallic=1.0),
-        Material("d", albedo=(0.3, 0.85, 0.4), roughness=0.7),
+        Material("a", albedo=(0.9, 0.2, 0.15), roughness=0.5, **tex[0]),
+        Material("b", albedo=(0.2, 0.5, 0.9), roughness=0.4, **tex[1]),
+        Material("c", albedo=(0.95, 0.8, 0.3), roughness=0.3, metallic=1.0,
+                 **tex[2]),
+        Material("d", albedo=(0.3, 0.85, 0.4), roughness=0.7, **tex[3]),
     ]
     rng = np.random.default_rng(seed)
     side = int(np.ceil(np.sqrt(n_instances)))
@@ -343,3 +351,117 @@ def build_big_model_scene(rings: int = 40, sectors: int = 52,
     cam = Camera(yfov_deg=60.0, aspect=width / height, near=0.1, far=1000.0)
     cam.look_at((0.0, -16.0, 7.0), (0, 0, 0), up=(0, 0, 1))
     return eng, rt, cam
+
+
+def _checker(n, c0, c1, tiles=8):
+    img = np.zeros((n, n, 3), np.uint8)
+    ii, jj = np.meshgrid(range(n), range(n), indexing="ij")
+    sel = ((ii * tiles // n) + (jj * tiles // n)) % 2 == 1
+    img[~sel] = c0
+    img[sel] = c1
+    return img
+
+
+def _gradient(n):
+    img = np.zeros((n, n, 3), np.uint8)
+    img[..., 0] = np.linspace(0, 255, n, dtype=np.uint8)[None, :]
+    img[..., 2] = np.linspace(255, 0, n, dtype=np.uint8)[:, None]
+    return img
+
+
+def build_textured_scene(width: int = 512, height: int = 512, device="cuda"):
+    """The textured example: a checker-floored ground, a gradient ball with a
+    metallicRoughness map and a cube with an emissive checker; returns
+    (scene, registry, RenderPass, camera)."""
+    scene = Scene(device=device)
+    registry = MaterialRegistry()
+
+    ground = Model.from_mesh(scene.arena, *make_plane(size=24.0), name="ground")
+    sphere = Model.from_mesh(
+        scene.arena, *make_uv_sphere(radius=1.0, rings=24, sectors=32),
+        name="sphere")
+    cube = Model.from_mesh(scene.arena, *make_cube(size=1.4), name="cube")
+
+    # mr map: horizontal roughness ramp (g), vertical metallic ramp (b)
+    mr = np.zeros((64, 64, 3), np.uint8)
+    mr[..., 1] = np.linspace(30, 255, 64, dtype=np.uint8)[None, :]
+    mr[..., 2] = np.linspace(255, 0, 64, dtype=np.uint8)[:, None]
+
+    floor_mat = Material(
+        "checker-floor", albedo=(1, 1, 1), roughness=0.8,
+        base_texture=_checker(128, (40, 40, 46), (200, 200, 210), tiles=16),
+    )
+    ball_mat = Material(
+        "gradient-ball", albedo=(1, 1, 1), roughness=0.4,
+        base_texture=_gradient(64), mr_texture=mr,
+    )
+    glow_mat = Material(
+        "glow-cube", albedo=(0.2, 0.2, 0.2), roughness=0.6,
+        emissive_texture=_checker(32, (0, 0, 0), (255, 140, 0), tiles=4),
+    )
+
+    rp = RenderPass(
+        scene, registry, width=width, height=height,
+        lights=Lights.make(
+            [{"position": (4.0, -5.0, 7.0), "color": (120.0, 115.0, 105.0),
+              "bounds": 60.0, "radius": 0.3}],
+            ambient=(0.6, 0.7, 1.0, 0.25),
+        ),
+    )
+    rp.add_instance(ModelInstance(ground), {0: floor_mat.instance()})
+    s = ModelInstance(sphere)
+    s.set_transform(pos=(-1.1, 0.4, 1.0))
+    rp.add_instance(s, {0: ball_mat.instance()})
+    c = ModelInstance(cube)
+    c.set_transform(pos=(1.4, 0.9, 0.7), quat=(0.924, 0.0, 0.0, 0.383))
+    rp.add_instance(c, {0: glow_mat.instance()})
+
+    cam = Camera(yfov_deg=55.0, aspect=width / height, near=0.1, far=200.0)
+    cam.look_at((0.0, -6.0, 3.0), (0.0, 0.0, 0.7), up=(0, 0, 1))
+    return scene, registry, rp, cam
+
+
+def _noisy_checker(rng, n, tiles):
+    """An n x n RGB checker of two seeded colours, each texel scaled by
+    seeded noise in [0.75, 1]."""
+    c0, c1 = rng.integers(0, 256, (2, 3))
+    img = _checker(n, c0, c1, tiles=tiles).astype(np.float32)
+    img *= rng.uniform(0.75, 1.0, (n, n, 1)).astype(np.float32)
+    return img.astype(np.uint8)
+
+
+def _grid_textures(seed: int = 0):
+    """Config 2's four materials' textures, seeded: a 1024^2 sRGB
+    baseColor on each, a 512^2 metallicRoughness (g roughness, b metallic
+    ramps under noise) on the first and third, a 512^2 occlusion (seeded
+    dark blotches) on the second and a 256^2 emissive stripe pattern on
+    the fourth. Returns four dicts of ``Material`` texture keywords."""
+    rng = np.random.default_rng(seed)
+    out = [dict(base_texture=_noisy_checker(rng, 1024, int(t)))
+           for t in rng.integers(4, 33, 4)]
+    for k in (0, 2):
+        mr = np.zeros((512, 512, 3), np.uint8)
+        ramp = np.linspace(40, 255, 512, dtype=np.float32)
+        noise = rng.uniform(0.8, 1.0, (512, 512)).astype(np.float32)
+        mr[..., 1] = (ramp[None, :] * noise).astype(np.uint8)
+        mr[..., 2] = (ramp[::-1, None] * noise).astype(np.uint8)
+        out[k]["mr_texture"] = mr
+    yy, xx = np.mgrid[0:512, 0:512].astype(np.float32) / 512.0
+    occ = np.ones((512, 512), np.float32)
+    for cy, cx, r in rng.uniform(0.0, 1.0, (12, 3)):
+        d2 = (yy - cy) ** 2 + (xx - cx) ** 2
+        occ -= 0.5 * np.exp(-d2 / (0.02 + 0.05 * r))
+    out[1]["occlusion_texture"] = np.clip(occ, 0.0, 1.0)
+    emis = np.zeros((256, 256, 3), np.uint8)
+    emis[(np.arange(256) // 16) % 2 == 0] = rng.integers(64, 256, 3)
+    out[3]["emissive_texture"] = emis
+    return out
+
+
+def build_textured_grid(n_instances: int, width: int, height: int,
+                        seed: int = 0, device="cuda"):
+    """Config 2's grid (``build_dynamic_scene``: its geometry, instances and
+    camera) with its four materials textured by ``_grid_textures(seed)``;
+    returns (engine, pass, camera)."""
+    return build_dynamic_scene(n_instances, width, height, seed=seed,
+                               device=device, textures=_grid_textures(seed))

@@ -697,12 +697,33 @@ def test_render_after_topology_and_transform_change():
     assert int(a2["visible_count"]) == int(a1["visible_count"]) - 1
 
 
-@pytest.mark.parametrize("case", ["texture"])
-def test_unported_paths_raise(case):
-    rp, cam = build_example_scene(32, 32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        tex = np.zeros((4, 4, 3), np.uint8)
-        rp.materials.register(Material("t", base_texture=tex))
+def test_textured_registry_matches_jax():
+    """Registering textured materials gives the JAX package's texture-id
+    columns and atlas (tests/test_texture.py::test_textured_material_table_ids):
+    one image as a baseColor (sRGB) and a metallicRoughness (linear)
+    texture is two atlas entries; an untextured row keeps -1."""
+    img = np.zeros((4, 4, 3), np.uint8)
+    occ = np.full((2, 8), 0.5, np.float32)
+    tables, atlases = [], []
+    for pkg in (JC, TC):
+        reg = pkg.MaterialRegistry()
+        reg.register(pkg.Material("plain"))
+        m = pkg.Material("x", base_texture=img, mr_texture=img,
+                         occlusion_texture=occ)
+        reg.register(m)
+        reg.register(pkg.Material("e", emissive_texture=img))
+        table = reg.table(**({} if pkg is JC else {"device": "cpu"}))
+        tables.append({c: _np(getattr(table, c)) for c in (
+            "base_tex", "emissive_tex", "mr_tex", "occ_tex")})
+        atlases.append(reg.texture_arrays(*(() if pkg is JC else ("cpu",))))
+        row = reg._ids[id(m)]
+        assert tables[-1]["base_tex"][row] != tables[-1]["mr_tex"][row]
+        assert reg.textures.count == 3 and reg.has_textures
+    for c in tables[0]:
+        assert np.array_equal(tables[1][c], tables[0][c]), c
+    assert list(tables[1]["base_tex"]) == [-1, -1, 0, -1]
+    assert np.array_equal(_np(atlases[1].pairs), _np(atlases[0].pairs))
+    assert MaterialRegistry().texture_arrays("cpu") is None
 
 
 def test_supersample_draw_list_path():

@@ -135,6 +135,27 @@ Phases, each reported as one JSON line:
            mip_filter (CUDA events), the atlas bytes, a frame's peak CUDA
            memory, and a 400-instance copy on the card against the CPU; its
            K1, K2, K5 and K8-K11 launches join the kernels line;
+  animation  animation (ops/animation.py, the unique-geometry BLAS refit
+           and re-split, scenes.run_dynamic): config 5, 100k instances of
+           build_dynamic_scene at 1920x1080 (~4.4 M triangles): the static
+           frame and run_dynamic's animated loop (median ms of 20 frames),
+           the visible, triangle and coverage counts, the TLAS refit of the
+           animated instances (animate_instances + assemble_scene_paged,
+           the layout prefer_paged picks; ms a frame), a 400-instance
+           256x128 copy animated 3 frames on the card against the CPU;
+           config 3's RT scene at 1920x1080 with its sphere a
+           unique-geometry instance (animate_vertices; flat), re-split off
+           and on, beside its unanimated twin, with its refit + assemble ms
+           and a 96x64 copy against the CPU; the 10k crowd at 1024x1024
+           with one instance in 64 animated (157 spheres, 2,512 anim leaves;
+           paged), re-split off and on, its assemble_scene_paged ms, the
+           refit's and re-split's host ops and ms batched by leaf count and
+           one BLAS at a time (bitwise the same), the 600-instance crowd at
+           96x64 against the CPU; hybrid config 4 with its sphere animated
+           (the RT passes; the G-buffer keeps the rest pose) and a 96x64
+           copy; each frame's launches; then, uncounted, K1 on config 5's
+           bins, K8 on the animated RT frame's primary rays and K10/K11 on
+           the animated crowd's, bitwise against their plain versions;
   probes   the profiling path (paperrenderer_tpu_torch.utils.probes.measure,
            the counterpart of scripts/probe_smem_dma.py, probe_smem_dma2.py
            and prof_rt_floor2.py), its launches counted: K12a's three copy
@@ -154,13 +175,15 @@ Phases, each reported as one JSON line:
            config2, translucent, supersample, textured; K2: translucent,
            keyed_entry, textured; K3/K4: keyed_entry; K5: draw_list,
            textured; K6: compare_tiles; traversal: rt_frame, rt_grid10k and
-           textured), with the launch counters reset just
+           textured; K1 and K8-K11: animation), with the launch counters
+           reset just
            before each and read just after; the kernels line counts K1/K2
            from the frame phases, K3/K4 from keyed_entry, K5 from draw_list,
            K6 from compare_tiles (no frame runs it), K7-K9 from rt_frame,
            K10/K11 from crowd, hybrid and big_model, K1, K2, K5 and K8-K11
            also from textured, the alpha forms of K8 and K11 from leaf_rt,
-           K12 and the step forms of K7/K10 from probes;
+           K12 and the step forms of K7/K10 from probes, K1, K8-K11 also
+           from animation;
   sync     cost of the raster frame's one device-to-host read (the pair
            count): frame time as is vs. with the count supplied.
 
@@ -1005,15 +1028,15 @@ def primary_rays_mrays(rt, cam, reps=10, check_every=0):
     from paperrenderer_tpu_torch.ops import trace_kernel as TK
 
     instances = rt.scene.flush()
-    blasset, meta = rt.accel.blas()
+    blasset, meta, anim_rest, anim_nodes = rt.accel.blas()
     slots, masks, table, inst_mask, opaque, _, _ = rt._device_inputs(
         instances.capacity)
     inst_blas, tri_attr = rt.accel.inst_blas(instances.capacity), rt.accel.tri_attr()
 
     def assemble():
-        return ACC.assemble_scene(blasset, meta, instances, inst_blas, masks,
-                                  tri_attr, inst_mask=inst_mask,
-                                  inst_opaque=opaque)
+        return ACC.assemble_scene(blasset, meta, anim_rest, anim_nodes,
+                                  instances, inst_blas, masks, tri_attr,
+                                  inst_mask=inst_mask, inst_opaque=opaque)
 
     assemble_times = []
     for _ in range(reps + 2):
@@ -1477,6 +1500,309 @@ def textured_phase(twins, keep, device="cuda", n=10_000, width=1920,
     return dict(ok=ok and good, **out)
 
 
+def count_ops(fn):
+    """(result, aten ops dispatched by `fn()`): each op issues at most one
+    kernel from the host; views issue none but are counted too."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        out = fn()
+    return out, Count.n
+
+
+def host_ms(fn, reps=10, warmup=2):
+    """Median host ms of `fn()`, synchronized after each call."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def animation_phase(read_counts, keep, reps=10):
+    """Animation (ops/animation.py, the unique-geometry refit and re-split
+    of ops/accel.py, scenes.run_dynamic): config 5 (100k instances of
+    build_dynamic_scene at 1920x1080): its static frame, run_dynamic's
+    animated loop (20 frames), the counts, the TLAS refit of the animated
+    instances on the layout prefer_paged picks, and a 400-instance 256x128
+    copy animated 3 frames on the card against the CPU; the animated RT
+    scene (config 3, its sphere a unique instance) at 1920x1080 with the
+    re-split off and on beside its unanimated twin, its refit + assemble ms,
+    a 96x64 copy on the card against the CPU; the animated crowd (10k at
+    1024x1024, 157 unique spheres, paged) with the re-split off and on, its
+    assemble_scene_paged ms, the refit's host ops batched and one BLAS at a
+    time, the 600-instance crowd at 96x64 on the card against the CPU;
+    animated hybrid config 4 at 1920x1080 and a 96x64 copy. Each frame's
+    launches; the launches of the phase's frames (`launches`) are read
+    before its uncounted kernel checks: K1 at config 5's bins, K8 on the
+    animated RT frame's primary rays and K10/K11 on the animated crowd's,
+    each bitwise against its plain version. Frames are timed in turns
+    beside their unanimated twins; `keep` gets the frames' renders for
+    --profile."""
+    import torch
+    from paperrenderer_tpu_torch import scenes as SC
+    from paperrenderer_tpu_torch.ops import accel as ACC
+    from paperrenderer_tpu_torch.ops import animation as AN
+    from paperrenderer_tpu_torch.ops import raster_exact as RE
+    from paperrenderer_tpu_torch.ops import trace_kernel as TK
+    from paperrenderer_tpu_torch.ops import trace_paged as TPG
+    from paperrenderer_tpu_torch.render.raytrace import AccelCache
+    from paperrenderer_tpu_torch.utils.probes import primary_wavefront
+    from paperrenderer_tpu_torch.utils.walk_bench import RasterCase, frame_batch
+
+    out, ok = {}, True
+    t_anim = 0.7
+
+    def one_frame(fn):
+        """(result, launches of one call)."""
+        before = read_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {k: v - before.get(k, 0) for k, v in read_counts().items()
+                     if v > before.get(k, 0)}
+
+    def card_vs_cpu(make, render):
+        imgs = [render(*make(dev)).cpu().numpy() for dev in ("cuda", "cpu")]
+        good, mean, frac = bands(*imgs)
+        return dict(ok=good, mean=mean, frac=frac,
+                    max=float(abs(imgs[0] - imgs[1]).max()))
+
+    # -- config 5: 100k instances, static and animated ----------------------
+    t0 = time.perf_counter()
+    built = SC.build_dynamic_scene(100_000, 1920, 1080, device="cuda")
+    _, rp5, cam5 = built
+    keep["config5"] = (rp5, cam5)
+    (ldr, aux), one = one_frame(lambda: rp5.render(cam5))
+    c5 = dict(build_s=time.perf_counter() - t0,
+              static_frame_ms=frame_ms(rp5, cam5, frames=20, warmup=3),
+              static_launches_one_frame=one,
+              visible=int(aux["visible_count"]), tris=int(aux["total_tris"]),
+              coverage=float(aux["coverage"]),
+              finite=bool(torch.isfinite(aux["hdr"]).all()))
+    ms, ldr, aux = SC.run_dynamic(frames=20, built=built)
+    c5.update(animated_frame_ms=statistics.median(ms), animated_frame_ms_all=ms,
+              animated_visible=int(aux["visible_count"]),
+              animated_tris=int(aux["total_tris"]),
+              animated_coverage=float(aux["coverage"]),
+              animated_finite=bool(torch.isfinite(aux["hdr"]).all()))
+    _, c5["animated_launches_one_frame"] = one_frame(
+        lambda: SC.run_dynamic(frames=1, built=built))
+    # the TLAS refit of the animated instances (animate, then assemble)
+    accel = AccelCache(rp5.scene)
+    blas = accel.blas()
+    inst = rp5.scene.flush()
+    cap = inst.capacity
+    paged5 = accel.prefer_paged(cap)
+    ib, tri = accel.inst_blas(cap), accel.tri_attr()
+    mask = torch.ones(cap, dtype=torch.bool, device=rp5.device)
+    slots5 = rp5.frame_inputs(cam5)[5]
+    state = [inst, 0]
+
+    def step():
+        state[1] += 1
+        state[0] = AN.animate_instances(state[0], 0.05 * state[1])
+
+    def refit():
+        step()
+        if paged5:
+            return ACC.assemble_scene_paged(*blas, state[0], ib, mask, slots5,
+                                            tri)
+        return ACC.assemble_scene(*blas, state[0], ib, [mask], tri)
+
+    c5.update(tlas_layout="paged" if paged5 else "flat",
+              tlas_refit_ms=host_ms(refit, reps=20),
+              animate_instances_ms=host_ms(step, reps=20))
+    c5["tris_before_cull"] = int(rp5.frame_inputs(cam5)[0].valid.sum())
+    big_ok = (c5["finite"] and c5["animated_finite"]
+              and 0 < c5["tris"] <= c5["tris_before_cull"]
+              and 0 < c5["animated_tris"] <= c5["tris_before_cull"]
+              and c5["static_launches_one_frame"].get("raster_exact", 0) > 0
+              and c5["animated_launches_one_frame"].get("raster_exact", 0) > 0)
+    c5["copy_400_256x128"] = card_vs_cpu(
+        lambda dev: SC.build_dynamic_scene(400, 256, 128, device=dev),
+        lambda e, r, c: SC.run_dynamic(frames=3, built=(e, r, c))[1])
+    ok &= big_ok and c5["copy_400_256x128"]["ok"]
+    out["config5"] = c5
+
+    def in_turns(cases, frames=10):
+        """Median frame ms of each (name, render, cam, kw) case, twice, in
+        the order a b c c b a (a drift between cases shows as a spread)."""
+        ms = {name: [] for name, *_ in cases}
+        for name, r, cam, kw in cases + cases[::-1]:
+            ms[name].append(frame_ms(r, cam, frames=frames, warmup=2, **kw))
+        return ms
+
+    anim_kw = dict(time=t_anim)
+
+    # -- animated RT, flat: config 3's scene, its sphere deformed ------------
+    rt_out, cases = {}, []
+    _, rt0, cam0 = SC.build_rt_scene(1920, 1080, device="cuda")
+    cases.append(("unanimated", rt0, cam0, {}))
+    for resplit in (False, True):
+        _, rt, cam = SC.build_animated_rt_scene(1920, 1080, resplit=resplit,
+                                                device="cuda")
+        (ldr, aux), one = one_frame(lambda: rt.render(cam, time=t_anim))
+        inst = rt.scene.flush()
+        blas, ib = rt.accel.blas(), rt.accel.inst_blas(inst.capacity)
+        masks, tri = rt._device_inputs(inst.capacity)[1], rt.accel.tri_attr()
+        name = "resplit" if resplit else "refit"
+        rt_out[name] = dict(
+            paged=rt.accel.prefer_paged(inst.capacity),
+            anim_leaves=blas[1].num_anim_leaves,
+            refit_assemble_ms=host_ms(lambda: ACC.assemble_scene(
+                *blas, inst, ib, masks, tri, time=t_anim,
+                animate=AN.animate_vertices, resplit=resplit)),
+            launches_one_frame=one,
+            finite=bool(torch.isfinite(aux["hdr"]).all()))
+        ok &= (rt_out[name]["finite"] and not rt_out[name]["paged"]
+               and all(one.get(k, 0) > 0
+                       for k in ("trace_resolve", "trace_bundle")))
+        cases.append((name, rt, cam, anim_kw))
+        keep[f"rt_flat_{name}"] = (rt, cam)
+    rt_out["frame_ms_in_turns"] = in_turns(cases)
+    rt_out["card_vs_cpu_96x64_resplit"] = card_vs_cpu(
+        lambda dev: SC.build_animated_rt_scene(96, 64, resplit=True,
+                                               device=dev)[1:],
+        lambda r, c: r.render(c, time=t_anim)[0])
+    ok &= rt_out["card_vs_cpu_96x64_resplit"]["ok"]
+    out["rt_flat"] = rt_out
+
+    # -- animated RT, paged: the 10k crowd, one instance in 64 animated ------
+    cr_out, cases = {}, []
+    rt0, cam0 = SC.build_crowd_scene(10_000, 1024, 1024, device="cuda")[2:]
+    cases.append(("unanimated", rt0, cam0, {}))
+    for resplit in (False, True):
+        _, _, rt, cam = SC.build_animated_crowd_scene(
+            10_000, 1024, 1024, resplit=resplit, device="cuda")
+        (ldr, aux), one = one_frame(lambda: rt.render(cam, time=t_anim))
+        inst = rt.scene.flush()
+        blas, ib = rt.accel.blas(), rt.accel.inst_blas(inst.capacity)
+        slots, masks = rt._device_inputs(inst.capacity)[:2]
+        tri = rt.accel.tri_attr()
+        name = "resplit" if resplit else "refit"
+        meta = blas[1]
+        cr_out[name] = dict(
+            paged=rt.accel.prefer_paged(inst.capacity),
+            unique=len(meta.anim), anim_leaves=meta.num_anim_leaves,
+            assemble_scene_paged_ms=host_ms(lambda: ACC.assemble_scene_paged(
+                *blas, inst, ib, masks[0], slots, tri, time=t_anim,
+                animate=AN.animate_vertices, resplit=resplit)),
+            launches_one_frame=one,
+            finite=bool(torch.isfinite(aux["hdr"]).all()))
+        ok &= (cr_out[name]["finite"] and cr_out[name]["paged"]
+               and all(one.get(k, 0) > 0 for k in ("trace_scene_paged",
+                                                   "trace_resolve_paged")))
+        cases.append((name, rt, cam, anim_kw))
+        keep[f"crowd_{name}"] = (rt, cam)
+    cr_out["frame_ms_in_turns"] = in_turns(cases)
+    # the refit's host ops and ms, batched against one BLAS at a time
+    rt, _ = keep["crowd_resplit"]
+    meta, art = rt.accel.blas()[1], rt.accel.blas()[2]
+    for batched in (True, False):
+        key = "batched" if batched else "per_instance"
+        fn = lambda: ACC.refit_anim_blases(meta, art, t_anim,
+                                           AN.animate_vertices,
+                                           batched=batched)
+        refit_out, n_ops = count_ops(fn)
+        fn2 = lambda: ACC.resplit_anim_tables(meta, art, t_anim,
+                                              AN.animate_vertices,
+                                              batched=batched)
+        rs_out, n_ops_rs = count_ops(fn2)
+        cr_out[f"refit_{key}"] = dict(host_ops=n_ops, ms=host_ms(fn),
+                                      resplit_host_ops=n_ops_rs,
+                                      resplit_ms=host_ms(fn2))
+        if batched:
+            ref = (refit_out, rs_out)
+    cr_out["batched_bitwise"] = all(
+        same_bits(a, b) for a, b in zip(ref[0] + ref[1], refit_out + rs_out))
+    ok &= cr_out["batched_bitwise"]
+    cr_out["card_vs_cpu_600_96x64_paged"] = card_vs_cpu(
+        lambda dev: SC.build_animated_crowd_scene(600, 96, 64, resplit=True,
+                                                  device=dev)[2:],
+        lambda r, c: r.render(c, time=t_anim, paged=True)[0])
+    ok &= cr_out["card_vs_cpu_600_96x64_paged"]["ok"]
+    out["crowd_paged"] = cr_out
+
+    # -- animated hybrid config 4 -------------------------------------------
+    _, hy0, cam0 = SC.build_hybrid_scene(1920, 1080, device="cuda")
+    _, hy, cam = SC.build_animated_hybrid_scene(1920, 1080, device="cuda")
+    keep["hybrid"] = (hy, cam)
+    (ldr, aux), one = one_frame(lambda: hy.render(cam, time=t_anim))
+    hy_out = dict(paged=bool(aux["paged"]),
+                  anim_leaves=hy.accel.blas()[1].num_anim_leaves,
+                  frame_ms_in_turns=in_turns([
+                      ("unanimated", hy0, cam0, {}),
+                      ("animated", hy, cam, anim_kw)]),
+                  launches_one_frame=one,
+                  finite=bool(torch.isfinite(aux["hdr"]).all()))
+    hy_out["card_vs_cpu_96x64"] = card_vs_cpu(
+        lambda dev: SC.build_animated_hybrid_scene(96, 64, device=dev)[1:],
+        lambda h, c: h.render(c, time=t_anim)[0])
+    ok &= (hy_out["finite"] and not hy_out["paged"]
+           and hy_out["card_vs_cpu_96x64"]["ok"]
+           and all(one.get(k, 0) > 0 for k in ("raster_exact", "trace_bundle",
+                                               "trace_resolve")))
+    out["hybrid"] = hy_out
+    torch.cuda.synchronize()
+    out["launches"] = read_counts()
+
+    # -- uncounted: the kernels on the animation path's inputs, bitwise ------
+    checks = {}
+    w5, h5 = rp5.width, rp5.height
+    case = RasterCase(RE.bin_triangles(frame_batch(rp5, cam5), w5, h5), w5, h5)
+    checks["k1_config5"] = compare_raster(case, reps=reps)
+    rt, cam = keep["rt_flat_resplit"]
+    ctx, o, d, far, _ = primary_wavefront(rt, cam, paged=False, time=t_anim)
+    walk = dict(root_code=ctx.root_code, stack_size=ctx.stack_size)
+    got = TK.trace_resolve_kernel(ctx.scene, ctx.slot_materials, o, d, far,
+                                  **walk)
+    ref = TK.trace_resolve_plain(ctx.scene, ctx.slot_materials, o, d, far,
+                                 **walk)
+    good, mism, err = resolve_check(got, ref)
+    checks["k8_rt_resplit_primary"] = dict(
+        bitwise=good, mismatches=mism, max_abs_err=err, rays=o.shape[0],
+        ms=timed(lambda: TK.trace_resolve_kernel(
+            ctx.scene, ctx.slot_materials, o, d, far, **walk), reps))
+    rt, cam = keep["crowd_resplit"]
+    ctx, o, d, far, _ = primary_wavefront(rt, cam, paged=True, time=t_anim)
+    walk = dict(root_code=ctx.root_code, stack_size=ctx.stack_size,
+                max_steps=ctx._step_bound())
+    for name, kernel, plain, check in (
+            ("k11_crowd_resplit_primary",
+             lambda: TPG.trace_resolve_paged_kernel(
+                 ctx.scene, ctx.slot_materials, o, d, far, **walk),
+             lambda: TPG.trace_resolve_paged_plain(
+                 ctx.scene, ctx.slot_materials, o, d, far,
+                 flat=ctx.flat_view(), **walk), resolve_check),
+            ("k10_crowd_resplit_primary",
+             lambda: TPG.trace_scene_paged_kernel(ctx.scene, o, d, far,
+                                                  **walk),
+             lambda: TPG.trace_scene_paged_plain(
+                 ctx.scene, o, d, far, flat=ctx.flat_view(), **walk),
+             rec_check)):
+        good, mism, err = check(kernel(), plain())
+        checks[name] = dict(bitwise=good, mismatches=mism, max_abs_err=err,
+                            rays=o.shape[0], ms=timed(kernel, reps))
+    out["checks"] = checks
+    ok &= all(v["bitwise"] for v in checks.values())
+    out["ok"] = ok
+    return out
+
+
 def sync_cost(rp, cam, frames=20, rounds=4):
     """Frame time with the per-frame pair-count read vs. with the count
     supplied (same camera, so the count is known): loops of `frames`
@@ -1598,6 +1924,13 @@ def hybrid_stages():
             (ACC, "assemble_scene"), (ACC, "assemble_scene_paged"),
             (TR, "shadow_ao_bounce"), (TR, "shadow_and_ao"),
             (HY, "shade_gbuffer"), (TR, "reflections"), (HY, "tonemap")]
+
+
+def anim_stages_extra():
+    """The unique-geometry refit's stages (inside the RT frames' assembly)."""
+    from paperrenderer_tpu_torch.ops import accel as ACC
+
+    return [(ACC, "refit_anim_blases"), (ACC, "resplit_anim_tables")]
 
 
 def profile_frames(render, stages, out_path, frames=5):
@@ -2151,7 +2484,7 @@ def main():
         compare_paged's timing of this frame's primary rays."""
         rt, cam = big_rt()
         build_s = rt_scenes["big"][2]
-        _, meta = rt.accel.blas()
+        meta = rt.accel.blas()[1]
         before = read_counts()
         ldr, aux = rt.render(cam)
         one = counted_since(before)
@@ -2296,6 +2629,23 @@ def main():
         launches[k] += tex_launches.get(k, 0)
         launch_path[k] = tuple(launch_path[k]) + ("textured",)
 
+    # animation: K1 (config 5's frames, the hybrid G-buffer), K8/K9 (the
+    # flat RT and hybrid frames), K10/K11 (the paged crowd); K7 only where a
+    # pass's cull masks differ, which none of its frames sets
+    reset_counts()
+    anim_scenes = {}
+    phase("animation", lambda: animation_phase(read_counts, anim_scenes))
+    anim = results["animation"]
+    anim_launches = anim.get("launches", {})
+    anim_needs = ("raster_exact", "trace_resolve", "trace_bundle") + paged_keys
+    for k in anim_needs + ("trace_scene",):
+        if k in anim_needs or anim_launches.get(k, 0):
+            launches[k] += anim_launches.get(k, 0)
+            launch_path[k] = tuple(launch_path[k]) + ("animation",)
+    # the animation phase's kernel checks, by the row they belong to
+    anim_checks = dict(raster_exact="k1_", trace_resolve="k8_",
+                       trace_scene_paged="k10_", trace_resolve_paged="k11_")
+
     probe_keys = tuple(PR.LAUNCHES) + ("trace_scene_steps",
                                        "trace_scene_paged_steps")
 
@@ -2340,8 +2690,10 @@ def main():
                                              "trace_scene_paged",
                                              "trace_resolve_paged"))
             and all(probe_launches.get(k, 0) > 0 for k in probe_keys)
-            and all(tex_launches.get(k, 0) > 0 for k in tex_needs)),
-        **raster_launches, **rt_launches, probes=probe_launches))
+            and all(tex_launches.get(k, 0) > 0 for k in tex_needs)
+            and all(anim_launches.get(k, 0) > 0 for k in anim_needs)),
+        **raster_launches, **rt_launches, probes=probe_launches,
+        animation=anim_launches))
     phase("sync", lambda: {f"config{c}": sync_cost(*get(c)) for c in (1, 2)})
     if args.profile:
         out_dir = os.path.join(HERE, "chiprun_out")
@@ -2372,6 +2724,20 @@ def main():
                           functools.partial(r.render, cam), st(),
                           os.path.join(out_dir,
                                        f"profile_textured_grid_{n}.txt")))
+        anim_stages = dict(config5=raster_stages, rt_flat_refit=rt_stages,
+                           rt_flat_resplit=rt_stages,
+                           crowd_refit=paged_rt_stages,
+                           crowd_resplit=paged_rt_stages,
+                           hybrid=hybrid_stages)
+        for name, stages in anim_stages.items():
+            if name in anim_scenes:
+                r, cam = anim_scenes[name]
+                kw = {} if name == "config5" else dict(time=0.7)
+                phase(f"profile_animation_{name}", lambda r=r, cam=cam,
+                      st=stages, n=name, kw=kw: profile_frames(
+                          functools.partial(r.render, cam, **kw),
+                          st() + anim_stages_extra(),
+                          os.path.join(out_dir, f"profile_animation_{n}.txt")))
         for name in ("config4", "grid10k"):
             if name in hybrid_scenes:
                 hy, cam = hybrid_scenes[name]
@@ -2531,6 +2897,14 @@ def main():
         if k["name"] in RE.LAUNCHES:
             row["launches_keyed_entry"] = raster_launches.get(
                 "keyed_entry", {}).get(k["name"], 0)
+        for c, v in anim.get("checks", {}).items():   # the animation path's
+            if c.startswith(anim_checks.get(k["name"], "-")):   # inputs
+                row["ms_" + c] = v.get("ms")
+                errs = [e for e in (row.get("max_abs_err"),
+                                    v.get("max_abs_err")) if e == e]
+                row["max_abs_err"] = max(errs) if errs else float("nan")
+        if k["name"] in launch_path and "animation" in launch_path[k["name"]]:
+            row["launches_animation"] = anim_launches.get(k["name"], 0)
         n_alpha = alpha_launches.get(k["name"], 0)
         n_steps = (probe_launches.get(k["name"] + "_steps", 0)
                    if k["name"] in steps_on else 0)

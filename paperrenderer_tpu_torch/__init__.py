@@ -14,7 +14,11 @@ ray-traced frame, ``RayTraceRender.render(cam)``, on the flat and the paged
 layout (big scenes, big models), and the hybrid frame,
 ``HybridRender.render(cam)``, both with the any-hit leaf cutout and
 half-rate reflections, and textured materials on all of them (the atlas
-and samplers of ``core.texture``). Animation is still to port.
+and samplers of ``core.texture``), and animation: instances moved on the
+device every frame (``ops.animation``, ``scenes.run_dynamic``: bench
+config 5) and unique-geometry instances whose BLASes the RT and hybrid
+frames refit (``RayTraceRender(animate=, anim_resplit=)``,
+``HybridRender(animate=)``, ``render(cam, time=)``).
 """
 
 import torch as _torch

@@ -88,10 +88,6 @@ class ModelInstance:
 
     def __init__(self, model: Model, unique_geometry: bool = False,
                  anim_phase: float = 0.0):
-        if unique_geometry:
-            raise NotImplementedError(
-                "unique-geometry (animated) instances are not ported yet "
-                "(ROADMAP Queue 1 item 4)")
         self.model = model
         self.index: int = -1  # slot in the Scene's instance SoA
         self._pos = np.zeros(3, np.float32)
@@ -99,8 +95,11 @@ class ModelInstance:
         self._quat = np.asarray([1.0, 0.0, 0.0, 0.0], np.float32)
         self.dirty = True
         self.visible = True
-        self.unique_geometry = False
-        # per-instance animation phase, read once animation is ported
+        # a unique-geometry instance gets a BLAS of its own, animated and
+        # refit every RT frame (reference Model.cpp:398-404); its phase is
+        # read when the BLAS set is built (the per-instance push constants
+        # of BasicAnimation.comp)
+        self.unique_geometry = unique_geometry
         self.anim_phase = anim_phase
         self._scene = None
 

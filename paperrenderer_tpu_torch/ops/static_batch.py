@@ -142,9 +142,14 @@ def expand_static(
     instance_visible: Optional[torch.Tensor] = None,
     *,
     do_culling: bool = True,
+    animate_time=None,
+    animate=None,
 ):
     """Per-frame: instance math + dense transform -> (TriangleBatch,
-    visible bool[N]).
+    visible bool[N]). ``animate``, a vertex animation f(v_obj, time) ->
+    v_obj, moves the object-space vertices before the transform when it
+    and ``animate_time`` are given (the unique-geometry path,
+    BasicAnimation.comp).
 
     Per-run values (matrix 12 | valid flag | material id) are gathered once
     per run and broadcast to the run's triangles by ``run_id``: one row
@@ -179,8 +184,11 @@ def expand_static(
 
     tri_valid = mapping.valid & (vals[:, 12] > 0.5)
     material = vals[:, 13].to(torch.int32)
+    v_obj = mapping.v_obj
+    if animate is not None and animate_time is not None:
+        v_obj = animate(v_obj, animate_time)
     world, n_world, clip = transform_triangles(
-        vals[:, :12].reshape(-1, 3, 4), mapping.v_obj, mapping.n_obj,
+        vals[:, :12].reshape(-1, 3, 4), v_obj, mapping.n_obj,
         camera.view_proj)
     batch = TriangleBatch(
         clip=clip, world=world, normal=n_world, uv=mapping.uv,

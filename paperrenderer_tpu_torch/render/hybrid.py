@@ -12,6 +12,12 @@ material traces its AO and reflection rays with the any-hit leaf cutout
 while the G-buffer stays the raster one with no cutout, as in the JAX
 package. Textured materials are sampled trilinear in the G-buffer's shade
 and bilinear at mip 0 on the reflection hits, as in the JAX package.
+
+``HybridRender(animate=)`` refits the unique-geometry instances' BLASes at
+``render(cam, time=)`` for the RT passes; the G-buffer comes from
+``expand_static`` without ``animate``, so those instances are rasterized
+at their rest pose while the RT passes see them animated, as in the JAX
+package (a reference behaviour, ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from ..core.camera import Camera, CameraMatrices
 from ..core.material import MaterialInstance
 from ..core.model import ModelInstance
 from ..ops import accel as ACC
+from ..ops.animation import f32_time
 from ..ops import trace as T
 from ..ops.raster import attach_cull
 from ..ops.raster_exact import rasterize_exact, resolve_gbuffer_pairs
@@ -36,23 +43,27 @@ from .raytrace import AccelCache
 from .renderpass import RenderPass
 
 
-def render_frame_hybrid(mapping, blasset, meta, instances, inst_blas,
-                        tri_attr, tables, materials, lights: Lights,
-                        camera: CameraMatrices, slot_materials,
-                        instance_visible, tonemap_params, key, *, width: int,
+def render_frame_hybrid(mapping, blasset, meta, anim_rest, anim_rest_nodes,
+                        instances, inst_blas, tri_attr, tables, materials,
+                        lights: Lights, camera: CameraMatrices,
+                        slot_materials, instance_visible, tonemap_params, key,
+                        time=None, *, width: int,
                         height: int, stack_size: int, paged: bool = False,
                         do_culling: bool = True, shadow_samples: int = 1,
                         reflection_samples: int = 1, ao_samples: int = 1,
                         ao_radius: float = 2.0, leaf_cutout: bool = False,
-                        reflection_half_rate: bool = False, textures=None):
+                        reflection_half_rate: bool = False, textures=None,
+                        animate=None):
     """One hybrid frame (the body of the JAX package's ``make_hybrid_frame``):
     the static raster G-buffer through K1, the scene's tracer on the flat or
     (``paged``) the paged layout, shadows + AO + the fused-or-not bounce at
     the G-buffer surfaces, deferred shading with them, reflections (at half
     rate with ``reflection_half_rate`` on an even width), tonemap; with
     ``leaf_cutout`` the RT passes apply the any-hit leaf cutout;
-    ``textures`` (the atlas, or None) goes to the shade and the tracer.
-    Returns (ldr f32[H, W, 3], aux dict)."""
+    ``textures`` (the atlas, or None) goes to the shade and the tracer;
+    ``animate`` refits the anim BLASes at ``time`` for the RT passes (the
+    G-buffer keeps the rest pose, as in the JAX package). Returns (ldr
+    f32[H, W, 3], aux dict)."""
     batch, inst_visible = expand_static(
         mapping, instances, tables, camera, slot_materials, instance_visible,
         do_culling=do_culling)
@@ -64,9 +75,10 @@ def render_frame_hybrid(mapping, blasset, meta, instances, inst_blas,
     mask = (torch.ones(instances.capacity, dtype=torch.bool,
                        device=instances.pos.device),)
     ctx = ACC.make_scene_tracer(
-        blasset, meta, instances, inst_blas, mask, tri_attr, slot_materials,
-        materials, tlas_index=0, stack_size=stack_size, paged=paged,
-        leaf_cutout=leaf_cutout, textures=textures)
+        blasset, meta, anim_rest, anim_rest_nodes, instances, inst_blas,
+        mask, tri_attr, slot_materials, materials, tlas_index=0,
+        stack_size=stack_size, paged=paged, leaf_cutout=leaf_cutout,
+        textures=textures, time=time, animate=animate)
     cov = gbuf.coverage.reshape(-1)
     surf = T.SurfaceHits(
         world_pos=gbuf.world_pos.reshape(-1, 3),
@@ -111,10 +123,11 @@ class HybridRender:
     from it, AO from its ``fold_in(., 3)``, reflections from ``fold_in(.,
     7)``).
 
-    Not ported yet, refused with ``NotImplementedError``: ``animate``
-    (ROADMAP Queue 1 item 4) and ``use_pallas=False`` (item 8).
-    ``render(time=)`` is accepted and has no effect until animation is
-    ported. ``bvh_wide`` is a TPU scheduling knob and is ignored. The JAX
+    ``animate`` (as ``RayTraceRender``'s) moves the unique-geometry
+    instances for the RT passes at ``render(cam, time=)``. Not ported yet,
+    refused with ``NotImplementedError``: ``use_pallas=False`` (ROADMAP
+    Queue 1 item 8). ``bvh_wide`` is a TPU scheduling knob and is ignored.
+    The JAX
     package's pair-capacity protocol is not ported: the port sizes its
     raster pair buffers from each frame's own count."""
 
@@ -137,11 +150,8 @@ class HybridRender:
         reflection_half_rate: bool = False,
         bvh_wide: bool = True,
     ):
-        if animate is not None:
-            raise NotImplementedError(
-                "animated (unique-geometry) instances are not ported yet "
-                "(ROADMAP Queue 1 item 4)")
         check_use_pallas(use_pallas)
+        self.animate = animate
         self._rp = RenderPass(scene, materials, width=width, height=height,
                               lights=lights, tonemap_params=tonemap_params)
         self.scene = scene
@@ -193,18 +203,19 @@ class HybridRender:
                paged: Optional[bool] = None):
         """One hybrid frame; returns (ldr f32[H, W, 3], aux dict).
         ``paged`` forces a layout (None: ``accel.prefer_paged``'s);
-        ``time`` is the animation time, unused until animation is ported."""
+        ``time`` is the animation time of the unique-geometry instances."""
         require_device(self.device)
         rp = self._rp
         mapping, instances, tables, table, cam, slots, visible = (
             rp.frame_inputs(camera))
-        blasset, meta = self.accel.blas()
+        blasset, meta, anim_rest, anim_nodes = self.accel.blas()
         cap = instances.capacity
         self._frame += 1
         return render_frame_hybrid(
-            mapping, blasset, meta, instances, self.accel.inst_blas(cap),
-            self.accel.tri_attr(), tables, table, rp.lights, cam, slots,
-            visible, rp.tonemap_params, rnd.fold_in(self._key, self._frame),
+            mapping, blasset, meta, anim_rest, anim_nodes, instances,
+            self.accel.inst_blas(cap), self.accel.tri_attr(), tables, table,
+            rp.lights, cam, slots, visible, rp.tonemap_params,
+            rnd.fold_in(self._key, self._frame), f32_time(time),
             width=self.width, height=self.height,
             stack_size=self.accel.stack_size(cap),
             paged=(self.accel.prefer_paged(cap) if paged is None else paged),
@@ -214,4 +225,4 @@ class HybridRender:
             ao_samples=self.ao_samples, ao_radius=self.ao_radius,
             leaf_cutout=self.materials.has_leaf,
             reflection_half_rate=self.reflection_half_rate,
-            textures=rp._cached_textures)
+            textures=rp._cached_textures, animate=self.animate)

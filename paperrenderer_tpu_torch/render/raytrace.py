@@ -27,10 +27,15 @@ reflections for every other pixel (``ops.trace.reflections_half_rate``).
 Textured materials shade their hits with the registry's atlas, uploaded
 with the material table and sampled bilinear at mip 0 (``ops.trace``).
 
-Not ported yet, refused with ``NotImplementedError``: animation
-(``animate``/``anim_resplit``, ROADMAP Queue 1 item 4) and the XLA route
-(``use_pallas=False``, item 8). ``render(time=)`` is accepted and has no
-effect until animation is ported. ``compact_secondary``, ``compact_refl``,
+Unique-geometry animation (Model.cpp:398-404): an instance made with
+``unique_geometry=True`` gets a BLAS of its own, whose rows each frame
+refits from ``animate(v, time + phase)`` (``RayTraceRender(animate=)``,
+``render(cam, time=)``); ``anim_resplit`` re-splits its leaves at the
+animated pose first (``accel.resplit_anim_tables``).
+
+Not ported yet, refused with ``NotImplementedError``: the XLA route
+(``use_pallas=False``, ROADMAP Queue 1 item 8). ``compact_secondary``,
+``compact_refl``,
 ``packet_pack`` and ``bvh_wide`` are TPU scheduling knobs that leave every
 result unchanged: they are accepted and ignored.
 """
@@ -48,6 +53,7 @@ from ..core.material import MaterialInstance, MaterialRegistry
 from ..core.model import ModelInstance
 from ..core.scene import InstanceArrays, Scene
 from ..ops import accel as ACC
+from ..ops.animation import f32_time
 from ..ops.shading import Lights
 from ..ops.tonemap import TonemapParams, tonemap
 from ..ops.trace import RTParams, trace_frame
@@ -57,8 +63,8 @@ from ..utils.device import check_use_pallas, require_device
 
 class AccelCache:
     """The scene's BLAS set and per-topology device inputs, rebuilt only
-    when models (BLAS) or the instance set (``inst_blas``) change — the
-    AccelerationStructureBuilder analogue."""
+    when models or the unique-geometry instances (BLAS) or the instance set
+    (``inst_blas``) change — the AccelerationStructureBuilder analogue."""
 
     def __init__(self, scene: Scene):
         self.scene = scene
@@ -67,10 +73,13 @@ class AccelCache:
         self._attr_key = self._tri_attr = None
 
     def _blas_signature(self):
-        return (len(self.scene.models), self.scene.arena.revision)
+        uniq = tuple(i.index for i in self.scene.instances
+                     if i.unique_geometry)
+        return (len(self.scene.models), self.scene.arena.revision, uniq)
 
     def blas(self):
-        """(BLASSet on the scene's device, BLASSetMeta)."""
+        """(BLASSet, BLASSetMeta, anim_rest, anim_rest_nodes) on the
+        scene's device (``accel.build_blas_set``)."""
         k = self._blas_signature()
         if k != self._blas_key:
             self._blas = ACC.build_blas_set(self.scene, self.scene.device)
@@ -80,10 +89,13 @@ class AccelCache:
     def inst_blas(self, capacity: int) -> torch.Tensor:
         k = (self.scene.version, capacity, self._blas_signature())
         if k != self._inst_key:
-            _, meta = self.blas()
+            meta = self.blas()[1]
             arr = np.zeros(capacity, np.int32)
             for inst in self.scene.instances:
                 arr[inst.index] = meta.blas_of_model[inst.model.model_id]
+            for a in meta.anim:   # a unique instance traces its own BLAS
+                if 0 <= a.instance_index < capacity:
+                    arr[a.instance_index] = a.blas_id
             self._inst_blas = torch.from_numpy(arr).to(self.scene.device)
             self._inst_key = k
         return self._inst_blas
@@ -96,31 +108,34 @@ class AccelCache:
         return self._tri_attr
 
     def stack_size(self, capacity: int) -> int:
-        _, meta = self.blas()
-        return ACC.required_stack_size(meta, capacity)
+        return ACC.required_stack_size(self.blas()[1], capacity)
 
     def prefer_paged(self, capacity: int) -> bool:
         """The layout of this scene's frames (``accel.prefer_paged``)."""
-        _, meta = self.blas()
-        return ACC.prefer_paged(meta, capacity, max(1, self.scene.max_slots))
+        return ACC.prefer_paged(self.blas()[1], capacity,
+                                max(1, self.scene.max_slots))
 
 
-def render_frame_rt(blasset, meta, instances: InstanceArrays, inst_blas,
-                    masks, tri_attr, materials, lights: Lights,
-                    camera: CameraMatrices, slot_materials, tonemap_params,
-                    key, inst_mask=None, inst_opaque=None, *, width: int,
+def render_frame_rt(blasset, meta, anim_rest, anim_rest_nodes,
+                    instances: InstanceArrays, inst_blas, masks, tri_attr,
+                    materials, lights: Lights, camera: CameraMatrices,
+                    slot_materials, tonemap_params, key, time=None,
+                    inst_mask=None, inst_opaque=None, *, width: int,
                     height: int, stack_size: int, params: RTParams,
-                    tlas_index: int = 0, paged: bool = False, textures=None):
+                    tlas_index: int = 0, paged: bool = False, textures=None,
+                    animate=None, resplit: bool = False):
     """One ray-traced frame (the JAX package's ``make_rt_frame`` body):
-    assemble this frame's TLAS on the flat or, with ``paged``, the paged
-    layout, trace, tonemap; ``textures`` is the atlas of textured
-    materials (or None). Returns (ldr f32[H, W, 3], {"hdr": f32[H, W,
-    3]})."""
+    refit the anim BLASes at ``time`` with ``animate`` (re-split first with
+    ``resplit``), assemble this frame's TLAS on the flat or, with
+    ``paged``, the paged layout, trace, tonemap; ``textures`` is the atlas
+    of textured materials (or None). Returns (ldr f32[H, W, 3], {"hdr":
+    f32[H, W, 3]})."""
     ctx = ACC.make_scene_tracer(
-        blasset, meta, instances, inst_blas, masks, tri_attr, slot_materials,
-        materials, tlas_index=tlas_index, stack_size=stack_size, paged=paged,
-        inst_mask=inst_mask, inst_opaque=inst_opaque,
-        leaf_cutout=params.leaf_cutout, textures=textures)
+        blasset, meta, anim_rest, anim_rest_nodes, instances, inst_blas,
+        masks, tri_attr, slot_materials, materials, tlas_index=tlas_index,
+        stack_size=stack_size, paged=paged, inst_mask=inst_mask,
+        inst_opaque=inst_opaque, leaf_cutout=params.leaf_cutout,
+        textures=textures, time=time, animate=animate, resplit=resplit)
     hdr = trace_frame(ctx, materials, lights, camera, key, width=width,
                       height=height, params=params)
     return tonemap(hdr, tonemap_params), {"hdr": hdr}
@@ -129,7 +144,11 @@ def render_frame_rt(blasset, meta, instances: InstanceArrays, inst_blas,
 class RayTraceRender:
     """Host-side RT pass (reference RayTrace.h:37-99). ``add_tlas()`` mirrors
     ``addNewTLAS`` (RayTrace.cpp:159-170); ``render(camera, tlas=i)``
-    traces against TLAS ``i``. Every tensor lives on the scene's device."""
+    traces against TLAS ``i``. Every tensor lives on the scene's device.
+    ``animate(v, t)`` moves a unique-geometry instance's object-space
+    vertices v f32[M, 3] at its time t f32[] (``render``'s time + the
+    instance's phase), as in the JAX package, and ``anim_resplit``
+    re-splits their BLASes at the animated pose every frame."""
 
     def __init__(
         self,
@@ -157,12 +176,10 @@ class RayTraceRender:
         packet_pack: Optional[int] = None,  # they are accepted and ignored
         bvh_wide: bool = True,
     ):
-        if animate is not None or anim_resplit:
-            raise NotImplementedError(
-                "animated (unique-geometry) instances are not ported yet "
-                "(ROADMAP Queue 1 item 4)")
         check_use_pallas(use_pallas)
         self.scene = scene
+        self.animate = animate
+        self.anim_resplit = anim_resplit
         self.materials = materials
         self.device = scene.device
         self.width = width
@@ -290,22 +307,26 @@ class RayTraceRender:
                time: float = 0.0, paged: Optional[bool] = None):
         """Trace one frame; returns (ldr f32[H, W, 3], {"hdr": ...}).
         ``paged`` forces a layout (None: ``accel.prefer_paged``'s);
-        ``time`` is the animation time, unused until animation is ported."""
+        ``time`` is the animation time of the unique-geometry instances
+        (f32, each instance's phase added in f32)."""
         require_device(self.device)
         cam = camera.matrices if isinstance(camera, Camera) else camera
         instances = self.scene.flush()
-        blasset, meta = self.accel.blas()
+        blasset, meta, anim_rest, anim_nodes = self.accel.blas()
         slots, masks, table, inst_mask, opaque, lights, tm = (
             self._device_inputs(instances.capacity))
         self._frame += 1
         if paged is None:
             paged = self.accel.prefer_paged(instances.capacity)
         return render_frame_rt(
-            blasset, meta, instances, self.accel.inst_blas(instances.capacity),
-            masks, self.accel.tri_attr(), table, lights, cam.to(self.device),
-            slots, tm, rnd.fold_in(self._key, self._frame), inst_mask, opaque,
+            blasset, meta, anim_rest, anim_nodes, instances,
+            self.accel.inst_blas(instances.capacity), masks,
+            self.accel.tri_attr(), table, lights, cam.to(self.device), slots,
+            tm, rnd.fold_in(self._key, self._frame),
+            f32_time(time), inst_mask, opaque,
             width=self.width, height=self.height,
             stack_size=self.accel.stack_size(instances.capacity),
             params=dataclasses.replace(self.params,
                                        leaf_cutout=self.materials.has_leaf),
-            tlas_index=tlas, paged=paged, textures=self._cached_textures)
+            tlas_index=tlas, paged=paged, textures=self._cached_textures,
+            animate=self.animate, resplit=self.anim_resplit)

@@ -21,19 +21,32 @@ with the sphere's size as a parameter. ``build_textured_scene`` is
 baseColor, emissive and metallicRoughness textures), and
 ``build_textured_grid`` config 2's grid with its four materials given
 seeded procedural textures of a real texture set's size.
+
+Animation: ``run_dynamic`` is ``examples/render_dynamic.py::run``, config
+5's loop (``build_dynamic_scene`` animated on the device every frame by
+``animate_instances``); ``build_animated_rt_scene``,
+``build_animated_crowd_scene`` and ``build_animated_hybrid_scene`` are the
+RT scene, the crowd and the hybrid example with some instances made
+unique-geometry instances that ``animate_vertices`` deforms.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+import time as _time
+
+import torch
+
 from .core import (
     SHADE_LEAF, SHADE_TRANSLUCENT, Camera, Material, MaterialRegistry, Model,
     ModelInstance, RenderEngine, Scene, make_cube, make_icosphere, make_plane,
     make_torus, make_uv_sphere,
 )
+from .ops.animation import animate_instances, animate_vertices
 from .ops.shading import Lights
 from .render import RayTraceRender, RenderPass
+from .render.renderpass import render_frame_static
 
 
 def build_example_scene(width: int = 512, height: int = 512, device="cuda"):
@@ -465,3 +478,89 @@ def build_textured_grid(n_instances: int, width: int, height: int,
     returns (engine, pass, camera)."""
     return build_dynamic_scene(n_instances, width, height, seed=seed,
                                device=device, textures=_grid_textures(seed))
+
+
+def run_dynamic(n_instances: int = 10_000, width: int = 1920,
+                height: int = 1080, frames: int = 20, device="cuda",
+                built=None):
+    """Config 5's animated loop, ``examples/render_dynamic.py::run``: the
+    frame inputs taken once, then every frame ``animate_instances`` moves
+    the instances on the device and ``render_frame_static`` draws them,
+    each frame's instances fed to the next: a first frame at t = 0, then
+    ``frames`` frames at t = 0.05 (i + 1). ``built`` is a
+    ``build_dynamic_scene`` result to use instead of a new one (its size
+    then stands). Returns (host ms of each timed frame, synchronized, last
+    ldr, last aux)."""
+    _, rp, cam = built or build_dynamic_scene(n_instances, width, height,
+                                              device=device)
+    mapping, instances, tables, table, cmat, slots, visible = (
+        rp.frame_inputs(cam))
+    cuda = rp.device.type == "cuda"
+
+    def frame(instances, t):
+        instances = animate_instances(instances, t)
+        ldr, aux = render_frame_static(
+            mapping, instances, tables, table, rp.lights, cmat, slots,
+            visible, rp.tonemap_params, width=rp.width, height=rp.height,
+            do_culling=True, textures=rp._cached_textures)
+        return instances, ldr, aux
+
+    instances, ldr, aux = frame(instances, 0.0)
+    ms = []
+    for i in range(frames):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = _time.perf_counter()
+        instances, ldr, aux = frame(instances, 0.05 * (i + 1))
+        if cuda:
+            torch.cuda.synchronize()
+        ms.append((_time.perf_counter() - t0) * 1e3)
+    return ms, ldr, aux
+
+
+def _make_unique(render, indices, phases=None, resplit: bool = False):
+    """Make the instances at ``indices`` unique-geometry instances (phase
+    ``phases[k]``, default 0) that ``animate_vertices`` deforms in
+    ``render``'s frames (``resplit``: re-split every frame)."""
+    for k, i in enumerate(indices):
+        inst = render.scene.instances[i]
+        inst.unique_geometry = True
+        inst.anim_phase = 0.0 if phases is None else float(phases[k])
+    render.animate = animate_vertices
+    if hasattr(render, "anim_resplit"):
+        render.anim_resplit = resplit
+    return render
+
+
+def build_animated_rt_scene(width: int = 192, height: int = 192,
+                            resplit: bool = False, device="cuda"):
+    """``build_rt_scene`` with its sphere (768 triangles, 128 implicit
+    leaves) a unique-geometry instance deformed by ``animate_vertices``
+    (``resplit``: re-split every frame); render it with ``time=``. Returns
+    (engine, rt, camera)."""
+    eng, rt, cam = build_rt_scene(width, height, device=device)
+    return eng, _make_unique(rt, [1], resplit=resplit), cam
+
+
+def build_animated_crowd_scene(n_inst: int = 10_000, width: int = 512,
+                               height: int = 512, resplit: bool = False,
+                               seed: int = 0, device="cuda"):
+    """``build_crowd_scene`` with one instance in 64 (index i % 64 == 0, a
+    96-triangle sphere: 16 implicit leaves) a unique-geometry instance of
+    phase 0.1 i deformed by ``animate_vertices``; 10k instances make 157
+    of them, 2,512 anim leaves. Returns (scene, registry, rt, camera)."""
+    scene, reg, rt, cam = build_crowd_scene(n_inst, width, height, seed=seed,
+                                            device=device)
+    ids = list(range(0, n_inst, 64))
+    _make_unique(rt, ids, [0.1 * i for i in ids], resplit=resplit)
+    return scene, reg, rt, cam
+
+
+def build_animated_hybrid_scene(width: int = 256, height: int = 256,
+                                device="cuda"):
+    """``build_hybrid_scene`` with its sphere (1,120 triangles, 256 implicit
+    leaves) a unique-geometry instance deformed by ``animate_vertices`` in
+    the RT passes (the G-buffer keeps its rest pose, as in the JAX
+    package). Returns (engine, hybrid, camera)."""
+    eng, hy, cam = build_hybrid_scene(width, height, device=device)
+    return eng, _make_unique(hy, [1]), cam

@@ -269,22 +269,26 @@ def pass_through_inputs(r: int, device):
     return tuple(torch.from_numpy(a[k]).to(device) for k in range(7))
 
 
-def primary_wavefront(rt, cam, paged: bool, leaf_cutout: bool = False):
+def primary_wavefront(rt, cam, paged: bool, leaf_cutout: bool = False,
+                      time=None):
     """(tracer, o, d, far, lights): the tracer and the camera's primary rays
     of one RayTraceRender frame, built as render_frame_rt builds them, on
-    the layout ``paged`` names."""
+    the layout ``paged`` names; with ``time`` the unique-geometry instances
+    are animated by ``rt.animate`` (re-split with ``rt.anim_resplit``)."""
     from ..ops import accel as ACC
     from ..ops import trace as TR
 
     instances = rt.scene.flush()
-    blasset, meta = rt.accel.blas()
+    blasset, meta, anim_rest, anim_nodes = rt.accel.blas()
     slots, masks, table, inst_mask, opaque, lights, _ = rt._device_inputs(
         instances.capacity)
     ctx = ACC.make_scene_tracer(
-        blasset, meta, instances, rt.accel.inst_blas(instances.capacity),
+        blasset, meta, anim_rest, anim_nodes, instances,
+        rt.accel.inst_blas(instances.capacity),
         masks, rt.accel.tri_attr(), slots, table, tlas_index=0,
         stack_size=rt.accel.stack_size(instances.capacity), paged=paged,
-        inst_mask=inst_mask, inst_opaque=opaque, leaf_cutout=leaf_cutout)
+        inst_mask=inst_mask, inst_opaque=opaque, leaf_cutout=leaf_cutout,
+        time=time, animate=rt.animate, resplit=rt.anim_resplit)
     c = cam.matrices.to(rt.device)
     o, d = TR.raygen(c, rt.width, rt.height,
                      tile_order=TR.pick_tile(rt.width, rt.height))
@@ -300,12 +304,13 @@ def rt_wavefronts(rt, cam):
     from . import random as rnd
 
     instances = rt.scene.flush()
-    blasset, meta = rt.accel.blas()
+    blasset, meta, anim_rest, anim_nodes = rt.accel.blas()
     slots, masks, table, inst_mask, opaque, lights, _ = rt._device_inputs(
         instances.capacity)
     cam = cam.matrices.to(rt.device)
     scene, roots = ACC.assemble_scene(
-        blasset, meta, instances, rt.accel.inst_blas(instances.capacity),
+        blasset, meta, anim_rest, anim_nodes, instances,
+        rt.accel.inst_blas(instances.capacity),
         masks, rt.accel.tri_attr(), inst_mask=inst_mask, inst_opaque=opaque)
     ctx = ACC.SceneTracer(scene, slots, table, root_code=roots[0],
                           stack_size=rt.accel.stack_size(instances.capacity))

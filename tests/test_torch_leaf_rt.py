@@ -114,10 +114,10 @@ def jax_scene():
 def _tracer(rt, paged):
     """The port's tracer of one RayTraceRender frame (leaf cutout on)."""
     inst = rt.scene.flush()
-    bt, mt = rt.accel.blas()
+    bt, mt, ar, an = rt.accel.blas()
     slots, masks, table, imask, opq, _, _ = rt._device_inputs(inst.capacity)
     return TA.make_scene_tracer(
-        bt, mt, inst, rt.accel.inst_blas(inst.capacity), masks,
+        bt, mt, ar, an, inst, rt.accel.inst_blas(inst.capacity), masks,
         rt.accel.tri_attr(), slots, table, tlas_index=0,
         stack_size=rt.accel.stack_size(inst.capacity), paged=paged,
         inst_mask=imask, inst_opaque=opq, leaf_cutout=True)

@@ -109,10 +109,11 @@ def scenes(request):
     root_j = int(root_j)
 
     inst_t = rtt.scene.flush()
-    bt, mt = rtt.accel.blas()
+    bt, mt, ar_t, an_t = rtt.accel.blas()
     slots_t, masks_t, table_t, imask_t, opq_t, _, _ = rtt._device_inputs(cap)
     pt, root_t = TA.assemble_scene_paged(
-        bt, mt, inst_t, rtt.accel.inst_blas(cap), masks_t[0], slots_t,
+        bt, mt, ar_t, an_t, inst_t, rtt.accel.inst_blas(cap), masks_t[0],
+        slots_t,
         rtt.accel.tri_attr(), inst_mask=imask_t, inst_opaque=opq_t)
     port_of_jax = from_numpy("PagedScene", {f: np.asarray(getattr(pj, f))
                                             for f in PAGED_FIELDS},
@@ -261,19 +262,19 @@ def test_plain_k10_paged_matches_plain_k7_flat(scenes, rays):
     o, d, t, active = rays
     rtt, cap = scenes["rtt"], scenes["cap"]
     inst = rtt.scene.flush()
-    bt, mt = scenes["bt"], scenes["mt"]
+    bt, mt, *rest = rtt.accel.blas()
     slots, masks, _, imask, opq, _, _ = rtt._device_inputs(cap)
     stack = rtt.accel.stack_size(cap)
     tracer = TA.PagedSceneTracer(scenes["pt"], slots, None,
                                  root_code=scenes["root_t"], stack_size=stack)
     if mt.num_bchunks:
         with pytest.raises(ValueError, match="assemble_scene_paged"):
-            TA.assemble_scene(bt, mt, inst, rtt.accel.inst_blas(cap), masks,
-                              rtt.accel.tri_attr())
+            TA.assemble_scene(bt, mt, *rest, inst, rtt.accel.inst_blas(cap),
+                              masks, rtt.accel.tri_attr())
         flat, root = tracer.flat_view()
     else:
         flat, roots = TA.assemble_scene(
-            bt, mt, inst, rtt.accel.inst_blas(cap), masks,
+            bt, mt, *rest, inst, rtt.accel.inst_blas(cap), masks,
             rtt.accel.tri_attr(), inst_mask=imask, inst_opaque=opq)
         root = roots[0]
     got = tracer.trace(_t(o), _t(d), _t(t), active=_t(active))

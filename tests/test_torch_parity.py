@@ -294,7 +294,8 @@ def test_import_leaves_jax_out():
 def test_model_instance_keywords():
     """``ModelInstance(model, unique_geometry=, anim_phase=)`` as the JAX
     package takes them: the phase is stored, and a unique-geometry
-    (animated) instance is refused until animation is ported."""
+    (animated) instance is accepted (tests/test_torch_anim.py holds its
+    BLAS and frames to the JAX package's)."""
     scene = TPKG.Scene(device="cpu")
     model = TPKG.Model.from_mesh(scene.arena, *TPKG.make_cube(size=1.0))
     inst = TPKG.ModelInstance(model, unique_geometry=False, anim_phase=0.25)
@@ -303,8 +304,10 @@ def test_model_instance_keywords():
                           anim_phase=0.25)
     assert inst.anim_phase == ref.anim_phase == 0.25
     assert inst.unique_geometry is ref.unique_geometry is False
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        TPKG.ModelInstance(model, unique_geometry=True)
+    uniq = TPKG.ModelInstance(model, unique_geometry=True, anim_phase=0.5)
+    ref = JPKG.ModelInstance(ref.model, unique_geometry=True, anim_phase=0.5)
+    assert uniq.unique_geometry is ref.unique_geometry is True
+    assert uniq.anim_phase == ref.anim_phase == 0.5
 
 
 def test_engine_buffer_index():
@@ -1717,10 +1720,10 @@ def scenes():
         rtj.accel.tri_attr(), inst_mask=imask_j, inst_opaque=opq_j)
 
     inst_t = rtt.scene.flush()
-    bt, mt = rtt.accel.blas()
+    bt, mt, ar_t, an_t = rtt.accel.blas()
     slots_t, masks_t, table_t, imask_t, opq_t, _, _ = rtt._device_inputs(cap)
     st, roots_t = TA.assemble_scene(
-        bt, mt, inst_t, rtt.accel.inst_blas(cap), masks_t,
+        bt, mt, ar_t, an_t, inst_t, rtt.accel.inst_blas(cap), masks_t,
         rtt.accel.tri_attr(), inst_mask=imask_t, inst_opaque=opq_t)
     port_of_jax = from_numpy(
         "RTScene", {f: np.asarray(getattr(sj, f)) for f in (
@@ -2041,9 +2044,16 @@ def test_instance_api_delegates():
 
 @pytest.mark.parametrize("case", ["animate"])
 def test_unported_hybrid_options_raise(case):
+    """``HybridRender(animate=)``, once refused, is accepted and kept for
+    the RT passes, and ``render(cam, time=)`` draws a frame."""
     eng = RenderEngine(device="cpu", device_check=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        eng.create_hybrid_render(animate=lambda v, t: v)
+    animate = lambda v, t: v   # noqa: E731
+    hy = eng.create_hybrid_render(animate=animate, width=8, height=8)
+    assert hy.animate is animate
+    _, hy, cam = build_hybrid_scene(16, 16, device="cpu")
+    hy.animate = animate
+    ldr, aux = hy.render(cam, time=0.5)
+    assert ldr.shape == (16, 16, 3) and torch.isfinite(aux["hdr"]).all()
 
 
 @pytest.mark.parametrize("use_pallas", [None, True, False])

@@ -118,9 +118,12 @@ def test_entry_points_default_to_the_card():
 
 @pytest.mark.parametrize("case", ["animate"])
 def test_unported_rt_options_raise(case):
+    """``RayTraceRender(animate=, anim_resplit=)``, once refused, is
+    accepted and kept (tests/test_torch_anim.py renders with it)."""
     eng = RenderEngine(device="cpu", device_check=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        eng.create_ray_trace_render(animate=lambda v, t: v)
+    animate = lambda v, t: v   # noqa: E731
+    rt = eng.create_ray_trace_render(animate=animate, anim_resplit=True)
+    assert rt.animate is animate and rt.anim_resplit is True
 
 
 def test_kernel_tables_must_be_aligned():

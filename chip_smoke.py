@@ -171,6 +171,37 @@ Phases, each reported as one JSON line:
            (without the cutout), bitwise in every output against the plain
            walk, each with the warp efficiency of its step counts in launch
            order (utils.probes.warp_efficiency); plain ms and bounds;
+  native   the native scene core (paperrenderer_tpu_torch.native): the
+           library loaded (shipped, or built with g++ into build/native/);
+           config 5's scene (build_dynamic_scene(100_000, 1920, 1080)) with
+           the native packer and a Python-mirror twin, the flushed
+           InstanceArrays bitwise on live rows after 1,000 edits, 500
+           swap-removes and a grow; morton3d bitwise the numpy formula;
+           host ms of a full flush, a 1,000-row flush and
+           build_static_mapping, each way;
+  gltf     config 2's textured grid written as a .glb (write_glb: four
+           meshes, the grid's materials with embedded PNG textures, one
+           BLEND, 10,000 nodes under an identity root), loaded with
+           io.load_gltf + instantiate on the card, rendered at 1920x1080
+           through the static frame (two peel layers), the draw list,
+           RayTraceRender (paged) and HybridRender: each in the golden
+           bands of, and bitwise against, the directly built scene's frame
+           (else its first differing input), load seconds, frame ms; a
+           400-node copy at 128x64 on the card against the CPU (mean
+           <= 1e-5); its launches join the kernels line;
+  viewer   Viewer over the example scene at 512x512 (raster, RT, hybrid;
+           each rendered once first, so no build runs in its thread):
+           over 127.0.0.1 each mode's /frame.png bitwise a direct render
+           of the same frame (the loop paused before its next frame), a
+           material edit and a mode switch change the frames, /stats
+           without an error, fps per mode; launches read after stop();
+  xla_route  use_pallas=False on the card: the example scene at 512x512
+           and 128x128, supersample=2, the RT, hybrid and textured examples
+           against their goldens, no kernel launched (the hybrid frame's
+           RT passes follow the device), ms beside the kernel route's;
+  examples every paperrenderer_tpu_torch.examples module in a subprocess
+           at its golden's size, four at a time, its PNG against the golden
+           (render_dynamic at 1920x1080, view_scene 5 frames served);
   launches every kernel was launched by the phases of its path (K1: config1,
            config2, translucent, supersample, textured; K2: translucent,
            keyed_entry, textured; K3/K4: keyed_entry; K5: draw_list,
@@ -210,6 +241,7 @@ import functools
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -1803,6 +1835,614 @@ def animation_phase(read_counts, keep, reps=10):
     return out
 
 
+def native_phase(reps=10, n=100_000, device="cuda"):
+    """The native scene core: which library loaded, config 5's scene
+    (build_dynamic_scene(100_000, 1920, 1080)) with the native packer and
+    a Python-mirror twin holding the same instances: the flushed
+    InstanceArrays bitwise on live rows (model ids on every row) after the
+    build, 1,000 transform edits, 500 swap-removes and a grow past the
+    capacity; morton3d against _morton_u64's numpy branch; host ms (median
+    of `reps`, synchronized) of a full flush, a 1,000-dirty-row flush and
+    build_static_mapping (expand_static's topology rebuild), each way."""
+    import numpy as np
+    import torch
+
+    from paperrenderer_tpu_torch import native as NV
+    from paperrenderer_tpu_torch.core import ModelInstance, Scene
+    from paperrenderer_tpu_torch.ops import static_batch as SB
+    from paperrenderer_tpu_torch.scenes import build_dynamic_scene
+
+    out = dict(available=NV.AVAILABLE, loaded_from=NV.LOADED_FROM,
+               build_error=NV.BUILD_ERROR, shipped=str(NV.SHIPPED))
+    ok = bool(NV.AVAILABLE)
+    if not ok:
+        return dict(ok=False, **out)
+    _, rp, _ = build_dynamic_scene(n, 1920, 1080, device=device)
+    sn = rp.scene
+    sp = Scene(sn.arena, use_native=False, device=device)
+    sync = (torch.cuda.synchronize if device == "cuda" else lambda: None)
+    for m in sn.models:
+        sp.register_model(m)
+    twins = []
+    for inst in sn.instances:
+        t = ModelInstance(inst.model)
+        t.set_transform(pos=inst.position, scale=inst.scale,
+                        quat=inst.rotation)
+        sp.add_instance(t)
+        twins.append(t)
+    ok &= sn._native is not None and sp._native is None
+    rng = np.random.default_rng(5)
+    checks = {}
+
+    def check(step):
+        a, b = sn.flush(), sp.flush()
+        n = sn.count
+        same = (a.capacity == b.capacity and n == sp.count
+                and bool(torch.equal(a.model_id, b.model_id))
+                and all(bool(torch.equal(getattr(a, f)[:n], getattr(b, f)[:n]))
+                        for f in ("pos", "scale", "quat")))
+        checks[step] = dict(bitwise=same, count=n, capacity=a.capacity)
+        return same
+
+    def edit(k):
+        rows = rng.choice(sn.count, k, replace=False)
+        vals = rng.uniform(-5, 5, (k, 3)).astype(np.float32)
+        quats = rng.normal(size=(k, 4)).astype(np.float32)
+        for r, v, q in zip(rows, vals, quats):
+            for scene in (sn, sp):
+                scene.instances[r].set_transform(pos=v, quat=q)
+
+    ok &= check("build")
+    edit(1000)
+    ok &= check("edit_1000")
+    for r in rng.choice(sn.count - 600, 500, replace=False):
+        for scene in (sn, sp):
+            scene.remove_instance(scene.instances[int(r)])
+    ok &= check("swap_remove_500")
+    cap = sn.flush().capacity
+    for k in range(cap - sn.count + 1):
+        for scene in (sn, sp):
+            inst = ModelInstance(sn.models[k % 2])
+            inst.set_transform(pos=(0.5 * k, -3.0, 1.0))
+            scene.add_instance(inst)
+    ok &= check("grow")
+    out["checks"] = checks
+    pos = np.stack([i.position for i in sn.instances])
+    morton_same = bool(np.array_equal(SB._morton_u64(pos),
+                                      SB._morton_u64(pos, use_native=False)))
+    out["morton_bitwise"] = morton_same
+    ok &= morton_same and SB._morton_u64(pos).dtype == np.uint64
+
+    def host(fn, warm=1):
+        for _ in range(warm):
+            fn()
+        times = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def host_once(fn):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3
+
+    def full(scene):
+        scene._full_upload = True
+        scene.flush()
+
+    def delta(scene):
+        edit_rows = rng.choice(scene.count, 1000, replace=False)
+        for r in edit_rows:   # the edits themselves are not timed
+            scene.instances[r].set_transform(pos=(float(r), 0.0, 0.0))
+        sync()
+        t0 = time.perf_counter()
+        scene.flush()
+        sync()
+        return (time.perf_counter() - t0) * 1e3
+
+    out["host_ms"] = {
+        which: dict(
+            full_flush=host(lambda s=scene: full(s)),
+            dirty_1000_flush=statistics.median(delta(scene)
+                                               for _ in range(reps)),
+            static_mapping=statistics.median(   # seconds each: 3 reps
+                host_once(lambda s=scene: SB.build_static_mapping(s))
+                for _ in range(3)))
+        for which, scene in (("native", sn), ("python", sp))}
+    out["instances"] = sn.count
+    return dict(ok=ok, **out)
+
+
+def write_glb(path, meshes, materials, translations):
+    """A .glb: `meshes` [(name, (pos, idx, nrm, uv), material index)],
+    `materials` [dict(name, albedo, alpha, roughness, metallic, emissive,
+    blend, textures={glTF slot: u8 image})], one node per translation
+    (its mesh: the row's index modulo the mesh count) under one identity
+    root. Images are embedded PNGs (bufferViews); identical images are
+    written once. A writer for the smoke test only: glTF export is not part
+    of either package."""
+    import numpy as np
+
+    from paperrenderer_tpu_torch.io.image import encode_png
+
+    chunks, views, accessors, images, image_ids = [], [], [], [], {}
+    offset = [0]
+
+    def view(data):
+        pad = -len(data) % 4
+        chunks.append(data + b"\x00" * pad)
+        views.append({"buffer": 0, "byteOffset": offset[0],
+                      "byteLength": len(data)})
+        offset[0] += len(data) + pad
+        return len(views) - 1
+
+    def accessor(arr, ctype, typ):
+        accessors.append({"bufferView": view(arr.tobytes()),
+                          "componentType": ctype, "count": int(arr.shape[0]),
+                          "type": typ})
+        return len(accessors) - 1
+
+    def image(img):
+        if id(img) not in image_ids:
+            images.append({"bufferView": view(encode_png(img)),
+                           "mimeType": "image/png"})
+            image_ids[id(img)] = len(images) - 1
+        return {"index": image_ids[id(img)]}
+
+    gl_meshes = []
+    for name, (pos, idx, nrm, uv), mat in meshes:
+        attrs = {"POSITION": accessor(np.asarray(pos, np.float32), 5126, "VEC3"),
+                 "NORMAL": accessor(np.asarray(nrm, np.float32), 5126, "VEC3"),
+                 "TEXCOORD_0": accessor(np.asarray(uv, np.float32), 5126,
+                                        "VEC2")}
+        ind = accessor(np.asarray(idx, np.uint32).reshape(-1), 5125, "SCALAR")
+        gl_meshes.append({"name": name, "primitives": [
+            {"attributes": attrs, "indices": ind, "material": mat}]})
+    gl_mats = []
+    for m in materials:
+        tex = m.get("textures", {})
+        pbr = {"baseColorFactor": list(m["albedo"]) + [m["alpha"]],
+               "roughnessFactor": m["roughness"],
+               "metallicFactor": m["metallic"]}
+        mat = {"name": m["name"], "pbrMetallicRoughness": pbr,
+               "emissiveFactor": list(m["emissive"])}
+        for key, slot, dst in (
+                ("base_texture", "baseColorTexture", pbr),
+                ("mr_texture", "metallicRoughnessTexture", pbr),
+                ("emissive_texture", "emissiveTexture", mat),
+                ("occlusion_texture", "occlusionTexture", mat)):
+            if tex.get(key) is not None:
+                dst[slot] = image(tex[key])
+        if m.get("blend"):
+            mat["alphaMode"] = "BLEND"
+        gl_mats.append(mat)
+    n_mesh = len(gl_meshes)
+    nodes = [{"name": "root", "children": list(range(1, len(translations) + 1))}]
+    nodes += [{"mesh": k % n_mesh, "translation": [float(x) for x in t]}
+              for k, t in enumerate(translations)]
+    binary = b"".join(chunks)
+    gltf = {"asset": {"version": "2.0"}, "scene": 0,
+            "scenes": [{"nodes": [0]}], "nodes": nodes, "meshes": gl_meshes,
+            "materials": gl_mats,   # texture i samples image i
+            "textures": [{"source": i} for i in range(len(images))],
+            "images": images, "buffers": [{"byteLength": len(binary)}],
+            "bufferViews": views, "accessors": accessors}
+    js = json.dumps(gltf).encode()
+    js += b" " * (-len(js) % 4)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<4sII", b"glTF", 2, 12 + 8 + len(js) + 8
+                            + len(binary)))
+        f.write(struct.pack("<I4s", len(js), b"JSON"))
+        f.write(js)
+        f.write(struct.pack("<I4s", len(binary), b"BIN\x00"))
+        f.write(binary)
+    return os.path.getsize(path)
+
+
+def grid_gltf_source(n, width, height, device):
+    """Config 2's textured grid (scenes.build_textured_grid's geometry,
+    instances, camera and textures) as glTF carries it: the occlusion map
+    quantized to u8 (a PNG holds no floats) and material "b" a 50% BLEND
+    glass; built directly on `device` with two translucent layers. Returns
+    (engine, pass, camera, write_glb arguments)."""
+    import numpy as np
+
+    from paperrenderer_tpu_torch.core import SHADE_TRANSLUCENT
+    from paperrenderer_tpu_torch.core.geometry import make_cube, make_icosphere
+    from paperrenderer_tpu_torch.scenes import _grid_textures, build_dynamic_scene
+
+    tex = _grid_textures(0)
+    occ = tex[1]["occlusion_texture"]
+    tex[1]["occlusion_texture"] = (np.clip(occ, 0, 1) * 255 + 0.5).astype(
+        np.uint8)
+    tex[1].update(shading_model=SHADE_TRANSLUCENT, alpha=0.5)
+    eng, rp, cam = build_dynamic_scene(n, width, height, device=device,
+                                       textures=tex)
+    rp.translucent_layers = 2
+    rows = [v for v in rp.materials.rows()[1:5]]
+    names = "abcd"
+    mats = [dict(name=names[k], albedo=rows[k]["albedo"],
+                 alpha=rows[k]["alpha"], roughness=rows[k]["roughness"],
+                 metallic=rows[k]["metallic"], emissive=rows[k]["emissive"],
+                 blend=rows[k]["shading_model"] == SHADE_TRANSLUCENT,
+                 textures={key: rows[k][key] for key in (
+                     "base_texture", "mr_texture", "emissive_texture",
+                     "occlusion_texture") if rows[k][key] is not None})
+            for k in range(4)]
+    cube, ball = make_cube(size=0.5), make_icosphere(radius=0.3,
+                                                     subdivisions=1)
+    # glTF binds materials to meshes: instance k (mesh k % 2, material
+    # k % 4) becomes node k of mesh k % 4
+    meshes = [(f"{'cube' if k % 2 == 0 else 'ball'}_{names[k]}",
+               cube if k % 2 == 0 else ball, k) for k in range(4)]
+    translations = [i.position for i in rp.scene.instances]
+    return eng, rp, cam, (meshes, mats, translations)
+
+
+def gltf_scene(path, lights, width, height, device):
+    """load_gltf + instantiate into a new engine's RenderPass (two
+    translucent layers) and RayTraceRender / HybridRender mirroring it ->
+    (dict of renders, load seconds, instantiate seconds)."""
+    from paperrenderer_tpu_torch.core import RenderEngine
+    from paperrenderer_tpu_torch.io import instantiate, load_gltf
+
+    eng = RenderEngine(device=device, device_check=False)
+    t0 = time.perf_counter()
+    gs = load_gltf(path, eng.scene.arena)
+    load_s = time.perf_counter() - t0
+    rp = eng.create_render_pass(width=width, height=height, lights=lights,
+                                translucent_layers=2)
+    t0 = time.perf_counter()
+    instantiate(gs, rp)
+    inst_s = time.perf_counter() - t0
+    return mirrors(eng, rp, lights, width, height), load_s, inst_s
+
+
+def mirrors(eng, rp, lights, width, height):
+    """{static, draw_list, rt, hybrid} renders over one RenderPass's
+    instances (the RT and hybrid renders adopt its bindings)."""
+    kw = dict(width=width, height=height, lights=lights)
+    rt = eng.create_ray_trace_render(**kw)
+    rt.add_instances_from(rp)
+    hy = eng.create_hybrid_render(**kw)
+    hy.add_instances_from(rp)
+    return dict(static=rp, draw_list=rp, rt=rt, hybrid=hy)
+
+
+def render_four(renders, cam):
+    return {name: r.render(cam, **({"static_path": False}
+                                   if name == "draw_list" else {}))[0]
+            for name, r in renders.items()}
+
+
+def first_difference(a, b):
+    """The first differing input of two renders' frames (instance SoA,
+    material table, atlas), or None."""
+    import torch
+
+    ia, ib = a.scene.flush(), b.scene.flush()
+    n = a.scene.count
+    if n != b.scene.count:
+        return f"instance count {n} != {b.scene.count}"
+    for f in ("pos", "scale", "quat"):
+        if not torch.equal(getattr(ia, f)[:n], getattr(ib, f)[:n]):
+            return f"instances.{f}"
+    ta, tb = a.materials.table(), b.materials.table()
+    for f in dataclasses.fields(ta):
+        if not torch.equal(getattr(ta, f.name), getattr(tb, f.name)):
+            return f"material table {f.name}"
+    xa, xb = a.materials.texture_arrays(), b.materials.texture_arrays()
+    if not torch.equal(xa.pairs, xb.pairs):
+        return "texture atlas"
+    return "none of instances, materials, atlas"
+
+
+def gltf_phase(work_dir, n=10_000, width=1920, height=1080,
+               small=(400, 128, 64)):
+    """glTF import: config 2's textured grid written as a .glb (write_glb),
+    loaded with load_gltf + instantiate on the card and rendered at
+    `width` x `height` through the static frame (two translucent layers),
+    the draw-list frame, RayTraceRender and HybridRender, each held with
+    the golden bands (and bitwise) to the same frame of the scene built
+    directly; load/instantiate seconds and frame ms; a `small` copy on the
+    card against the port's CPU frames (mean |diff| <= 1e-5)."""
+    import numpy as np
+
+    os.makedirs(work_dir, exist_ok=True)
+    eng, rp, cam, spec = grid_gltf_source(n, width, height, "cuda")
+    path = os.path.join(work_dir, f"grid{n}.glb")
+    t0 = time.perf_counter()
+    nbytes = write_glb(path, *spec)
+    out = dict(glb_bytes=nbytes, write_seconds=time.perf_counter() - t0,
+               substitutions="occlusion u8 (PNG); material b BLEND 50%")
+    direct = mirrors(eng, rp, rp.lights, width, height)
+    loaded, load_s, inst_s = gltf_scene(path, rp.lights, width, height,
+                                        "cuda")
+    out.update(load_seconds=load_s, instantiate_seconds=inst_s,
+               instances=loaded["static"].scene.count)
+    ok = loaded["static"].scene.count == n
+    want = {k: v.cpu().numpy() for k, v in render_four(direct, cam).items()}
+    got = {k: v.cpu().numpy() for k, v in render_four(loaded, cam).items()}
+    for name in want:
+        good, mean, frac = bands(got[name], want[name])
+        same = bool(np.array_equal(got[name], want[name]))
+        r = loaded[name]
+        kw = {"static_path": False} if name == "draw_list" else {}
+        case = dict(ok=good, mean=mean, frac=frac, bitwise=same,
+                    finite=bool(np.isfinite(got[name]).all()),
+                    ms=frame_ms(r, cam, frames=10, warmup=2, **kw),
+                    direct_ms=frame_ms(direct[name], cam, frames=10,
+                                       warmup=2, **kw))
+        if name in ("rt", "hybrid"):
+            case["paged"] = r.accel.prefer_paged(r.scene.flush().capacity) \
+                if name == "rt" else None
+        if not same:
+            case["first_difference"] = first_difference(
+                r if name != "hybrid" else r._rp,
+                direct[name] if name != "hybrid" else direct[name]._rp)
+        out[name] = case
+        ok &= good and case["finite"]
+    # a small copy, card against CPU
+    ns, ws, hs = small
+    eng_s, rp_s, cam_s, spec_s = grid_gltf_source(ns, ws, hs, "cpu")
+    path_s = os.path.join(work_dir, f"grid{ns}.glb")
+    write_glb(path_s, *spec_s)
+    frames = {}
+    for dev in ("cuda", "cpu"):
+        lights = rp_s.lights.to(dev)
+        renders, _, _ = gltf_scene(path_s, lights, ws, hs, dev)
+        frames[dev] = {k: v.cpu().numpy()
+                       for k, v in render_four(renders, cam_s).items()}
+    small_out = {}
+    for name in frames["cpu"]:
+        d = np.abs(frames["cuda"][name] - frames["cpu"][name]).max(axis=-1)
+        small_out[name] = dict(mean=float(d.mean()), max=float(d.max()),
+                               ok=float(d.mean()) <= 1e-5)
+        ok &= small_out[name]["ok"]
+    out["card_vs_cpu_%d_%dx%d" % small] = small_out
+    return dict(ok=ok, **out)
+
+
+def viewer_phase(size=512, window_s=3.0, device="cuda"):
+    """The live viewer over the example scene at `size`: modes raster, rt
+    and hybrid, each warmed up by one direct render (kernel builds off the
+    render thread). Over 127.0.0.1: the page; /frame.png against a direct
+    render of the same camera, mode and frame number (the render loop
+    paused before its next frame), bitwise in u8; a material edit and a
+    mode switch change the next frames; /stats carries no error; frames
+    presented per second in each mode. Returns (results, viewer)."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from paperrenderer_tpu_torch import (
+        HybridRender, RayTraceRender, StatisticsTracker, Viewer)
+    from paperrenderer_tpu_torch.io import read_image
+    from paperrenderer_tpu_torch.scenes import build_example_scene
+
+    rp, cam = build_example_scene(size, size, device=device)
+    rt = RayTraceRender(rp.scene, rp.materials, width=size, height=size,
+                        lights=rp.lights, shadow_samples=2)
+    rt.add_instances_from(rp)
+    hy = HybridRender(rp.scene, rp.materials, width=size, height=size,
+                      lights=rp.lights)
+    hy.add_instances_from(rp)
+    renders = dict(raster=rp, rt=rt, hybrid=hy)
+    for r in renders.values():
+        r.render(cam)
+
+    class Gate:
+        """on_frame hook: pauses the render loop before its next frame."""
+
+        def __init__(self):
+            self.hold, self.paused, self.go = (threading.Event(),
+                                               threading.Event(),
+                                               threading.Event())
+
+        def __call__(self, viewer, index, dt):
+            if self.hold.is_set():
+                self.paused.set()
+                self.go.wait(60)
+                self.go.clear()
+                self.paused.clear()
+
+    gate = Gate()
+    v = Viewer(renders, cam, statistics=StatisticsTracker(),
+               on_frame=gate).start()
+
+    def get(path):
+        with urllib.request.urlopen(v.url + path, timeout=60) as r:
+            return r.read()
+
+    def post(path, obj):
+        req = urllib.request.Request(v.url + path,
+                                     data=json.dumps(obj).encode(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return json.loads(r.read())
+
+    def paused_check(mode):
+        """Pause the loop, fetch the presented frame, render it directly."""
+        gate.hold.set()
+        assert gate.paused.wait(60), "render loop did not pause"
+        png = read_image(get("/frame.png"))
+        r = renders[mode]
+        saved = getattr(r, "_frame", None)
+        if saved is not None:
+            r._frame = saved - 1   # the presented frame's sample key
+        ldr = r.render(cam)[0]
+        if saved is not None:
+            r._frame = saved
+        direct = (np.clip(ldr.cpu().numpy(), 0, 1) * 255 + 0.5).astype(
+            np.uint8)
+        gate.hold.clear()
+        gate.go.set()
+        return png, bool(np.array_equal(png, direct))
+
+    out, ok = {}, True
+    try:
+        ok &= v.wait_frame(2, timeout=120)
+        ok &= "paperrenderer_tpu_torch" in get("/").decode()
+        modes = json.loads(get("/modes"))
+        ok &= modes == {"modes": ["raster", "rt", "hybrid"], "active": "raster"}
+        fps = {}
+        frames = {}
+        for mode in ("raster", "rt", "hybrid"):
+            ok &= post("/mode", {"mode": mode}) == {"ok": True}
+            i0 = v._frame_index
+            ok &= v.wait_frame(i0 + 2, timeout=120)
+            png, same = paused_check(mode)
+            frames[mode] = png
+            out[f"{mode}_matches_direct"] = same
+            ok &= same and png.shape == (size, size, 3)
+            i0, t0 = v._frame_index, time.perf_counter()
+            time.sleep(window_s)
+            fps[mode] = (v._frame_index - i0) / (time.perf_counter() - t0)
+        out["fps"] = fps
+        out["mode_switch_changes_frame"] = bool(
+            np.abs(frames["rt"].astype(int) - frames["raster"]).max() > 8)
+        ok &= out["mode_switch_changes_frame"]
+        # a live material edit in raster mode
+        post("/mode", {"mode": "raster"})
+        i0 = v._frame_index
+        v.wait_frame(i0 + 2, timeout=120)
+        before, _ = paused_check("raster")
+        mats = json.loads(get("/materials"))["materials"]
+        red = [m for m in mats if m["name"] == "red"][0]
+        ok &= post("/material", {"id": red["id"],
+                                 "updates": {"albedo": [0.1, 0.9, 0.1]}}) \
+            == {"ok": True}
+        i0 = v._frame_index
+        v.wait_frame(i0 + 2, timeout=120)
+        after, same = paused_check("raster")
+        out["edit_changes_frame"] = bool(
+            np.abs(after.astype(int) - before).max() > 8)
+        out["edit_matches_direct"] = same
+        ok &= out["edit_changes_frame"] and same
+        stats = json.loads(get("/stats"))
+        out["stats_error"] = stats.get("error")
+        ok &= "error" not in stats
+        out["frames_served"] = stats["frame"]
+    finally:
+        gate.hold.clear()
+        gate.go.set()
+        v.stop()
+    return dict(ok=ok, **out)
+
+
+XLA_CASES = (("raster_512", "raster_512", 512, {}),
+             ("raster_example", "raster_example", 128, {}),
+             ("supersample2", "raster_supersample2", 128, {"supersample": 2}),
+             ("rt", "rt_example", 128, {}),
+             ("hybrid", "hybrid_example", 128, {}),
+             ("textured", "textured_example", 128, {}))
+
+
+def xla_route_phase(read_counts):
+    """use_pallas=False on the card: each XLA_CASES frame against its
+    golden with the bands (the RT and hybrid frames with the first frame's
+    samples, as the goldens), its ms beside the kernel route's (median of
+    5 synchronized frames; the route is slow by nature and is not tuned),
+    and no kernel launched by the XLA frames but the hybrid frame's
+    traversal kernels (its RT passes follow the device)."""
+    from paperrenderer_tpu_torch.scenes import (
+        build_example_scene, build_hybrid_scene, build_rt_scene,
+        build_textured_scene)
+
+    out, ok = {}, True
+    for name, gold, size, kw in XLA_CASES:
+        if name.startswith(("raster", "supersample")):
+            r, cam = build_example_scene(size, size, device="cuda")
+        elif name == "textured":
+            r, cam = build_textured_scene(size, size, device="cuda")[2:]
+        else:
+            build = build_hybrid_scene if name == "hybrid" else build_rt_scene
+            _, r, cam = build(size, size, device="cuda")
+        for k, val in kw.items():
+            setattr(r, k, val)
+        kernel_ms = frame_ms(r, cam, frames=5, warmup=1)
+        r.use_pallas = False
+        if hasattr(r, "_frame"):
+            r._frame = 0   # the golden's samples: the first frame's key
+        read_counts(reset=True)
+        ldr = r.render(cam)[0]
+        counts = read_counts()
+        good, mean, frac = bands(ldr.cpu().numpy(), golden(gold))
+        launched = sum(v for k, v in counts.items() if not (
+            name == "hybrid" and k.startswith("trace_")))
+        out[name] = dict(ok=good and launched == 0, golden=gold, mean=mean,
+                         frac=frac, kernel_launches=launched, launches=counts,
+                         xla_ms=frame_ms(r, cam, frames=5, warmup=1),
+                         kernel_ms=kernel_ms)
+        ok &= out[name]["ok"]
+    return dict(ok=ok, **out)
+
+
+EXAMPLE_RUNS = (
+    ("render_scene", ["--size", "128"], "raster_example"),
+    ("render_scene", ["--size", "512"], "raster_512"),
+    ("render_rt", ["--size", "128"], "rt_example"),
+    ("render_hybrid", ["--size", "128"], "hybrid_example"),
+    ("render_textured", ["--size", "128"], "textured_example"),
+    ("render_crowd", ["--n", "600", "--size", "128"], "crowd_paged"),
+    ("render_dynamic", ["--n", "10000", "--frames", "5"], None),
+    ("view_scene", ["--size", "128", "--frames", "5", "--rt", "--port", "0"],
+     None),
+)
+
+
+def examples_phase(work_dir, timeout=300):
+    """Each example module in a subprocess (`python -m
+    paperrenderer_tpu_torch.examples.<name>`), four at a time; its PNG held
+    to its golden with the bands (render_dynamic: 1920x1080 and finite;
+    view_scene: 5 frames served, the last one written)."""
+    import numpy as np
+
+    from paperrenderer_tpu_torch.io import read_image
+
+    os.makedirs(work_dir, exist_ok=True)
+
+    def run(spec):
+        name, args, gold = spec
+        out_png = os.path.join(work_dir, f"{name}_{'_'.join(args[:2])}.png")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"paperrenderer_tpu_torch.examples.{name}",
+             "--out", out_png] + args, cwd=HERE, capture_output=True,
+            text=True, timeout=timeout)
+        res = dict(rc=proc.returncode, seconds=time.perf_counter() - t0,
+                   stdout=proc.stdout.strip().splitlines()[-3:])
+        if proc.returncode != 0:
+            res["stderr"] = proc.stderr[-2000:]
+            return name, res, False
+        img = read_image(out_png)
+        finite = img.ndim == 3 and img.shape[-1] == 3
+        if gold is not None:
+            good, mean, frac = bands(img.astype(np.float32) / 255.0,
+                                     golden(gold))
+            res.update(golden=gold, mean=mean, frac=frac)
+        else:
+            good = finite and img.max() > 0
+        res["shape"] = list(img.shape)
+        return name, res, bool(good and finite)
+
+    out, ok = {}, True
+    with ThreadPoolExecutor(4) as pool:
+        for spec, (name, res, good) in zip(EXAMPLE_RUNS,
+                                           pool.map(run, EXAMPLE_RUNS)):
+            key = name if name != "render_scene" else f"render_scene_{spec[1][1]}"
+            out[key] = dict(ok=good, **res)
+            ok &= good
+    return dict(ok=ok, **out)
+
+
 def sync_cost(rp, cam, frames=20, rounds=4):
     """Frame time with the per-frame pair-count read vs. with the count
     supplied (same camera, so the count is known): loops of `frames`
@@ -2665,6 +3305,44 @@ def main():
     probe_launches = results["probes"].get("launches", {})
     launches.update({k: probe_launches.get(k, 0) for k in PR.LAUNCHES})
     launch_path.update({k: ("probes",) for k in PR.LAUNCHES})
+    # this slice's phases: the native scene core, glTF import, the viewer,
+    # the XLA route and the example CLIs (subprocesses, not counted here)
+    all_counters = (RE.LAUNCHES, TPL.LAUNCHES, TK.LAUNCHES, TPG.LAUNCHES,
+                    PR.LAUNCHES)
+
+    def slice_counts(reset=False):
+        if reset:
+            for counter in all_counters:
+                for k in counter:
+                    counter[k] = 0
+            return {}
+        return {k: v for counter in all_counters for k, v in counter.items()
+                if v}
+
+    work = os.path.join(HERE, "build", "smoke")
+    phase("native", native_phase)
+    slice_launches = {}
+    for name, fn in (("gltf", lambda: gltf_phase(work)),
+                     ("viewer", viewer_phase)):
+        slice_counts(reset=True)
+        phase(name, fn)   # the viewer reads its counts after stop()
+        slice_launches[name] = slice_counts()
+        results[name]["launches"] = slice_launches[name]
+    emit(phase="slice_launches", ok=True, **slice_launches)
+    phase("xla_route", lambda: xla_route_phase(slice_counts))
+    phase("examples", lambda: examples_phase(os.path.join(work, "examples")))
+    # K1/K2 (static), K5 (draw list), K10/K11 (the 10k grid's paged RT and
+    # hybrid) from gltf; K1 and K8/K9 (the flat RT and hybrid modes) from
+    # the viewer
+    slice_needs = dict(
+        gltf=("raster_exact", "raster_peel", "raster_tiles",
+              "trace_scene_paged", "trace_resolve_paged"),
+        viewer=("raster_exact", "trace_resolve", "trace_bundle"))
+    for p_name, ks in slice_needs.items():
+        for k in ks:
+            launches[k] += slice_launches[p_name].get(k, 0)
+            launch_path[k] = tuple(launch_path[k]) + (p_name,)
+
     raster_needs = dict(config1=["raster_exact"], config2=["raster_exact"],
                         translucent=["raster_exact", "raster_peel"],
                         supersample=["raster_exact"],
@@ -2691,9 +3369,11 @@ def main():
                                              "trace_resolve_paged"))
             and all(probe_launches.get(k, 0) > 0 for k in probe_keys)
             and all(tex_launches.get(k, 0) > 0 for k in tex_needs)
-            and all(anim_launches.get(k, 0) > 0 for k in anim_needs)),
+            and all(anim_launches.get(k, 0) > 0 for k in anim_needs)
+            and all(slice_launches[p].get(k, 0) > 0
+                    for p, ks in slice_needs.items() for k in ks)),
         **raster_launches, **rt_launches, probes=probe_launches,
-        animation=anim_launches))
+        animation=anim_launches, **slice_launches))
     phase("sync", lambda: {f"config{c}": sync_cost(*get(c)) for c in (1, 2)})
     if args.profile:
         out_dir = os.path.join(HERE, "chiprun_out")
@@ -2905,6 +3585,12 @@ def main():
                 row["max_abs_err"] = max(errs) if errs else float("nan")
         if k["name"] in launch_path and "animation" in launch_path[k["name"]]:
             row["launches_animation"] = anim_launches.get(k["name"], 0)
+        for p_name in slice_needs:   # this slice's phases, counted or not
+            row["launches_" + p_name] = slice_launches[p_name].get(
+                k["name"], 0)
+        row["launches_xla_route"] = sum(   # 0: the route runs no kernel
+            v.get("launches", {}).get(k["name"], 0) for v in results.get(
+                "xla_route", {}).values() if isinstance(v, dict))
         n_alpha = alpha_launches.get(k["name"], 0)
         n_steps = (probe_launches.get(k["name"] + "_steps", 0)
                    if k["name"] in steps_on else 0)

@@ -18,7 +18,13 @@ and samplers of ``core.texture``), and animation: instances moved on the
 device every frame (``ops.animation``, ``scenes.run_dynamic``: bench
 config 5) and unique-geometry instances whose BLASes the RT and hybrid
 frames refit (``RayTraceRender(animate=, anim_resplit=)``,
-``HybridRender(animate=)``, ``render(cam, time=)``).
+``HybridRender(animate=)``, ``render(cam, time=)``). Around the frames:
+glTF import (``io.load_gltf``, ``io.instantiate``), the live HTTP viewer
+(``Viewer``), the example CLIs (``python -m
+paperrenderer_tpu_torch.examples.<name>``), the native scene core
+(``native``: the C++ arena, delta packer and morton codes of
+``native/scenecore.cpp``), and the XLA route (``use_pallas=False``: plain
+tensor ops on the pass's device, the route that made the pinned goldens).
 """
 
 import torch as _torch
@@ -49,6 +55,7 @@ from .core import (  # noqa: E402
 )
 from .render import HybridRender, RayTraceRender, RenderPass  # noqa: E402
 from .utils import Logger, LogType, StatisticsTracker, Timer  # noqa: E402
+from .viewer import Viewer  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -58,6 +65,6 @@ __all__ = [
     "HybridRender", "Model", "ModelInstance", "RayTraceRender", "RenderPass",
     "Scene",
     "make_cube", "make_icosphere", "make_plane", "make_torus", "make_uv_sphere",
-    "Logger", "LogType", "StatisticsTracker", "Timer",
+    "Logger", "LogType", "StatisticsTracker", "Timer", "Viewer",
     "__version__",
 ]

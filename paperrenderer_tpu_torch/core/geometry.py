@@ -10,7 +10,10 @@ growable host SoA arena:
 
 Mesh ranges are placed by a FragmentableBuffer-parity offset allocator
 (best-fit reuse of freed ranges, top-of-stack shrink, compaction emitting
-relocation records — VulkanResources.cpp:332-542). The static raster path
+relocation records — VulkanResources.cpp:332-542): the native C++
+``FragmentableArena`` (``native/scenecore.cpp``, through ``native.py``)
+when it loads and ``use_native`` is set, the Python mirror ``PyFragArena``
+otherwise. The static raster path
 reads the host arrays once per topology change (``ops.static_batch``); the
 draw-list path reads the arena's device view, ``device_arrays``, every frame.
 """
@@ -88,6 +91,16 @@ class PyFragArena:
         return old, new, sizes, cursor
 
 
+def _make_allocator(use_native: bool):
+    """The native arena when asked for and loadable, else the mirror."""
+    if use_native:
+        from .. import native
+
+        if native.AVAILABLE:
+            return native.NativeArena(1 << 48, 1)
+    return PyFragArena()
+
+
 @dataclasses.dataclass(frozen=True)
 class MeshHandle:
     """A packed mesh's location inside the arena (all units: elements)."""
@@ -118,7 +131,8 @@ class GeometryArena:
     """Host-side packed geometry heap (FragmentableBuffer::newWrite
     semantics, VulkanResources.cpp:332-403)."""
 
-    def __init__(self, vertex_capacity: int = 1024, tri_capacity: int = 1024):
+    def __init__(self, vertex_capacity: int = 1024, tri_capacity: int = 1024,
+                 use_native: bool = True):
         vertex_capacity = _round_capacity(vertex_capacity)
         tri_capacity = _round_capacity(tri_capacity)
         self._pos = np.zeros((vertex_capacity, 3), np.float32)
@@ -127,8 +141,8 @@ class GeometryArena:
         self._idx = np.zeros((tri_capacity, 3), np.int32)
         self.vertex_count = 0   # high-water mark (allocator stack top)
         self.tri_count = 0
-        self._valloc = PyFragArena()
-        self._talloc = PyFragArena()
+        self._valloc = _make_allocator(use_native)
+        self._talloc = _make_allocator(use_native)
         self._meshes: Dict[int, MeshHandle] = {}
         self._next_mesh_id = 0
         # bumped on any content/layout change
@@ -197,6 +211,10 @@ class GeometryArena:
         VulkanResources.cpp:424-542)."""
         v_old, v_new, v_size, v_top = self._valloc.compact()
         t_old, t_new, t_size, t_top = self._talloc.compact()
+        # the native allocator reports u64 arrays: plain ints from here on
+        v_old, v_new, v_size, t_old, t_new, t_size = (
+            [int(x) for x in a]
+            for a in (v_old, v_new, v_size, t_old, t_new, t_size))
         # ascending shift-down moves: dest < src, so overlap is safe
         for old, new, size in zip(v_old, v_new, v_size):
             for arr in (self._pos, self._nrm, self._uv):
@@ -214,8 +232,8 @@ class GeometryArena:
                 self._idx[nto : nto + h.tri_count] += nvo - h.vertex_offset
             remapped[mid] = MeshHandle(mid, nvo, h.vertex_count, nto, h.tri_count)
         self._meshes = remapped
-        self.vertex_count = v_top
-        self.tri_count = t_top
+        self.vertex_count = int(v_top)
+        self.tri_count = int(t_top)
         self.revision += 1
         return remapped
 

@@ -10,6 +10,13 @@ the reference RenderEngine's global state:
 ``flush`` uploads the whole SoA after growth and otherwise writes only the
 dirty rows into a copy of the device arrays (the returned ``InstanceArrays``
 are never mutated in place, as in the JAX package).
+
+With ``use_native`` (the default) and the native scene core loaded
+(``native.AVAILABLE``), the instance SoA also lives in a C++
+``NativeDeltaPacker``: transform writes and the dirty-row packing run
+native, a full upload copies the packer's arrays and a delta upload its
+packed rows. The Python mirror runs otherwise; both upload the same live
+rows.
 """
 
 from __future__ import annotations
@@ -72,14 +79,23 @@ class Scene:
     """Host-side registry; owns the geometry arena, model tables, instances.
 
     ``device`` is where ``flush()`` and ``tables()`` put their tensors: the
-    card unless the caller asks for the CPU."""
+    card unless the caller asks for the CPU. ``use_native`` keeps the
+    instance SoA in the native packer when the library loads (the arena it
+    makes uses the native allocator too)."""
 
-    def __init__(self, arena: Optional[GeometryArena] = None, *, device="cuda"):
+    def __init__(self, arena: Optional[GeometryArena] = None,
+                 use_native: bool = True, *, device="cuda"):
         self.device = torch.device(device)
-        self.arena = arena or GeometryArena()
+        self.arena = arena or GeometryArena(use_native=use_native)
         self.models: List[Model] = []
         self.instances: List[ModelInstance] = []
         self._dirty: Set[int] = set()
+        self._native = None
+        if use_native:
+            from .. import native
+
+            if native.AVAILABLE:
+                self._native = native.NativeDeltaPacker(INSTANCE_FLOOR)
         self._tables: Optional[SceneTables] = None
         self._tables_dirty = True
         self._capacity = INSTANCE_FLOOR
@@ -179,12 +195,23 @@ class Scene:
         if len(self.instances) > self._capacity:
             self._capacity = _grow(len(self.instances))
             self._full_upload = True
+        if self._native is not None:
+            if self._native.capacity < self._capacity:
+                self._native.grow(self._capacity)
+            self._set_native(instance)
         return instance
+
+    def _set_native(self, instance: ModelInstance) -> None:
+        self._native.set(instance.index, pos=instance.position,
+                         scale=instance.scale, quat=instance.rotation,
+                         model_id=instance.model.model_id)
 
     def remove_instance(self, instance: ModelInstance) -> None:
         idx = instance.index
         if idx < 0 or idx >= len(self.instances) or self.instances[idx] is not instance:
             return
+        if self._native is not None:
+            self._native.swap_remove(idx, len(self.instances) - 1)
         last = self.instances.pop()
         if last is not instance:
             # swap-remove: the previously-last instance takes the freed slot
@@ -199,6 +226,8 @@ class Scene:
     def mark_instance_dirty(self, instance: ModelInstance) -> None:
         if instance.index >= 0:
             self._dirty.add(instance.index)
+            if self._native is not None:
+                self._set_native(instance)
 
     @property
     def count(self) -> int:
@@ -230,16 +259,41 @@ class Scene:
         rebuildInstancesbuffer vs per-row staging writes."""
         if self._device is None or self._full_upload:
             require_device(self.device)
-            cols = self._host_rows(range(self._capacity))
-            self._device = InstanceArrays(
-                *(torch.from_numpy(c).to(self.device) for c in cols))
+            cap = self._capacity
+            if self._native is not None:
+                # grow before taking the views: grow frees the old arrays
+                if self._native.capacity < cap:
+                    self._native.grow(cap)
+                self._native.clear_dirty()
+                for inst in self.instances:
+                    inst.dirty = False
+                # the views alias the packer's memory: copy on every device
+                cols = [v[:cap] for v in self._native.views()]
+                self._device = InstanceArrays(*(
+                    torch.from_numpy(c).to(self.device, copy=True)
+                    for c in cols))
+            else:
+                cols = self._host_rows(range(cap))
+                self._device = InstanceArrays(
+                    *(torch.from_numpy(c).to(self.device) for c in cols))
             self._full_upload = False
             self._dirty.clear()
             return self._device
         if self._dirty:
-            rows = sorted(self._dirty)
-            idx = torch.tensor(rows, dtype=torch.long, device=self.device)
-            cols = self._host_rows(rows)
+            if self._native is not None:
+                cnt, idx_np, *cols = self._native.pack(self._native.dirty_count)
+                for i in self._dirty:
+                    if i < len(self.instances):
+                        self.instances[i].dirty = False
+                # the packed rows only: index_put has no drop mode for
+                # padding rows
+                idx = torch.from_numpy(idx_np[:cnt].astype(np.int64)).to(
+                    self.device)
+                cols = [c[:cnt] for c in cols]
+            else:
+                rows = sorted(self._dirty)
+                idx = torch.tensor(rows, dtype=torch.long, device=self.device)
+                cols = self._host_rows(rows)
             d = self._device
             old = (d.pos, d.scale, d.quat, d.model_id)
             self._device = InstanceArrays(*(

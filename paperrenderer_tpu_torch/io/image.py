@@ -1,8 +1,12 @@
 """Image output/input: the swapchain-present analogue for a headless renderer.
 
 PyTorch-port counterpart of ``paperrenderer_tpu/io/image.py``, written with
-``zlib``, ``struct`` and numpy only (no imaging library), for 8-bit,
-non-interlaced gray / RGB / RGBA PNGs — the format of every golden image.
+``zlib``, ``struct`` and numpy only (no imaging library). ``read_image``
+decodes non-interlaced PNGs: 8-bit gray, RGB and RGBA as they are, and
+palette (1/2/4/8-bit, with ``tRNS``) and 8-bit gray + alpha into RGBA, the
+forms the JAX package's imaging library turns into RGBA. JPEG, 16-bit and
+interlaced PNGs raise ``NotImplementedError`` naming the format.
+``encode_png`` and ``write_png`` write 8-bit gray / RGB / RGBA PNGs.
 """
 
 from __future__ import annotations
@@ -13,7 +17,9 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 6: 4}   # PNG colour type -> samples per pixel
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # colour type -> samples/pixel
+_COLOR_NAMES = {0: "gray", 2: "RGB", 3: "palette", 4: "gray+alpha",
+                6: "RGBA"}
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -21,9 +27,9 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
-def write_png(path: str, image) -> None:
-    """Write an image to PNG. Accepts f32 [H, W, 3] in [0, 1] (or a tensor)
-    or u8 [H, W, 3|4]."""
+def encode_png(image) -> bytes:
+    """Encode an image as PNG bytes. Accepts f32 [H, W, 3] in [0, 1] (a
+    tensor on any device too) or u8 [H, W], [H, W, 1|3|4]."""
     if hasattr(image, "detach"):
         image = image.detach().cpu().numpy()
     arr = np.asarray(image)
@@ -35,11 +41,17 @@ def write_png(path: str, image) -> None:
     color = {1: 0, 3: 2, 4: 6}[c]
     raw = np.concatenate(
         [np.zeros((h, 1), np.uint8), arr.reshape(h, w * c)], axis=1)
+    return b"".join((
+        _SIGNATURE,
+        _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)),
+        _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)),
+        _chunk(b"IEND", b"")))
+
+
+def write_png(path: str, image) -> None:
+    """Write an image to PNG (``encode_png``'s inputs)."""
     with open(path, "wb") as f:
-        f.write(_SIGNATURE)
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)))
-        f.write(_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
-        f.write(_chunk(b"IEND", b""))
+        f.write(encode_png(image))
 
 
 def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
@@ -79,17 +91,30 @@ def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _describe(data: bytes) -> str:
+    """A name for a non-PNG image format, for the refusal message."""
+    if data[:3] == b"\xff\xd8\xff":
+        return "JPEG"
+    if data[:4] in (b"GIF8", b"RIFF") or data[:2] == b"BM":
+        return {b"GIF8": "GIF", b"RIFF": "WebP/RIFF"}.get(data[:4], "BMP")
+    return "unknown (not a PNG)"
+
+
 def read_image(data_or_path) -> np.ndarray:
-    """Decode an 8-bit non-interlaced gray/RGB/RGBA PNG from bytes or a path
-    -> u8 [H, W, C] ([H, W] for gray)."""
+    """Decode a PNG from bytes or a path -> u8 [H, W, C] ([H, W] for gray):
+    gray, RGB and RGBA as stored; palette and gray + alpha as RGBA (a
+    palette's ``tRNS`` alphas, 255 past them). Raises NotImplementedError
+    naming the format for JPEG and the other formats, 16-bit samples,
+    sub-byte gray and interlaced PNGs."""
     if isinstance(data_or_path, (bytes, bytearray, memoryview)):
         data = bytes(data_or_path)
     else:
         with open(data_or_path, "rb") as f:
             data = f.read()
     if data[:8] != _SIGNATURE:
-        raise ValueError("not a PNG file")
-    pos, idat, header = 8, [], None
+        raise NotImplementedError(
+            f"image format {_describe(data)}: only PNG is decoded")
+    pos, idat, header, palette, trns = 8, [], None, None, None
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         kind = data[pos + 4:pos + 8]
@@ -97,15 +122,40 @@ def read_image(data_or_path) -> np.ndarray:
         pos += 12 + length
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = np.frombuffer(body, np.uint8)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
             break
     w, h, depth, color, _, _, interlace = header
-    if depth != 8 or color not in _CHANNELS or interlace:
+    fmt = (f"PNG {_COLOR_NAMES.get(color, f'colour type {color}')}, "
+           f"{depth}-bit{', interlaced' if interlace else ''}")
+    ok_depth = depth in (1, 2, 4, 8) if color == 3 else depth == 8
+    if color not in _CHANNELS or not ok_depth or interlace:
         raise NotImplementedError(
-            f"PNG bit depth {depth}, colour type {color}, interlace "
-            f"{interlace}: only 8-bit non-interlaced gray/RGB/RGBA is read")
+            f"{fmt}: only non-interlaced 8-bit gray/gray+alpha/RGB/RGBA and "
+            "1/2/4/8-bit palette PNGs are decoded")
     c = _CHANNELS[color]
-    img = _unfilter(zlib.decompress(b"".join(idat)), h, w * c, c)
-    return img.reshape(h, w, c) if c > 1 else img.reshape(h, w)
+    raw = zlib.decompress(b"".join(idat))
+    if color == 3:
+        stride = -(-w * depth // 8)
+        rows = _unfilter(raw, h, stride, 1)
+        if depth < 8:   # unpack the sub-byte indices, high bits first
+            per = 8 // depth
+            shifts = np.arange(per - 1, -1, -1, dtype=np.uint8) * depth
+            rows = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1))
+            rows = rows.reshape(h, -1)
+        idx = rows[:, :w]
+        lut = np.full((256, 4), 255, np.uint8)
+        lut[:palette.shape[0], :3] = palette
+        if trns is not None:
+            lut[:trns.shape[0], 3] = trns
+        return lut[idx]
+    img = _unfilter(raw, h, w * c, c).reshape(h, w, c)
+    if color == 4:   # gray + alpha -> RGBA
+        return np.concatenate([img[..., :1].repeat(3, axis=-1), img[..., 1:]],
+                              axis=-1)
+    return img if c > 1 else img.reshape(h, w)

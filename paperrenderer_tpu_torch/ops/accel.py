@@ -1602,11 +1602,18 @@ class SceneTracer:
     ``trace_resolve`` called with ``use_alpha=True`` apply the any-hit leaf
     cutout (the kernels' alpha forms); the bundles stay opaque.
     ``textures`` (the atlas, or None) is read by the lighting passes to
-    shade the hits."""
+    shade the hits.
+
+    ``use_pallas=False`` is the JAX package's XLA route on the scene's
+    device: every method runs the plain versions (``trace_scene``, one
+    any-hit trace per occlusion sample and one closest-hit trace per AO
+    sample instead of the bundle, a trace then ``resolve_attrs``), which
+    launch no kernel."""
 
     def __init__(self, scene: RTScene, slot_materials: torch.Tensor,
                  materials, *, root_code: int, stack_size: int,
-                 leaf_cutout: bool = False, textures=None):
+                 leaf_cutout: bool = False, textures=None,
+                 use_pallas: bool = True):
         self.scene = scene
         self.slot_materials = slot_materials
         self.materials = materials
@@ -1614,6 +1621,7 @@ class SceneTracer:
         self.root_code = root_code
         self.stack_size = stack_size
         self.leaf_cutout = leaf_cutout
+        self.use_pallas = use_pallas
 
     def _walk(self):
         return dict(root_code=self.root_code, stack_size=self.stack_size)
@@ -1628,7 +1636,8 @@ class SceneTracer:
               use_alpha=False, cull_mask: int = 0xFF) -> HitRecord2:
         from .trace_kernel import trace_scene_kernel
 
-        return trace_scene_kernel(
+        walk = trace_scene_kernel if self.use_pallas else trace_scene
+        return walk(
             self.scene, o, d, t_max, any_hit=any_hit, active=active,
             cull_mask=cull_mask, slot_materials=self.slot_materials,
             shading_model=self._shading_model(use_alpha), **self._walk())
@@ -1641,13 +1650,19 @@ class SceneTracer:
     def trace_resolve(self, o, d, t_max, *, active=None, use_alpha=False,
                       cull_mask: int = 0xFF):
         """Closest hit + attribute resolve in one kernel -> SurfaceHits."""
-        from .trace_kernel import trace_resolve_kernel
+        from .trace_kernel import trace_resolve_kernel, trace_resolve_plain
 
-        rec, attrs = trace_resolve_kernel(
+        walk = trace_resolve_kernel if self.use_pallas else trace_resolve_plain
+        rec, attrs = walk(
             self.scene, self.slot_materials, o, d, t_max, active=active,
             cull_mask=cull_mask, shading_model=self._shading_model(use_alpha),
             **self._walk())
         return surface_hits(rec, attrs, o, d)
+
+    def _bundle(self):
+        from .trace_kernel import trace_bundle_kernel, trace_bundle_plain
+
+        return trace_bundle_kernel if self.use_pallas else trace_bundle_plain
 
     def trace_shadow_ao_bundle(self, o, dirs, t_caps, ao_dirs, ao_caps, *,
                                occ_actives=None, ao_actives=None,
@@ -1656,9 +1671,7 @@ class SceneTracer:
         in one kernel -> (bits i32[R], AO t per sample). Bit s is set where
         occlusion sample s is occluded or inactive; an AO t is its cap on a
         miss and -3e38 on an inactive ray."""
-        from .trace_kernel import trace_bundle_kernel
-
-        bits, ao_ts, _ = trace_bundle_kernel(
+        bits, ao_ts, _ = self._bundle()(
             self.scene, o, dirs, t_caps, occ_actives, ao_dirs, ao_caps,
             ao_actives, cull_mask=cull_mask, **self._walk())
         return bits, ao_ts
@@ -1669,9 +1682,7 @@ class SceneTracer:
                                        rs_active=None, cull_mask: int = 0xFF):
         """The bundle plus one closest-hit + resolve sample (the 1-bounce
         reflection ray) -> (bits, AO t per sample, SurfaceHits)."""
-        from .trace_kernel import trace_bundle_kernel
-
-        bits, ao_ts, (rec, attrs) = trace_bundle_kernel(
+        bits, ao_ts, (rec, attrs) = self._bundle()(
             self.scene, o, dirs, t_caps, occ_actives, ao_dirs, ao_caps,
             ao_actives, resolve=(self.slot_materials, rs_d, rs_cap, rs_active),
             cull_mask=cull_mask, **self._walk())
@@ -1700,11 +1711,14 @@ class PagedSceneTracer:
     apart, as the JAX package does for this tracer. On a CPU scene every
     method runs the plain version: the flat view (``paged_to_flat``, built
     once per tracer) walked by ``trace_scene``. ``leaf_cutout`` and
-    ``use_alpha`` work as on ``SceneTracer``, and so does ``textures``."""
+    ``use_alpha`` work as on ``SceneTracer``, and so does ``textures``.
+    ``use_pallas=False`` (the XLA route, as in the JAX package) traces the
+    flat view with a ``SceneTracer(use_pallas=False)`` on every device."""
 
     def __init__(self, scene: PagedScene, slot_materials: torch.Tensor,
                  materials, *, root_code: int, stack_size: int,
-                 leaf_cutout: bool = False, textures=None):
+                 leaf_cutout: bool = False, textures=None,
+                 use_pallas: bool = True):
         self.scene = scene
         self.slot_materials = slot_materials
         self.materials = materials
@@ -1712,7 +1726,9 @@ class PagedSceneTracer:
         self.root_code = root_code
         self.stack_size = stack_size
         self.leaf_cutout = leaf_cutout
+        self.use_pallas = use_pallas
         self._flat = None
+        self._flat_tracer = None
 
     _shading_model = SceneTracer._shading_model
 
@@ -1736,9 +1752,24 @@ class PagedSceneTracer:
         return dict(root_code=self.root_code, stack_size=self.stack_size,
                     max_steps=self._step_bound(), flat=flat)
 
+    def xla_tracer(self) -> SceneTracer:
+        """The XLA route's tracer: the flat view's plain SceneTracer."""
+        if self._flat_tracer is None:
+            flat, root = self.flat_view()
+            self._flat_tracer = SceneTracer(
+                flat, self.slot_materials, self.materials, root_code=root,
+                stack_size=self.stack_size, leaf_cutout=self.leaf_cutout,
+                textures=self.textures, use_pallas=False)
+        return self._flat_tracer
+
     def trace(self, o, d, t_max, *, any_hit=False, active=None,
               use_alpha=False, cull_mask: int = 0xFF) -> HitRecord2:
         from .trace_paged import trace_scene_paged_kernel
+
+        if not self.use_pallas:
+            return self.xla_tracer().trace(
+                o, d, t_max, any_hit=any_hit, active=active,
+                use_alpha=use_alpha, cull_mask=cull_mask)
 
         return trace_scene_paged_kernel(
             self.scene, o, d, t_max, any_hit=any_hit, active=active,
@@ -1764,6 +1795,10 @@ class PagedSceneTracer:
         """Closest hit + attribute resolve in one K11 launch -> SurfaceHits."""
         from .trace_paged import trace_resolve_paged_kernel
 
+        if not self.use_pallas:
+            return self.xla_tracer().trace_resolve(
+                o, d, t_max, active=active, use_alpha=use_alpha,
+                cull_mask=cull_mask)
         rec, attrs = trace_resolve_paged_kernel(
             self.scene, self.slot_materials, o, d, t_max, active=active,
             cull_mask=cull_mask, shading_model=self._shading_model(use_alpha),
@@ -1776,12 +1811,14 @@ def make_scene_tracer(blasset, meta, anim_rest, anim_rest_nodes, instances,
                       *, tlas_index: int, stack_size: int,
                       paged: bool = False, inst_mask=None, inst_opaque=None,
                       leaf_cutout: bool = False, textures=None, time=None,
-                      animate=None, resplit: bool = False):
+                      animate=None, resplit: bool = False,
+                      use_pallas: bool = True):
     """Assemble this frame's scene and return its tracer: the paged layout
     over TLAS ``tlas_index`` alone (``PagedSceneTracer``) with ``paged``,
     else the flat layout over every TLAS (``SceneTracer``); ``time``,
-    ``animate`` and ``resplit`` refit the anim BLASes, ``leaf_cutout`` and
-    ``textures`` go to the tracer."""
+    ``animate`` and ``resplit`` refit the anim BLASes, ``leaf_cutout``,
+    ``textures`` and ``use_pallas`` (False: the XLA route) go to the
+    tracer."""
     anim = dict(time=time, animate=animate, resplit=resplit,
                 inst_mask=inst_mask, inst_opaque=inst_opaque)
     if paged:
@@ -1790,10 +1827,12 @@ def make_scene_tracer(blasset, meta, anim_rest, anim_rest_nodes, instances,
             masks[tlas_index], slot_materials, tri_attr, **anim)
         return PagedSceneTracer(scene, slot_materials, materials,
                                 root_code=root, stack_size=stack_size,
-                                leaf_cutout=leaf_cutout, textures=textures)
+                                leaf_cutout=leaf_cutout, textures=textures,
+                                use_pallas=use_pallas)
     rt_scene, roots = assemble_scene(
         blasset, meta, anim_rest, anim_rest_nodes, instances, inst_blas,
         list(masks), tri_attr, **anim)
     return SceneTracer(rt_scene, slot_materials, materials,
                        root_code=roots[tlas_index], stack_size=stack_size,
-                       leaf_cutout=leaf_cutout, textures=textures)
+                       leaf_cutout=leaf_cutout, textures=textures,
+                       use_pallas=use_pallas)

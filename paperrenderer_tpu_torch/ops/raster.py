@@ -8,9 +8,10 @@ expansion ``build_triangle_batch``, the plain reference rasterizer
 hardware fed by the GPU-driven draw list (IndirectDraw.cpp:207-242); here the
 per-triangle setup is dense tensor math and the per-pixel search is a kernel:
 the binned K1 of ``ops.raster_exact`` on the static frame, the tile kernel
-K5 of ``ops.raster_pallas`` on the draw-list frame. Not ported:
-``pack_attributes``, ``resolve_gbuffer_packed`` and
-``resolve_gbuffer_unproject`` (no ported frame calls them).
+K5 of ``ops.raster_pallas`` on the draw-list frame. The XLA route
+(``use_pallas=False``) runs ``rasterize`` instead, with
+``pack_attributes`` + ``resolve_gbuffer_packed`` on the static frame and
+``resolve_gbuffer_unproject`` on the translucent peel.
 
 Fill convention: a pixel is covered when all three (y-down screen) edge
 functions are >= 0 at its centre.
@@ -220,6 +221,7 @@ def rasterize(
     full_width: Optional[int] = None,
     full_height: Optional[int] = None,
     origin: Tuple[int, int] = (0, 0),
+    depth_window: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ):
     """The reference rasterizer: nearest covering triangle per pixel, every
     triangle against every pixel, ``chunk`` triangles at a time.
@@ -231,7 +233,8 @@ def rasterize(
     window of a ``full_width`` x ``full_height`` viewport (screen-tile
     sharding). No chunk is culled by its screen box, unlike the tile
     kernels, so a sliver's stray pixels outside its box can differ from
-    theirs."""
+    theirs. ``depth_window`` = (z_floor, z_ceil) f32[H, W] keeps only
+    fragments with z_floor < z < z_ceil (a depth-peel layer)."""
     fw = full_width or width
     fh = full_height or height
     coeffs, _ok, _aabb = triangle_coefficients(batch, fw, fh)
@@ -241,34 +244,59 @@ def rasterize(
     coeffs = torch.nn.functional.pad(coeffs, (0, 0, 0, 0, 0, pad))
     if pad:
         coeffs[t_cap:, :3, 2] = -1.0                   # padded rows never cover
-    coeffs = coeffs.reshape(n_chunks, chunk, 5, 3)
+    # each chunk's 5 x chunk planes (plane-major) as three contiguous rows
+    # of x, y and constant coefficients: every per-pixel pass below then
+    # runs over contiguous [P, chunk] rows
+    planes = coeffs.reshape(n_chunks, chunk, 5, 3).permute(0, 3, 2, 1).reshape(
+        n_chunks, 3, 5 * chunk).contiguous()
 
-    dev = coeffs.device
+    dev = planes.device
     x0, y0 = origin
     px = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5 + x0
           )[None, :].expand(height, width).reshape(-1, 1)
     py = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5 + y0
           )[:, None].expand(height, width).reshape(-1, 1)
-    depth = torch.full((height * width,), float("inf"), device=dev)
-    tid = torch.full((height * width,), -1, dtype=torch.int32, device=dev)
-    bary = torch.zeros((height * width, 2), device=dev)
-    for k in range(n_chunks):
-        c = coeffs[k]                                   # [C, 5, 3]
-        vals = px[:, :, None] * c[None, :, :, 0] + py[:, :, None] * c[None, :, :, 1] \
-            + c[None, :, :, 2]                          # [P, C, 5]
-        e = vals[..., :3]
-        zn, wn = vals[..., 3], vals[..., 4]
-        inside = (e >= 0.0).all(dim=-1) & (wn > 1e-12) & (zn >= 0.0)
+    window = (None if depth_window is None
+              else tuple(z.reshape(-1, 1) for z in depth_window))
+    # the CPU walks the pixels in blocks whose [block, 5 * chunk] passes stay
+    # in cache (3x faster there); the card takes them in one block
+    p = height * width
+    block = p if dev.type == "cuda" else 1024
+    outs = [_rasterize_pixels(planes, chunk, px[i:i + block], py[i:i + block],
+                              None if window is None else
+                              tuple(z[i:i + block] for z in window))
+            for i in range(0, p, block)]
+    depth, tid, bary = (torch.cat(o) for o in zip(*outs))
+    return (depth.reshape(height, width), tid.reshape(height, width),
+            bary.reshape(height, width, 2))
+
+
+def _rasterize_pixels(planes, chunk: int, px, py, window):
+    """``rasterize``'s search over every chunk for the pixels (px, py)
+    f32[P, 1] -> (depth f32[P], tri_id i32[P], bary f32[P, 2])."""
+    dev = planes.device
+    n = px.shape[0]
+    depth = torch.full((n,), float("inf"), device=dev)
+    tid = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    bary = torch.zeros((n, 2), device=dev)
+    for k in range(planes.shape[0]):
+        cx, cy, c1 = planes[k]                          # [5 * C] each
+        vals = (px * cx + py * cy + c1).view(-1, 5, chunk)   # [P, 5, C]
+        e = vals[:, :3]
+        zn, wn = vals[:, 3], vals[:, 4]
+        inside = ((e[:, 0] >= 0.0) & (e[:, 1] >= 0.0) & (e[:, 2] >= 0.0)
+                  & (wn > 1e-12) & (zn >= 0.0))
         z = torch.where(inside, zn / torch.where(inside, wn, 1.0), float("inf"))
+        if window is not None:   # strictly behind the floor, before the ceiling
+            z = torch.where((z > window[0]) & (z < window[1]), z, float("inf"))
         best_z, best = torch.min(z, dim=-1)     # the first of equal minima
         win = best_z < depth
-        be = torch.gather(e, 1, best[:, None, None].expand(-1, 1, 3))[:, 0]
+        be = torch.gather(e, 2, best[:, None, None].expand(-1, 3, 1))[..., 0]
         esum = torch.clamp(be[:, 0] + be[:, 1] + be[:, 2], min=1e-30)
         depth = torch.where(win, best_z, depth)
         tid = torch.where(win, (best + k * chunk).to(torch.int32), tid)
         bary = torch.where(win[:, None], be[:, 1:3] / esum[:, None], bary)
-    return (depth.reshape(height, width), tid.reshape(height, width),
-            bary.reshape(height, width, 2))
+    return depth, tid, bary
 
 
 def resolve_gbuffer(batch: TriangleBatch, depth: torch.Tensor,
@@ -293,6 +321,121 @@ def resolve_gbuffer(batch: TriangleBatch, depth: torch.Tensor,
         depth=depth,
         tri_id=tri_id,
         world_pos=torch.where(cov, interp(batch.world), 0.0),
+        normal=torch.where(cov, normal, 0.0),
+        uv=torch.where(cov, interp(batch.uv), 0.0),
+        material=torch.where(covered, batch.material[tid], 0),
+    )
+
+
+def _unproject(depth: torch.Tensor, covered: torch.Tensor, camera,
+               full_width: Optional[int], full_height: Optional[int],
+               origin) -> torch.Tensor:
+    """World positions f32[H, W, 3] of the pixel centres of a width x
+    height window at ``origin`` of a full_width x full_height viewport, at
+    their NDC ``depth`` (0 where not ``covered``), through
+    ``camera.inverse_view_proj`` (the inverse ``resolve_gbuffer_pairs``
+    uses)."""
+    h, w = depth.shape
+    fw = full_width or w
+    fh = full_height or h
+    x0, y0 = origin
+    dev = depth.device
+    xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5 + x0
+          ) / fw * 2.0 - 1.0
+    ys = 1.0 - (torch.arange(h, dtype=torch.float32, device=dev) + 0.5 + y0
+                ) / fh * 2.0
+    ndc_x = xs[None, :].expand(h, w)
+    ndc_y = ys[:, None].expand(h, w)
+    z = torch.where(covered, depth, 0.0)
+    inv_vp = camera.inverse_view_proj
+    cols = [inv_vp[i, 0] * ndc_x + inv_vp[i, 1] * ndc_y + inv_vp[i, 2] * z
+            + inv_vp[i, 3] for i in range(4)]
+    inv_w = 1.0 / torch.where(cols[3].abs() < 1e-12, 1e-12, cols[3])
+    return torch.stack([cols[0] * inv_w, cols[1] * inv_w, cols[2] * inv_w],
+                       dim=-1)
+
+
+def pack_attributes(batch: TriangleBatch) -> torch.Tensor:
+    """Per-triangle hit attributes in one row f32[T, 16]: (n0, n1, n2 |
+    uv0, uv1, uv2 | material), the material id as an f32 VALUE (exact
+    below 2^24), so the G-buffer resolve gathers one row per pixel."""
+    t = batch.capacity
+    return torch.cat([batch.normal.reshape(t, 9), batch.uv.reshape(t, 6),
+                      batch.material.to(torch.float32)[:, None]], dim=-1)
+
+
+def resolve_gbuffer_packed(
+    attr: torch.Tensor,      # f32[T, 16] from pack_attributes
+    depth: torch.Tensor,
+    tri_id: torch.Tensor,
+    bary: torch.Tensor,
+    camera,
+    *,
+    full_width: Optional[int] = None,
+    full_height: Optional[int] = None,
+    origin: Tuple[int, int] = (0, 0),
+) -> GBuffer:
+    """``resolve_gbuffer_unproject`` with one packed attribute row gathered
+    per pixel. ``origin``/``full_*`` resolve a window of a larger
+    viewport."""
+    covered = tri_id >= 0
+    world = _unproject(depth, covered, camera, full_width, full_height,
+                       origin)
+    rows = attr[torch.clamp(tri_id, min=0).long()]      # [H, W, 16]
+    b1 = bary[..., 0:1]
+    b2 = bary[..., 1:2]
+    b0 = 1.0 - b1 - b2
+    n = b0 * rows[..., 0:3] + b1 * rows[..., 3:6] + b2 * rows[..., 6:9]
+    normal = n / torch.clamp(
+        torch.linalg.vector_norm(n, dim=-1, keepdim=True), min=1e-12)
+    uv = b0 * rows[..., 9:11] + b1 * rows[..., 11:13] + b2 * rows[..., 13:15]
+    cov = covered[..., None]
+    return GBuffer(
+        depth=depth,
+        tri_id=tri_id,
+        world_pos=torch.where(cov, world, 0.0),
+        normal=torch.where(cov, normal, 0.0),
+        uv=torch.where(cov, uv, 0.0),
+        material=torch.where(covered, rows[..., 15].to(torch.int32), 0),
+    )
+
+
+def resolve_gbuffer_unproject(
+    batch: TriangleBatch,
+    depth: torch.Tensor,
+    tri_id: torch.Tensor,
+    bary: torch.Tensor,
+    camera,
+    *,
+    full_width: Optional[int] = None,
+    full_height: Optional[int] = None,
+    origin: Tuple[int, int] = (0, 0),
+) -> GBuffer:
+    """Like ``resolve_gbuffer``, but the world position is unprojected from
+    (pixel, depth) through the inverse view-projection instead of
+    interpolated from the vertices; normals and uvs are interpolated from
+    the batch. ``origin``/``full_*`` resolve a window of a larger
+    viewport."""
+    tid = torch.clamp(tri_id, min=0).long()
+    covered = tri_id >= 0
+    world = _unproject(depth, covered, camera, full_width, full_height,
+                       origin)
+    b1 = bary[..., 0]
+    b2 = bary[..., 1]
+    pw = torch.stack([1.0 - b1 - b2, b1, b2], dim=-1)[..., None]  # [H,W,3,1]
+
+    def interp(a):                                      # a [T, 3, C]
+        v = pw * a[tid]                                 # [H, W, 3, C]
+        return v[..., 0, :] + v[..., 1, :] + v[..., 2, :]
+
+    normal = interp(batch.normal)
+    normal = normal / torch.clamp(
+        torch.linalg.vector_norm(normal, dim=-1, keepdim=True), min=1e-12)
+    cov = covered[..., None]
+    return GBuffer(
+        depth=depth,
+        tri_id=tri_id,
+        world_pos=torch.where(cov, world, 0.0),
         normal=torch.where(cov, normal, 0.0),
         uv=torch.where(cov, interp(batch.uv), 0.0),
         material=torch.where(covered, batch.material[tid], 0),

@@ -68,12 +68,16 @@ def _spread21(v: np.ndarray) -> np.ndarray:
     return v
 
 
-def _morton_u64(p: np.ndarray) -> np.ndarray:
-    """63-bit morton codes (21 bits/axis) over the points' AABB — the
-    formula of ``native/scenecore.cpp`` ``morton3d``, in f32 arithmetic, so
-    instance order matches the JAX package whenever its native library is
-    loaded."""
+def _morton_u64(p: np.ndarray, use_native: bool = True) -> np.ndarray:
+    """63-bit morton codes (21 bits/axis) over the points' AABB: the native
+    scene core's ``morton3d`` when it loads (``native.AVAILABLE``) and
+    ``use_native`` is set, else its formula in numpy f32 arithmetic, which
+    gives the same codes."""
+    from .. import native
+
     p = np.asarray(p, np.float32).reshape(-1, 3)
+    if use_native and native.AVAILABLE:
+        return native.morton3d(p, p.min(axis=0), p.max(axis=0))
     lo = p.min(axis=0)
     ext = np.maximum(p.max(axis=0) - lo, np.float32(1e-12))
     q = np.clip((p - lo) / ext, np.float32(0.0), np.float32(1.0))
@@ -88,7 +92,9 @@ def build_static_mapping(scene: Scene) -> StaticMapping:
     the scene topology changes.
 
     Instances are ordered by world morton code so 8-triangle groups stay
-    spatially tight, which keeps the rasterizer's bins small."""
+    spatially tight, which keeps the rasterizer's bins small; a scene with
+    the native core (``Scene(use_native=True)``) codes them natively, one
+    without through numpy (the same codes)."""
     arena = scene.arena
     rows_inst: list = []
     rows_lod: list = []
@@ -96,7 +102,10 @@ def build_static_mapping(scene: Scene) -> StaticMapping:
     tri_ranges: list = []  # (tri_offset, tri_count) in the arena
     order = list(scene.instances)
     if len(order) > 1:
-        codes = _morton_u64(np.stack([i.position for i in order]))
+        # the native morton codes when the scene runs the native core
+        native = getattr(scene, "_native", None) is not None
+        codes = _morton_u64(np.stack([i.position for i in order]),
+                            use_native=native)
         order = [order[i] for i in np.argsort(codes, kind="stable")]
     for inst in order:
         for lod_i, lod in enumerate(inst.model.lods):

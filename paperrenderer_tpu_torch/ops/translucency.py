@@ -16,9 +16,12 @@ one_minus_src_alpha blending. Here, per frame:
     image; a leaf's alpha is its procedural cutout at the hit uv.
 
 The JAX package bins the translucent set again for every layer; its inputs
-do not change between layers, so binning once gives the same output. Its
-pure-XLA peel (``use_exact=False``: ``_rasterize_peel`` with
-``resolve_gbuffer_unproject``) is not ported (ROADMAP Queue 1 item 8).
+do not change between layers, so binning once gives the same output.
+
+``use_exact=False`` is the JAX package's XLA peel, the XLA route's
+(``RenderPass(use_pallas=False)``): each layer is ``_rasterize_peel``, the
+reference rasterizer with explicit (previous layer, opaque depth) depth
+clamps, resolved by ``resolve_gbuffer_unproject``; it launches no kernel.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch
 
 from ..core.camera import CameraMatrices
 from ..core.material import SHADE_LEAF, SHADE_TRANSLUCENT, MaterialTable
-from .raster import TriangleBatch
+from .raster import TriangleBatch, rasterize, resolve_gbuffer_unproject
 from .raster_exact import (
     bin_triangles, depth_to_key, rasterize_bins, resolve_gbuffer_pairs,
 )
@@ -45,6 +48,18 @@ def non_opaque_mask(materials: MaterialTable,
     return (sm == SHADE_TRANSLUCENT) | (sm == SHADE_LEAF)
 
 
+def _rasterize_peel(batch: TriangleBatch, width: int, height: int,
+                    z_floor: torch.Tensor, z_ceil: torch.Tensor, *,
+                    full_width=None, full_height=None, origin=(0, 0)):
+    """One depth-peel layer of the reference rasterizer: each pixel's
+    nearest fragment with z_floor < z < z_ceil (f32[H, W] each) -> (depth,
+    tri_id, bary) as ``raster.rasterize`` returns them. ``origin``/
+    ``full_*`` peel a window of a larger viewport."""
+    return rasterize(batch, width, height, full_width=full_width,
+                     full_height=full_height, origin=origin,
+                     depth_window=(z_floor, z_ceil))
+
+
 def composite_translucency(
     opaque_hdr: torch.Tensor,     # f32[H, W, 3]
     opaque_depth: torch.Tensor,   # f32[H, W]
@@ -55,28 +70,41 @@ def composite_translucency(
     *,
     layers: int = 4,
     textures=None,
+    use_exact: bool = True,
 ) -> Tuple[torch.Tensor, int]:
     """Depth-peel the non-opaque triangles and blend them back to front over
     the opaque HDR image; each layer's shade samples ``textures`` (the
-    atlas, or None). Returns (hdr f32[H, W, 3], required int: the
-    translucent set's pair count, which every layer shares)."""
+    atlas, or None). ``use_exact`` peels with K2, else with the XLA peel.
+    Returns (hdr f32[H, W, 3], required int: the translucent set's pair
+    count, which every layer shares; 0 on the XLA peel)."""
     h, w = opaque_depth.shape
     translucent = non_opaque_mask(materials, batch.material)
     # leaf/translucent materials default to CULL_NONE: both faces peel
-    bins = bin_triangles(
-        dataclasses.replace(batch, valid=batch.valid & translucent), w, h)
+    tbatch = dataclasses.replace(batch, valid=batch.valid & translucent)
 
     # up to `layers` nearest fragments per pixel, front to back
     peels = []
-    floor = torch.full((h, w), torch.iinfo(torch.int32).min + 1,
-                       dtype=torch.int32, device=opaque_depth.device)
-    ceil = depth_to_key(opaque_depth)
-    for _ in range(layers):
-        depth, tid = rasterize_bins(
-            bins.cell_start, bins.cell_groups, bins.coef, w, h,
-            keyed=True, window=(floor, ceil))
-        peels.append(resolve_gbuffer_pairs(bins.table, depth, tid, camera))
-        floor = depth_to_key(depth)
+    required = 0
+    if use_exact:
+        bins = bin_triangles(tbatch, w, h)
+        required = bins.n_pairs
+        floor = torch.full((h, w), torch.iinfo(torch.int32).min + 1,
+                           dtype=torch.int32, device=opaque_depth.device)
+        ceil = depth_to_key(opaque_depth)
+        for _ in range(layers):
+            depth, tid = rasterize_bins(
+                bins.cell_start, bins.cell_groups, bins.coef, w, h,
+                keyed=True, window=(floor, ceil))
+            peels.append(resolve_gbuffer_pairs(bins.table, depth, tid, camera))
+            floor = depth_to_key(depth)
+    else:
+        z_floor = torch.full((h, w), float("-inf"), device=opaque_depth.device)
+        for _ in range(layers):
+            depth, tid, bary = _rasterize_peel(tbatch, w, h, z_floor,
+                                               opaque_depth)
+            peels.append(resolve_gbuffer_unproject(tbatch, depth, tid, bary,
+                                                   camera))
+            z_floor = torch.where(torch.isfinite(depth), depth, z_floor)
 
     # shade each layer, then blend BACK to front: dst = src*a + dst*(1-a)
     out = opaque_hdr
@@ -88,4 +116,4 @@ def composite_translucency(
                             leaf_alpha(gbuf.uv), materials.alpha[ids])
         a = torch.where(gbuf.coverage, alpha, 0.0)[..., None]
         out = color * a + out * (1.0 - a)
-    return out, bins.n_pairs
+    return out, required

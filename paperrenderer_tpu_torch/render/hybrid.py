@@ -18,6 +18,12 @@ and bilinear at mip 0 on the reflection hits, as in the JAX package.
 ``expand_static`` without ``animate``, so those instances are rasterized
 at their rest pose while the RT passes see them animated, as in the JAX
 package (a reference behaviour, ROADMAP Queue 3).
+
+``HybridRender(use_pallas=False)`` changes the G-buffer only, as in the
+JAX package: ``raster.rasterize`` + ``resolve_gbuffer_packed`` instead of
+K1. The traversal keeps following the device, as the JAX package's
+follows the backend: the kernels on the card, their plain versions on the
+CPU.
 """
 
 from __future__ import annotations
@@ -33,14 +39,13 @@ from ..ops import accel as ACC
 from ..ops.animation import f32_time
 from ..ops import trace as T
 from ..ops.raster import attach_cull
-from ..ops.raster_exact import rasterize_exact, resolve_gbuffer_pairs
 from ..ops.shading import Lights, shade_gbuffer
 from ..ops.static_batch import expand_static
 from ..ops.tonemap import TonemapParams, tonemap
 from ..utils import random as rnd
-from ..utils.device import check_use_pallas, require_device
+from ..utils.device import require_device
 from .raytrace import AccelCache
-from .renderpass import RenderPass
+from .renderpass import RenderPass, raster_gbuffer
 
 
 def render_frame_hybrid(mapping, blasset, meta, anim_rest, anim_rest_nodes,
@@ -53,7 +58,7 @@ def render_frame_hybrid(mapping, blasset, meta, anim_rest, anim_rest_nodes,
                         reflection_samples: int = 1, ao_samples: int = 1,
                         ao_radius: float = 2.0, leaf_cutout: bool = False,
                         reflection_half_rate: bool = False, textures=None,
-                        animate=None):
+                        animate=None, use_pallas: bool = True):
     """One hybrid frame (the body of the JAX package's ``make_hybrid_frame``):
     the static raster G-buffer through K1, the scene's tracer on the flat or
     (``paged``) the paged layout, shadows + AO + the fused-or-not bounce at
@@ -62,14 +67,15 @@ def render_frame_hybrid(mapping, blasset, meta, anim_rest, anim_rest_nodes,
     ``leaf_cutout`` the RT passes apply the any-hit leaf cutout;
     ``textures`` (the atlas, or None) goes to the shade and the tracer;
     ``animate`` refits the anim BLASes at ``time`` for the RT passes (the
-    G-buffer keeps the rest pose, as in the JAX package). Returns (ldr
+    G-buffer keeps the rest pose, as in the JAX package); ``use_pallas``
+    False rasterizes the G-buffer on the XLA route. Returns (ldr
     f32[H, W, 3], aux dict)."""
     batch, inst_visible = expand_static(
         mapping, instances, tables, camera, slot_materials, instance_visible,
         do_culling=do_culling)
     batch = attach_cull(batch, materials)
-    depth, tid, attr_table, required = rasterize_exact(batch, width, height)
-    gbuf = resolve_gbuffer_pairs(attr_table, depth, tid, camera)
+    depth, gbuf, required = raster_gbuffer(batch, width, height, camera,
+                                           use_pallas)
 
     # the RT passes see the whole scene (one TLAS of every live instance)
     mask = (torch.ones(instances.capacity, dtype=torch.bool,
@@ -124,10 +130,9 @@ class HybridRender:
     7)``).
 
     ``animate`` (as ``RayTraceRender``'s) moves the unique-geometry
-    instances for the RT passes at ``render(cam, time=)``. Not ported yet,
-    refused with ``NotImplementedError``: ``use_pallas=False`` (ROADMAP
-    Queue 1 item 8). ``bvh_wide`` is a TPU scheduling knob and is ignored.
-    The JAX
+    instances for the RT passes at ``render(cam, time=)``;
+    ``use_pallas=False`` rasterizes the G-buffer on the XLA route.
+    ``bvh_wide`` is a TPU scheduling knob and is ignored. The JAX
     package's pair-capacity protocol is not ported: the port sizes its
     raster pair buffers from each frame's own count."""
 
@@ -150,10 +155,11 @@ class HybridRender:
         reflection_half_rate: bool = False,
         bvh_wide: bool = True,
     ):
-        check_use_pallas(use_pallas)
         self.animate = animate
         self._rp = RenderPass(scene, materials, width=width, height=height,
-                              lights=lights, tonemap_params=tonemap_params)
+                              lights=lights, tonemap_params=tonemap_params,
+                              use_pallas=use_pallas)
+        self.use_pallas = self._rp.use_pallas
         self.scene = scene
         self.materials = materials
         self.device = self._rp.device
@@ -225,4 +231,5 @@ class HybridRender:
             ao_samples=self.ao_samples, ao_radius=self.ao_radius,
             leaf_cutout=self.materials.has_leaf,
             reflection_half_rate=self.reflection_half_rate,
-            textures=rp._cached_textures, animate=self.animate)
+            textures=rp._cached_textures, animate=self.animate,
+            use_pallas=self.use_pallas)

@@ -33,11 +33,15 @@ refits from ``animate(v, time + phase)`` (``RayTraceRender(animate=)``,
 ``render(cam, time=)``); ``anim_resplit`` re-splits its leaves at the
 animated pose first (``accel.resplit_anim_tables``).
 
-Not ported yet, refused with ``NotImplementedError``: the XLA route
-(``use_pallas=False``, ROADMAP Queue 1 item 8). ``compact_secondary``,
-``compact_refl``,
-``packet_pack`` and ``bvh_wide`` are TPU scheduling knobs that leave every
-result unchanged: they are accepted and ignored.
+``use_pallas=False`` is the JAX package's XLA route, on the scene's
+device: the flat layout only (as the JAX package's ``paged = use_pallas and
+...``), traced by the plain traversal, one trace per occlusion and AO
+sample; it launches no kernel. A scene with chunked big-model BLASes, which
+only the paged layout holds (the JAX package's flat assembly refuses it),
+is assembled paged and traced through its flat view (``paged_to_flat``).
+``compact_secondary``, ``compact_refl``, ``packet_pack`` and ``bvh_wide``
+are TPU scheduling knobs that leave every result unchanged: they are
+accepted and ignored.
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ from ..ops.shading import Lights
 from ..ops.tonemap import TonemapParams, tonemap
 from ..ops.trace import RTParams, trace_frame
 from ..utils import random as rnd
-from ..utils.device import check_use_pallas, require_device
+from ..utils.device import require_device, use_kernels
 
 
 class AccelCache:
@@ -123,19 +127,21 @@ def render_frame_rt(blasset, meta, anim_rest, anim_rest_nodes,
                     inst_mask=None, inst_opaque=None, *, width: int,
                     height: int, stack_size: int, params: RTParams,
                     tlas_index: int = 0, paged: bool = False, textures=None,
-                    animate=None, resplit: bool = False):
+                    animate=None, resplit: bool = False,
+                    use_pallas: bool = True):
     """One ray-traced frame (the JAX package's ``make_rt_frame`` body):
     refit the anim BLASes at ``time`` with ``animate`` (re-split first with
     ``resplit``), assemble this frame's TLAS on the flat or, with
-    ``paged``, the paged layout, trace, tonemap; ``textures`` is the atlas
-    of textured materials (or None). Returns (ldr f32[H, W, 3], {"hdr":
-    f32[H, W, 3]})."""
+    ``paged``, the paged layout, trace (``use_pallas`` False: on the XLA
+    route), tonemap; ``textures`` is the atlas of textured materials (or
+    None). Returns (ldr f32[H, W, 3], {"hdr": f32[H, W, 3]})."""
     ctx = ACC.make_scene_tracer(
         blasset, meta, anim_rest, anim_rest_nodes, instances, inst_blas,
         masks, tri_attr, slot_materials, materials, tlas_index=tlas_index,
         stack_size=stack_size, paged=paged, inst_mask=inst_mask,
         inst_opaque=inst_opaque, leaf_cutout=params.leaf_cutout,
-        textures=textures, time=time, animate=animate, resplit=resplit)
+        textures=textures, time=time, animate=animate, resplit=resplit,
+        use_pallas=use_pallas)
     hdr = trace_frame(ctx, materials, lights, camera, key, width=width,
                       height=height, params=params)
     return tonemap(hdr, tonemap_params), {"hdr": hdr}
@@ -176,7 +182,7 @@ class RayTraceRender:
         packet_pack: Optional[int] = None,  # they are accepted and ignored
         bvh_wide: bool = True,
     ):
-        check_use_pallas(use_pallas)
+        self.use_pallas = use_kernels(use_pallas)
         self.scene = scene
         self.animate = animate
         self.anim_resplit = anim_resplit
@@ -306,9 +312,11 @@ class RayTraceRender:
     def render(self, camera: Camera | CameraMatrices, *, tlas: int = 0,
                time: float = 0.0, paged: Optional[bool] = None):
         """Trace one frame; returns (ldr f32[H, W, 3], {"hdr": ...}).
-        ``paged`` forces a layout (None: ``accel.prefer_paged``'s);
-        ``time`` is the animation time of the unique-geometry instances
-        (f32, each instance's phase added in f32)."""
+        ``paged`` forces a layout (None: ``accel.prefer_paged``'s on the
+        kernel route; on the XLA route flat, or paged and flattened where
+        big models' BLAS chunks need it); ``time`` is the animation time of
+        the unique-geometry instances (f32, each instance's phase added in
+        f32)."""
         require_device(self.device)
         cam = camera.matrices if isinstance(camera, Camera) else camera
         instances = self.scene.flush()
@@ -317,7 +325,8 @@ class RayTraceRender:
             self._device_inputs(instances.capacity))
         self._frame += 1
         if paged is None:
-            paged = self.accel.prefer_paged(instances.capacity)
+            paged = (self.accel.prefer_paged(instances.capacity)
+                     if self.use_pallas else meta.num_bchunks > 0)
         return render_frame_rt(
             blasset, meta, anim_rest, anim_nodes, instances,
             self.accel.inst_blas(instances.capacity), masks,
@@ -329,4 +338,5 @@ class RayTraceRender:
             params=dataclasses.replace(self.params,
                                        leaf_cutout=self.materials.has_leaf),
             tlas_index=tlas, paged=paged, textures=self._cached_textures,
-            animate=self.animate, resplit=self.anim_resplit)
+            animate=self.animate, resplit=self.anim_resplit,
+            use_pallas=self.use_pallas)

@@ -24,6 +24,12 @@ the reference's GPU-driven preprocess:
       -> resolve_gbuffer -> shade_gbuffer [-> supersample box resolve]
       -> tonemap
 
+``RenderPass(use_pallas=False)`` takes the JAX package's XLA route on
+either path, on the pass's device: the reference rasterizer
+``raster.rasterize`` instead of K1 (resolved by ``resolve_gbuffer_packed``)
+or K5, and the XLA peel instead of K2; it launches no kernel. None and
+True run the kernels on every device.
+
 On both paths ``shade_gbuffer`` samples the materials' textures from the
 registry's atlas (trilinear, the mip level from the shaded uv image, so at
 s x s the resolution under ``supersample``), and so does each peel layer's
@@ -45,7 +51,9 @@ from ..core.model import ModelInstance
 from ..core.geometry import GeometryArrays
 from ..core.scene import InstanceArrays, Scene, SceneTables
 from ..ops.preprocess import preprocess_instances
-from ..ops.raster import attach_cull, build_triangle_batch, resolve_gbuffer
+from ..ops.raster import (
+    attach_cull, build_triangle_batch, pack_attributes, rasterize,
+    resolve_gbuffer, resolve_gbuffer_packed)
 from ..ops.raster_exact import rasterize_exact, resolve_gbuffer_pairs
 from ..ops.raster_pallas import rasterize_tiles
 from ..ops.shading import Lights, shade_gbuffer
@@ -53,7 +61,7 @@ from ..ops.static_batch import (
     StaticMapping, _tier, build_static_mapping, expand_static)
 from ..ops.tonemap import TonemapParams, tonemap
 from ..ops.translucency import composite_translucency, non_opaque_mask
-from ..utils.device import check_use_pallas, require_device
+from ..utils.device import require_device, use_kernels
 from ..utils.stats import Timer
 
 
@@ -67,6 +75,22 @@ def _box_resolve(hdr, depth, ss):
             if i or j:
                 acc = acc + hdr[i::ss, j::ss]
     return acc * (1.0 / (ss * ss)), depth[::ss, ::ss]
+
+
+def raster_gbuffer(batch, width: int, height: int, camera,
+                   use_pallas: bool = True):
+    """The static frame's G-buffer of a triangle batch: K1 and
+    ``resolve_gbuffer_pairs``, or on the XLA route ``raster.rasterize`` and
+    ``resolve_gbuffer_packed``. Returns (depth, GBuffer, required: the pair
+    count, 0 on the XLA route)."""
+    if use_pallas:
+        depth, tid, attr_table, required = rasterize_exact(batch, width,
+                                                           height)
+        return depth, resolve_gbuffer_pairs(attr_table, depth, tid,
+                                            camera), required
+    depth, tid, bary = rasterize(batch, width, height)
+    return depth, resolve_gbuffer_packed(pack_attributes(batch), depth, tid,
+                                         bary, camera), 0
 
 
 def draw_list_batch(
@@ -111,18 +135,21 @@ def render_frame(
     do_culling: bool = True,
     supersample: int = 1,
     textures=None,
+    use_pallas: bool = True,
 ):
     """The draw-list raster frame (the reference-parity path: a per-frame
     draw list built by the preprocess pass, IndirectDrawBuild.comp). Returns
     (ldr f32[H, W, 3], aux dict). ``tri_capacity`` rows of triangle batch
-    must hold the frame's ``total_tris``; ``supersample`` and ``textures``
-    are ``render_frame_static``'s."""
+    must hold the frame's ``total_tris``; ``supersample``, ``textures`` and
+    ``use_pallas`` (False: ``raster.rasterize`` instead of K5) are
+    ``render_frame_static``'s."""
     ss = max(1, int(supersample))
     pre, batch = draw_list_batch(
         instances, tables, geo, materials, camera, slot_materials,
         instance_visible, max_meshes_per_lod=max_meshes_per_lod,
         tri_capacity=tri_capacity, do_culling=do_culling)
-    depth, tid, bary = rasterize_tiles(batch, width * ss, height * ss)
+    raster = rasterize_tiles if use_pallas else rasterize
+    depth, tid, bary = raster(batch, width * ss, height * ss)
     gbuf = resolve_gbuffer(batch, depth, tid, bary)
     hdr = shade_gbuffer(gbuf, materials, lights, camera.cam_pos,
                         textures=textures)
@@ -157,6 +184,7 @@ def render_frame_static(
     translucent_layers: int = 0,
     supersample: int = 1,
     textures=None,
+    use_pallas: bool = True,
 ):
     """The static raster frame. Returns (ldr f32[H, W, 3], aux dict).
 
@@ -170,7 +198,11 @@ def render_frame_static(
     the top-left sample of each s x s cell.
 
     ``textures`` (the registry's atlas on this device, or None when no
-    material is textured) goes to every shade of the frame."""
+    material is textured) goes to every shade of the frame.
+
+    ``use_pallas=False`` is the XLA route: ``raster.rasterize`` and
+    ``resolve_gbuffer_packed`` instead of K1, the XLA peel instead of K2
+    (``required_work`` then counts only the opaque pass: 0)."""
     ss = max(1, int(supersample))
     batch, inst_visible = expand_static(
         mapping, instances, tables, camera, slot_materials, instance_visible,
@@ -182,15 +214,15 @@ def render_frame_static(
         # the opaque pass must not z-write translucent/cutout geometry
         batch = dataclasses.replace(
             batch, valid=batch.valid & ~non_opaque_mask(materials, batch.material))
-    depth, tid, attr_table, required = rasterize_exact(
-        batch, width * ss, height * ss)
-    gbuf = resolve_gbuffer_pairs(attr_table, depth, tid, camera)
+    depth, gbuf, required = raster_gbuffer(batch, width * ss, height * ss,
+                                           camera, use_pallas)
     hdr = shade_gbuffer(gbuf, materials, lights, camera.cam_pos,
                         textures=textures)
     if translucent_layers > 0:
         hdr, peel_required = composite_translucency(
             hdr, depth, full_batch, materials, lights, camera,
-            layers=translucent_layers, textures=textures)
+            layers=translucent_layers, textures=textures,
+            use_exact=use_pallas)
         required = max(required, peel_required)
     if ss > 1:
         hdr, depth = _box_resolve(hdr, depth, ss)
@@ -209,7 +241,9 @@ def render_frame_static(
 class RenderPass:
     """Host-side raster pass (reference RenderPass.h:103-134 surface).
 
-    ``device`` defaults to the scene's; every per-frame tensor lives there."""
+    ``device`` defaults to the scene's; every per-frame tensor lives there.
+    ``use_pallas`` (``utils.device.use_kernels``): None or True renders
+    through the kernels, False through the XLA route."""
 
     def __init__(
         self,
@@ -226,7 +260,7 @@ class RenderPass:
         device=None,
         use_pallas: Optional[bool] = None,
     ):
-        check_use_pallas(use_pallas)
+        self.use_pallas = use_kernels(use_pallas)
         self.scene = scene
         self.materials = materials
         self.device = require_device(device if device is not None
@@ -359,7 +393,7 @@ class RenderPass:
                 lights=self.lights, tonemap_params=self.tonemap_params,
                 width=self.width, height=self.height,
                 supersample=self.supersample, textures=self._cached_textures,
-                **inputs)
+                use_pallas=self.use_pallas, **inputs)
         mapping, instances, tables, materials, cam, slots, visible = (
             self.frame_inputs(camera))
         return render_frame_static(
@@ -368,6 +402,7 @@ class RenderPass:
             width=self.width, height=self.height, do_culling=self.do_culling,
             translucent_layers=self.translucent_layers,
             supersample=self.supersample, textures=self._cached_textures,
+            use_pallas=self.use_pallas,
         )
 
     def frame_inputs(self, camera: Camera | CameraMatrices):

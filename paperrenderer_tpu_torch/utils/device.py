@@ -17,11 +17,10 @@ def require_device(device) -> torch.device:
     return device
 
 
-def check_use_pallas(use_pallas) -> None:
-    """The JAX package's ``use_pallas`` keyword. None or True runs the port's
-    kernels, its counterpart of the Pallas route; False asks for the XLA
-    route, which the port does not have."""
-    if use_pallas is not None and not use_pallas:
-        raise NotImplementedError(
-            "use_pallas=False (the XLA route) is not ported yet (ROADMAP "
-            "Queue 1 item 8)")
+def use_kernels(use_pallas) -> bool:
+    """The JAX package's ``use_pallas`` keyword as the port's route: None
+    or True runs the port's kernels (their plain versions on CPU tensors),
+    the counterpart of the Pallas route, on every device; False runs the
+    XLA route, plain tensor ops that launch no kernel, on the pass's
+    device."""
+    return use_pallas is None or bool(use_pallas)

@@ -481,9 +481,9 @@ def _jax_unique(render, indices, phases=None, resplit=False):
 
 
 def _frame_pair(case):
-    """(JAX image, port image) of one animated frame at 48x32, t = 0.7 (the
-    dynamic loop: 400 instances at 128x64, 3 frames after its t = 0
-    frame)."""
+    """(JAX image, port image[, the port's XLA-route image]) of one animated
+    frame at 48x32, t = 0.7 (the dynamic loop: 400 instances at 128x64, 3
+    frames after its t = 0 frame)."""
     if case == "rt_flat_resplit":
         from examples.render_rt import build_rt_scene as build_jax
 
@@ -493,8 +493,11 @@ def _frame_pair(case):
                                                  device="cpu")
         ldr, aux = rt.render(cam, time=0.7)
         assert not rt.accel.prefer_paged(rt.scene.flush().capacity)
+        _, rtx, camx = TSC.build_animated_rt_scene(48, 32, resplit=True,
+                                                   device="cpu")
+        rtx.use_pallas = False                  # the XLA route
         return (np.asarray(rtj.render(camj, time=0.7)[1]["hdr"]),
-                aux["hdr"].numpy())
+                aux["hdr"].numpy(), rtx.render(camx, time=0.7)[1]["hdr"].numpy())
     if case == "crowd_paged":
         from examples.render_crowd import build_crowd_scene as build_jax
 
@@ -514,7 +517,10 @@ def _frame_pair(case):
         _, hy, cam = TSC.build_animated_hybrid_scene(48, 32, device="cpu")
         ldr, aux = hy.render(cam, time=0.7)
         assert not aux["paged"]
-        return np.asarray(hyj.render(camj, time=0.7)[0]), ldr.numpy()
+        _, hyx, camx = TSC.build_animated_hybrid_scene(48, 32, device="cpu")
+        hyx.use_pallas = False                  # the XLA route's G-buffer
+        return (np.asarray(hyj.render(camj, time=0.7)[0]), ldr.numpy(),
+                hyx.render(camx, time=0.7)[0].numpy())
     from examples.render_dynamic import run
 
     _, _, ldr_j, aux_j = run(400, 128, 64, frames=3)
@@ -535,15 +541,18 @@ def test_animated_frames_match_jax():
 
 
 def _frame_case(case):
-    want, got = _frame_pair(case)
-    assert got.shape == want.shape and np.isfinite(got).all()
-    if case in ("rt_flat_resplit", "crowd_paged"):
-        assert np.abs(got - want).mean() <= 1e-3, np.abs(got - want).mean()
-    elif case == "hybrid":
-        diff = np.abs(got - want).max(axis=-1)
-        assert diff.mean() <= 0.004, diff.mean()
-    else:
-        _bands(got, want)
+    """The port's frame, and for the flat RT and hybrid cases also the XLA
+    route's (use_pallas=False), against the JAX frame."""
+    want, *gots = _frame_pair(case)
+    for got in gots:
+        assert got.shape == want.shape and np.isfinite(got).all()
+        if case in ("rt_flat_resplit", "crowd_paged"):
+            assert np.abs(got - want).mean() <= 1e-3, np.abs(got - want).mean()
+        elif case == "hybrid":
+            diff = np.abs(got - want).max(axis=-1)
+            assert diff.mean() <= 0.004, diff.mean()
+        else:
+            _bands(got, want)
 
 
 # -- (e) the API -------------------------------------------------------------------
@@ -553,7 +562,8 @@ def test_animation_api():
     (and the instances' BLAS ids) as the JAX package's AccelCache does; a
     unique instance with no ``animate`` traces at its rest pose, the same
     frame bit for bit as the model's own BLAS; ``use_pallas=False`` (the
-    XLA route, ROADMAP Queue 1 item 8) still raises."""
+    XLA route) is accepted beside ``animate`` (test_animated_frames_match_jax
+    holds its animated RT and hybrid frames to the JAX package's)."""
     _each(["rebuild", "rest_pose", "use_pallas"], _api_case)
 
 
@@ -561,9 +571,9 @@ def _api_case(case):
     if case == "use_pallas":
         eng = TPKG.RenderEngine(device="cpu", device_check=False)
         for make in (eng.create_ray_trace_render, eng.create_hybrid_render):
-            make(animate=TAN.animate_vertices)   # accepted
-            with pytest.raises(NotImplementedError, match="item 8"):
-                make(animate=TAN.animate_vertices, use_pallas=False)
+            assert make(animate=TAN.animate_vertices).use_pallas   # kernels
+            r = make(animate=TAN.animate_vertices, use_pallas=False)
+            assert r.animate is TAN.animate_vertices and not r.use_pallas
         return
     if case == "rest_pose":
         _, rt, cam = TSC.build_animated_rt_scene(48, 32, device="cpu")

@@ -204,7 +204,7 @@ def _snapshot(arrays):
 
 def test_scene_flush_matches():
     sj, j0, j1 = _build_scene(JPKG, use_native=False)
-    st, t0, t1 = _build_scene(TPKG, device="cpu")
+    st, t0, t1 = _build_scene(TPKG, use_native=False, device="cpu")
     assert st.version == sj.version and st.count == sj.count
     for a, b in ((j0, t0), (j1, t1)):
         assert b["pos"].shape[0] == a["pos"].shape[0] == 256
@@ -282,8 +282,14 @@ def test_morton_matches_native():
 
 
 def test_import_leaves_jax_out():
+    examples = ", ".join(
+        f"paperrenderer_tpu_torch.examples.{m}" for m in (
+            "render_scene", "render_rt", "render_hybrid", "render_crowd",
+            "render_dynamic", "render_textured", "view_scene"))
     code = ("import sys, paperrenderer_tpu_torch, paperrenderer_tpu_torch.scenes, "
-            "paperrenderer_tpu_torch.interop, chip_smoke; "
+            "paperrenderer_tpu_torch.interop, paperrenderer_tpu_torch.native, "
+            "paperrenderer_tpu_torch.io.gltf, paperrenderer_tpu_torch.viewer, "
+            f"{examples}, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
             "'paperrenderer_tpu.')) or m == 'paperrenderer_tpu']; "
             "assert not bad, bad")
@@ -2005,13 +2011,28 @@ def frames():
         ldr, aux = hy.render(cam, paged=paged)
         assert aux["paged"] == paged and torch.isfinite(aux["hdr"]).all()
         out["port", paged] = ldr.numpy()
+    # the XLA route's G-buffer (use_pallas=False), traced flat as JAX does
+    _, hy, cam = build_hybrid_scene(48, 32, device="cpu")
+    hy.use_pallas = False
+    ldr, aux = hy.render(cam)
+    assert not aux["paged"] and aux["required_work"] == 0
+    out["xla", False] = ldr.numpy()
     return out
 
 
 @pytest.mark.parametrize("paged", [False, True])
 def test_hybrid_frame_matches_jax(frames, paged):
+    """Both layouts against the JAX frame; on the flat layout also the XLA
+    route's frame (use_pallas=False), which on the CPU is bitwise the
+    kernel route's: K1's plain version finds the same depths and
+    barycentrics as ``raster.rasterize`` on this scene (measured)."""
     diff = np.abs(frames["port", paged] - frames["jax", paged]).max(axis=-1)
     assert diff.mean() <= 0.004, diff.mean()
+    if not paged:
+        diff = np.abs(frames["xla", False] - frames["jax", False]).max(axis=-1)
+        assert diff.mean() <= 0.004, diff.mean()
+        np.testing.assert_array_equal(frames["xla", False],
+                                      frames["port", False])
 
 
 def test_hybrid_layouts_agree(frames):
@@ -2059,18 +2080,25 @@ def test_unported_hybrid_options_raise(case):
 @pytest.mark.parametrize("use_pallas", [None, True, False])
 def test_use_pallas_keyword(use_pallas):
     """``use_pallas`` as the JAX constructors take it: None or True runs
-    the port's kernels, False (the XLA route) is refused."""
-    from paperrenderer_tpu_torch import HybridRender, RayTraceRender, RenderPass
+    the port's kernels, False the XLA route; each route renders a frame
+    (tests/test_torch_io.py holds the XLA route's frames to the JAX
+    package's and to the goldens)."""
+    from paperrenderer_tpu_torch import (
+        Camera, HybridRender, Material, Model, ModelInstance, RayTraceRender,
+        RenderPass, make_cube)
 
     eng = RenderEngine(device="cpu", device_check=False)
+    cube = Model.from_mesh(eng.scene.arena, *make_cube(size=1.0))
+    cam = Camera(aspect=1.0)
+    cam.look_at((0.0, -4.0, 2.0), (0.0, 0.0, 0.0))
     for cls in (RenderPass, RayTraceRender, HybridRender):
-        if use_pallas is False:
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP Queue 1 item 8"):
-                cls(eng.scene, eng.materials, use_pallas=use_pallas)
-        else:
-            assert cls(eng.scene, eng.materials, width=8,
-                       use_pallas=use_pallas).width == 8
+        r = cls(eng.scene, eng.materials, width=8, height=8,
+                use_pallas=use_pallas)
+        assert r.width == 8 and r.use_pallas is (use_pallas is not False)
+        r.add_instance(ModelInstance(cube), {0: Material("m").instance()})
+        ldr, aux = r.render(cam)
+        assert ldr.shape == (8, 8, 3) and torch.isfinite(aux["hdr"]).all()
+        assert float(ldr.max()) > 0.0
 
 
 def test_render_time_keyword():

@@ -76,14 +76,23 @@ def small_frames():
     _, rt, cam = build_rt_scene(48, 32, device="cpu")
     rt.params = dataclasses.replace(rt.params, fuse_bounce=True)
     port_hdr["fuse_bounce"] = rt.render(cam)[1]["hdr"].numpy()
+    _, rt, cam = build_rt_scene(48, 32, device="cpu")
+    rt.use_pallas = False                       # the XLA route
+    port_hdr["xla"] = rt.render(cam)[1]["hdr"].numpy()
     return jax_hdr, port_hdr
 
 
 @pytest.mark.parametrize("case", ["default", "masked_shadows"])
 def test_rt_frame_hdr_matches_jax(small_frames, case):
+    """The port's frame against the JAX package's; the default case also
+    the XLA route's (use_pallas=False: the plain traversal, one trace per
+    sample), which is the JAX package's CPU route too."""
     jax_hdr, port_hdr = small_frames
     assert port_hdr[case].shape == jax_hdr[case].shape == (32, 48, 3)
     assert np.abs(port_hdr[case] - jax_hdr[case]).mean() <= 1e-3
+    if case == "default":
+        assert port_hdr["xla"].shape == (32, 48, 3)
+        assert np.abs(port_hdr["xla"] - jax_hdr[case]).mean() <= 1e-3
     if case == "masked_shadows":   # the cube's shadow is gone
         assert np.abs(port_hdr[case] - port_hdr["default"]).max() > 0.05
 

@@ -214,7 +214,33 @@ Phases, each reported as one JSON line:
            K10/K11 from crowd, hybrid and big_model, K1, K2, K5 and K8-K11
            also from textured, the alpha forms of K8 and K11 from leaf_rt,
            K12 and the step forms of K7/K10 from probes, K1, K8-K11 also
-           from animation;
+           from animation, K1, K2 and K7-K11 also from parallel (its four
+           ranks' main-path pass; K1's and K2's rows also carry their
+           windowed form's compare);
+  parallel the sharded frames (paperrenderer_tpu_torch.parallel): the
+           windowed K1 on config 2's and the translucent grid's opaque
+           triangles and K2's first peel layer on the bottom-right 960x540
+           window of 1920x1080 (origin (960, 540), inside the 8x32 cells),
+           bitwise against their plain versions; (a) NCCL at world size 1
+           in this process: config 2 through sharded_render_frame_static
+           (K1) bitwise RenderPass.render, hybrid config 4 through
+           make_sharded_hybrid_frame bitwise the single-device hybrid frame
+           (paged with the tile key fold_in(key, 0); flat on a deterministic
+           copy); (b) four gloo ranks sharing the card in a 2x2 mesh
+           (960x540 windows, collectives staged through host memory):
+           config 2, the translucent grid (4 layers), config 2 at
+           supersample 2 and the 128x128 example through
+           sharded_render_frame_static(use_pallas=True), gathered and held
+           to the single-device frames (depth bitwise, tid, LDR where tid
+           is equal), measure_sharded_demand == required, the example in
+           tests/goldens/sharded_raster.png's bands; config 3's RT frame (flat, paged) and config 4's hybrid
+           frame, each tile bitwise a one-process call on its window with
+           its folded key, and deterministic copies (radius-0 lights, no AO
+           or reflections) gathered bitwise the single-device frames;
+           per-rank frame ms beside the single-device ms (four ranks on one
+           card: no scaling number); the ranks' launches of one pass join
+           the kernels line (K1, K2, K7 from the hybrid frame's AO pass,
+           K8-K11);
   sync     cost of the raster frame's one device-to-host read (the pair
            count): frame time as is vs. with the count supplied.
 
@@ -2443,6 +2469,405 @@ def examples_phase(work_dir, timeout=300):
     return dict(ok=ok, **out)
 
 
+PARALLEL_RANKS = 4           # gloo ranks sharing the one card, a 2x2 mesh
+PARALLEL_FRAMES = 5          # timed frames a case (after one warm-up)
+
+
+def deterministic(render):
+    """``render`` (an RT or hybrid render) with radius-0 lights and no AO or
+    reflection samples: every sample is the same ray, so a tile's folded
+    key cannot change its pixels."""
+    import torch
+
+    if hasattr(render, "params"):                  # RayTraceRender
+        render.params = dataclasses.replace(render.params, ao_samples=0,
+                                            reflection_samples=0)
+        render.lights = dataclasses.replace(
+            render.lights, radius=torch.zeros_like(render.lights.radius))
+    else:                                          # HybridRender
+        render.ao_samples = render.reflection_samples = 0
+        rp = render._rp
+        rp.lights = dataclasses.replace(
+            rp.lights, radius=torch.zeros_like(rp.lights.radius))
+    render.invalidate()
+    return render
+
+
+def parallel_scenes():
+    """The parallel phase's scenes at 1920x1080 on the card: config 2's
+    grid, the translucent grid (4 layers), config 3's RT scene and config
+    4's hybrid scene, with deterministic copies of the last two."""
+    from paperrenderer_tpu_torch.scenes import (
+        build_dynamic_scene, build_example_scene, build_hybrid_scene,
+        build_rt_scene, build_translucent_grid)
+
+    w, h = 1920, 1080
+    rp1, cam1 = build_example_scene(128, 128, device="cuda")
+    _, rp2, cam2 = build_dynamic_scene(10_000, w, h, device="cuda")
+    _, rpt, camt = build_translucent_grid(10_000, w, h, device="cuda")
+    _, rt, cam3 = build_rt_scene(w, h, device="cuda")
+    _, rt_det, _ = build_rt_scene(w, h, device="cuda")
+    _, hy, cam4 = build_hybrid_scene(w, h, device="cuda")
+    _, hy_det, _ = build_hybrid_scene(w, h, device="cuda")
+    return dict(
+        static=dict(config2=(rp2, cam2, {}),
+                    translucent=(rpt, camt, dict(translucent_layers=4)),
+                    ss2_config2=(rp2, cam2, dict(supersample=2)),
+                    golden128=(rp1, cam1, {})),
+        rt=dict(config3=(rt, cam3), config3_det=(deterministic(rt_det), cam3)),
+        hybrid=dict(config4=(hy, cam4),
+                    config4_det=(deterministic(hy_det), cam4)))
+
+
+def parallel_frames(mesh, scenes, key):
+    """One sharded frame of each case as closures -> {name: fn() -> tile};
+    the static ones return (ldr, required, aux), the RT and hybrid ones
+    the ldr tile (and the hybrid's aux)."""
+    from paperrenderer_tpu_torch.parallel import (
+        make_sharded_hybrid_frame, make_sharded_rt_frame,
+        sharded_render_frame_static)
+    from paperrenderer_tpu_torch.parallel import tiles as PT
+
+    fns = {}
+    for name, (rp, cam, kw) in scenes["static"].items():
+        args, fkw = PT.static_inputs(rp, cam)
+        fns[name] = functools.partial(
+            sharded_render_frame_static, mesh, *args, **fkw, **kw,
+            use_pallas=True, return_required=True, return_aux=True)
+    for name, (rt, cam) in scenes["rt"].items():
+        for paged in (False, True):
+            meta, args, kw = PT.rt_inputs(rt, cam, key)
+            fn = make_sharded_rt_frame(mesh, meta, use_pallas=True,
+                                       paged=paged)
+            fns[f"{name}_{'paged' if paged else 'flat'}"] = \
+                functools.partial(fn, *args, **kw)
+    for name, (hy, cam) in scenes["hybrid"].items():
+        meta, args, kw = PT.hybrid_inputs(hy, cam, key)
+        fn = make_sharded_hybrid_frame(mesh, meta, use_pallas_trace=True)
+        fns[name] = functools.partial(fn, *args, **kw, use_pallas=True)
+    return fns
+
+
+def parallel_rank(rank, world, out_dir):
+    """One of the parallel phase's gloo ranks, all on the one card: every
+    case's main path once with the launch counters at 0 (read after),
+    each tile against a one-process call on its window with its folded
+    key (RT: trace_frame; hybrid: parallel.tiles.hybrid_tile on the
+    un-gathered batch), the tiles gathered to rank 0 (written to
+    ``out_dir``), the probe against ``required``, per-rank frame ms."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from paperrenderer_tpu_torch.ops import accel as ACC
+    from paperrenderer_tpu_torch.ops import raster_exact as RE
+    from paperrenderer_tpu_torch.ops import trace as T
+    from paperrenderer_tpu_torch.ops import trace_kernel as TK
+    from paperrenderer_tpu_torch.ops import trace_paged as TPG
+    from paperrenderer_tpu_torch.ops.static_batch import expand_static
+    from paperrenderer_tpu_torch.ops.tonemap import tonemap
+    from paperrenderer_tpu_torch.parallel import (gather_tiles,
+                                                  make_tile_mesh,
+                                                  measure_sharded_demand)
+    from paperrenderer_tpu_torch.parallel import tiles as PT
+    from paperrenderer_tpu_torch.utils import random as rnd
+
+    torch.cuda.set_device(0)
+    mesh = make_tile_mesh()
+    key = rnd.prng_key(11)
+    scenes = parallel_scenes()
+    fns = parallel_frames(mesh, scenes, key)
+    counters = (RE.LAUNCHES, TK.LAUNCHES, TPG.LAUNCHES)
+    for fn in fns.values():                      # warm-up: loads, caches
+        fn()
+    torch.cuda.synchronize()
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    outs = {name: fn() for name, fn in fns.items()}   # the main path
+    torch.cuda.synchronize()
+    launches = {k: v for c in counters for k, v in c.items() if v}
+    res = dict(rank=rank, coords=mesh.coords, shape=mesh.shape,
+               backend=mesh.backend, launches=launches, checks={}, ms={})
+    gathered = {}
+    for name, out in outs.items():
+        if name in scenes["static"]:
+            ldr, required, aux = out
+            gathered[name] = dict(
+                ldr=gather_tiles(ldr, mesh).cpu(), required=required,
+                depth=gather_tiles(aux["depth"], mesh).cpu(),
+                tri_id=gather_tiles(aux["tri_id"], mesh).cpu())
+        else:
+            ldr = out[0] if isinstance(out, tuple) else out
+            gathered[name] = gather_tiles(ldr, mesh).cpu()
+    # each RT / hybrid tile against one process on its window
+    for name, (rt, cam) in scenes["rt"].items():
+        for paged in (False, True):
+            meta, args, kw = PT.rt_inputs(rt, cam, key)
+            (blasset, anim_rest, anim_nodes, instances, inst_blas, masks,
+             tri_attr, table, lights, cm, slots, tm, _, time_, tex) = args
+            tile_w, tile_h, win = PT.tile_window(mesh, kw["width"],
+                                                 kw["height"])
+            ctx = ACC.make_scene_tracer(
+                blasset, meta, anim_rest, anim_nodes, instances, inst_blas,
+                masks, tri_attr, slots, table, tlas_index=0,
+                stack_size=kw["stack_size"], paged=paged, leaf_cutout=False,
+                textures=tex, time=time_)
+            params = T.RTParams(
+                shadow_samples=kw["shadow_samples"],
+                reflection_samples=kw["reflection_samples"],
+                ao_samples=kw["ao_samples"], ao_radius=kw["ao_radius"])
+            one = tonemap(T.trace_frame(
+                ctx, table, lights, cm, rnd.fold_in(key, mesh.index),
+                width=tile_w, height=tile_h, params=params, **win), tm)
+            case = f"{name}_{'paged' if paged else 'flat'}"
+            res["checks"][case] = same_bits(outs[case], one)
+    for name, (hy, cam) in scenes["hybrid"].items():
+        meta, args, kw = PT.hybrid_inputs(hy, cam, key)
+        (mapping, blasset, anim_rest, anim_nodes, instances, inst_blas,
+         tri_attr, tables, table, lights, cm, slots, visible, tm, _, time_,
+         tex) = args
+        tile_w, tile_h, win = PT.tile_window(mesh, kw["width"], kw["height"])
+        batch, _ = expand_static(mapping, instances, tables, cm, slots,
+                                 visible)
+        mask = (torch.ones(instances.capacity, dtype=torch.bool,
+                           device="cuda"),)
+        ctx = ACC.make_scene_tracer(
+            blasset, meta, anim_rest, anim_nodes, instances, inst_blas, mask,
+            tri_attr, slots, table, tlas_index=0,
+            stack_size=kw["stack_size"], textures=tex, time=time_)
+        one, _ = PT.hybrid_tile(
+            batch, ctx, table, lights, cm, tm, rnd.fold_in(key, mesh.index),
+            tex, tile_w=tile_w, tile_h=tile_h, window=win, use_pallas=True,
+            shadow_samples=kw["shadow_samples"],
+            reflection_samples=kw["reflection_samples"],
+            ao_samples=kw["ao_samples"], ao_radius=kw["ao_radius"])
+        res["checks"][name] = same_bits(outs[name][0], one)
+    if rank == 0:
+        for name, (rp, cam, kw) in scenes["static"].items():
+            m, inst, tables, mats, cm, slots, vis = rp.frame_inputs(cam)
+            gathered[name]["probe"] = measure_sharded_demand(
+                m, inst, tables, cm, slots, vis, mats, width=rp.width,
+                height=rp.height, rows=mesh.shape[0], cols=mesh.shape[1],
+                translucent_layers=kw.get("translucent_layers", 0),
+                supersample=kw.get("supersample", 1))
+        torch.save(gathered, os.path.join(out_dir, "gathered.pt"))
+    # per-rank frame ms (the ranks share the card: not a scaling number)
+    for name, fn in fns.items():
+        torch.distributed.barrier()
+        times = []
+        for _ in range(PARALLEL_FRAMES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res["ms"][name] = statistics.median(times)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def window_err(a, b):
+    """Max |a - b| of two depth planes, +inf where empty in both."""
+    import torch
+
+    both = torch.isfinite(a) & torch.isfinite(b)
+    if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
+        return float("inf")
+    return float((a[both] - b[both]).abs().max()) if both.any() else 0.0
+
+
+def parallel_phase(work_dir):
+    """The parallel phase: (a) NCCL at world size 1 in this process, the
+    sharded static (K1) and hybrid frames bitwise the single-device ones;
+    (b) four gloo ranks sharing the card in a 2x2 mesh (960x540 windows),
+    their gathered frames against this process's single-device frames."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from paperrenderer_tpu_torch.ops import raster_exact as RE
+    from paperrenderer_tpu_torch.ops.raster import attach_cull
+    from paperrenderer_tpu_torch.ops.static_batch import expand_static
+    from paperrenderer_tpu_torch.ops.translucency import non_opaque_mask
+    from paperrenderer_tpu_torch.parallel import (
+        make_sharded_hybrid_frame, make_tile_mesh, spawn_ranks)
+    from paperrenderer_tpu_torch.parallel import tiles as PT
+    from paperrenderer_tpu_torch.render.hybrid import render_frame_hybrid
+    from paperrenderer_tpu_torch.utils import random as rnd
+
+    shutil.rmtree(work_dir, ignore_errors=True)
+    os.makedirs(work_dir)
+    out, ok = {}, True
+    scenes = parallel_scenes()
+    key = rnd.prng_key(11)
+
+    # the windowed K1 and K2 on the card against their plain versions, on
+    # the bottom-right 960x540 window (origin (960, 540): its cells straddle
+    # the full grid's rows) of config 2 and of the translucent grid's first
+    # peel layer
+    win = dict(full_width=1920, full_height=1080, origin=(960, 540))
+    kernels = {}
+    for name in ("config2", "translucent"):
+        rp, cam, _ = scenes["static"][name]
+        m, inst, tables, mats, cm, slots, vis = rp.frame_inputs(cam)
+        batch, _ = expand_static(m, inst, tables, cm, slots, vis)
+        batch = attach_cull(batch, mats)
+        glass = non_opaque_mask(mats, batch.material)
+        opaque = dataclasses.replace(batch, valid=batch.valid & ~glass)
+        bins = RE.bin_triangles(opaque, 960, 540, **win)
+        args = (bins.cell_start, bins.cell_groups, bins.coef, 960, 540)
+        (d_k, t_k), ms = timed_once(lambda: RE.rasterize_bins(*args, **win))
+        (d_p, t_p), plain_ms = timed_once(lambda: RE.rasterize_bins_plain(
+            *args, origin=win["origin"]))
+        kernels[f"k1_{name}_window"] = dict(
+            bitwise=same_bits(d_k, d_p) and same_bits(t_k, t_p),
+            max_abs_err=window_err(d_k, d_p), ms=ms, plain_ms=plain_ms,
+            pairs=bins.n_pairs)
+        if name == "translucent":
+            tb = RE.bin_triangles(dataclasses.replace(
+                batch, valid=batch.valid & glass), 960, 540, **win)
+            floor = torch.full((540, 960), torch.iinfo(torch.int32).min + 1,
+                               dtype=torch.int32, device="cuda")
+            window = (floor, RE.depth_to_key(d_k))
+            args = (tb.cell_start, tb.cell_groups, tb.coef, 960, 540)
+            (d_k, t_k), ms = timed_once(lambda: RE.rasterize_bins(
+                *args, keyed=True, window=window, **win))
+            (d_p, t_p), plain_ms = timed_once(
+                lambda: RE.rasterize_bins_plain(
+                    *args, keyed=True, window=window, origin=win["origin"]))
+            kernels["k2_translucent_window_layer1"] = dict(
+                bitwise=same_bits(d_k, d_p) and same_bits(t_k, t_p),
+                max_abs_err=window_err(d_k, d_p), ms=ms, plain_ms=plain_ms,
+                pairs=tb.n_pairs, covered=int((t_k >= 0).sum()))
+    out["windowed_kernels"] = kernels
+    ok &= all(v["bitwise"] for v in kernels.values())
+
+    # (a) NCCL, world size 1
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(work_dir, "nccl1"), 1),
+        rank=0, world_size=1)
+    try:
+        mesh = make_tile_mesh()
+        fns = parallel_frames(mesh, scenes, key)
+        a = {}
+        rp, cam, _ = scenes["static"]["config2"]
+        ldr_1, req_1, _ = fns["config2"]()
+        ldr, aux = rp.render(cam)
+        a["config2_static"] = dict(bitwise=same_bits(ldr_1, ldr),
+                                   required=req_1,
+                                   single_required=aux["required_work"])
+        for name, paged in (("config4", True), ("config4_det", False)):
+            hy, cam = scenes["hybrid"][name]
+            meta, args, kw = PT.hybrid_inputs(hy, cam, key)
+            ldr_1, _ = make_sharded_hybrid_frame(
+                mesh, meta, use_pallas_trace=True, paged=paged)(
+                    *args, **kw, use_pallas=True)
+            rp = hy._rp
+            m, inst, tables, table, cm, slots, vis = rp.frame_inputs(cam)
+            blasset, meta, anim_rest, anim_nodes = hy.accel.blas()
+            cap = inst.capacity
+            ldr, _ = render_frame_hybrid(
+                m, blasset, meta, anim_rest, anim_nodes, inst,
+                hy.accel.inst_blas(cap), hy.accel.tri_attr(), tables, table,
+                rp.lights, cm, slots, vis, rp.tonemap_params,
+                rnd.fold_in(key, 0), args[15], width=hy.width,
+                height=hy.height, stack_size=hy.accel.stack_size(cap),
+                paged=paged, shadow_samples=hy.shadow_samples,
+                reflection_samples=hy.reflection_samples,
+                ao_samples=hy.ao_samples, ao_radius=hy.ao_radius,
+                textures=rp._cached_textures)
+            a[f"{name}_{'paged' if paged else 'flat'}"] = dict(
+                bitwise=same_bits(ldr_1, ldr))
+        a["backend"] = mesh.backend
+        ok &= all(v["bitwise"] for v in a.values() if isinstance(v, dict))
+        out["nccl_world1"] = a
+    finally:
+        dist.destroy_process_group()
+
+    # (b) four gloo ranks on the one card
+    t0 = time.perf_counter()
+    spawn_ranks(parallel_rank, PARALLEL_RANKS, backend="gloo",
+                init_file=os.path.join(work_dir, "gloo4"),
+                args=(work_dir,), timeout=400)
+    b = dict(spawn_seconds=round(time.perf_counter() - t0, 3))
+    ranks = [json.load(open(os.path.join(work_dir, f"rank{r}.json")))
+             for r in range(PARALLEL_RANKS)]
+    gathered = torch.load(os.path.join(work_dir, "gathered.pt"))
+    b["mesh"] = [dict(rank=r["rank"], coords=r["coords"], shape=r["shape"],
+                      backend=r["backend"]) for r in ranks]
+    b["tile_vs_one_process"] = {c: [r["checks"][c] for r in ranks]
+                                for c in ranks[0]["checks"]}
+    ok &= all(all(v) for v in b["tile_vs_one_process"].values())
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    b["launches"] = launches
+    ok &= all(launches.get(k, 0) > 0 for k in (
+        "raster_exact", "raster_peel", "trace_scene", "trace_resolve",
+        "trace_bundle", "trace_scene_paged", "trace_resolve_paged"))
+    for name, (rp, cam, kw) in scenes["static"].items():
+        g = gathered[name]
+        rp.translucent_layers = kw.get("translucent_layers", 0)
+        rp.supersample = kw.get("supersample", 1)
+        ldr, aux = rp.render(cam)
+        single_ms = frame_ms(rp, cam, frames=PARALLEL_FRAMES, warmup=1)
+        m, inst, tables, mats, cm, slots, vis = rp.frame_inputs(cam)
+        batch, _ = expand_static(m, inst, tables, cm, slots, vis)
+        batch = attach_cull(batch, mats)
+        if rp.translucent_layers:
+            batch = dataclasses.replace(batch, valid=batch.valid & ~non_opaque_mask(
+                mats, batch.material))
+        ss = rp.supersample
+        depth, tid, _, _ = RE.rasterize_exact(batch, rp.width * ss,
+                                              rp.height * ss)
+        rp.translucent_layers, rp.supersample = 0, 1
+        same_tid = g["tri_id"] == tid.cpu()
+        h_, w_ = rp.height, rp.width
+        same_px = same_tid.view(h_, ss, w_, ss).all(dim=3).all(dim=1)
+        ldr_c = ldr.cpu()
+        ldr_ok = bool(((g["ldr"] == ldr_c).all(dim=-1) | ~same_px).all())
+        b[name] = dict(
+            depth_bitwise=same_bits(g["depth"], depth.cpu()),
+            tid_mismatches=int((~same_tid).sum()),
+            ldr_bitwise_where_tid_equal=ldr_ok,
+            ldr_bitwise=same_bits(g["ldr"], ldr_c),
+            required=g["required"], probe=g["probe"],
+            probe_equals_required=g["probe"] == g["required"],
+            single_required=aux["required_work"],
+            rank_frame_ms=[r["ms"][name] for r in ranks],
+            single_device_frame_ms=single_ms)
+        ok &= (b[name]["depth_bitwise"] and ldr_ok
+               and b[name]["probe_equals_required"])
+        if name == "golden128":   # the JAX package's sharded gate
+            gate, mean, frac = bands(g["ldr"].numpy(),
+                                     golden("sharded_raster"))
+            b[name]["sharded_raster_png"] = dict(ok=gate, mean=mean,
+                                                 frac=frac)
+            ok &= gate
+    for kind in ("rt", "hybrid"):
+        for name, (r_, cam) in scenes[kind].items():
+            layouts = (False, True) if kind == "rt" else (False,)
+            for paged in layouts:
+                case = (f"{name}_{'paged' if paged else 'flat'}"
+                        if kind == "rt" else name)
+                render = functools.partial(r_.render, cam, paged=paged)
+                b[case] = dict(rank_frame_ms=[r["ms"][case] for r in ranks])
+                if name.endswith("_det"):   # the same rays: the same bits
+                    b[case]["bitwise_vs_single_device"] = same_bits(
+                        gathered[case], render()[0].cpu())
+                    ok &= b[case]["bitwise_vs_single_device"]
+                else:
+                    b[case]["single_device_frame_ms"] = frame_ms(
+                        r_, cam, frames=PARALLEL_FRAMES, warmup=1,
+                        paged=paged)
+    b["note"] = ("four gloo ranks share one card: per-rank frame ms are "
+                 "not a scaling number")
+    out["gloo_2x2_one_card"] = b
+    return dict(ok=ok, **out)
+
+
 def sync_cost(rp, cam, frames=20, rounds=4):
     """Frame time with the per-frame pair-count read vs. with the count
     supplied (same camera, so the count is known): loops of `frames`
@@ -3342,6 +3767,17 @@ def main():
         for k in ks:
             launches[k] += slice_launches[p_name].get(k, 0)
             launch_path[k] = tuple(launch_path[k]) + (p_name,)
+    # the sharded frames: (a) NCCL at world size 1 here, (b) four gloo ranks
+    # on the card; (b)'s ranks count their main path's launches
+    phase("parallel", lambda: parallel_phase(os.path.join(work, "parallel")))
+    par_launches = results["parallel"].get("gloo_2x2_one_card", {}).get(
+        "launches", {})
+    par_needs = ("raster_exact", "raster_peel", "trace_scene",
+                 "trace_resolve", "trace_bundle", "trace_scene_paged",
+                 "trace_resolve_paged")
+    for k in par_needs:
+        launches[k] += par_launches.get(k, 0)
+        launch_path[k] = tuple(launch_path[k]) + ("parallel",)
 
     raster_needs = dict(config1=["raster_exact"], config2=["raster_exact"],
                         translucent=["raster_exact", "raster_peel"],
@@ -3371,9 +3807,10 @@ def main():
             and all(tex_launches.get(k, 0) > 0 for k in tex_needs)
             and all(anim_launches.get(k, 0) > 0 for k in anim_needs)
             and all(slice_launches[p].get(k, 0) > 0
-                    for p, ks in slice_needs.items() for k in ks)),
+                    for p, ks in slice_needs.items() for k in ks)
+            and all(par_launches.get(k, 0) > 0 for k in par_needs)),
         **raster_launches, **rt_launches, probes=probe_launches,
-        animation=anim_launches, **slice_launches))
+        animation=anim_launches, parallel=par_launches, **slice_launches))
     phase("sync", lambda: {f"config{c}": sync_cost(*get(c)) for c in (1, 2)})
     if args.profile:
         out_dir = os.path.join(HERE, "chiprun_out")
@@ -3588,6 +4025,16 @@ def main():
         for p_name in slice_needs:   # this slice's phases, counted or not
             row["launches_" + p_name] = slice_launches[p_name].get(
                 k["name"], 0)
+        row["launches_parallel"] = par_launches.get(k["name"], 0)
+        win_case = dict(raster_exact="k1_config2_window",
+                        raster_peel="k2_translucent_window_layer1").get(
+                            k["name"])
+        if win_case:   # the windowed form (parallel phase, 960x540 window)
+            row["window"] = results["parallel"].get(
+                "windowed_kernels", {}).get(win_case)
+            err = (row["window"] or {}).get("max_abs_err", float("nan"))
+            if err == err:
+                row["max_abs_err"] = max(row["max_abs_err"], err)
         row["launches_xla_route"] = sum(   # 0: the route runs no kernel
             v.get("launches", {}).get(k["name"], 0) for v in results.get(
                 "xla_route", {}).values() if isinstance(v, dict))

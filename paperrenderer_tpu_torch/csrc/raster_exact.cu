@@ -71,6 +71,16 @@
 // 202.6 M candidates, as the plain version does, would take an H100 at
 // least 0.13 ms.
 //
+// Screen-tile windows (parallel/tiles.py): (x0, y0) is the window's origin
+// in the viewport whose coefficients the rows hold. The cells are the
+// viewport's cells that meet the window (cell 0 starts x0 % CW pixels left
+// of the window and y0 % 8 above it) with the viewport's lists, and the
+// outputs are the window's. The pixel centre and the footprint's outer
+// centres add the origin in integers before the float conversion, as the
+// TPU kernel does ((tx * TILE_W + org) as f32 + 0.5), so every pixel meets
+// the single-device run's candidates in its order, in the same rounding.
+// (0, 0) is the whole image.
+//
 // Every product and sum is rounded on its own (__fmul_rn / __fadd_rn, the
 // divide is __fdiv_rn, and the build passes -fmad=false): the results are
 // bitwise equal to the plain PyTorch version, rasterize_bins_plain in
@@ -96,7 +106,9 @@ constexpr int FOOT_H = 32 / FOOT_W;
 // layers; 5 gives 40 and no spill)
 constexpr int MIN_BLOCKS = 5;
 
-// This thread's pixel and its warp's footprint in `cell` of 8 x CW pixels.
+// This thread's pixel (in the window; negative left of or above it) and
+// its warp's footprint in `cell` of 8 x CW pixels; the centres are in the
+// viewport, the window at origin (x0, y0).
 struct Pixel {
     int x, y;
     float px, py;                        // the pixel centre
@@ -104,35 +116,37 @@ struct Pixel {
 };
 
 template <int CW>
-__device__ __forceinline__ Pixel pixel_of(int cell, int n_bx) {
+__device__ __forceinline__ Pixel pixel_of(int cell, int n_bx, int x0, int y0) {
     constexpr int PER_ROW = CW / FOOT_W;   // footprints across a cell
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int fx = (cell % n_bx) * CW + (warp % PER_ROW) * FOOT_W;
-    const int fy = (cell / n_bx) * CELL_H + (warp / PER_ROW) * FOOT_H;
+    const int fx = (cell % n_bx) * CW + (warp % PER_ROW) * FOOT_W - x0 % CW;
+    const int fy =
+        (cell / n_bx) * CELL_H + (warp / PER_ROW) * FOOT_H - y0 % CELL_H;
     Pixel p;
     p.x = fx + lane % FOOT_W;
     p.y = fy + lane / FOOT_W;
-    p.px = (float)p.x + 0.5f;
-    p.py = (float)p.y + 0.5f;
-    p.x_lo = (float)fx + 0.5f;
-    p.x_hi = (float)(fx + FOOT_W - 1) + 0.5f;
-    p.y_lo = (float)fy + 0.5f;
-    p.y_hi = (float)(fy + FOOT_H - 1) + 0.5f;
+    p.px = (float)(p.x + x0) + 0.5f;
+    p.py = (float)(p.y + y0) + 0.5f;
+    p.x_lo = (float)(fx + x0) + 0.5f;
+    p.x_hi = (float)(fx + x0 + FOOT_W - 1) + 0.5f;
+    p.y_lo = (float)(fy + y0) + 0.5f;
+    p.y_hi = (float)(fy + y0 + FOOT_H - 1) + 0.5f;
     return p;
 }
 
 // Narrows the warp's footprint to the box of the pixels whose `open` is
 // set (at least one lane's); every lane of the warp calls it.
-__device__ __forceinline__ void shrink_to(Pixel& p, bool open) {
+__device__ __forceinline__ void shrink_to(Pixel& p, bool open, int x0,
+                                          int y0) {
     const unsigned big = 0x7fffffffu;
-    const int x0 = (int)__reduce_min_sync(FULL, open ? (unsigned)p.x : big);
-    const int x1 = (int)__reduce_max_sync(FULL, open ? (unsigned)p.x : 0u);
-    const int y0 = (int)__reduce_min_sync(FULL, open ? (unsigned)p.y : big);
-    const int y1 = (int)__reduce_max_sync(FULL, open ? (unsigned)p.y : 0u);
-    p.x_lo = (float)x0 + 0.5f;
-    p.x_hi = (float)x1 + 0.5f;
-    p.y_lo = (float)y0 + 0.5f;
-    p.y_hi = (float)y1 + 0.5f;
+    const int xa = (int)__reduce_min_sync(FULL, open ? (unsigned)p.x : big);
+    const int xb = (int)__reduce_max_sync(FULL, open ? (unsigned)p.x : 0u);
+    const int ya = (int)__reduce_min_sync(FULL, open ? (unsigned)p.y : big);
+    const int yb = (int)__reduce_max_sync(FULL, open ? (unsigned)p.y : 0u);
+    p.x_lo = (float)(xa + x0) + 0.5f;
+    p.x_hi = (float)(xb + x0) + 0.5f;
+    p.y_lo = (float)(ya + y0) + 0.5f;
+    p.y_hi = (float)(yb + y0) + 0.5f;
 }
 
 // Calls visit(zn, wn, global id) for every accepted candidate of the pixel
@@ -180,10 +194,10 @@ __global__ void __launch_bounds__(32 * CELL_H, MIN_BLOCKS)
 raster_exact_kernel(const int32_t* __restrict__ cell_start,
                     const int32_t* __restrict__ cell_groups,
                     const float4* __restrict__ coef,
-                    int width, int height, int n_bx,
+                    int width, int height, int n_bx, int x0, int y0,
                     float* __restrict__ depth, int32_t* __restrict__ tid) {
     const int cell = blockIdx.x;
-    const Pixel p = pixel_of<32>(cell, n_bx);
+    const Pixel p = pixel_of<32>(cell, n_bx, x0, y0);
     float zb = 1.0f, wb = 0.0f;
     int32_t best = -1;
     walk_list(cell_groups, coef, cell_start[cell], cell_start[cell + 1], p,
@@ -194,7 +208,7 @@ raster_exact_kernel(const int32_t* __restrict__ cell_start,
                       best = id;
                   }
               });
-    if (p.x < width && p.y < height) {
+    if (p.x >= 0 && p.y >= 0 && p.x < width && p.y < height) {
         const int64_t o = (int64_t)p.y * width + p.x;
         depth[o] = best >= 0 ? __fdiv_rn(zb, fmaxf(wb, 1e-30f)) : INFINITY;
         tid[o] = best;
@@ -206,13 +220,13 @@ __global__ void __launch_bounds__(CW * CELL_H, CW == 32 ? MIN_BLOCKS : 1)
 raster_keyed_kernel(const int32_t* __restrict__ cell_start,
                     const int32_t* __restrict__ cell_groups,
                     const float4* __restrict__ coef,
-                    int width, int height, int n_bx,
+                    int width, int height, int n_bx, int x0, int y0,
                     const int32_t* __restrict__ floor_key,
                     const int32_t* __restrict__ ceil_key,
                     float* __restrict__ depth, int32_t* __restrict__ tid) {
     const int cell = blockIdx.x;
-    Pixel p = pixel_of<CW>(cell, n_bx);
-    const bool in_image = p.x < width && p.y < height;
+    Pixel p = pixel_of<CW>(cell, n_bx, x0, y0);
+    const bool in_image = p.x >= 0 && p.y >= 0 && p.x < width && p.y < height;
     const int64_t o = (int64_t)p.y * width + p.x;
     // outside the image the empty window (0, 0) accepts nothing
     int32_t fl = 0, ce = 0;
@@ -231,7 +245,7 @@ raster_keyed_kernel(const int32_t* __restrict__ cell_start,
             }
             return;
         }
-        shrink_to(p, open);
+        shrink_to(p, open, x0, y0);
     }
     int32_t kb = SENTINEL;
     int32_t best = -1;
@@ -253,29 +267,33 @@ raster_keyed_kernel(const int32_t* __restrict__ cell_start,
 template <int CW, bool PEEL>
 void launch_keyed(const void* cell_start, const void* cell_groups,
                   const void* coef, int width, int height, int n_bx,
-                  int n_cells, const void* floor_key, const void* ceil_key,
-                  void* depth, void* tid, cudaStream_t stream) {
+                  int n_cells, int x0, int y0, const void* floor_key,
+                  const void* ceil_key, void* depth, void* tid,
+                  cudaStream_t stream) {
     raster_keyed_kernel<CW, PEEL><<<n_cells, CW * CELL_H, 0, stream>>>(
         (const int32_t*)cell_start, (const int32_t*)cell_groups,
-        (const float4*)coef, width, height, n_bx, (const int32_t*)floor_key,
+        (const float4*)coef, width, height, n_bx, x0, y0,
+        (const int32_t*)floor_key,
         (const int32_t*)ceil_key, (float*)depth, (int32_t*)tid);
 }
 
 }  // namespace
 
 // cell_start i32[n_cells + 1], cell_groups i32[n_pairs], coef f32[T_pad, 16]
-// (16-byte aligned), depth f32[height, width], tid i32[height, width];
-// n_cells = n_bx * ceil(height / 8) over 8x32 cells. Launches on `stream`
-// and returns cudaGetLastError() (0 = launched).
+// (16-byte aligned), depth f32[height, width], tid i32[height, width] of
+// the width x height window at (x0, y0) of the coefficients' viewport;
+// n_cells = n_bx * ceil((height + y0 % 8) / 8) over the viewport's 8x32
+// cells that meet it, n_bx = ceil((width + x0 % 32) / 32). Launches on
+// `stream` and returns cudaGetLastError() (0 = launched).
 extern "C" int raster_exact_launch(const void* cell_start,
                                    const void* cell_groups, const void* coef,
                                    int width, int height, int n_bx,
-                                   int n_cells, void* depth, void* tid,
-                                   void* stream) {
+                                   int n_cells, int x0, int y0, void* depth,
+                                   void* tid, void* stream) {
     if (n_cells > 0) {
         raster_exact_kernel<<<n_cells, 32 * CELL_H, 0, (cudaStream_t)stream>>>(
             (const int32_t*)cell_start, (const int32_t*)cell_groups,
-            (const float4*)coef, width, height, n_bx, (float*)depth,
+            (const float4*)coef, width, height, n_bx, x0, y0, (float*)depth,
             (int32_t*)tid);
     }
     return (int)cudaGetLastError();
@@ -288,7 +306,7 @@ extern "C" int raster_exact_launch(const void* cell_start,
 extern "C" int raster_keyed_launch(const void* cell_start,
                                    const void* cell_groups, const void* coef,
                                    int width, int height, int n_bx,
-                                   int n_cells, int cell_w,
+                                   int n_cells, int cell_w, int x0, int y0,
                                    const void* floor_key, const void* ceil_key,
                                    void* depth, void* tid, void* stream) {
     if (cell_w != 32 && cell_w != 128) return (int)cudaErrorInvalidValue;
@@ -297,16 +315,16 @@ extern "C" int raster_keyed_launch(const void* cell_start,
         auto s = (cudaStream_t)stream;
         if (cell_w == 32 && peel)
             launch_keyed<32, true>(cell_start, cell_groups, coef, width, height,
-                                   n_bx, n_cells, floor_key, ceil_key, depth, tid, s);
+                                   n_bx, n_cells, x0, y0, floor_key, ceil_key, depth, tid, s);
         else if (cell_w == 32)
             launch_keyed<32, false>(cell_start, cell_groups, coef, width, height,
-                                    n_bx, n_cells, nullptr, nullptr, depth, tid, s);
+                                    n_bx, n_cells, x0, y0, nullptr, nullptr, depth, tid, s);
         else if (peel)
             launch_keyed<128, true>(cell_start, cell_groups, coef, width, height,
-                                    n_bx, n_cells, floor_key, ceil_key, depth, tid, s);
+                                    n_bx, n_cells, x0, y0, floor_key, ceil_key, depth, tid, s);
         else
             launch_keyed<128, false>(cell_start, cell_groups, coef, width, height,
-                                     n_bx, n_cells, nullptr, nullptr, depth, tid, s);
+                                     n_bx, n_cells, x0, y0, nullptr, nullptr, depth, tid, s);
     }
     return (int)cudaGetLastError();
 }

@@ -17,9 +17,9 @@ struct and numpy only:
     images (an embedded bufferView, a ``data:`` URI or an external file),
     decoded by ``io.image.read_image`` and attached to the Material; the
     MaterialRegistry packs them into the atlas when its table is built.
-    An image in a format ``read_image`` does not decode (JPEG, 16-bit or
-    interlaced PNG) raises NotImplementedError naming the format and the
-    glTF image index;
+    An image in a form ``read_image`` does not decode (a progressive,
+    arithmetic-coded or 12-bit JPEG) raises NotImplementedError naming
+    the form and the glTF image index;
   * the node hierarchy with TRS or matrix transforms, flattened to world
     TRS (uniform-scale composition) in f32 on the CPU with the port's
     ``core.transforms``.

@@ -22,6 +22,19 @@ quantized depth: K3 (8x32 cells, ``crossz=False``), K4 (8x128 cells, the
 classic ``quarter=False`` kernel) and K2, K3 inside a per-pixel (floor,
 ceil) key window (``depth_window``, the depth peel of sorted translucency).
 
+Screen-tile windows (``parallel/tiles.py``): ``full_width``/``full_height``
+and ``origin`` = (x0, y0) render a width x height window of a larger
+viewport. The coefficients stay in full-viewport pixel space, so every edge
+test is bitwise the single-device run's; the kernels add the origin to
+their pixel and footprint coordinates in integers before the float
+conversion, as the JAX kernels do. A window's bin cells are the
+viewport's own cells that meet it (its grid starts at the cell holding the
+origin), with the viewport's lists: every pixel then meets the same
+candidates in the same order as in the single-device run, sliver strays
+included, at any origin. On a cell-aligned window (all of the JAX
+package's, whose windows are 128 x 8 multiples) this is the JAX package's
+window-space binning. Origin (0, 0) is the whole image.
+
 Capacity: eager PyTorch has dynamic shapes, so the pair buffers are sized
 exactly from this frame's pair count — one host read per frame
 (``int(ends[-1])`` in ``bin_groups``). The JAX package's static-shape
@@ -64,10 +77,13 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def grid_cells(width: int, height: int, cell_w: int = CELL_W) -> Tuple[int, int]:
+def grid_cells(width: int, height: int, cell_w: int = CELL_W,
+               origin=(0, 0)) -> Tuple[int, int]:
     """(n_bx, n_by): the 8 x ``cell_w`` bin-cell grid covering a width x
-    height image (ragged right/bottom cells are masked by the rasterizers)."""
-    return -(-width // cell_w), -(-height // CELL_H)
+    height image, or the viewport's cells that meet the width x height
+    window at ``origin`` (ragged cells are masked by the rasterizers)."""
+    ax, ay = origin[0] % cell_w, origin[1] % CELL_H
+    return -(-(width + ax) // cell_w), -(-(height + ay) // CELL_H)
 
 
 def pack_attr_coef(batch: TriangleBatch, coeffs: torch.Tensor) -> torch.Tensor:
@@ -88,10 +104,13 @@ def pack_attr_coef(batch: TriangleBatch, coeffs: torch.Tensor) -> torch.Tensor:
     )
 
 
-def _bin_spans(ok, lo, hi, t_pad, width, height, cell_w):
-    """Group screen AABBs -> inclusive bin-cell spans. Returns (gx0, gx1,
-    gy0, gy1, count) over GROUP-packed triangles; ``count`` is the group's
-    pair count (0 for a dead group or one whose AABB misses the image)."""
+def _bin_spans(ok, lo, hi, t_pad, width, height, cell_w, window=None):
+    """Group screen AABBs -> inclusive bin-cell spans over the width x height
+    image. Returns (gx0, gx1, gy0, gy1, count) over GROUP-packed triangles;
+    ``count`` is the group's pair count (0 for a dead group or one whose
+    AABB misses the image). ``window`` = (x0, y0, w, h) keeps the cells
+    that meet that window, numbered in its grid (``grid_cells`` at the
+    window's origin)."""
     n_bx, n_by = grid_cells(width, height, cell_w)
     t = ok.shape[0]
     lo_m = torch.where(ok[:, None], lo, float("inf"))
@@ -115,24 +134,39 @@ def _bin_spans(ok, lo, hi, t_pad, width, height, cell_w):
     gx1 = torch.maximum(cell_of(ghi[:, 0], cell_w, n_bx), gx0)
     gy0 = cell_of(glo[:, 1], CELL_H, n_by)
     gy1 = torch.maximum(cell_of(ghi[:, 1], CELL_H, n_by), gy0)
+    if window is not None:       # the window's cells, in its own grid
+        x0, y0, w, h = window
+        cx0, cy0 = x0 // cell_w, y0 // CELL_H
+        cx1, cy1 = (x0 + w - 1) // cell_w, (y0 + h - 1) // CELL_H
+        gx0, gx1 = torch.clamp(gx0, min=cx0) - cx0, torch.clamp(gx1, max=cx1) - cx0
+        gy0, gy1 = torch.clamp(gy0, min=cy0) - cy0, torch.clamp(gy1, max=cy1) - cy0
+        alive &= (gx0 <= gx1) & (gy0 <= gy1)
     count = torch.where(alive, (gx1 - gx0 + 1) * (gy1 - gy0 + 1), 0)
     return gx0, gx1, gy0, gy1, count
 
 
 def bin_groups(ok, lo, hi, t_pad: int, width: int, height: int,
-               n_pairs: Optional[int] = None, cell_w: int = CELL_W):
-    """(group, cell) pairs sorted by cell, over 8 x ``cell_w`` cells.
+               n_pairs: Optional[int] = None, cell_w: int = CELL_W, *,
+               full_width: Optional[int] = None,
+               full_height: Optional[int] = None, origin=(0, 0)):
+    """(group, cell) pairs sorted by cell, over 8 x ``cell_w`` cells of the
+    width x height image, or of the window at ``origin`` of the
+    full_width x full_height viewport (``lo``/``hi`` in viewport pixels):
+    the viewport's cells that meet the window, each with its viewport list.
 
     Returns ``cell_start`` i32[n_cells + 1] (cell c's list is
     ``cell_groups[cell_start[c]:cell_start[c + 1]]``), ``cell_groups``
     i32[n_pairs] in ascending group order within each cell, and ``n_pairs``
     — read from the device (the frame's one device-to-host read) unless the
     caller passes the count it already knows, e.g. for an unchanged frame."""
-    n_bx, n_by = grid_cells(width, height, cell_w)
+    n_bx, n_by = grid_cells(width, height, cell_w, origin)
     n_cells = n_bx * n_by
     dev = lo.device
-    gx0, gx1, gy0, gy1, count = _bin_spans(ok, lo, hi, t_pad, width, height,
-                                           cell_w)
+    fw, fh = full_width or width, full_height or height
+    window = (None if (fw, fh, tuple(origin)) == (width, height, (0, 0))
+              else (int(origin[0]), int(origin[1]), width, height))
+    gx0, gx1, gy0, gy1, count = _bin_spans(ok, lo, hi, t_pad, fw, fh, cell_w,
+                                           window)
     ends = torch.cumsum(count, 0)
     if n_pairs is None:
         n_pairs = int(ends[-1]) if ends.numel() else 0
@@ -176,7 +210,7 @@ def peel_window_open(floor: torch.Tensor, ceil: torch.Tensor) -> torch.Tensor:
 
 def rasterize_bins_plain(cell_start, cell_groups, coef, width: int,
                          height: int, *, cell_w: int = CELL_W,
-                         keyed: bool = False, window=None):
+                         keyed: bool = False, window=None, origin=(0, 0)):
     """Plain PyTorch version of the raster kernels (K1; keyed: K3/K4, and K2
     with ``window``).
 
@@ -187,9 +221,13 @@ def rasterize_bins_plain(cell_start, cell_groups, coef, width: int,
     per-operation rounding and the same strict compare: cross-multiplied
     (zn, wn), or with ``keyed`` the masked key of the IEEE quotient zn / wn,
     kept only inside ``window`` = (floor, ceil) i32[H, W] when given.
-    Returns (depth f32[H, W], tid i32[H, W])."""
-    n_bx, n_by = grid_cells(width, height, cell_w)
+    ``origin`` (x0, y0) offsets the pixel centres: the H x W window of the
+    viewport whose coefficients ``coef`` holds. Returns (depth f32[H, W],
+    tid i32[H, W])."""
+    n_bx, n_by = grid_cells(width, height, cell_w, origin)
     n_cells = n_bx * n_by
+    x0, y0 = (int(v) for v in origin)
+    ax, ay = x0 % cell_w, y0 % CELL_H     # the window inside its cells
     dev = coef.device
     lens = (cell_start[1:] - cell_start[:-1]).long()
     lens, order = torch.sort(lens, descending=True, stable=True)
@@ -201,13 +239,17 @@ def rasterize_bins_plain(cell_start, cell_groups, coef, width: int,
 
     def cells(img):  # [H, W] -> [n_cells, 8 * cell_w] in sorted cell order
         img = torch.nn.functional.pad(
-            img, (0, n_bx * cell_w - width, 0, n_by * CELL_H - height))
+            img, (ax, n_bx * cell_w - width - ax, ay,
+                  n_by * CELL_H - height - ay))
         img = img.reshape(n_by, CELL_H, n_bx, cell_w).permute(0, 2, 1, 3)
         return img.reshape(n_cells, CELL_H * cell_w)[order]
 
     lane = torch.arange(cell_w * CELL_H, device=dev)
-    px = ((order % n_bx)[:, None] * cell_w + lane % cell_w).float() + 0.5
-    py = ((order // n_bx)[:, None] * CELL_H + lane // cell_w).float() + 0.5
+    # viewport pixel coordinates, in integers before the float (the kernels')
+    px = ((order % n_bx)[:, None] * cell_w + lane % cell_w + (x0 - ax)
+          ).float() + 0.5
+    py = ((order // n_bx)[:, None] * CELL_H + lane // cell_w + (y0 - ay)
+          ).float() + 0.5
     if keyed:
         kb = torch.full(px.shape, SENTINEL, dtype=torch.int32, device=dev)
         if window is not None:
@@ -263,7 +305,8 @@ def rasterize_bins_plain(cell_start, cell_groups, coef, width: int,
     def image(v):  # [n_cells, 8 * cell_w] in sorted cell order -> [H, W]
         v = torch.empty_like(v).index_copy_(0, order, v)
         v = v.reshape(n_by, n_bx, CELL_H, cell_w).permute(0, 2, 1, 3)
-        return v.reshape(n_by * CELL_H, n_bx * cell_w)[:height, :width]
+        return v.reshape(n_by * CELL_H, n_bx * cell_w)[ay:ay + height,
+                                                       ax:ax + width]
 
     return image(depth).contiguous(), image(best).contiguous()
 
@@ -285,17 +328,34 @@ def _lib():
     if not _LIB:
         lib = load_library("raster_exact")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.raster_exact_launch.argtypes = [P] * 3 + [I] * 4 + [P] * 3
-        lib.raster_keyed_launch.argtypes = [P] * 3 + [I] * 5 + [P] * 5
+        lib.raster_exact_launch.argtypes = [P] * 3 + [I] * 6 + [P] * 3
+        lib.raster_keyed_launch.argtypes = [P] * 3 + [I] * 7 + [P] * 5
         lib.raster_exact_launch.restype = I
         lib.raster_keyed_launch.restype = I
         _LIB.append(lib)
     return _LIB[0]
 
 
+def check_window(name: str, width: int, height: int, full_width=None,
+                 full_height=None, origin=(0, 0)) -> Tuple[int, int]:
+    """The window's origin as ints; ValueError for a negative origin or a
+    window that leaves the full_width x full_height viewport (the window's
+    own size when not given)."""
+    x0, y0 = (int(v) for v in origin)
+    fw, fh = full_width or width, full_height or height
+    if x0 < 0 or y0 < 0 or x0 + width > fw or y0 + height > fh:
+        raise ValueError(
+            f"{name}: the {width}x{height} window at origin ({x0}, {y0}) "
+            f"does not lie inside the {fw}x{fh} viewport")
+    return x0, y0
+
+
 def _launch_kernel(cell_start, cell_groups, coef, width, height, cell_w,
-                   keyed, window):
+                   keyed, window, full_width=None, full_height=None,
+                   origin=(0, 0)):
     name = _kernel_name(cell_w, keyed, window)
+    x0, y0 = check_window(name, width, height, full_width, full_height,
+                          origin)
     planes = [("cell_start", cell_start, torch.int32),
               ("cell_groups", cell_groups, torch.int32),
               ("coef", coef, torch.float32)]
@@ -307,14 +367,16 @@ def _launch_kernel(cell_start, cell_groups, coef, width, height, cell_w,
             raise ValueError(f"{name}: {what} must be a contiguous "
                              f"{dtype} tensor on {coef.device}")
     if window is not None and any(p.shape != (height, width) for p in window):
-        raise ValueError(f"{name}: the window planes must be [{height}, {width}]")
+        raise ValueError(f"{name}: the depth-window planes must be the "
+                         f"[{height}, {width}] window grid's")
     if cell_w not in (CELL_W, TILE_W) or (cell_w != CELL_W and not keyed):
         raise ValueError(f"{name}: no kernel for {cell_w}-pixel cells")
-    n_bx, n_by = grid_cells(width, height, cell_w)
+    n_bx, n_by = grid_cells(width, height, cell_w, (x0, y0))
     if coef.dim() != 2 or coef.shape[1] != 16 or coef.shape[0] % GROUP:
         raise ValueError(f"{name}: coef must be [8k, 16], got {tuple(coef.shape)}")
     if cell_start.shape != (n_bx * n_by + 1,):
-        raise ValueError(f"{name}: cell_start does not match the image grid")
+        raise ValueError(f"{name}: cell_start does not match the "
+                         f"{width}x{height} window's grid")
     lib = _lib()
     depth = torch.empty((height, width), dtype=torch.float32, device=coef.device)
     tid = torch.empty((height, width), dtype=torch.int32, device=coef.device)
@@ -324,11 +386,11 @@ def _launch_kernel(cell_start, cell_groups, coef, width, height, cell_w,
     if keyed:
         fl, ce = (None, None) if window is None else (
             window[0].data_ptr(), window[1].data_ptr())
-        rc = lib.raster_keyed_launch(*head, cell_w, fl, ce, depth.data_ptr(),
-                                     tid.data_ptr(), stream)
+        rc = lib.raster_keyed_launch(*head, cell_w, x0, y0, fl, ce,
+                                     depth.data_ptr(), tid.data_ptr(), stream)
     else:
-        rc = lib.raster_exact_launch(*head, depth.data_ptr(), tid.data_ptr(),
-                                     stream)
+        rc = lib.raster_exact_launch(*head, x0, y0, depth.data_ptr(),
+                                     tid.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
@@ -336,7 +398,9 @@ def _launch_kernel(cell_start, cell_groups, coef, width, height, cell_w,
 
 
 def rasterize_bins(cell_start, cell_groups, coef, width: int, height: int,
-                   *, cell_w: int = CELL_W, keyed: bool = False, window=None):
+                   *, cell_w: int = CELL_W, keyed: bool = False, window=None,
+                   full_width: Optional[int] = None,
+                   full_height: Optional[int] = None, origin=(0, 0)):
     """Nearest covering triangle per pixel over binned groups.
 
     ``coef`` f32[T_pad, 16]: rows of (e0, e1, e2, zn, wn) coefficients;
@@ -346,17 +410,23 @@ def rasterize_bins(cell_start, cell_groups, coef, width: int, height: int,
     8x128; with ``window`` = (floor, ceil) i32[H, W] keys, K2 (or K4's peel
     form), which keeps only keys strictly inside the window. Returns (depth
     f32[H, W], +inf where empty and quantized when keyed; tid i32[H, W],
-    global triangle id, -1 where empty). A CUDA tensor launches the kernel
-    of ``csrc/raster_exact.cu``; a CPU tensor runs ``rasterize_bins_plain``."""
+    global triangle id, -1 where empty). ``origin`` places the width x
+    height window in the full_width x full_height viewport (the bins and
+    planes are the window's; ValueError where it leaves the viewport). A
+    CUDA tensor launches the kernel of ``csrc/raster_exact.cu``; a CPU
+    tensor runs ``rasterize_bins_plain``."""
     if window is not None and not keyed:
         raise ValueError("a depth window needs the keyed compare")
     if coef.device.type == "cuda":
         return _launch_kernel(cell_start, cell_groups, coef, width, height,
-                              cell_w, keyed, window)
+                              cell_w, keyed, window, full_width, full_height,
+                              origin)
     if coef.device.type == "cpu":
+        origin = check_window("raster_exact", width, height, full_width,
+                              full_height, origin)
         return rasterize_bins_plain(cell_start, cell_groups, coef, width,
                                     height, cell_w=cell_w, keyed=keyed,
-                                    window=window)
+                                    window=window, origin=origin)
     raise ValueError(f"raster_exact: unsupported device {coef.device}")
 
 
@@ -372,9 +442,14 @@ class BinnedFrame(NamedTuple):
 
 
 def bin_triangles(batch: TriangleBatch, width: int, height: int,
-                  cell_w: int = CELL_W) -> BinnedFrame:
-    """Triangle setup + binning: the raster kernel's inputs for ``batch``."""
-    coeffs, ok, (lo, hi) = triangle_coefficients(batch, width, height)
+                  cell_w: int = CELL_W, *, full_width: Optional[int] = None,
+                  full_height: Optional[int] = None,
+                  origin=(0, 0)) -> BinnedFrame:
+    """Triangle setup + binning: the raster kernel's inputs for ``batch``;
+    the setup over the full_width x full_height viewport, the bins over the
+    width x height window at ``origin``."""
+    coeffs, ok, (lo, hi) = triangle_coefficients(
+        batch, full_width or width, full_height or height)
     t = batch.capacity
     t_pad = _round_up(t, GROUP)
     table = pack_attr_coef(batch, coeffs)
@@ -383,12 +458,15 @@ def bin_triangles(batch: TriangleBatch, width: int, height: int,
         pad[:, 2] = -1.0                                  # dead: e0 < 0
         table = torch.cat([table, pad])
     cell_start, cell_groups, n_pairs = bin_groups(
-        ok, lo, hi, t_pad, width, height, cell_w=cell_w)
+        ok, lo, hi, t_pad, width, height, cell_w=cell_w,
+        full_width=full_width, full_height=full_height, origin=origin)
     return BinnedFrame(table, table[:, :16].contiguous(), cell_start,
                        cell_groups, n_pairs, cell_w)
 
 
 def rasterize_exact(batch: TriangleBatch, width: int, height: int, *,
+                    full_width: Optional[int] = None,
+                    full_height: Optional[int] = None, origin=(0, 0),
                     depth_window=None, quarter: Optional[bool] = None,
                     crossz: Optional[bool] = None):
     """Exact-binned raster. Returns (depth f32[H,W], tid i32[H,W] global
@@ -400,28 +478,40 @@ def rasterize_exact(batch: TriangleBatch, width: int, height: int, *,
     depth; it applies only on the quarter path without a window (the JAX
     rule), otherwise depth is the quantized key. ``depth_window`` =
     (floor, ceil) i32[H, W] keys peels: each pixel's nearest fragment
-    strictly inside the window."""
+    strictly inside the window.
+
+    ``full_width``/``full_height``/``origin`` render the width x height
+    window at ``origin`` of a larger viewport (screen-tile sharding): the
+    setup over the full viewport, the binning in window space."""
     quarter = True if quarter is None else quarter
     crossz = (True if crossz is None else crossz) and quarter \
         and depth_window is None
-    b = bin_triangles(batch, width, height, CELL_W if quarter else TILE_W)
+    win = dict(full_width=full_width, full_height=full_height, origin=origin)
+    b = bin_triangles(batch, width, height, CELL_W if quarter else TILE_W,
+                      **win)
     depth, tid = rasterize_bins(b.cell_start, b.cell_groups, b.coef, width,
                                 height, cell_w=b.cell_w, keyed=not crossz,
-                                window=depth_window)
+                                window=depth_window, **win)
     return depth, tid, b.table, b.n_pairs
 
 
-def resolve_gbuffer_pairs(attr_table, depth, tri_id, camera) -> GBuffer:
+def resolve_gbuffer_pairs(attr_table, depth, tri_id, camera, *,
+                          full_width: Optional[int] = None,
+                          full_height: Optional[int] = None,
+                          origin=(0, 0)) -> GBuffer:
     """G-buffer resolve: one packed row gather per pixel; barycentrics are
     recomputed from the row's edge coefficients and the world position is
-    unprojected from (pixel, depth)."""
+    unprojected from (pixel, depth). ``full_*``/``origin`` resolve the
+    window at ``origin`` of a larger viewport."""
     h, w = depth.shape
+    fw, fh = full_width or w, full_height or h
+    x0, y0 = origin
     dev = depth.device
     covered = (tri_id >= 0).reshape(-1)
     rows = attr_table[torch.clamp(tri_id, min=0).reshape(-1).long()]  # [P, 32]
 
-    xs = torch.arange(w, dtype=torch.float32, device=dev) + 0.5
-    ys = torch.arange(h, dtype=torch.float32, device=dev) + 0.5
+    xs = torch.arange(w, dtype=torch.float32, device=dev) + 0.5 + x0
+    ys = torch.arange(h, dtype=torch.float32, device=dev) + 0.5 + y0
     px = xs[None, :].expand(h, w).reshape(-1)
     py = ys[:, None].expand(h, w).reshape(-1)
     e0 = rows[:, 0] * px + rows[:, 1] * py + rows[:, 2]
@@ -433,8 +523,8 @@ def resolve_gbuffer_pairs(attr_table, depth, tri_id, camera) -> GBuffer:
     b0 = 1.0 - b1 - b2
 
     inv_vp = camera.inverse_view_proj
-    ndc_x = px / w * 2.0 - 1.0
-    ndc_y = 1.0 - py / h * 2.0
+    ndc_x = px / fw * 2.0 - 1.0
+    ndc_y = 1.0 - py / fh * 2.0
     z = torch.where(covered, depth.reshape(-1), 0.0)
     cols = [inv_vp[i, 0] * ndc_x + inv_vp[i, 1] * ndc_y + inv_vp[i, 2] * z
             + inv_vp[i, 3] for i in range(4)]

@@ -118,10 +118,16 @@ def _norm(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
 
 
 def raygen(camera: CameraMatrices, width: int, height: int, *,
-           tile_order=None):
+           full_width: Optional[int] = None, full_height: Optional[int] = None,
+           origin=(0, 0), tile_order=None):
     """Primary camera rays (raytrace.rgen:16-22): NDC -> unproject -> world.
     Returns (origins f32[P, 3], dirs f32[P, 3]), P = H*W, row 0 = image top;
-    ``tile_order=(th, tw)`` emits them in pixel-tile-major order."""
+    ``tile_order=(th, tw)`` emits them in pixel-tile-major order, taken
+    inside the window; ``full_*``/``origin`` generate the rays of the
+    width x height window at ``origin`` of a larger viewport."""
+    fw = full_width or width
+    fh = full_height or height
+    x0, y0 = origin
     dev = camera.view.device
     if tile_order:
         th, tw = tile_order
@@ -131,13 +137,13 @@ def raygen(camera: CameraMatrices, width: int, height: int, *,
         within = idx % (th * tw)
         yy = (tile_id // ntx) * th + within // tw
         xx = (tile_id % ntx) * tw + within % tw
-        dx = (xx.to(torch.float32) + 0.5) / width * 2.0 - 1.0
-        dy = 1.0 - (yy.to(torch.float32) + 0.5) / height * 2.0
+        dx = (xx.to(torch.float32) + 0.5 + x0) / fw * 2.0 - 1.0
+        dy = 1.0 - (yy.to(torch.float32) + 0.5 + y0) / fh * 2.0
     else:
         xs = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5
-              ) / width * 2.0 - 1.0
+              + x0) / fw * 2.0 - 1.0
         ys = 1.0 - (torch.arange(height, dtype=torch.float32, device=dev)
-                    + 0.5) / height * 2.0
+                    + 0.5 + y0) / fh * 2.0
         dx = xs[None, :].expand(height, width).reshape(-1)
         dy = ys[:, None].expand(height, width).reshape(-1)
     inv_proj, _ = torch.linalg.inv_ex(camera.projection)
@@ -509,11 +515,16 @@ def reflections_half_rate(surf: SurfaceHits, ctx, materials: MaterialTable,
 
 def trace_frame(ctx, materials: MaterialTable, lights: Lights,
                 camera: CameraMatrices, key, *, width: int, height: int,
-                params: RTParams) -> torch.Tensor:
+                params: RTParams, full_width: Optional[int] = None,
+                full_height: Optional[int] = None,
+                origin=(0, 0)) -> torch.Tensor:
     """Full RT frame -> HDR image f32[H, W, 3] (RayTraceRender::render +
-    the rgen/rchit/rmiss pipeline)."""
+    the rgen/rchit/rmiss pipeline). ``full_*``/``origin`` trace the
+    width x height window at ``origin`` of a larger viewport (screen-tile
+    sharding), its rays in tile order inside the window."""
     tiled = pick_tile(width, height)
-    o, d = raygen(camera, width, height, tile_order=tiled)
+    o, d = raygen(camera, width, height, full_width=full_width,
+                  full_height=full_height, origin=origin, tile_order=tiled)
     r = o.shape[0]
     surf = ctx.trace_resolve(o, d, torch.full((r,), 1000.0, device=o.device),
                              use_alpha=params.leaf_cutout,

@@ -71,13 +71,19 @@ def composite_translucency(
     layers: int = 4,
     textures=None,
     use_exact: bool = True,
+    full_width=None,
+    full_height=None,
+    origin=(0, 0),
 ) -> Tuple[torch.Tensor, int]:
     """Depth-peel the non-opaque triangles and blend them back to front over
     the opaque HDR image; each layer's shade samples ``textures`` (the
     atlas, or None). ``use_exact`` peels with K2, else with the XLA peel.
-    Returns (hdr f32[H, W, 3], required int: the translucent set's pair
-    count, which every layer shares; 0 on the XLA peel)."""
+    ``full_*``/``origin`` composite the H x W window at ``origin`` of a
+    larger viewport (screen-tile sharding), on either peel. Returns (hdr
+    f32[H, W, 3], required int: the translucent set's pair count, which
+    every layer shares; 0 on the XLA peel)."""
     h, w = opaque_depth.shape
+    win = dict(full_width=full_width, full_height=full_height, origin=origin)
     translucent = non_opaque_mask(materials, batch.material)
     # leaf/translucent materials default to CULL_NONE: both faces peel
     tbatch = dataclasses.replace(batch, valid=batch.valid & translucent)
@@ -86,7 +92,7 @@ def composite_translucency(
     peels = []
     required = 0
     if use_exact:
-        bins = bin_triangles(tbatch, w, h)
+        bins = bin_triangles(tbatch, w, h, **win)
         required = bins.n_pairs
         floor = torch.full((h, w), torch.iinfo(torch.int32).min + 1,
                            dtype=torch.int32, device=opaque_depth.device)
@@ -94,16 +100,17 @@ def composite_translucency(
         for _ in range(layers):
             depth, tid = rasterize_bins(
                 bins.cell_start, bins.cell_groups, bins.coef, w, h,
-                keyed=True, window=(floor, ceil))
-            peels.append(resolve_gbuffer_pairs(bins.table, depth, tid, camera))
+                keyed=True, window=(floor, ceil), **win)
+            peels.append(resolve_gbuffer_pairs(bins.table, depth, tid, camera,
+                                               **win))
             floor = depth_to_key(depth)
     else:
         z_floor = torch.full((h, w), float("-inf"), device=opaque_depth.device)
         for _ in range(layers):
             depth, tid, bary = _rasterize_peel(tbatch, w, h, z_floor,
-                                               opaque_depth)
+                                               opaque_depth, **win)
             peels.append(resolve_gbuffer_unproject(tbatch, depth, tid, bary,
-                                                   camera))
+                                                   camera, **win))
             z_floor = torch.where(torch.isfinite(depth), depth, z_floor)
 
     # shade each layer, then blend BACK to front: dst = src*a + dst*(1-a)

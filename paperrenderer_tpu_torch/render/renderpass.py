@@ -78,19 +78,21 @@ def _box_resolve(hdr, depth, ss):
 
 
 def raster_gbuffer(batch, width: int, height: int, camera,
-                   use_pallas: bool = True):
+                   use_pallas: bool = True, **window):
     """The static frame's G-buffer of a triangle batch: K1 and
     ``resolve_gbuffer_pairs``, or on the XLA route ``raster.rasterize`` and
-    ``resolve_gbuffer_packed``. Returns (depth, GBuffer, required: the pair
-    count, 0 on the XLA route)."""
+    ``resolve_gbuffer_packed``; ``window`` (``full_width``,
+    ``full_height``, ``origin``) renders a window of a larger viewport.
+    Returns (depth, GBuffer, required: the pair count, 0 on the XLA
+    route)."""
     if use_pallas:
-        depth, tid, attr_table, required = rasterize_exact(batch, width,
-                                                           height)
-        return depth, resolve_gbuffer_pairs(attr_table, depth, tid,
-                                            camera), required
-    depth, tid, bary = rasterize(batch, width, height)
+        depth, tid, attr_table, required = rasterize_exact(
+            batch, width, height, **window)
+        return depth, resolve_gbuffer_pairs(attr_table, depth, tid, camera,
+                                            **window), required
+    depth, tid, bary = rasterize(batch, width, height, **window)
     return depth, resolve_gbuffer_packed(pack_attributes(batch), depth, tid,
-                                         bary, camera), 0
+                                         bary, camera, **window), 0
 
 
 def draw_list_batch(

@@ -1,8 +1,8 @@
 """The PyTorch port's scene core, I/O, viewer, examples and XLA route
 against the JAX package, on the CPU.
 
-Five tests, each looping over its cases and naming every case that fails
-(xdist's ``--dist loadfile`` hands a file of five tests out after
+Six tests, each looping over its cases and naming every case that fails
+(xdist's ``--dist loadfile`` hands a file of six tests out after
 tests/test_parallel_static.py, the tier-1 run's critical path):
 
 1. the native scene core (``paperrenderer_tpu_torch.native``): the arena,
@@ -16,7 +16,8 @@ tests/test_parallel_static.py, the tier-1 run's critical path):
    palette and gray+alpha PNG textures: the arena arrays and the materials
    equal the JAX loader's, world TRS within 1e-6, the decoded images
    bitwise the JAX package's (its imaging library's); a 32x32 static and
-   RT frame against the JAX frames; a JPEG image refused by index;
+   RT frame against the JAX frames; the same .gltf with image 0 a JPEG
+   and with it an Adam7-interlaced PNG, loaded as the JAX loader loads it;
 3. the viewer: tests/test_viewer.py's end-to-end steps on the port's
    ``Viewer`` at 48x48, frames decoded with the port's ``read_image``;
 4. the XLA route (``use_pallas=False``) against the JAX package's default
@@ -30,7 +31,12 @@ tests/test_parallel_static.py, the tier-1 run's critical path):
    kernel route's CPU frame; the hybrid and RT frames' XLA checks sit
    beside their JAX frames in tests/test_torch_parity.py and
    tests/test_torch_rt.py;
-5. every example CLI's ``main`` in-process on the CPU at 32x32.
+5. every example CLI's ``main`` in-process on the CPU at 32x32;
+6. ``read_image`` against the JAX package's (PIL) on every PNG colour type
+   at 8 and 16 bits (palette at 1/2/4/8), interlaced and not, and on
+   baseline JPEGs at 4:4:4, 4:2:2, 4:2:0 and gray, with and without
+   restart intervals: bitwise; a progressive JPEG refused through
+   ``load_gltf`` by its glTF image index.
 """
 
 import base64
@@ -314,6 +320,81 @@ def _png(img, mode=None, **kw):
     return buf.getvalue()
 
 
+def _jpeg(img, **kw):
+    """``img`` written by PIL as a JPEG (``kw``: quality, subsampling,
+    restart_marker_blocks, progressive)."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="JPEG", **kw)
+    return buf.getvalue()
+
+
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png_rows(samples, depth):
+    """Samples [h, w, c] (u8, u16, or sub-byte values) -> the rows of a PNG
+    pass, each filtered with one of the five filters in turn."""
+    h, w, c = samples.shape
+    if depth == 16:
+        rows = samples.astype(">u2").reshape(h, -1).view(np.uint8)
+    elif depth == 8:
+        rows = samples.reshape(h, -1).astype(np.uint8)
+    else:   # sub-byte: pack high bits first
+        per = 8 // depth
+        flat = samples.reshape(h, -1)
+        flat = np.pad(flat, ((0, 0), (0, -flat.shape[1] % per)))
+        rows = np.zeros((h, flat.shape[1] // per), np.uint8)
+        for k in range(per):
+            rows |= flat[:, k::per].astype(np.uint8) << (8 - depth * (k + 1))
+    bpp = max(1, c * depth // 8)
+    out, prev = [], np.zeros(rows.shape[1], np.int64)
+    for y in range(h):
+        r, ft = rows[y].astype(np.int64), y % 5
+        left = np.concatenate([np.zeros(bpp, np.int64), r[:-bpp]])
+        upleft = np.concatenate([np.zeros(bpp, np.int64), prev[:-bpp]])
+        if ft == 3:
+            pred = (left + prev) >> 1
+        elif ft == 4:   # Paeth
+            pa = np.abs(prev - upleft)
+            pb = np.abs(left - upleft)
+            pc = np.abs(left + prev - 2 * upleft)
+            pred = np.where((pa <= pb) & (pa <= pc), left,
+                            np.where(pb <= pc, prev, upleft))
+        else:
+            pred = (0, left, prev)[ft]
+        out.append(bytes([ft]) + ((r - pred) & 255).astype(np.uint8).tobytes())
+        prev = r
+    return b"".join(out)
+
+
+def _png_raw(samples, color, depth, interlace, palette=None, trns=None):
+    """A PNG of ``samples`` [h, w, c] in any colour type and depth, Adam7
+    interlaced or not (the forms PIL reads but does not write)."""
+    if samples.ndim == 2:
+        samples = samples[..., None]
+    h, w = samples.shape[:2]
+    if interlace:
+        raw = b"".join(_png_rows(samples[y0::dy, x0::dx], depth)
+                       for x0, y0, dx, dy in _ADAM7 if w > x0 and h > y0)
+    else:
+        raw = _png_rows(samples, depth)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return b"".join([
+        b"\x89PNG\r\n\x1a\n",
+        chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0,
+                                   int(interlace))),
+        chunk(b"PLTE", palette.tobytes()) if palette is not None else b"",
+        chunk(b"tRNS", trns.tobytes()) if trns is not None else b"",
+        chunk(b"IDAT", zlib.compress(raw)), chunk(b"IEND", b"")])
+
+
 def _textures(rng):
     """RGB, RGBA, palette (4-bit, with tRNS) and gray+alpha PNGs."""
     rgb = rng.integers(0, 256, (16, 16, 3), np.uint8)
@@ -325,21 +406,16 @@ def _textures(rng):
     )
 
 
-def _make_gltf(dirname, jpeg=False):
+def _make_gltf(dirname, image0=None):
     """A .gltf: buffer 0 a base64 data: URI, buffer 1 an external file; a
     u8-indexed quad, a u16-indexed box and a u32-indexed BLEND quad with
     uvs; textures as a bufferView, a data: URI and an external file; a
     rotated, scaled root with a child and grandchild, and a matrix node.
-    With ``jpeg`` image 0 is a JPEG."""
+    ``image0`` (encoded bytes) replaces image 0."""
     rng = np.random.default_rng(21)
     tex = _textures(rng)
-    if jpeg:
-        from PIL import Image
-
-        buf = io.BytesIO()
-        Image.fromarray(rng.integers(0, 256, (8, 8, 3), np.uint8)).save(
-            buf, format="JPEG")
-        tex["rgb"] = buf.getvalue()
+    if image0 is not None:
+        tex["rgb"] = image0
     quad = np.asarray([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]],
                       np.float32)
     quad_uv = np.asarray([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
@@ -479,30 +555,20 @@ def _gltf_case(case, tmp):
     from paperrenderer_tpu.io import gltf as JG
     from paperrenderer_tpu_torch.io import gltf as TG
 
-    if case == "jpeg_refused":
-        d = os.path.join(tmp, "jpeg")
-        os.makedirs(d)
-        with pytest.raises(NotImplementedError, match="glTF image 0.*JPEG"):
-            TG.load_gltf(_make_gltf(d, jpeg=True), TPKG.GeometryArena())
-        return
-    if case == "interlaced_refused":
-        data = bytearray(_png(np.zeros((4, 4, 3), np.uint8)))
-        data[28] = 1                                   # IHDR interlace byte
-        crc = zlib.crc32(bytes(data[12:29])) & 0xFFFFFFFF
-        data[29:33] = struct.pack(">I", crc)
-        with pytest.raises(NotImplementedError, match="interlaced"):
-            read_image(bytes(data))
-        return
     if case.startswith("glb"):
         path = os.path.join(tmp, "quad.glb")
         if not os.path.exists(path):
             _make_glb(path)
-    else:
-        d = os.path.join(tmp, "gltf")
+    else:   # gltf_*: PNG textures; jpeg_load / interlaced_load: image 0
+        rgb = np.random.default_rng(5).integers(0, 256, (8, 8, 3), np.uint8)
+        image0 = dict(jpeg_load=lambda: _jpeg(rgb),
+                      interlaced_load=lambda: _png_raw(rgb, 2, 8, True)).get(
+                          case, lambda: None)()
+        d = os.path.join(tmp, case if image0 is not None else "gltf")
         os.makedirs(d, exist_ok=True)
         path = os.path.join(d, "scene.gltf")
         if not os.path.exists(path):
-            _make_gltf(d)
+            _make_gltf(d, image0)
     if case.endswith("_frames"):
         for rt in (False, True):
             want = _gltf_frames(JPKG, path, rt)
@@ -545,7 +611,7 @@ def _gltf_case(case, tmp):
 
 def test_gltf_import_matches_jax(tmp_path):
     _each(["glb_load", "gltf_load", "glb_frames", "gltf_frames",
-           "jpeg_refused", "interlaced_refused"],
+           "jpeg_load", "interlaced_load"],
           lambda c: _gltf_case(c, str(tmp_path)))
 
 
@@ -754,3 +820,84 @@ def test_examples_run(tmp_path):
         assert img.shape == (32, 32, 3) and img.max() > 0
 
     _each(list(EXAMPLES), run)
+
+
+# -- 6. image formats --------------------------------------------------------------
+
+
+def _smooth(rng, h, w, c):
+    """A photo-like u8 image (smooth waves and noise): JPEG's material."""
+    y, x = np.mgrid[0:h, 0:w]
+    img = np.stack([(np.sin(x / 5.0 + k) * np.cos(y / 7.0 - k) + 1.0) * 120.0
+                    for k in range(c)], axis=-1)
+    return np.clip(img + rng.normal(0.0, 12.0, img.shape), 0,
+                   255).astype(np.uint8)
+
+
+def _image_case(case, tmp):
+    from paperrenderer_tpu.io.image import read_image as jax_read
+    from paperrenderer_tpu_torch.io import gltf as TG
+
+    rng = np.random.default_rng(sum(map(ord, case)))
+    kind, *rest = case.split("_")
+    if kind == "progressive":   # refused through glTF, by image index
+        d = os.path.join(tmp, case)
+        os.makedirs(d)
+        data = _jpeg(_smooth(rng, 16, 16, 3), progressive=True)
+        with pytest.raises(NotImplementedError,
+                           match="glTF image 0.*progressive JPEG"):
+            TG.load_gltf(_make_gltf(d, data), TPKG.GeometryArena())
+        return
+    datas = []
+    for h, w in ((13, 11), (37, 53), (1, 1), (9, 5)):
+        if kind == "jpeg":      # jpeg_<subsampling>_<restart blocks>
+            sub, rst = rest
+            gray = sub == "gray"
+            img = _smooth(rng, h, w, 1 if gray else 3)
+            kw = dict(quality=85 if h % 2 else 50,
+                      restart_marker_blocks=int(rst))
+            if not gray:
+                kw["subsampling"] = {"444": 0, "422": 1, "420": 2}[sub]
+            datas.append(_jpeg(img[..., 0] if gray else img, **kw))
+        else:                   # png_<colour type>_<depth>_<interlace>
+            color, depth, interlace = (int(v) for v in rest)
+            c = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+            hi = 1 << depth
+            img = rng.integers(0, hi, (h, w, c)).astype(
+                np.uint16 if depth == 16 else np.uint8)
+            if color == 0 and depth == 16:
+                img[0, 0] = 200           # below PIL's clip at 255
+            palette = trns = None
+            if color == 3:
+                palette = rng.integers(0, 256, (hi, 3), np.uint8)
+                trns = rng.integers(0, 256, (max(1, hi // 2),), np.uint8)
+            if depth == 8 and not interlace and color != 3:   # PIL writes it
+                mode = {0: "L", 2: "RGB", 4: "LA", 6: "RGBA"}[color]
+                datas.append(_png(img[..., 0] if c == 1 else img, mode))
+            elif color == 0 and depth == 16 and not interlace:
+                datas.append(_png(img[..., 0]))                 # "I;16"
+            else:
+                datas.append(_png_raw(img, color, depth, interlace, palette,
+                                      trns))
+    for data in datas:
+        want, got = jax_read(data), read_image(data)
+        assert got.dtype == want.dtype == np.uint8
+        assert got.shape == want.shape, (got.shape, want.shape)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_image_formats_match_jax(tmp_path):
+    """``read_image`` bitwise the JAX package's (PIL's decode) on the PNG
+    forms (every colour type at 8 and 16 bits, palette at 1/2/4/8, each
+    interlaced and not; PIL writes the 8-bit non-interlaced and 16-bit gray
+    ones, the test's own writer the rest, with all five row filters) and
+    on PIL's baseline JPEGs at 4:4:4, 4:2:2, 4:2:0 and gray, with and
+    without a restart interval, at four sizes (odd ones among them); a
+    progressive JPEG as a glTF image raises naming image 0 and the form."""
+    png = [f"png_{c}_{d}_{i}" for c in (0, 2, 4, 6) for d in (8, 16)
+           for i in (0, 1)]
+    png += [f"png_3_{d}_{i}" for d in (1, 2, 4, 8) for i in (0, 1)]
+    jpeg = [f"jpeg_{s}_{r}" for s in ("444", "422", "420", "gray")
+            for r in (0, 2)]
+    _each(png + jpeg + ["progressive"],
+          lambda c: _image_case(c, str(tmp_path)))

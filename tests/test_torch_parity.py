@@ -289,9 +289,11 @@ def test_import_leaves_jax_out():
     code = ("import sys, paperrenderer_tpu_torch, paperrenderer_tpu_torch.scenes, "
             "paperrenderer_tpu_torch.interop, paperrenderer_tpu_torch.native, "
             "paperrenderer_tpu_torch.io.gltf, paperrenderer_tpu_torch.viewer, "
+            "paperrenderer_tpu_torch.parallel, "
             f"{examples}, chip_smoke; "
-            "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
-            "'paperrenderer_tpu.')) or m == 'paperrenderer_tpu']; "
+            "bad = [m for m in sys.modules if m in ('jax', 'PIL') or "
+            "m.startswith(('jax.', 'PIL.', 'paperrenderer_tpu.')) "
+            "or m == 'paperrenderer_tpu']; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)

@@ -240,7 +240,24 @@ Phases, each reported as one JSON line:
            per-rank frame ms beside the single-device ms (four ranks on one
            card: no scaling number); the ranks' launches of one pass join
            the kernels line (K1, K2, K7 from the hybrid frame's AO pass,
-           K8-K11);
+           K8-K11); the legacy world-BVH RT frame (sharded_rt_frame), each
+           tile bitwise a one-process trace of its window, and the gathered
+           frame in the golden bands of the two-level one (config3_flat,
+           the same tile keys);
+  world_rt the single-level world-BVH path (ops.bvh, plain PyTorch on the
+           card, no kernel) on config 3's scene at 1920x1080: build_bvh on
+           the card equal to the CPU build of the same boxes;
+           BatchTracer's primary surfaces against the two-level tracer's
+           (K8): hit flags, material ids and world positions (1e-4
+           relative) equal except on rays that graze a triangle edge
+           (barycentric margin < 1e-3 on the side that hits: ties of the
+           two tracers' arithmetic); rt_frame's image against
+           render_frame_rt's (RayTraceRender.render, the same key) in the
+           golden bands; all of it on the scene as built (its primary
+           surfaces reported: config 3's cube quaternion is not unit, so
+           the world batch and the TLAS place the cube 0.093% apart) and
+           with its quaternions normalized (every check held); the world
+           frame's ms and bvh_trace's steps and host reads a frame;
   sync     cost of the raster frame's one device-to-host read (the pair
            count): frame time as is vs. with the count supplied.
 
@@ -2473,6 +2490,144 @@ PARALLEL_RANKS = 4           # gloo ranks sharing the one card, a 2x2 mesh
 PARALLEL_FRAMES = 5          # timed frames a case (after one warm-up)
 
 
+def primary_vs_k8(rt, cam, width, height):
+    """The primary surfaces of the world BVH (``BatchTracer``) against the
+    two-level tracer's (K8) on ``rt``'s scene: counts of rays whose hit
+    flags, materials or world positions (1e-4 relative) differ, those of
+    them that graze a triangle edge (barycentric margin < 1e-3 on a side
+    that hits) and those that do not."""
+    import torch
+
+    from paperrenderer_tpu_torch.ops import accel as ACC
+    from paperrenderer_tpu_torch.ops import trace as T
+    from paperrenderer_tpu_torch.ops.trace_kernel import trace_resolve_kernel
+    from paperrenderer_tpu_torch.render import build_world_scene
+    from paperrenderer_tpu_torch.utils import random as rnd
+
+    args, kw = rt.world_inputs(cam, rnd.prng_key(0))
+    instances, tables, geo, table, _lights, cm, slots, _tm = args[:8]
+    batch, bvh = build_world_scene(
+        instances, tables, geo, cm, slots,
+        max_meshes_per_lod=kw["max_meshes_per_lod"],
+        tri_capacity=kw["tri_capacity"])
+    o, d = T.raygen(cm, width, height)
+    r = o.shape[0]
+    far = torch.full((r,), 1000.0, device=o.device)
+    rec = T.BatchTracer(batch, bvh, table).trace(o, d, far)
+    ws = T.resolve_hits(batch, rec, o, d)
+    inst = rt.scene.flush()
+    blasset, meta, anim_rest, anim_nodes = rt.accel.blas()
+    two = ACC.make_scene_tracer(
+        blasset, meta, anim_rest, anim_nodes, inst,
+        rt.accel.inst_blas(inst.capacity),
+        rt._device_inputs(inst.capacity)[1], rt.accel.tri_attr(), slots,
+        table, tlas_index=0, stack_size=rt.accel.stack_size(inst.capacity))
+    rec2, attrs = trace_resolve_kernel(
+        two.scene, slots, o, d, far, root_code=two.root_code,
+        stack_size=two.stack_size)
+    ts = ACC.surface_hits(rec2, attrs, o, d)
+
+    def margin(bary):
+        u, v = bary[:, 0], bary[:, 1]
+        return torch.minimum(torch.minimum(u, v), 1.0 - u - v)
+
+    both = ws.valid & ts.valid
+    scale = torch.clamp(ts.world_pos.abs().amax(dim=-1), min=1.0)
+    rel = (ws.world_pos - ts.world_pos).abs().amax(dim=-1) / scale
+    flag_off = ws.valid != ts.valid
+    mat_off = both & (ws.material != ts.material)
+    pos_off = both & (rel > 1e-4)
+    edge = ((rec.hit & (margin(rec.bary) < 1e-3))
+            | (rec2.hit & (margin(rec2.bary) < 1e-3)))
+    off = flag_off | mat_off | pos_off
+    kept = both & ~edge
+    return dict(
+        rays=r, hits=int(ws.valid.sum()),
+        hit_flags_differ=int(flag_off.sum()),
+        materials_differ=int(mat_off.sum()),
+        world_pos_beyond_1e4=int(pos_off.sum()),
+        edge_ties=int((off & edge).sum()),
+        differ_off_edge=int((off & ~edge).sum()),
+        max_rel_pos_err=float(rel[kept].max()) if bool(kept.any()) else 0.0)
+
+
+def world_rt_phase(width=1920, height=1080, device="cuda"):
+    """The world_rt phase (see the module docstring)."""
+    import torch
+
+    import numpy as np
+
+    from paperrenderer_tpu_torch.ops import bvh as TB
+    from paperrenderer_tpu_torch.render import build_world_scene, rt_frame
+    from paperrenderer_tpu_torch.scenes import build_rt_scene
+    from paperrenderer_tpu_torch.utils import random as rnd
+
+    out, ok = {}, True
+    _, rt, cam = build_rt_scene(width, height, device=device)
+    key = rnd.fold_in(rt._key, 1)          # the key of rt's first frame
+    args, kw = rt.world_inputs(cam, key)
+    instances, tables, geo, _table, _lights, cm, slots, _tm = args[:8]
+    t0 = time.perf_counter()
+    batch, bvh = build_world_scene(
+        instances, tables, geo, cm, slots,
+        max_meshes_per_lod=kw["max_meshes_per_lod"],
+        tri_capacity=kw["tri_capacity"])
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    lo, hi = batch.world.amin(dim=1), batch.world.amax(dim=1)
+    cpu = TB.build_bvh(lo.cpu(), hi.cpu(), batch.valid.cpu())
+    out["build"] = dict(
+        ms=build_ms, triangles=int(batch.valid.sum()),
+        capacity=batch.capacity, leaves=bvh.num_leaves, depth=bvh.depth,
+        card_equals_cpu=all(same_bits(getattr(bvh, f).cpu(), getattr(cpu, f))
+                            for f in ("node_min", "node_max", "perm",
+                                      "child_boxes")))
+    ok &= out["build"]["card_equals_cpu"]
+
+    def frame_vs_two_level():
+        """rt_frame (world BVH) against render_frame_rt (two-level) with
+        the key of rt's first frame, in the golden bands."""
+        ldr_w, aux_w = rt_frame(*args, **kw)
+        rt._frame = 0
+        ldr_t, _ = rt.render(cam)
+        good, mean, frac = bands(ldr_w.cpu().numpy(), ldr_t.cpu().numpy())
+        return dict(mean=mean, frac=frac,
+                    ok=good and bool(torch.isfinite(aux_w["hdr"]).all()))
+
+    # the scene as built: primary surfaces against the two-level tracer
+    # (K8) reported (config 3's cube quaternion is not unit, and the TLAS
+    # inverts R as R^T), the frames held in the golden bands
+    out["primary_vs_k8_as_built"] = primary_vs_k8(rt, cam, width, height)
+    out["frame_vs_two_level_as_built"] = frame_vs_two_level()
+    ok &= out["frame_vs_two_level_as_built"]["ok"]
+    # the same scene with its quaternions normalized: every primary surface
+    # off a triangle edge held to K8's, the frames held in the bands
+    for inst in rt.scene.instances:
+        q = np.asarray(inst.rotation, np.float64)
+        inst.set_transform(quat=(q / np.linalg.norm(q)).astype(np.float32))
+    rt.invalidate()
+    args, kw = rt.world_inputs(cam, key)
+    out["primary_vs_k8"] = primary_vs_k8(rt, cam, width, height)
+    ok &= out["primary_vs_k8"]["differ_off_edge"] == 0
+    out["frame_vs_two_level"] = frame_vs_two_level()
+    ok &= out["frame_vs_two_level"]["ok"]
+    TB.STATS.update(steps=0, host_reads=0)
+    torch.cuda.synchronize()
+    times = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        rt_frame(*args, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            out["steps_one_frame"] = TB.STATS["steps"]
+            out["host_reads_one_frame"] = TB.STATS["host_reads"]
+    out["frame_ms"] = statistics.median(times)
+    rt._frame = 0
+    out["two_level_frame_ms"] = frame_ms(rt, cam, frames=3, warmup=1)
+    return dict(ok=ok, **out)
+
+
 def deterministic(render):
     """``render`` (an RT or hybrid render) with radius-0 lights and no AO or
     reflection samples: every sample is the same ray, so a tile's folded
@@ -2525,7 +2680,7 @@ def parallel_frames(mesh, scenes, key):
     the ldr tile (and the hybrid's aux)."""
     from paperrenderer_tpu_torch.parallel import (
         make_sharded_hybrid_frame, make_sharded_rt_frame,
-        sharded_render_frame_static)
+        sharded_render_frame_static, sharded_rt_frame)
     from paperrenderer_tpu_torch.parallel import tiles as PT
 
     fns = {}
@@ -2545,7 +2700,23 @@ def parallel_frames(mesh, scenes, key):
         meta, args, kw = PT.hybrid_inputs(hy, cam, key)
         fn = make_sharded_hybrid_frame(mesh, meta, use_pallas_trace=True)
         fns[name] = functools.partial(fn, *args, **kw, use_pallas=True)
+    rt, cam = scenes["rt"]["config3"]
+    args, kw = rt.world_inputs(cam, key)
+    fns["world_rt"] = functools.partial(
+        sharded_rt_frame, mesh, *args[:9], width=kw["width"],
+        height=kw["height"], max_meshes_per_lod=kw["max_meshes_per_lod"],
+        tri_capacity=kw["tri_capacity"], params=world_params(kw))
     return fns
+
+
+def world_params(kw):
+    """The RTParams of ``RayTraceRender.world_inputs``' keywords."""
+    from paperrenderer_tpu_torch.ops.trace import RTParams
+
+    return RTParams(shadow_samples=kw["shadow_samples"],
+                    reflection_samples=kw["reflection_samples"],
+                    ao_samples=kw["ao_samples"], ao_radius=kw["ao_radius"],
+                    leaf_cutout=kw["leaf_cutout"])
 
 
 def parallel_rank(rank, world, out_dir):
@@ -2642,6 +2813,21 @@ def parallel_rank(rank, world, out_dir):
             reflection_samples=kw["reflection_samples"],
             ao_samples=kw["ao_samples"], ao_radius=kw["ao_radius"])
         res["checks"][name] = same_bits(outs[name][0], one)
+    # the legacy world-BVH frame: one process's trace of the window
+    from paperrenderer_tpu_torch.render import build_world_scene
+
+    rt, cam = scenes["rt"]["config3"]
+    args, kw = rt.world_inputs(cam, key)
+    tile_w, tile_h, win = PT.tile_window(mesh, kw["width"], kw["height"])
+    batch, bvh = build_world_scene(
+        *args[:3], args[5], args[6],
+        max_meshes_per_lod=kw["max_meshes_per_lod"],
+        tri_capacity=kw["tri_capacity"])
+    one = tonemap(T.trace_frame(
+        T.BatchTracer(batch, bvh, args[3]), args[3], args[4], args[5],
+        rnd.fold_in(key, mesh.index), width=tile_w, height=tile_h,
+        params=world_params(kw), **win), args[7])
+    res["checks"]["world_rt"] = same_bits(outs["world_rt"], one)
     if rank == 0:
         for name, (rp, cam, kw) in scenes["static"].items():
             m, inst, tables, mats, cm, slots, vis = rp.frame_inputs(cam)
@@ -2862,6 +3048,14 @@ def parallel_phase(work_dir):
                     b[case]["single_device_frame_ms"] = frame_ms(
                         r_, cam, frames=PARALLEL_FRAMES, warmup=1,
                         paged=paged)
+    # the world-BVH tiles against the two-level ones (K7-K11: code they
+    # share none of) with the same tile keys and samples, in the bands
+    gate, mean, frac = bands(gathered["world_rt"].numpy(),
+                             gathered["config3_flat"].numpy())
+    b["world_rt"] = dict(rank_frame_ms=[r["ms"]["world_rt"] for r in ranks],
+                         vs_two_level_tiles=dict(ok=gate, mean=mean,
+                                                 frac=frac))
+    ok &= gate
     b["note"] = ("four gloo ranks share one card: per-rank frame ms are "
                  "not a scaling number")
     out["gloo_2x2_one_card"] = b
@@ -3770,6 +3964,7 @@ def main():
     # the sharded frames: (a) NCCL at world size 1 here, (b) four gloo ranks
     # on the card; (b)'s ranks count their main path's launches
     phase("parallel", lambda: parallel_phase(os.path.join(work, "parallel")))
+    phase("world_rt", world_rt_phase)
     par_launches = results["parallel"].get("gloo_2x2_one_card", {}).get(
         "launches", {})
     par_needs = ("raster_exact", "raster_peel", "trace_scene",

@@ -188,6 +188,25 @@ class TextureAtlas:
         return self._device[key]
 
 
+def select_rows(table: torch.Tensor, ids: torch.Tensor, *,
+                exact: bool = False) -> torch.Tensor:
+    """``table[ids]`` as the JAX package's ``select_rows`` gives it: a table
+    of at most 64 rows yields zeros for an id outside it, a larger one
+    clamps the id. A plain gather (the JAX package's select accumulation
+    and packed row gathers are TPU gather costs); ``exact`` is accepted for
+    its signature: the gather is always exact."""
+    del exact
+    n = table.shape[0]
+    idx = torch.clamp(ids, 0, n - 1).long()
+    out = table[idx]
+    if n <= 64:
+        inside = ((ids >= 0) & (ids < n)).reshape(
+            ids.shape + (1,) * (table.dim() - 1))
+        out = torch.where(inside, out, torch.zeros((), dtype=table.dtype,
+                                                    device=table.device))
+    return out
+
+
 def _decode_rgba(words: torch.Tensor) -> torch.Tensor:
     """i32 RGBA8 words [...] -> f32[..., 4] in [0, 1]: each word's bytes,
     R, G, B, A from the lowest (the atlas's little-endian words), read

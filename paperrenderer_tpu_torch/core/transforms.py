@@ -84,6 +84,23 @@ def apply_mat34(m: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
             + m[..., :, 2] * pts[..., None, 2] + m[..., :, 3])
 
 
+def mat34_inverse(m: torch.Tensor) -> torch.Tensor:
+    """Inverse of affine 3x4 matrices ``[..., 3, 4]`` (world -> object)."""
+    a_inv = torch.linalg.inv(m[..., :, :3])
+    t = m[..., :, 3]
+    t_inv = -(a_inv[..., :, 0] * t[..., None, 0]
+              + a_inv[..., :, 1] * t[..., None, 1]
+              + a_inv[..., :, 2] * t[..., None, 2])
+    return torch.cat([a_inv, t_inv[..., :, None]], dim=-1)
+
+
+def mat34_to_mat44(m: torch.Tensor) -> torch.Tensor:
+    """``[..., 3, 4]`` -> homogeneous ``[..., 4, 4]`` (last row 0, 0, 0, 1)."""
+    last = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=m.dtype,
+                        device=m.device).expand(m.shape[:-2] + (1, 4))
+    return torch.cat([m, last], dim=-2)
+
+
 def transform_aabb(m: torch.Tensor, aabb_min: torch.Tensor,
                    aabb_max: torch.Tensor):
     """AABBs through 3x4 matrices: the AABB of the 8 transformed corners, in

@@ -8,14 +8,18 @@ decodes what the JAX package's imaging library (PIL) turns into its arrays:
     palette (1/2/4/8-bit, with ``tRNS``) and gray + alpha as RGBA; 16-bit
     RGB, RGBA and gray + alpha by their high bytes, 16-bit gray as RGBA
     with the gray clipped to 255 (PIL's "I;16" -> "RGBA" conversion);
-  * baseline JPEG (SOF0/SOF1, Huffman, 8-bit, gray or YCbCr/RGB, 4:4:4,
-    4:2:2 and 4:2:0, restart markers), decoded as libjpeg decodes it by
-    default: the integer IDCT (``jidctint.c``), "fancy" triangle-filter
-    chroma upsampling (``jdsample.c``) and the integer YCbCr tables
-    (``jdcolor.c``), so the pixels are PIL's to the bit.
+  * baseline and progressive JPEG (SOF0/SOF1/SOF2, Huffman, 8-bit, gray
+    or YCbCr/RGB, 4:4:4, 4:2:2 and 4:2:0, restart markers; progressive
+    scans by spectral selection and successive approximation of DC and
+    AC with end-of-band runs, as libjpeg's ``jdphuff.c``), decoded as
+    libjpeg decodes it by default: the integer IDCT (``jidctint.c``),
+    "fancy" triangle-filter chroma upsampling (``jdsample.c``) and the
+    integer YCbCr tables (``jdcolor.c``), so the pixels are PIL's to the
+    bit. A progressive file whose scans leave a coefficient unfinished
+    would take libjpeg's block smoothing; it raises instead.
 
-Progressive, arithmetic-coded, lossless and 12-bit JPEGs and sub-byte gray
-PNGs raise ``NotImplementedError`` naming the format. ``encode_png`` and
+Arithmetic-coded, lossless, hierarchical and 12-bit JPEGs and sub-byte
+gray PNGs raise ``NotImplementedError`` naming the format. ``encode_png`` and
 ``write_png`` write 8-bit gray / RGB / RGBA PNGs.
 """
 
@@ -211,7 +215,7 @@ _ZIGZAG = np.array([
     40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43,
     36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53,
     60, 61, 54, 47, 55, 62, 63], np.int64)   # zigzag index -> natural index
-_SOF_NAMES = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "differential",
+_SOF_NAMES = {0xC3: "lossless", 0xC5: "differential",
               0xC6: "differential progressive", 0xC7: "differential lossless",
               0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded progressive",
               0xCB: "arithmetic-coded lossless",
@@ -291,6 +295,118 @@ def _decode_segment(seg: bytes, comps, blocks, mcus, dc_pred, dc_luts,
                 else:
                     break
             blocks[ci][by, bx] = blk
+
+
+class _Bits:
+    """An MSB-first bit reader over one unstuffed restart interval; past
+    its end it reads zeros, as libjpeg's fill does."""
+
+    def __init__(self, seg: bytes):
+        buf = np.frombuffer(seg + b"\0" * 8, np.uint8).astype(np.int64)
+        self.words = ((buf[:-3] << 24) | (buf[1:-2] << 16) | (buf[2:-1] << 8)
+                      | buf[3:]).tolist()
+        self.nbits = len(seg) * 8
+        self.pos = 0
+
+    def huff(self, lut):
+        p = self.pos
+        e = lut[(self.words[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+        if e == 0 or p > self.nbits + 64:
+            raise ValueError("corrupt JPEG: bad Huffman code")
+        self.pos = p + (e >> 8)
+        return e & 0xFF
+
+    def bits(self, s):
+        """s raw bits (s <= 16) as an unsigned value."""
+        if s == 0:
+            return 0
+        p = self.pos
+        self.pos = p + s
+        return (self.words[p >> 3] >> (32 - (p & 7) - s)) & ((1 << s) - 1)
+
+    def extend(self, s):
+        """s bits as JPEG's sign-extended magnitude category value."""
+        v = self.bits(s)
+        return v - (1 << s) + 1 if s and v < (1 << (s - 1)) else v
+
+
+def _decode_progressive(seg: bytes, comps, blocks, mcus, dc_pred, dc_luts,
+                        ac_luts, mcu_layout, single, bpr, spectral):
+    """One restart interval of a progressive scan (libjpeg's ``jdphuff.c``:
+    DC first / refine, AC first / refine with end-of-band runs) added into
+    ``blocks`` (coefficients, natural order, not yet dequantized)."""
+    ss, se, ah, al = spectral
+    rd = _Bits(seg)
+    zz = _ZIGZAG.tolist()
+    p1, m1 = 1 << al, -1 << al
+    eobrun = 0
+    for mcu in mcus:
+        for ci, by_off, bx_off in mcu_layout:
+            if single:
+                by, bx = divmod(mcu, bpr)
+            else:
+                my, mx = divmod(mcu, bpr)
+                by = my * comps[ci]["v"] + by_off
+                bx = mx * comps[ci]["h"] + bx_off
+            blk = blocks[ci][by, bx]
+            if ss == 0:                           # DC scans
+                if ah == 0:
+                    dc_pred[ci] += rd.extend(rd.huff(dc_luts[ci]))
+                    blk[0] = dc_pred[ci] * p1
+                elif rd.bits(1):
+                    blk[0] |= p1
+                continue
+            ac = ac_luts[ci]
+            if ah == 0:                           # AC first
+                if eobrun:
+                    eobrun -= 1
+                    continue
+                k = ss
+                while k <= se:
+                    rs = rd.huff(ac)
+                    r, s = rs >> 4, rs & 15
+                    if s:
+                        k += r
+                        blk[zz[k]] = rd.extend(s) * p1
+                    elif r == 15:
+                        k += 15
+                    else:
+                        eobrun = (1 << r) + rd.bits(r) - 1
+                        break
+                    k += 1
+                continue
+            k = ss                                # AC refine
+            coef = blk.tolist()
+            if eobrun == 0:
+                while k <= se:
+                    rs = rd.huff(ac)
+                    r, s = rs >> 4, rs & 15
+                    if s:               # a newly nonzero coefficient, +-1
+                        s = p1 if rd.bits(1) else m1
+                    elif r != 15:
+                        eobrun = (1 << r) + rd.bits(r)
+                        break
+                    while k <= se:      # skip r zeros, refining the others
+                        c = coef[zz[k]]
+                        if c:
+                            if rd.bits(1) and not c & p1:
+                                coef[zz[k]] = c + (p1 if c >= 0 else m1)
+                        else:
+                            if r == 0:
+                                break
+                            r -= 1
+                        k += 1
+                    if s and k <= se:
+                        coef[zz[k]] = s
+                    k += 1
+            if eobrun:      # the band's rest: correction bits only
+                while k <= se:
+                    c = coef[zz[k]]
+                    if c and rd.bits(1) and not c & p1:
+                        coef[zz[k]] = c + (p1 if c >= 0 else m1)
+                    k += 1
+                eobrun -= 1
+            blk[:] = coef
 
 
 def _idct_islow(coef: np.ndarray, q: np.ndarray) -> np.ndarray:
@@ -383,6 +499,7 @@ def _upsample(plane: np.ndarray, fx: int, fy: int) -> np.ndarray:
 def _read_jpeg(data: bytes) -> np.ndarray:
     qt, dc_tabs, ac_tabs = {}, {}, {}
     frame, restart, adobe, jfif = None, 0, None, False
+    progressive = False
     comps = []
     blocks = None
     pos = 2
@@ -403,9 +520,10 @@ def _read_jpeg(data: bytes) -> np.ndarray:
         pos += length
         if marker in _SOF_NAMES:
             raise NotImplementedError(
-                f"{_SOF_NAMES[marker]} JPEG: only baseline (SOF0/SOF1, "
-                "Huffman, 8-bit) JPEGs are decoded")
-        if marker in (0xC0, 0xC1):
+                f"{_SOF_NAMES[marker]} JPEG: only baseline and progressive "
+                "(SOF0/SOF1/SOF2, Huffman, 8-bit) JPEGs are decoded")
+        if marker in (0xC0, 0xC1, 0xC2):
+            progressive = marker == 0xC2
             precision, hgt, wid, nc = struct.unpack(">BHHB", body[:6])
             if precision != 8:
                 raise NotImplementedError(
@@ -461,6 +579,9 @@ def _read_jpeg(data: bytes) -> np.ndarray:
                 cid, tdta = body[1 + 2 * i], body[2 + 2 * i]
                 ci = next(k for k, c in enumerate(comps) if c["id"] == cid)
                 sel.append((ci, tdta >> 4, tdta & 15))
+                # libjpeg latches a component's table at its first scan
+                comps[ci].setdefault("q", qt[comps[ci]["tq"]].copy())
+            ss, se, ahl = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns]
             end = pos
             while True:             # the scan runs to the next non-RST marker
                 end = data.index(b"\xff", end)
@@ -469,18 +590,27 @@ def _read_jpeg(data: bytes) -> np.ndarray:
                     end += 1 if nxt == 0xFF else 2
                     continue
                 break
+            spectral = (ss, se, ahl >> 4, ahl & 15) if progressive else None
             _decode_scan(data[pos:end], sel, comps, frame, blocks, dc_tabs,
-                         ac_tabs, restart)
+                         ac_tabs, restart, spectral)
             pos = end
     if frame is None:
         raise ValueError("corrupt JPEG: no frame header")
+    if progressive:
+        for c in comps:
+            if c.get("done", 0) != (1 << 64) - 1:
+                raise NotImplementedError(
+                    "progressive JPEG whose scans leave coefficients "
+                    "unfinished (libjpeg's block smoothing): only complete "
+                    "progressive JPEGs are decoded")
     return _jpeg_pixels(comps, frame, blocks, qt, adobe, jfif)
 
 
 def _decode_scan(scan: bytes, sel, comps, frame, blocks, dc_tabs, ac_tabs,
-                 restart):
+                 restart, spectral=None):
     """One scan's entropy-coded data (restart markers included) into
-    ``blocks``."""
+    ``blocks``; ``spectral`` = (Ss, Se, Ah, Al) of a progressive scan, whose
+    coefficients it adds to the blocks' (None: a baseline scan)."""
     wid, hgt = frame
     hmax = max(c["h"] for c in comps)
     vmax = max(c["v"] for c in comps)
@@ -497,8 +627,12 @@ def _decode_scan(scan: bytes, sel, comps, frame, blocks, dc_tabs, ac_tabs,
         layout = [(ci, by, bx) for ci, _, _ in sel
                   for by in range(comps[ci]["v"])
                   for bx in range(comps[ci]["h"])]
-    dc_luts = {ci: dc_tabs[td].tolist() for ci, td, _ in sel}
-    ac_luts = {ci: ac_tabs[ta].tolist() for ci, _, ta in sel}
+    # a progressive scan reads only its own kind of table: DC first scans
+    # the DC ones, AC scans the AC ones, DC refinements none
+    ss, se, ah, _ = spectral or (0, 63, 0, 0)
+    dc_luts = ({ci: dc_tabs[td].tolist() for ci, td, _ in sel}
+               if ss == 0 and ah == 0 else {})
+    ac_luts = {ci: ac_tabs[ta].tolist() for ci, _, ta in sel} if se else {}
     # split at the restart markers, then unstuff 0xFF00 -> 0xFF
     segs, start, i = [], 0, 0
     while True:
@@ -511,13 +645,26 @@ def _decode_scan(scan: bytes, sel, comps, frame, blocks, dc_tabs, ac_tabs,
         i += 2
     segs.append(scan[start:])
     per = restart if restart else n_mcus
+    if spectral is not None:
+        ss, se, ah, al = spectral
+        if ss > se or se > 63 or (ss == 0) != (se == 0) or (ss and not single):
+            raise ValueError("corrupt JPEG: bad progressive scan parameters")
+        bits = ((1 << (se + 1)) - 1) ^ ((1 << ss) - 1)
+        for ci, _, _ in sel:    # the coefficients finished at Al = 0
+            if al == 0:
+                comps[ci]["done"] = comps[ci].get("done", 0) | bits
     for k, seg in enumerate(segs):
         mcus = range(k * per, min(n_mcus, (k + 1) * per))
         if not mcus:
             break
         dc_pred = {ci: 0 for ci, _, _ in sel}
-        _decode_segment(seg.replace(b"\xff\x00", b"\xff"), comps, blocks,
-                        mcus, dc_pred, dc_luts, ac_luts, layout, single, bpr)
+        seg = seg.replace(b"\xff\x00", b"\xff")
+        if spectral is None:
+            _decode_segment(seg, comps, blocks, mcus, dc_pred, dc_luts,
+                            ac_luts, layout, single, bpr)
+        else:
+            _decode_progressive(seg, comps, blocks, mcus, dc_pred, dc_luts,
+                                ac_luts, layout, single, bpr, spectral)
 
 
 def _jpeg_pixels(comps, frame, blocks, qt, adobe, jfif) -> np.ndarray:
@@ -529,7 +676,7 @@ def _jpeg_pixels(comps, frame, blocks, qt, adobe, jfif) -> np.ndarray:
     planes = []
     for c, blk in zip(comps, blocks):
         nby, nbx, _ = blk.shape
-        pix = _idct_islow(blk.reshape(-1, 64), qt[c["tq"]])
+        pix = _idct_islow(blk.reshape(-1, 64), c.get("q", qt[c["tq"]]))
         pix = pix.reshape(nby, nbx, 8, 8).transpose(0, 2, 1, 3).reshape(
             nby * 8, nbx * 8)
         cw, ch = -(-wid * c["h"] // hmax), -(-hgt * c["v"] // vmax)

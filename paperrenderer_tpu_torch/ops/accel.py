@@ -1613,7 +1613,9 @@ class SceneTracer:
     def __init__(self, scene: RTScene, slot_materials: torch.Tensor,
                  materials, *, root_code: int, stack_size: int,
                  leaf_cutout: bool = False, textures=None,
-                 use_pallas: bool = True):
+                 use_pallas: bool = True, image_shape=None,
+                 wide: bool = False, pack: int = 1):
+        del image_shape, wide, pack     # TPU packet knobs: no result moves
         self.scene = scene
         self.slot_materials = slot_materials
         self.materials = materials
@@ -1676,6 +1678,20 @@ class SceneTracer:
             ao_actives, cull_mask=cull_mask, **self._walk())
         return bits, ao_ts
 
+    def trace_occlusion_bundle(self, o, dirs, t_caps, *, active=None,
+                               cull_mask: int = 0xFF) -> torch.Tensor:
+        """Origin-shared any-hit samples -> occlusion bits i32[R] (bit s
+        set where sample s is occluded or inactive): one K9 launch with no
+        AO sample, or on the XLA route one any-hit trace a sample; the same
+        bits as ``PagedSceneTracer.trace_occlusion_bundle``."""
+        if not self.use_pallas:
+            return occlusion_bits(self, o, dirs, t_caps, active=active,
+                                  cull_mask=cull_mask)
+        bits, _ = self.trace_shadow_ao_bundle(
+            o, dirs, t_caps, [], [], occ_actives=[active] * len(dirs),
+            cull_mask=cull_mask)
+        return bits
+
     def trace_shadow_ao_resolve_bundle(self, o, dirs, t_caps, ao_dirs,
                                        ao_caps, rs_d, rs_cap, *,
                                        occ_actives=None, ao_actives=None,
@@ -1718,7 +1734,9 @@ class PagedSceneTracer:
     def __init__(self, scene: PagedScene, slot_materials: torch.Tensor,
                  materials, *, root_code: int, stack_size: int,
                  leaf_cutout: bool = False, textures=None,
-                 use_pallas: bool = True):
+                 use_pallas: bool = True, image_shape=None,
+                 wide: bool = False, pack: int = 1):
+        del image_shape, wide, pack     # TPU packet knobs: no result moves
         self.scene = scene
         self.slot_materials = slot_materials
         self.materials = materials
@@ -1812,13 +1830,17 @@ def make_scene_tracer(blasset, meta, anim_rest, anim_rest_nodes, instances,
                       paged: bool = False, inst_mask=None, inst_opaque=None,
                       leaf_cutout: bool = False, textures=None, time=None,
                       animate=None, resplit: bool = False,
-                      use_pallas: bool = True):
+                      use_pallas: bool = True, image_shape=None,
+                      wide: bool = False, pack: int = 1):
     """Assemble this frame's scene and return its tracer: the paged layout
     over TLAS ``tlas_index`` alone (``PagedSceneTracer``) with ``paged``,
     else the flat layout over every TLAS (``SceneTracer``); ``time``,
     ``animate`` and ``resplit`` refit the anim BLASes, ``leaf_cutout``,
     ``textures`` and ``use_pallas`` (False: the XLA route) go to the
-    tracer."""
+    tracer. ``image_shape``, ``wide`` and ``pack`` shape the TPU kernels'
+    ray packets and BVH width, which change no result: accepted and
+    ignored."""
+    del image_shape, wide, pack
     anim = dict(time=time, animate=animate, resplit=resplit,
                 inst_mask=inst_mask, inst_opaque=inst_opaque)
     if paged:

@@ -29,6 +29,8 @@ from ..core.geometry import GeometryArrays
 from ..core.transforms import apply_mat34
 from .preprocess import PreprocessResult
 
+NO_HIT = -1   # the triangle id of a pixel no triangle covers
+
 
 @dataclasses.dataclass(frozen=True)
 class TriangleBatch:

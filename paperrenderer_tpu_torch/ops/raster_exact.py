@@ -468,7 +468,8 @@ def rasterize_exact(batch: TriangleBatch, width: int, height: int, *,
                     full_width: Optional[int] = None,
                     full_height: Optional[int] = None, origin=(0, 0),
                     depth_window=None, quarter: Optional[bool] = None,
-                    crossz: Optional[bool] = None):
+                    crossz: Optional[bool] = None, pair_capacity=None,
+                    overflow_cond=None):
     """Exact-binned raster. Returns (depth f32[H,W], tid i32[H,W] global
     triangle ids, attr_table f32[T_pad, 32], required int — this frame's
     (group, cell) pair count).
@@ -482,7 +483,13 @@ def rasterize_exact(batch: TriangleBatch, width: int, height: int, *,
 
     ``full_width``/``full_height``/``origin`` render the width x height
     window at ``origin`` of a larger viewport (screen-tile sharding): the
-    setup over the full viewport, the binning in window space."""
+    setup over the full viewport, the binning in window space.
+
+    ``pair_capacity`` and ``overflow_cond`` (the TPU's static pair-buffer
+    tier and its in-graph overflow branch) are accepted and ignored: the
+    port's exact raster sizes its pair buffers from each frame's own count
+    and is always complete."""
+    del pair_capacity, overflow_cond
     quarter = True if quarter is None else quarter
     crossz = (True if crossz is None else crossz) and quarter \
         and depth_window is None
@@ -495,7 +502,7 @@ def rasterize_exact(batch: TriangleBatch, width: int, height: int, *,
     return depth, tid, b.table, b.n_pairs
 
 
-def resolve_gbuffer_pairs(attr_table, depth, tri_id, camera, *,
+def resolve_gbuffer_pairs(attr_pairs, depth, tri_id, camera, *,
                           full_width: Optional[int] = None,
                           full_height: Optional[int] = None,
                           origin=(0, 0)) -> GBuffer:
@@ -508,7 +515,7 @@ def resolve_gbuffer_pairs(attr_table, depth, tri_id, camera, *,
     x0, y0 = origin
     dev = depth.device
     covered = (tri_id >= 0).reshape(-1)
-    rows = attr_table[torch.clamp(tri_id, min=0).reshape(-1).long()]  # [P, 32]
+    rows = attr_pairs[torch.clamp(tri_id, min=0).reshape(-1).long()]  # [P, 32]
 
     xs = torch.arange(w, dtype=torch.float32, device=dev) + 0.5 + x0
     ys = torch.arange(h, dtype=torch.float32, device=dev) + 0.5 + y0

@@ -367,13 +367,15 @@ def rasterize_tiles(batch: TriangleBatch, width: int, height: int):
 
 
 def rasterize_tiles_binned(batch: TriangleBatch, width: int, height: int, *,
-                           presorted: bool = False):
+                           presorted: bool = False, work_capacity=None):
     """The work-list tile rasterizer (K6): only each tile's overlapping
     chunks are visited. Returns (depth, tid, bary, required) with
     ``required`` = n_tiles + the (tile, chunk) pair count, the JAX
     package's work-list demand. ``presorted``: the batch is already
     spatially coherent; the screen-morton sort is skipped and ids are batch
-    rows as they are."""
+    rows as they are. ``work_capacity`` (the TPU's work-list tier) is
+    accepted and ignored: the lists are sized from this frame's count."""
+    del work_capacity
     coeffs, ok, (lo, hi) = triangle_coefficients(batch, width, height)
     f = tile_setup(coeffs, ok, lo, hi, width, height, presorted=presorted)
     tile_start, tile_chunks, n_pairs = tile_lists(f.chunk_aabb, width, height)

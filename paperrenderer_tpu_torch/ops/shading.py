@@ -32,7 +32,15 @@ from .raster import GBuffer
 
 @dataclasses.dataclass(frozen=True)
 class Lights:
-    """Point lights + ambient (example main.cpp:205-330, pbr.glsl:6-24)."""
+    """Point lights + ambient (example main.cpp:205-330, pbr.glsl:6-24).
+
+    ``shadow_flags`` and ``hard_flags`` are host mirrors of ``cast_shadow``
+    and of ``radius == 0``, as in the JAX package: the lighting passes draw
+    and trace no shadow samples for a light whose flag says it casts no
+    shadow, and one sample for a hard light, whose samples are all the
+    same ray. None means unknown: every sample of every light is traced
+    and the result masked by ``cast_shadow``. Edit the arrays with
+    ``replace``, which re-derives the mirrors."""
 
     position: torch.Tensor     # f32[L, 3]
     color: torch.Tensor        # f32[L, 3]
@@ -40,6 +48,8 @@ class Lights:
     bounds: torch.Tensor       # f32[L] — influence range
     cast_shadow: torch.Tensor  # bool[L]
     ambient: torch.Tensor      # f32[4] — rgb + strength
+    shadow_flags: Optional[tuple] = None   # static cast_shadow
+    hard_flags: Optional[tuple] = None     # static radius == 0
 
     @staticmethod
     def make(points, ambient=(1.0, 1.0, 1.0, 0.1), device="cpu") -> "Lights":
@@ -59,7 +69,21 @@ class Lights:
         t = lambda a: torch.from_numpy(a).to(device)
         return Lights(position=t(pos), color=t(col), radius=t(rad),
                       bounds=t(bnd), cast_shadow=t(shd),
-                      ambient=t(np.asarray(ambient, np.float32)))
+                      ambient=t(np.asarray(ambient, np.float32)),
+                      **static_light_flags(shd, rad))
+
+    def replace(self, **kw) -> "Lights":
+        """A copy with fields replaced; a new ``cast_shadow`` or ``radius``
+        (tensors or arrays) re-derives both mirrors from the new values (a
+        read back to the host), where ``dataclasses.replace`` would keep
+        them stale."""
+        kw = {k: (torch.as_tensor(v, device=self.position.device)
+                  if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
+        new = dataclasses.replace(self, **kw)
+        if "cast_shadow" in kw or "radius" in kw:
+            new = dataclasses.replace(new, **static_light_flags(
+                new.cast_shadow.cpu().numpy(), new.radius.cpu().numpy()))
+        return new
 
     @property
     def count(self) -> int:
@@ -67,6 +91,12 @@ class Lights:
 
     def to(self, device) -> "Lights":
         return tree_to(self, device)
+
+
+def static_light_flags(cast_shadow, radius) -> dict:
+    """The ``Lights`` mirrors of host arrays: {"shadow_flags", "hard_flags"}."""
+    return dict(shadow_flags=tuple(bool(x) for x in np.asarray(cast_shadow)),
+                hard_flags=tuple(float(x) == 0.0 for x in np.asarray(radius)))
 
 
 def _norm(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
@@ -97,6 +127,11 @@ def leaf_alpha(uv: torch.Tensor) -> torch.Tensor:
     y = uv[..., 1] - 0.5
     curve = (-((1.0 - 2.0 * x) ** 2) + 1.0) * 0.2
     return torch.where(y.abs() < curve, 1.0, 0.0)
+
+
+def leaf_occlusion(uv: torch.Tensor) -> torch.Tensor:
+    """example leaf.glsl getOcclusion: an AO-like gradient along the leaf."""
+    return uv[..., 0] * 0.5 + 0.5
 
 
 def _attenuate(dist, bounds):

@@ -87,21 +87,24 @@ def _morton_u64(p: np.ndarray, use_native: bool = True) -> np.ndarray:
             | (_spread21(g[:, 1]) << np.uint64(1)) | _spread21(g[:, 2]))
 
 
-def build_static_mapping(scene: Scene) -> StaticMapping:
+def build_static_mapping(scene: Scene, capacity: Optional[int] = None,
+                         spatial_sort: bool = True) -> StaticMapping:
     """Host-side expansion (numpy), uploaded to ``scene.device``; call when
-    the scene topology changes.
+    the scene topology changes. ``capacity`` fixes the triangle rows
+    (ValueError when the scene has more), else the next tier.
 
-    Instances are ordered by world morton code so 8-triangle groups stay
-    spatially tight, which keeps the rasterizer's bins small; a scene with
-    the native core (``Scene(use_native=True)``) codes them natively, one
-    without through numpy (the same codes)."""
+    With ``spatial_sort`` instances are ordered by world morton code so
+    8-triangle groups stay spatially tight, which keeps the rasterizer's
+    bins small (a scene with the native core, ``Scene(use_native=True)``,
+    codes them natively, one without through numpy: the same codes);
+    without, they keep the scene's instance order."""
     arena = scene.arena
     rows_inst: list = []
     rows_lod: list = []
     rows_slot: list = []
     tri_ranges: list = []  # (tri_offset, tri_count) in the arena
     order = list(scene.instances)
-    if len(order) > 1:
+    if spatial_sort and len(order) > 1:
         # the native morton codes when the scene runs the native core
         native = getattr(scene, "_native", None) is not None
         codes = _morton_u64(np.stack([i.position for i in order]),
@@ -115,7 +118,9 @@ def build_static_mapping(scene: Scene) -> StaticMapping:
                 rows_slot.append(mm.material_slot)
                 tri_ranges.append((mm.handle.tri_offset, mm.handle.tri_count))
     total = sum(c for _, c in tri_ranges)
-    cap = _tier(total)
+    cap = capacity or _tier(total)
+    if total > cap:
+        raise ValueError(f"static mapping overflow: {total} > {cap}")
 
     arena_tri = np.zeros(cap, np.int64)
     valid = np.zeros(cap, bool)
@@ -151,8 +156,10 @@ def expand_static(
     instance_visible: Optional[torch.Tensor] = None,
     *,
     do_culling: bool = True,
+    lod_override: Optional[int] = None,
     animate_time=None,
     animate=None,
+    use_runs: bool = True,
 ):
     """Per-frame: instance math + dense transform -> (TriangleBatch,
     visible bool[N]). ``animate``, a vertex animation f(v_obj, time) ->
@@ -163,7 +170,11 @@ def expand_static(
     Per-run values (matrix 12 | valid flag | material id) are gathered once
     per run and broadcast to the run's triangles by ``run_id``: one row
     index per triangle (the JAX package's jump-fill exists for TPU gather
-    costs only)."""
+    costs only). ``lod_override`` forces that LOD (clamped to each model's
+    last), as ``preprocess_instances``' does. ``use_runs`` False is the JAX
+    package's per-triangle gather, used where its triangle axis is
+    sharded; the run gather gives the same batch, so it is ignored."""
+    del use_runs
     model_id = torch.clamp(instances.model_id, min=0)
     matrices = trs_to_mat34(instances.pos, instances.scale, instances.quat)
 
@@ -176,8 +187,12 @@ def expand_static(
         visible = visible & instance_visible
     if do_culling:
         visible = visible & frustum_cull(aabb_min, aabb_max, matrices, camera)
-    lod = select_lod(instances.pos, aabb_min, aabb_max, lod_count,
-                     camera.cam_pos)
+    if lod_override is None:
+        lod = select_lod(instances.pos, aabb_min, aabb_max, lod_count,
+                         camera.cam_pos)
+    else:
+        lod = torch.clamp(torch.clamp(lod_count - 1, min=0),
+                          max=lod_override)
 
     ri = mapping.run_inst
     m12_runs = matrices.reshape(-1, 12)[ri]                       # [R, 12]

@@ -109,3 +109,12 @@ def tonemap(hdr: torch.Tensor, params: Optional[TonemapParams] = None) -> torch.
     gray = (px * luma).sum(dim=-1, keepdim=True)
     px = torch.clamp(gray + (px - gray) * p.saturation, min=0.0)
     return torch.pow(hill_aces(px), p.gamma)
+
+
+def to_srgb_u8(ldr: torch.Tensor) -> torch.Tensor:
+    """LDR [0, 1] -> u8, sRGB-encoded (the swapchain's SRGB format step);
+    the nearest integer, halves to even."""
+    x = torch.clamp(ldr, 0.0, 1.0)
+    srgb = torch.where(x <= 0.0031308, 12.92 * x,
+                       1.055 * torch.pow(x, 1.0 / 2.4) - 0.055)
+    return torch.round(srgb * 255.0).to(torch.uint8)

@@ -22,9 +22,14 @@ it and traces the samples apart otherwise. Under the any-hit leaf cutout
 (``RTParams.leaf_cutout``, ``ctx.leaf_cutout``) primary, AO and reflection
 rays trace with ``use_alpha``, shadow rays stay opaque (the reference's
 OpaqueEXT), and shadows and AO no longer share a bundle. The group
-compaction of the JAX package (``compact_secondary``/``compact_refl``)
-only reorders work for the TPU's packets and leaves every result
-unchanged; it is not ported. A tracer with a texture atlas
+compaction of the JAX package (``RTParams.compact_secondary``/
+``compact_refl``, the passes' ``compact=``) only reorders work for the
+TPU's packets and leaves every result unchanged: the knobs are accepted
+and ignored. A light whose static ``Lights.shadow_flags`` entry is False
+gets no shadow samples at all, and a hard light (``hard_flags``) one, as
+in the JAX package; the bits of every other sample keep their keys, so
+the frames are the same. ``BatchTracer`` is the tracer of the
+single-level world BVH (``ops.bvh``), with the same protocol. A tracer with a texture atlas
 (``ctx.textures``) shades its primary and reflection hits with the
 materials' textures, sampled bilinear at mip 0 (no screen derivatives on
 a ray hit), as the JAX package does; the reflection tint and the AO
@@ -34,6 +39,7 @@ influence keep the untextured parameters.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -44,11 +50,14 @@ from ..core.camera import CameraMatrices
 from ..core.material import MaterialTable
 from ..utils import random as rnd
 from ..utils.tree import device_constant
+from .bvh import BVH, HitRecord, bvh_trace
+from .raster import TriangleBatch
 from .shading import (
     Lights, apply_textures, lookup_material_params, lookup_texture_ids,
     point_light_contribution)
 
 BACKGROUND_RGB = (0.1, 0.1, 0.1)  # environment color, raytrace.rgen:52
+BACKGROUND = torch.tensor(BACKGROUND_RGB, dtype=torch.float32)   # on the CPU
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +70,10 @@ class RTParams:
     (``reflections_half_rate``; not reference parity). ``fuse_bounce``
     folds the reflection ray into the primary-side shadow+AO bundle (one
     traversal launch for all primary-side secondary rays; the same result
-    as tracing it separately)."""
+    as tracing it separately). ``compact_secondary`` and ``compact_refl``
+    are the JAX package's TPU packet compaction, which reorders work and
+    leaves every result unchanged: accepted, with its defaults, and
+    ignored."""
 
     shadow_samples: int = 1
     reflection_samples: int = 1
@@ -72,6 +84,8 @@ class RTParams:
     shadow_cull_mask: int = 0xFF
     reflection_half_rate: bool = False
     fuse_bounce: bool = False
+    compact_secondary: bool = True
+    compact_refl: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,6 +193,96 @@ def _cosine_sample(n, tx, ty, max_offset, r1, r2):
     return d / torch.clamp(_norm(d, keepdim=True), min=1e-12)
 
 
+def resolve_hits(batch: TriangleBatch, rec: HitRecord, ray_o,
+                 ray_d) -> SurfaceHits:
+    """A world-BVH hit record's surfaces (hitcommon.glsl getHitInfo):
+    position, normal (normalized, faced toward the ray) and uv interpolated
+    at the barycentrics, the triangle's material (0 on a miss)."""
+    pid = torch.clamp(rec.prim, min=0).long()
+    u = rec.bary[:, 0:1]
+    v = rec.bary[:, 1:2]
+    w0 = 1.0 - u - v
+
+    def lerp(x):    # x [T, 3, c] -> the rays' interpolated [R, c]
+        x = x[pid]
+        return w0 * x[:, 0] + u * x[:, 1] + v * x[:, 2]
+
+    normal = lerp(batch.normal)
+    normal = normal / torch.clamp(_norm(normal, keepdim=True), min=1e-12)
+    facing = (normal * ray_d).sum(dim=-1) < 0.0
+    return SurfaceHits(
+        world_pos=lerp(batch.world),
+        normal=torch.where(facing[:, None], normal, -normal),
+        uv=lerp(batch.uv),
+        material=torch.where(rec.hit, batch.material[pid], 0).to(torch.int32),
+        valid=rec.hit, t=rec.t)
+
+
+def make_leaf_alpha_test(batch: TriangleBatch, materials: MaterialTable):
+    """``bvh_trace``'s any-hit alpha cutout (leaf.rahit): a candidate on a
+    SHADE_LEAF material is rejected where the procedural leaf is
+    transparent at its uv."""
+    from ..core.material import SHADE_LEAF
+    from .shading import leaf_alpha
+
+    def test(prims, u, v):
+        is_leaf = materials.shading_model[batch.material[prims]] == SHADE_LEAF
+        tri_uv = batch.uv[prims]                      # [..., 3, 2]
+        w0 = 1.0 - u - v
+        uv = (w0[..., None] * tri_uv[..., 0, :] + u[..., None] * tri_uv[..., 1, :]
+              + v[..., None] * tri_uv[..., 2, :])
+        return torch.where(is_leaf, leaf_alpha(uv) >= 0.5, True)
+
+    return test
+
+
+class BatchTracer:
+    """Tracer over one frame's world ``TriangleBatch`` and its BVH (the
+    single-level path: the reference the two-level tracers are checked
+    against, and the legacy sharded RT frame's tracer). Its protocol is
+    ``accel.SceneTracer``'s: ``trace``, ``resolve``,
+    ``trace_occlusion_bundle`` (one any-hit trace a sample) and
+    ``trace_resolve``. ``cull_mask`` is accepted and has no effect: the
+    world batch keeps no instance records to mask. With ``leaf_cutout`` and
+    ``materials``, ``use_alpha=True`` applies the leaf cutout;
+    ``textures`` is read by the lighting passes."""
+
+    def __init__(self, batch: TriangleBatch, bvh: BVH,
+                 materials: Optional[MaterialTable] = None,
+                 leaf_cutout: bool = False, textures=None):
+        self.batch = batch
+        self.bvh = bvh
+        self.materials = materials
+        self.leaf_cutout = leaf_cutout
+        self.textures = textures
+
+    def trace(self, o, d, t_max, *, any_hit=False, active=None,
+              use_alpha=False, cull_mask: int = 0xFF) -> HitRecord:
+        del cull_mask
+        alpha = (make_leaf_alpha_test(self.batch, self.materials)
+                 if use_alpha and self.leaf_cutout
+                 and self.materials is not None else None)
+        w = self.batch.world
+        return bvh_trace(self.bvh, w[:, 0], w[:, 1], w[:, 2], o, d, t_max,
+                         any_hit=any_hit, active=active, alpha_test=alpha)
+
+    def resolve(self, rec: HitRecord, o, d) -> SurfaceHits:
+        return resolve_hits(self.batch, rec, o, d)
+
+    def trace_occlusion_bundle(self, o, dirs, t_caps, *, active=None,
+                               cull_mask: int = 0xFF) -> torch.Tensor:
+        """S any-hit traces -> i32[R] bits (bit s set where sample s is
+        occluded or inactive)."""
+        return occlusion_bits(self, o, dirs, t_caps, active=active,
+                              cull_mask=cull_mask)
+
+    def trace_resolve(self, o, d, t_max, *, active=None, use_alpha=False,
+                      cull_mask: int = 0xFF) -> SurfaceHits:
+        rec = self.trace(o, d, t_max, active=active, use_alpha=use_alpha,
+                         cull_mask=cull_mask)
+        return self.resolve(rec, o, d)
+
+
 def _uniform2(key, r: int, device):
     u = rnd.uniform(key, (2, r), device)
     return u[0], u[1]
@@ -187,7 +291,17 @@ def _uniform2(key, r: int, device):
 def _light_shadow_samples(surf: SurfaceHits, lights: Lights, li: int, key,
                           samples: int):
     """Light ``li``'s shadow-sample directions (raytrace.rchit:61-116).
-    Returns (dirs, dist, active)."""
+    Returns (dirs, dist, active), or None for a light whose static
+    ``shadow_flags`` entry says it casts no shadow (the reference skips its
+    ray query). A hard light (``hard_flags``: radius 0) gets one sample:
+    every sample of it is the same ray, ``ldir``. Sample si keeps the key
+    ``fold_in(fold_in(key, li), si)`` either way."""
+    flags = lights.shadow_flags
+    if flags is not None and li < len(flags) and not flags[li]:
+        return None
+    hard = lights.hard_flags
+    if hard is not None and li < len(hard) and hard[li]:
+        samples = 1
     r = surf.world_pos.shape[0]
     lpos = lights.position[li]
     to_l = lpos - surf.world_pos
@@ -225,22 +339,30 @@ def _shadow_vis_from_bits(bits, active, cast_shadow, n_s: int, shift: int):
 
 def _occlusion_samples(surf, lights, key, samples):
     """Every light's shadow samples as one list: (dirs, caps, actives,
-    per-light (bit shift, active))."""
+    per light None (no samples) or (bit shift, active, sample count))."""
     dirs, caps, actives, slots = [], [], [], []
     for li in range(lights.count):
-        d, dist, active = _light_shadow_samples(surf, lights, li, key, samples)
-        slots.append((len(dirs), active))
+        built = _light_shadow_samples(surf, lights, li, key, samples)
+        if built is None:
+            slots.append(None)
+            continue
+        d, dist, active = built
+        slots.append((len(dirs), active, len(d)))
         dirs += d
-        caps += [dist] * samples
-        actives += [active] * samples
+        caps += [dist] * len(d)
+        actives += [active] * len(d)
     return dirs, caps, actives, slots
 
 
-def _visibility(bits, lights, slots, samples):
+def _visibility(bits, lights, slots):
+    """f32[L, R] from the bundle's bits; a light with no samples is fully
+    visible."""
     return torch.stack([
-        _shadow_vis_from_bits(bits, active, lights.cast_shadow[li], samples,
-                              shift)
-        for li, (shift, active) in enumerate(slots)])
+        torch.ones(bits.shape, dtype=torch.float32, device=bits.device)
+        if slot is None else
+        _shadow_vis_from_bits(bits, slot[1], lights.cast_shadow[li], slot[2],
+                              slot[0])
+        for li, slot in enumerate(slots)])
 
 
 def _ao_samples(surf: SurfaceHits, key, samples: int, radius: float):
@@ -269,27 +391,42 @@ def _ao_from_t(surf, materials, ao_ts, samples: int, radius: float):
 
 
 def shadow_visibility(surf: SurfaceHits, ctx, lights: Lights, key,
-                      samples: int, cull_mask: int = 0xFF) -> torch.Tensor:
+                      samples: int, cull_mask: int = 0xFF,
+                      compact: bool = False) -> torch.Tensor:
     """Per-light soft-shadow visibility in [0, 1], f32[L, R]
     (raytrace.rchit:61-116): ``samples`` any-hit rays toward a sphere light
-    up to the light-center distance, all lights in one origin-shared bundle
+    up to the light-center distance (none for a statically non-casting
+    light, one for a hard light), all lights in one origin-shared bundle
     (``trace_shadow_ao_bundle``) where the tracer has it, else one
-    ``trace_occlusion_bundle`` per light. Origins are offset along the
-    normal (OffsetRay) against acne."""
+    ``trace_occlusion_bundle`` a light, else (a tracer with ``trace``
+    alone) one any-hit trace a sample. Origins are offset along the normal
+    (OffsetRay) against acne. ``compact`` (TPU packet compaction) is
+    ignored."""
+    del compact
     origin = surf.world_pos + surf.normal * 5e-3
     dirs, caps, actives, slots = _occlusion_samples(surf, lights, key, samples)
     if getattr(ctx, "trace_shadow_ao_bundle", None) is not None:
-        bits, _ = ctx.trace_shadow_ao_bundle(origin, dirs, caps, [], [],
-                                             occ_actives=actives,
-                                             cull_mask=cull_mask)
-        return _visibility(bits, lights, slots, samples)
+        bits = torch.zeros(origin.shape[0], dtype=torch.int32,
+                           device=origin.device)
+        if dirs:
+            bits, _ = ctx.trace_shadow_ao_bundle(origin, dirs, caps, [], [],
+                                                 occ_actives=actives,
+                                                 cull_mask=cull_mask)
+        return _visibility(bits, lights, slots)
+    trace_bits = (getattr(ctx, "trace_occlusion_bundle", None)
+                  or functools.partial(occlusion_bits, ctx))
     vis = []
-    for li, (shift, active) in enumerate(slots):
-        bits = ctx.trace_occlusion_bundle(
-            origin, dirs[shift:shift + samples], caps[shift:shift + samples],
-            active=active, cull_mask=cull_mask)
+    for li, slot in enumerate(slots):
+        if slot is None:
+            vis.append(torch.ones(origin.shape[0], dtype=torch.float32,
+                                  device=origin.device))
+            continue
+        shift, active, n_s = slot
+        bits = trace_bits(origin, dirs[shift:shift + n_s],
+                          caps[shift:shift + n_s], active=active,
+                          cull_mask=cull_mask)
         vis.append(_shadow_vis_from_bits(bits, active,
-                                         lights.cast_shadow[li], samples, 0))
+                                         lights.cast_shadow[li], n_s, 0))
     return torch.stack(vis)
 
 
@@ -307,13 +444,15 @@ def occlusion_bits(ctx, o, dirs, t_caps, *, active=None,
 
 
 def ambient_occlusion(surf: SurfaceHits, ctx, materials: MaterialTable, key,
-                      samples: int, radius: float,
-                      cull_mask: int = 0xFF) -> torch.Tensor:
+                      samples: int, radius: float, cull_mask: int = 0xFF,
+                      compact: bool = False) -> torch.Tensor:
     """RTAO factor in [0, 1] (raytrace.rchit:175-219): cosine-hemisphere
     rays, occlusion weighted by 1 - t/radius, scaled by
     mix(1, roughness, metallic). Under the tracer's leaf cutout the rays go
     through ``trace_resolve(use_alpha=True)``, whose kernels hold the
-    cutout, and only its hit flag and t are read."""
+    cutout, and only its hit flag and t are read. ``compact`` (TPU packet
+    compaction) is ignored."""
+    del compact
     r = surf.world_pos.shape[0]
     if samples <= 0 or radius <= 0.0:
         return torch.ones(r, device=surf.world_pos.device)
@@ -338,7 +477,7 @@ def ambient_occlusion(surf: SurfaceHits, ctx, materials: MaterialTable, key,
 def shadow_and_ao(surf: SurfaceHits, ctx, materials: MaterialTable,
                   lights: Lights, shadow_key, ao_key, *, shadow_samples: int,
                   ao_samples: int, ao_radius: float, cull_mask: int = 0xFF,
-                  shadow_cull_mask: int = 0xFF):
+                  shadow_cull_mask: int = 0xFF, compact: bool = False):
     """Shadow visibility + RTAO in ONE origin-shared bundle launch (every
     sample starts at the same surface point). Returns (svis f32[L, R],
     ao f32[R]) with the sampling of ``shadow_visibility`` +
@@ -346,7 +485,9 @@ def shadow_and_ao(surf: SurfaceHits, ctx, materials: MaterialTable,
     5e-3; the separate AO pass uses 1e-3). Separate passes run when the
     tracer has no fused bundle, the cull masks differ, AO is off or the AO
     rays must honor the leaf cutout (the bundle has no alpha form; shadow
-    rays are opaque either way)."""
+    rays are opaque either way). ``compact`` (TPU packet compaction) is
+    ignored."""
+    del compact
     if (getattr(ctx, "trace_shadow_ao_bundle", None) is None
             or shadow_cull_mask != cull_mask or ao_samples <= 0
             or ao_radius <= 0.0 or getattr(ctx, "leaf_cutout", False)):
@@ -361,7 +502,7 @@ def shadow_and_ao(surf: SurfaceHits, ctx, materials: MaterialTable,
     bits, ao_ts = ctx.trace_shadow_ao_bundle(
         origin, dirs, caps, ao_ds, ao_caps, occ_actives=actives,
         ao_actives=[surf.valid] * ao_samples, cull_mask=cull_mask)
-    return (_visibility(bits, lights, slots, shadow_samples),
+    return (_visibility(bits, lights, slots),
             _ao_from_t(surf, materials, ao_ts, ao_samples, ao_radius))
 
 
@@ -399,17 +540,18 @@ def shadow_ao_bounce(surf: SurfaceHits, ctx, materials: MaterialTable,
         torch.full((r,), 1000.0, device=origin.device), occ_actives=actives,
         ao_actives=[surf.valid] * params.ao_samples, rs_active=surf.valid,
         cull_mask=params.cull_mask)
-    return (_visibility(bits, lights, slots, samples),
+    return (_visibility(bits, lights, slots),
             _ao_from_t(surf, materials, ao_ts, params.ao_samples,
                        params.ao_radius), hit2)
 
 
 def shade_surfaces(surf: SurfaceHits, materials: MaterialTable,
-                   lights: Lights, viewer: torch.Tensor,
+                   lights: Lights, cam_or_prev_pos: torch.Tensor,
                    shadow_vis: torch.Tensor, ao: torch.Tensor,
                    textures: Optional[TX.TextureArrays] = None) -> torch.Tensor:
     """Direct lighting + ambient + emissive at hit points (rchit:48-122,
-    :173-226 without reflections). ``viewer`` is f32[3] or f32[R, 3].
+    :173-226 without reflections). ``cam_or_prev_pos`` (the viewer) is
+    f32[3] or f32[R, 3].
     ``textures`` samples the materials' textures bilinear at mip 0.
     Returns f32[R, 3]; invalid rays -> 0."""
     albedo, emissive, roughness, metallic = lookup_material_params(
@@ -420,7 +562,7 @@ def shade_surfaces(surf: SurfaceHits, materials: MaterialTable,
             emissive, roughness, metallic,
             lambda t, i: TX.sample_bilinear(t, i, surf.uv))
         ao = ao * tex_occ
-    view_dir = viewer - surf.world_pos
+    view_dir = cam_or_prev_pos - surf.world_pos
     view_dir = view_dir / torch.clamp(_norm(view_dir, keepdim=True), min=1e-9)
     total = torch.zeros_like(albedo)
     for li in range(lights.count):

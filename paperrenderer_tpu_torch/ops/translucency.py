@@ -74,6 +74,7 @@ def composite_translucency(
     full_width=None,
     full_height=None,
     origin=(0, 0),
+    pair_capacity=None,
 ) -> Tuple[torch.Tensor, int]:
     """Depth-peel the non-opaque triangles and blend them back to front over
     the opaque HDR image; each layer's shade samples ``textures`` (the
@@ -81,7 +82,10 @@ def composite_translucency(
     ``full_*``/``origin`` composite the H x W window at ``origin`` of a
     larger viewport (screen-tile sharding), on either peel. Returns (hdr
     f32[H, W, 3], required int: the translucent set's pair count, which
-    every layer shares; 0 on the XLA peel)."""
+    every layer shares; 0 on the XLA peel). ``pair_capacity`` (the TPU's
+    pair-buffer tier) is accepted and ignored: the port's exact peel sizes
+    its buffers from this frame's count."""
+    del pair_capacity
     h, w = opaque_depth.shape
     win = dict(full_width=full_width, full_height=full_height, origin=origin)
     translucent = non_opaque_mask(materials, batch.material)

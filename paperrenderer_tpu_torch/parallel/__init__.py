@@ -10,6 +10,7 @@ from .tiles import (
     measure_sharded_demand,
     sharded_render_frame,
     sharded_render_frame_static,
+    sharded_rt_frame,
 )
 
 __all__ = [
@@ -21,5 +22,6 @@ __all__ = [
     "measure_sharded_demand",
     "sharded_render_frame",
     "sharded_render_frame_static",
+    "sharded_rt_frame",
     "spawn_ranks",
 ]

@@ -28,8 +28,9 @@ tests) and, where the ranks share one card (NCCL refuses two ranks on one
 GPU), stages each gathered tensor through host memory while the kernels
 stay on the card. ``launch.spawn_ranks`` starts the ranks.
 
-``sharded_rt_frame`` (JAX's legacy per-frame world BVH) is not ported: it
-needs ``BatchTracer``, which the port leaves out (a validation path only).
+``sharded_rt_frame`` is the JAX package's legacy RT frame over tiles: each
+rank builds the per-frame world BVH (``render.raytrace.build_world_scene``)
+and traces its window through ``ops.trace.BatchTracer``; no collective.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ from ..ops.shading import Lights, shade_gbuffer
 from ..ops.static_batch import StaticMapping, expand_static
 from ..ops.tonemap import TonemapParams, tonemap
 from ..ops.translucency import composite_translucency, non_opaque_mask
+from ..render.raytrace import build_world_scene
 from ..render.renderpass import _box_resolve, raster_gbuffer
 from ..utils import random as rnd
 from .mesh import TileMesh
@@ -328,15 +330,37 @@ def measure_sharded_demand(
     return tile_demand(batch)
 
 
+def sharded_rt_frame(mesh: TileMesh, instances: InstanceArrays,
+                     tables: SceneTables, geo, materials: MaterialTable,
+                     lights: Lights, camera: CameraMatrices, slot_materials,
+                     tonemap_params: TonemapParams, key, *, width: int,
+                     height: int, max_meshes_per_lod: int, tri_capacity: int,
+                     params: T.RTParams):
+    """The legacy RT frame over screen tiles (the validation reference of
+    ``make_sharded_rt_frame``): every rank builds the world BVH over all
+    live instances' LOD-0 triangles and traces its window with the tile key
+    ``fold_in(key, row * cols + col)``. Returns the rank's ldr tile
+    f32[H / rows, W / cols, 3]."""
+    tile_w, tile_h, win = tile_window(mesh, width, height)
+    batch, bvh = build_world_scene(
+        instances, tables, geo, camera, slot_materials,
+        max_meshes_per_lod=max_meshes_per_lod, tri_capacity=tri_capacity)
+    ctx = T.BatchTracer(batch, bvh, materials, leaf_cutout=params.leaf_cutout)
+    hdr = T.trace_frame(ctx, materials, lights, camera,
+                        rnd.fold_in(key, mesh.index), width=tile_w,
+                        height=tile_h, params=params, **win)
+    return tonemap(hdr, tonemap_params)
+
+
 def make_sharded_rt_frame(mesh: TileMesh, meta, animate=None, *,
-                          use_pallas: bool = False, paged: bool = False,
+                          use_pallas: bool = True, paged: bool = False,
                           wide: bool = True):
     """Screen-tile sharded two-level RT frame: every rank assembles the
     acceleration structure (flat, or ``paged``) and traces its window with
-    the tile key ``fold_in(key, row * cols + col)``. ``use_pallas`` runs the
-    traversal kernels (K7-K11), else the XLA route; ``wide`` is a TPU
-    scheduling knob, ignored. Returns ``rt_frame_sharded(...)`` -> the
-    rank's ldr tile."""
+    the tile key ``fold_in(key, row * cols + col)``. ``use_pallas`` (the
+    default, unlike the JAX factory) runs the traversal kernels (K7-K11),
+    False the XLA route; ``wide`` is a TPU scheduling knob, ignored.
+    Returns ``rt_frame_sharded(...)`` -> the rank's ldr tile."""
     del wide
 
     def rt_frame_sharded(blasset, anim_rest, anim_nodes, instances,
@@ -407,14 +431,16 @@ def hybrid_tile(batch: TriangleBatch, ctx, materials, lights, camera,
 
 
 def make_sharded_hybrid_frame(mesh: TileMesh, meta, animate=None, *,
-                              use_pallas_trace: bool = False,
+                              use_pallas_trace: bool = True,
                               paged: bool = False, wide: bool = True):
     """Screen-tile sharded hybrid frame (config 4 across ranks): the
     triangle-sharded static expansion, gathered; each rank's window of the
     raster G-buffer (K1 with ``use_pallas``, else the XLA route); the RT
     passes at its surfaces against the acceleration structure every rank
     assembles (flat, or ``paged``; the kernels with ``use_pallas_trace``,
-    else the XLA route), with the tile key; deferred shade; tonemap.
+    else the XLA route), with the tile key; deferred shade; tonemap. Both
+    switches default to the kernels (the JAX factory's default is its XLA
+    route).
     ``wide`` is ignored. Returns ``hybrid_frame_sharded(...)`` -> (ldr
     tile, {"required_work": the pair count's maximum over the ranks})."""
     del wide
@@ -425,7 +451,7 @@ def make_sharded_hybrid_frame(mesh: TileMesh, meta, animate=None, *,
                              instance_visible, tonemap_params, key, time,
                              textures=None, *, width: int, height: int,
                              stack_size: int, do_culling: bool = True,
-                             use_pallas: bool = False, work_capacity: int = 0,
+                             use_pallas: bool = True, work_capacity: int = 0,
                              shadow_samples: int = 1,
                              reflection_samples: int = 1, ao_samples: int = 1,
                              ao_radius: float = 2.0,

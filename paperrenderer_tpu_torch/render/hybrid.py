@@ -24,6 +24,10 @@ JAX package: ``raster.rasterize`` + ``resolve_gbuffer_packed`` instead of
 K1. The traversal keeps following the device, as the JAX package's
 follows the backend: the kernels on the card, their plain versions on the
 CPU.
+
+``make_hybrid_frame`` is the JAX package's frame factory: a callable with
+its ``hybrid_frame`` arguments that runs ``render_frame_hybrid``
+(``use_pallas_trace`` False: the XLA route's traversal).
 """
 
 from __future__ import annotations
@@ -58,7 +62,8 @@ def render_frame_hybrid(mapping, blasset, meta, anim_rest, anim_rest_nodes,
                         reflection_samples: int = 1, ao_samples: int = 1,
                         ao_radius: float = 2.0, leaf_cutout: bool = False,
                         reflection_half_rate: bool = False, textures=None,
-                        animate=None, use_pallas: bool = True):
+                        animate=None, use_pallas: bool = True,
+                        use_pallas_trace: bool = True):
     """One hybrid frame (the body of the JAX package's ``make_hybrid_frame``):
     the static raster G-buffer through K1, the scene's tracer on the flat or
     (``paged``) the paged layout, shadows + AO + the fused-or-not bounce at
@@ -68,8 +73,8 @@ def render_frame_hybrid(mapping, blasset, meta, anim_rest, anim_rest_nodes,
     ``textures`` (the atlas, or None) goes to the shade and the tracer;
     ``animate`` refits the anim BLASes at ``time`` for the RT passes (the
     G-buffer keeps the rest pose, as in the JAX package); ``use_pallas``
-    False rasterizes the G-buffer on the XLA route. Returns (ldr
-    f32[H, W, 3], aux dict)."""
+    False rasterizes the G-buffer on the XLA route, ``use_pallas_trace``
+    False traces on it. Returns (ldr f32[H, W, 3], aux dict)."""
     batch, inst_visible = expand_static(
         mapping, instances, tables, camera, slot_materials, instance_visible,
         do_culling=do_culling)
@@ -84,7 +89,8 @@ def render_frame_hybrid(mapping, blasset, meta, anim_rest, anim_rest_nodes,
         blasset, meta, anim_rest, anim_rest_nodes, instances, inst_blas,
         mask, tri_attr, slot_materials, materials, tlas_index=0,
         stack_size=stack_size, paged=paged, leaf_cutout=leaf_cutout,
-        textures=textures, time=time, animate=animate)
+        textures=textures, time=time, animate=animate,
+        use_pallas=use_pallas_trace)
     cov = gbuf.coverage.reshape(-1)
     surf = T.SurfaceHits(
         world_pos=gbuf.world_pos.reshape(-1, 3),
@@ -119,6 +125,49 @@ def render_frame_hybrid(mapping, blasset, meta, anim_rest, anim_rest_nodes,
            "visible_count": inst_visible.sum(), "required_work": required,
            "paged": paged}
     return ldr, aux
+
+
+def make_hybrid_frame(meta, animate=None, use_pallas_trace: bool = True,
+                      paged: bool = False, wide: bool = False, pack: int = 1):
+    """The JAX package's frame factory for one scene topology: returns
+    ``hybrid_frame(mapping, blasset, anim_rest, anim_nodes, instances,
+    inst_blas, tri_attr, tables, materials, lights, camera, slot_materials,
+    instance_visible, tonemap_params, key, time, textures=None, *, width,
+    height, stack_size, ...)``, which runs ``render_frame_hybrid`` with
+    ``meta``, ``animate``, ``paged`` and ``use_pallas_trace`` -> (ldr, aux).
+    ``use_pallas_trace`` and the frame's ``use_pallas`` default to the
+    kernel routes, as ``render_frame_hybrid`` does (the JAX factory's
+    default is its XLA route; False picks the port's, which launches no
+    raster or traversal kernel).
+    ``work_capacity`` (the TPU's pair-capacity tier: the port's exact
+    raster needs none), ``wide`` and ``pack`` (TPU packet shapes) change no
+    result and are ignored."""
+    del wide, pack
+
+    def hybrid_frame(mapping, blasset, anim_rest, anim_nodes, instances,
+                     inst_blas, tri_attr, tables, materials, lights, camera,
+                     slot_materials, instance_visible, tonemap_params, key,
+                     time, textures=None, *, width: int, height: int,
+                     stack_size: int, do_culling: bool = True,
+                     use_pallas: bool = True, work_capacity: int = 0,
+                     shadow_samples: int = 1, reflection_samples: int = 1,
+                     ao_samples: int = 1, ao_radius: float = 2.0,
+                     leaf_cutout: bool = False,
+                     reflection_half_rate: bool = False):
+        del work_capacity
+        return render_frame_hybrid(
+            mapping, blasset, meta, anim_rest, anim_nodes, instances,
+            inst_blas, tri_attr, tables, materials, lights, camera,
+            slot_materials, instance_visible, tonemap_params, key, time,
+            width=width, height=height, stack_size=stack_size, paged=paged,
+            do_culling=do_culling, shadow_samples=shadow_samples,
+            reflection_samples=reflection_samples, ao_samples=ao_samples,
+            ao_radius=ao_radius, leaf_cutout=leaf_cutout,
+            reflection_half_rate=reflection_half_rate, textures=textures,
+            animate=animate, use_pallas=use_pallas,
+            use_pallas_trace=use_pallas_trace)
+
+    return hybrid_frame
 
 
 class HybridRender:

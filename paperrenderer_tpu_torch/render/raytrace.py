@@ -42,6 +42,13 @@ is assembled paged and traced through its flat view (``paged_to_flat``).
 ``compact_secondary``, ``compact_refl``, ``packet_pack`` and ``bvh_wide``
 are TPU scheduling knobs that leave every result unchanged: they are
 accepted and ignored.
+
+``make_rt_frame`` is the JAX package's frame factory: a callable with its
+``rt_frame2`` arguments that runs ``render_frame_rt``. The single-level
+path, ``build_world_scene`` + ``rt_frame``, rebuilds a world BVH over
+every live instance's LOD-0 triangles each frame and traces it with
+``ops.trace.BatchTracer`` (plain PyTorch, ``ops.bvh``): the reference the
+two-level frame is checked against.
 """
 
 from __future__ import annotations
@@ -58,11 +65,57 @@ from ..core.model import ModelInstance
 from ..core.scene import InstanceArrays, Scene
 from ..ops import accel as ACC
 from ..ops.animation import f32_time
+from ..ops.bvh import build_bvh
+from ..ops.preprocess import preprocess_instances
+from ..ops.raster import build_triangle_batch
 from ..ops.shading import Lights
 from ..ops.tonemap import TonemapParams, tonemap
-from ..ops.trace import RTParams, trace_frame
+from ..ops.trace import BatchTracer, RTParams, trace_frame
 from ..utils import random as rnd
 from ..utils.device import require_device, use_kernels
+
+
+# ---------------------------------------------------------------------------
+# The single-level world BVH (the reference path)
+# ---------------------------------------------------------------------------
+
+def build_world_scene(instances: InstanceArrays, tables, geo,
+                      camera: CameraMatrices, slot_materials, *,
+                      max_meshes_per_lod: int, tri_capacity: int):
+    """Every live instance's LOD-0 triangles in world space (no culling) as
+    a ``TriangleBatch`` of ``tri_capacity`` rows, and a BVH over their
+    boxes: (batch, bvh)."""
+    pre = preprocess_instances(
+        instances, tables, camera, max_meshes_per_lod=max_meshes_per_lod,
+        do_culling=False, slot_materials=slot_materials, lod_override=0)
+    batch = build_triangle_batch(pre, geo, camera, capacity=tri_capacity)
+    bvh = build_bvh(batch.world.amin(dim=1), batch.world.amax(dim=1),
+                    batch.valid)
+    return batch, bvh
+
+
+def rt_frame(instances: InstanceArrays, tables, geo, materials,
+             lights: Lights, camera: CameraMatrices, slot_materials,
+             tonemap_params, key, textures=None, *, width: int, height: int,
+             max_meshes_per_lod: int, tri_capacity: int, shadow_samples: int,
+             reflection_samples: int, ao_samples: int, ao_radius: float,
+             leaf_cutout: bool = False):
+    """One ray-traced frame on the world BVH: ``build_world_scene``, then
+    ``trace_frame`` through a ``BatchTracer``, tonemap. Returns (ldr
+    f32[H, W, 3], {"hdr", "total_tris": the batch's live triangles})."""
+    batch, bvh = build_world_scene(
+        instances, tables, geo, camera, slot_materials,
+        max_meshes_per_lod=max_meshes_per_lod, tri_capacity=tri_capacity)
+    params = RTParams(shadow_samples=shadow_samples,
+                      reflection_samples=reflection_samples,
+                      ao_samples=ao_samples, ao_radius=ao_radius,
+                      leaf_cutout=leaf_cutout)
+    ctx = BatchTracer(batch, bvh, materials, leaf_cutout=leaf_cutout,
+                      textures=textures)
+    hdr = trace_frame(ctx, materials, lights, camera, key, width=width,
+                      height=height, params=params)
+    return tonemap(hdr, tonemap_params), {
+        "hdr": hdr, "total_tris": batch.valid.sum()}
 
 
 class AccelCache:
@@ -145,6 +198,53 @@ def render_frame_rt(blasset, meta, anim_rest, anim_rest_nodes,
     hdr = trace_frame(ctx, materials, lights, camera, key, width=width,
                       height=height, params=params)
     return tonemap(hdr, tonemap_params), {"hdr": hdr}
+
+
+def make_rt_frame(meta, animate=None, n_tlas: int = 1,
+                  use_pallas: bool = True, paged: bool = False,
+                  wide: bool = False, resplit: bool = False, pack: int = 1):
+    """The JAX package's frame factory for one scene topology: returns
+    ``rt_frame2(blasset, anim_rest, anim_nodes, instances, inst_blas,
+    masks, tri_attr, materials, lights, camera, slot_materials,
+    tonemap_params, key, time, textures=None, inst_mask=None,
+    inst_opaque=None, *, width, height, stack_size, ...)``, which runs
+    ``render_frame_rt`` with ``meta``, ``animate``, ``resplit``, ``paged``
+    and ``use_pallas`` -> (ldr, {"hdr"}). ``use_pallas`` defaults to the
+    kernel route, as ``render_frame_rt`` does (the JAX factory's default
+    is its XLA route; False picks the port's, which launches no kernel).
+    Nothing is compiled: the factory only binds. ``n_tlas``, ``wide`` and ``pack``
+    (TPU packet shapes) and ``compact_secondary``/``compact_refl`` change
+    no result and are ignored."""
+    del n_tlas, wide, pack
+
+    def rt_frame2(blasset, anim_rest, anim_nodes, instances, inst_blas,
+                  masks, tri_attr, materials, lights, camera, slot_materials,
+                  tonemap_params, key, time, textures=None, inst_mask=None,
+                  inst_opaque=None, *, width: int, height: int,
+                  stack_size: int, shadow_samples: int,
+                  reflection_samples: int, ao_samples: int, ao_radius: float,
+                  leaf_cutout: bool, tlas_index: int = 0,
+                  reflection_half_rate: bool = False, cull_mask: int = 0xFF,
+                  shadow_cull_mask: int = 0xFF,
+                  compact_secondary: bool = True, compact_refl: bool = False,
+                  fuse_bounce: bool = False):
+        params = RTParams(
+            shadow_samples=shadow_samples,
+            reflection_samples=reflection_samples, ao_samples=ao_samples,
+            ao_radius=ao_radius, leaf_cutout=leaf_cutout,
+            reflection_half_rate=reflection_half_rate, cull_mask=cull_mask,
+            shadow_cull_mask=shadow_cull_mask,
+            compact_secondary=compact_secondary, compact_refl=compact_refl,
+            fuse_bounce=fuse_bounce)
+        return render_frame_rt(
+            blasset, meta, anim_rest, anim_nodes, instances, inst_blas,
+            masks, tri_attr, materials, lights, camera, slot_materials,
+            tonemap_params, key, time, inst_mask, inst_opaque, width=width,
+            height=height, stack_size=stack_size, params=params,
+            tlas_index=tlas_index, paged=paged, textures=textures,
+            animate=animate, resplit=resplit, use_pallas=use_pallas)
+
+    return rt_frame2
 
 
 class RayTraceRender:
@@ -271,6 +371,31 @@ class RayTraceRender:
     def invalidate(self) -> None:
         """Force re-upload of material tables after live edits."""
         self._cache_dirty = True
+
+    def world_inputs(self, camera: Camera | CameraMatrices, key):
+        """``rt_frame``'s arguments for this pass's scene and settings:
+        (positional arguments with ``key`` and the atlas, keywords). The
+        world batch holds every live instance's LOD-0 triangles, in a
+        capacity of the next tier above their count."""
+        from ..ops.static_batch import _tier
+
+        cam = camera.matrices if isinstance(camera, Camera) else camera
+        instances = self.scene.flush()
+        slots, _masks, table, _mask, _opaque, lights, tm = (
+            self._device_inputs(instances.capacity))
+        total = sum(sum(mm.handle.tri_count for mm in inst.model.lods[0].meshes)
+                    for inst in self.scene.instances)
+        p = self.params
+        return ((instances, self.scene.tables(), self.scene.geometry(), table,
+                 lights, cam.to(self.device), slots, tm, key,
+                 self._cached_textures),
+                dict(width=self.width, height=self.height,
+                     max_meshes_per_lod=self.scene.max_meshes_per_lod,
+                     tri_capacity=_tier(total),
+                     shadow_samples=p.shadow_samples,
+                     reflection_samples=p.reflection_samples,
+                     ao_samples=p.ao_samples, ao_radius=p.ao_radius,
+                     leaf_cutout=self.materials.has_leaf))
 
     # -- device inputs --------------------------------------------------------
     def _device_inputs(self, capacity: int):

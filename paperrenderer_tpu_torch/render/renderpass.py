@@ -187,6 +187,7 @@ def render_frame_static(
     supersample: int = 1,
     textures=None,
     use_pallas: bool = True,
+    work_capacity: int = 0,
 ):
     """The static raster frame. Returns (ldr f32[H, W, 3], aux dict).
 
@@ -204,7 +205,11 @@ def render_frame_static(
 
     ``use_pallas=False`` is the XLA route: ``raster.rasterize`` and
     ``resolve_gbuffer_packed`` instead of K1, the XLA peel instead of K2
-    (``required_work`` then counts only the opaque pass: 0)."""
+    (``required_work`` then counts only the opaque pass: 0).
+    ``work_capacity`` (the TPU's pair-capacity tier) is accepted and
+    ignored: the port's exact raster sizes its pair buffers from each
+    frame's own count."""
+    del work_capacity
     ss = max(1, int(supersample))
     batch, inst_visible = expand_static(
         mapping, instances, tables, camera, slot_materials, instance_visible,

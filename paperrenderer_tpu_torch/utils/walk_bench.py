@@ -2,7 +2,7 @@
 headline inputs, for timing two checkouts against each other.
 
   python paperrenderer_tpu_torch/utils/walk_bench.py \\
-      [--root DIR] [--group all|trace|tiles|raster] [--rounds N]
+      [--root DIR] [--group all|trace|tiles|raster|lighting] [--rounds N]
       [--out FILE] [--same-as FILE]
 
 times, in the checkout at ``--root`` (default: the one that holds this
@@ -21,7 +21,12 @@ and K4's peel form on config 2; the inputs by ``raster_inputs``, which
 sleep kernel), and the frames of config 3, hybrid config 4 (``frame_cases``:
 each launches K9 twice), the draw-list frames of configs 1 and 2 and the
 raster frames of config 2 and the translucent grid (median host ms of 20
-synchronized frames). ``--group`` picks one of the three sets.
+synchronized frames). ``--group`` picks one of the three sets, or
+``lighting``: hybrid config 4's 1080p frame (``lighting_cases``) with
+what its shadow and AO samples cost: K9's launches, its occlusion and AO
+samples and their active rays, and, from ``torch.profiler`` over one
+frame, K9's device ms and the device ms of the threefry draws
+(``utils.random.uniform``); the lighting group is not part of ``all``.
 Two checkouts (e.g. a parent commit unpacked with ``git archive``) are
 compared by running this on each in turns on one card (parent, change,
 change, parent), each run with ``--same-as`` the first run's ``--out``:
@@ -63,7 +68,8 @@ REPS = 10           # timed launches a measurement
 def _args():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=1)
-    ap.add_argument("--group", choices=("all", "trace", "tiles", "raster"),
+    ap.add_argument("--group", choices=("all", "trace", "tiles", "raster",
+                                        "lighting"),
                     default="all", help="the kernels timed")
     ap.add_argument("--root", default=None,
                     help="the checkout whose package is timed")
@@ -395,6 +401,85 @@ def frame_cases(device) -> dict:
     return out
 
 
+def lighting_cases(device) -> dict:
+    """{"lighting_hybrid4": one hybrid config 4 frame at 1080p}, timed by
+    ``wall_ms``, with ``profile()``: its sample counts and profiled ms."""
+    from paperrenderer_tpu_torch.scenes import build_hybrid_scene
+
+    hy, cam = build_hybrid_scene(1920, 1080, device=device)[1:]
+    fn = functools.partial(_first, hy.render, cam)
+    fn.wall = True
+    fn.profile = functools.partial(lighting_profile, hy, cam)
+    return {"lighting_hybrid4": fn}
+
+
+def lighting_profile(render, cam) -> dict:
+    """What one frame of ``render`` spends on shadow and AO samples: K9's
+    launches, occlusion and AO samples and their active rays (counted in
+    a frame of their own: the counts read the card), and from
+    ``torch.profiler`` over a further frame K9's device ms, the threefry
+    draws' device ms (every call of ``utils.random.uniform``) and all
+    kernels' device ms. The checkout's functions are wrapped, not edited,
+    so a parent checkout is measured the same way."""
+    import torch
+
+    from paperrenderer_tpu_torch.ops import trace_kernel as TK
+    from paperrenderer_tpu_torch.utils import random as rnd
+
+    counts = dict(k9_launches=0, occlusion_samples=0, ao_samples=0,
+                  occlusion_active_rays=0, ao_active_rays=0)
+    uniform, bundle = rnd.uniform, TK.trace_bundle_kernel
+
+    def counted(scene, o, dirs, caps, occ_actives, ao_dirs, ao_caps,
+                ao_actives, **kw):
+        counts["k9_launches"] += 1
+        counts["occlusion_samples"] += len(dirs)
+        counts["ao_samples"] += len(ao_dirs)
+        for key, acts, n in (("occlusion_active_rays", occ_actives,
+                              len(dirs)),
+                             ("ao_active_rays", ao_actives, len(ao_dirs))):
+            for a in (acts or [None] * n):
+                counts[key] += o.shape[0] if a is None else int(a.sum())
+        return bundle(scene, o, dirs, caps, occ_actives, ao_dirs, ao_caps,
+                      ao_actives, **kw)
+
+    def ranged(name, fn):
+        def call(*a, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*a, **kw)
+        return call
+
+    try:
+        TK.trace_bundle_kernel = counted
+        render.render(cam)
+        torch.cuda.synchronize()
+        TK.trace_bundle_kernel = ranged("k9", bundle)
+        rnd.uniform = ranged("threefry", uniform)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            render.render(cam)
+            torch.cuda.synchronize()
+    finally:
+        TK.trace_bundle_kernel, rnd.uniform = bundle, uniform
+
+    def dev_us(e, total=True):
+        for name in (("device_time_total", "cuda_time_total") if total else
+                     ("self_device_time_total", "self_cuda_time_total")):
+            if hasattr(e, name):
+                return float(getattr(e, name))
+        return 0.0
+
+    avg = {e.key: e for e in prof.key_averages()}
+    counts.update(
+        k9_device_ms=dev_us(avg["k9"]) / 1e3 if "k9" in avg else None,
+        threefry_device_ms=(dev_us(avg["threefry"]) / 1e3
+                            if "threefry" in avg else None),
+        all_kernels_device_ms=sum(dev_us(e, total=False)
+                                  for e in avg.values()) / 1e3)
+    return counts
+
+
 def main() -> int:
     args = _args()
     root = os.path.abspath(args.root or os.path.join(
@@ -434,7 +519,9 @@ def main() -> int:
                                       **frame_cases(dev)}),
                   tiles=(TP._lib, "raster_tiles", tile_cases),
                   raster=(RE._lib, "raster_exact", raster_cases))
-    if args.group != "all":
+    if args.group == "lighting":
+        groups = dict(lighting=(TK._lib, "trace", lighting_cases))
+    elif args.group != "all":
         groups = {args.group: groups[args.group]}
     ptxas = {}
     for lib, name, _ in groups.values():
@@ -459,6 +546,8 @@ def main() -> int:
                 line["host_ms"] = host_time(fn, iters=REPS) * 1e3
                 if hasattr(fn, "lists"):
                     line["lists"] = fn.lists
+            if hasattr(fn, "profile"):
+                line.update(fn.profile())
             same = want.get(case, digest.hexdigest()) == digest.hexdigest()
             ok &= same
             emit(dict(line, digest=digest.hexdigest(), same=same))

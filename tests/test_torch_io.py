@@ -34,9 +34,9 @@ tests/test_parallel_static.py, the tier-1 run's critical path):
 5. every example CLI's ``main`` in-process on the CPU at 32x32;
 6. ``read_image`` against the JAX package's (PIL) on every PNG colour type
    at 8 and 16 bits (palette at 1/2/4/8), interlaced and not, and on
-   baseline JPEGs at 4:4:4, 4:2:2, 4:2:0 and gray, with and without
-   restart intervals: bitwise; a progressive JPEG refused through
-   ``load_gltf`` by its glTF image index.
+   baseline and progressive JPEGs at 4:4:4, 4:2:2, 4:2:0 and gray, with
+   and without restart intervals: bitwise; a progressive JPEG as a glTF
+   image, loaded by ``load_gltf`` bitwise as the JAX loader loads it.
 """
 
 import base64
@@ -838,24 +838,32 @@ def _image_case(case, tmp):
     from paperrenderer_tpu.io.image import read_image as jax_read
     from paperrenderer_tpu_torch.io import gltf as TG
 
+    from paperrenderer_tpu.io import gltf as JG
+
     rng = np.random.default_rng(sum(map(ord, case)))
     kind, *rest = case.split("_")
-    if kind == "progressive":   # refused through glTF, by image index
+    if kind == "gltf":          # a progressive JPEG as glTF image 0
         d = os.path.join(tmp, case)
         os.makedirs(d)
-        data = _jpeg(_smooth(rng, 16, 16, 3), progressive=True)
-        with pytest.raises(NotImplementedError,
-                           match="glTF image 0.*progressive JPEG"):
-            TG.load_gltf(_make_gltf(d, data), TPKG.GeometryArena())
+        path = _make_gltf(d, _jpeg(_smooth(rng, 16, 16, 3), progressive=True,
+                                   subsampling=2))
+        gt = TG.load_gltf(path, TPKG.GeometryArena())
+        gj = JG.load_gltf(path, JPKG.GeometryArena())
+        got = [m.base_texture for m in gt.materials if m.name == "rgb-base"]
+        want = [m.base_texture for m in gj.materials if m.name == "rgb-base"]
+        assert len(got) == len(want) == 1
+        assert got[0].shape == want[0].shape and got[0].shape[:2] == (16, 16)
+        np.testing.assert_array_equal(got[0], want[0])
         return
     datas = []
     for h, w in ((13, 11), (37, 53), (1, 1), (9, 5)):
-        if kind == "jpeg":      # jpeg_<subsampling>_<restart blocks>
+        if kind in ("jpeg", "progressive"):   # <kind>_<sampling>_<restarts>
             sub, rst = rest
             gray = sub == "gray"
             img = _smooth(rng, h, w, 1 if gray else 3)
             kw = dict(quality=85 if h % 2 else 50,
-                      restart_marker_blocks=int(rst))
+                      restart_marker_blocks=int(rst),
+                      progressive=kind == "progressive")
             if not gray:
                 kw["subsampling"] = {"444": 0, "422": 1, "420": 2}[sub]
             datas.append(_jpeg(img[..., 0] if gray else img, **kw))
@@ -891,13 +899,14 @@ def test_image_formats_match_jax(tmp_path):
     forms (every colour type at 8 and 16 bits, palette at 1/2/4/8, each
     interlaced and not; PIL writes the 8-bit non-interlaced and 16-bit gray
     ones, the test's own writer the rest, with all five row filters) and
-    on PIL's baseline JPEGs at 4:4:4, 4:2:2, 4:2:0 and gray, with and
-    without a restart interval, at four sizes (odd ones among them); a
-    progressive JPEG as a glTF image raises naming image 0 and the form."""
+    on PIL's baseline and progressive JPEGs at 4:4:4, 4:2:2, 4:2:0 and
+    gray, with and without a restart interval, at four sizes (odd ones
+    among them); a progressive JPEG as a glTF image, once refused, loads
+    as the JAX loader loads it."""
     png = [f"png_{c}_{d}_{i}" for c in (0, 2, 4, 6) for d in (8, 16)
            for i in (0, 1)]
     png += [f"png_3_{d}_{i}" for d in (1, 2, 4, 8) for i in (0, 1)]
-    jpeg = [f"jpeg_{s}_{r}" for s in ("444", "422", "420", "gray")
-            for r in (0, 2)]
-    _each(png + jpeg + ["progressive"],
+    jpeg = [f"{k}_{s}_{r}" for k in ("jpeg", "progressive")
+            for s in ("444", "422", "420", "gray") for r in (0, 2)]
+    _each(png + jpeg + ["gltf_progressive"],
           lambda c: _image_case(c, str(tmp_path)))

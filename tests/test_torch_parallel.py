@@ -15,13 +15,16 @@ rule's 1e-6 depth (tid differing only on depth ties), and the port's whole
 windowed raster to the setup's 5e-4 (``test_rasterize_exact_matches_jax``'s
 bounds); the windowed rays to 2e-6 (XLA's FMA contraction in the matrix
 products); the sharded RT frames, flat and paged, to a mean LDR |diff| of
-1e-3 (measured 1.9e-5 on both, max 0.0039) and the hybrid frame to the
-golden band's mean 0.004 (measured 1.5e-4, max 0.023): ROADMAP Queue 3's
-pinned RT and hybrid divergences (XLA's FMAs, and JAX's hybrid G-buffer
-from ``raster.rasterize``); the tile keys bitwise equal.
+1e-3 (measured 1.9e-5 on both, max 0.0039), the world-BVH frame
+(``sharded_rt_frame``) to the same 1e-3 (measured 4.5e-8, max 2.2e-6),
+and the hybrid frame to the golden band's mean 0.004 (measured 1.5e-4,
+max 0.023): ROADMAP Queue 3's pinned RT and hybrid divergences (XLA's
+FMAs, and JAX's hybrid G-buffer from ``raster.rasterize``); the tile keys
+bitwise equal.
 """
 
 import dataclasses
+import functools
 import json
 import os
 import threading
@@ -121,12 +124,30 @@ def _rank_body(rank, world, out_dir):
         *args, **kw, use_pallas=True)
     out["hybrid"] = gather_tiles(ldr, mesh)
     out["hybrid_required"] = aux["required_work"]
+    _, rt, cam = build_rt_scene(RT_W, RT_H, device="cpu")
+    out["world_rt"] = gather_tiles(_world_rt_tile(mesh, rt, cam, key), mesh)
     with open(os.path.join(out_dir, f"mesh{rank}.json"), "w") as f:
         json.dump(dict(shape=mesh.shape, coords=mesh.coords,
                        index=mesh.index, backend=mesh.backend,
                        axes=mesh.axis_names), f)
     if rank == 0:
         torch.save(out, os.path.join(out_dir, "gathered.pt"))
+
+
+def _world_rt_tile(mesh, rt, cam, key):
+    """The rank's tile of the legacy world-BVH RT frame
+    (``sharded_rt_frame``) of a RayTraceRender's scene and samples."""
+    from paperrenderer_tpu_torch.ops.trace import RTParams
+    from paperrenderer_tpu_torch.parallel import sharded_rt_frame
+
+    args, kw = rt.world_inputs(cam, key)
+    params = RTParams(shadow_samples=kw["shadow_samples"],
+                      reflection_samples=kw["reflection_samples"],
+                      ao_samples=kw["ao_samples"], ao_radius=kw["ao_radius"])
+    return sharded_rt_frame(
+        mesh, *args[:9], width=kw["width"], height=kw["height"],
+        max_meshes_per_lod=kw["max_meshes_per_lod"],
+        tri_capacity=kw["tri_capacity"], params=params)
 
 
 @pytest.fixture(scope="module")
@@ -535,7 +556,11 @@ def test_sharded_rt_hybrid_match_jax(ranks):
     versions) and hybrid frame (K1's plain version) against JAX's sharded
     frames on a 4-device sub-mesh at 64x32, soft light (radius 0.4), AO
     and reflections on, the same seed: each tile's key is bitwise JAX's
-    ``fold_in(key, row * cols + col)``."""
+    ``fold_in(key, row * cols + col)``. The legacy world-BVH frame
+    (``sharded_rt_frame``) against JAX's on the same sub-mesh (mean
+    |diff| <= 1e-3, ``rt_frame``'s bound: the same samples, XLA's FMA
+    contraction the only difference), and each of its tiles bitwise a
+    one-process trace of its window with its folded key."""
     import jax
 
     from examples.render_hybrid import build_hybrid_scene as jax_hybrid
@@ -593,6 +618,58 @@ def test_sharded_rt_hybrid_match_jax(ranks):
     diff = np.abs(gathered["hybrid"].numpy() - np.asarray(ldr)).max(axis=-1)
     assert diff.mean() <= 0.004, diff.mean()
     assert gathered["hybrid_required"] > 0
+    # the legacy world-BVH frame against JAX's sharded_rt_frame on the
+    # same sub-mesh, scene, key and samples
+    from paperrenderer_tpu.ops.trace import RTParams as JRTParams
+    from paperrenderer_tpu.parallel import sharded_rt_frame as j_world_frame
+    from paperrenderer_tpu_torch.ops import trace as TT
+    from paperrenderer_tpu_torch.ops.tonemap import tonemap
+    from paperrenderer_tpu_torch.render import build_world_scene
+    from paperrenderer_tpu_torch.scenes import build_rt_scene
+
+    _, rt, cam = build_rt_scene(RT_W, RT_H, device="cpu")
+    args, kw = rt.world_inputs(cam, rnd.prng_key(7))
+    world = gathered["world_rt"]
+    assert world.shape == (RT_H, RT_W, 3) and world.std() > 0.05
+    _, rtj, camj = jax_rt(RT_W, RT_H)
+    inst = rtj.scene.flush()
+    slots, _, table = rtj._device_inputs(inst.capacity)
+    assert (rtj.shadow_samples, rtj.reflection_samples, rtj.ao_samples,
+            rtj.ao_radius) == (kw["shadow_samples"], kw["reflection_samples"],
+                               kw["ao_samples"], kw["ao_radius"])
+    j_world = jax.jit(functools.partial(   # eager shard_map: minutes
+        j_world_frame, mesh, width=RT_W, height=RT_H,
+        max_meshes_per_lod=kw["max_meshes_per_lod"],
+        tri_capacity=kw["tri_capacity"], params=JRTParams(
+            shadow_samples=kw["shadow_samples"],
+            reflection_samples=kw["reflection_samples"],
+            ao_samples=kw["ao_samples"], ao_radius=kw["ao_radius"])))
+    ldr = np.asarray(j_world(
+        inst, rtj.scene.tables(), rtj.scene.geometry(), table, rtj.lights,
+        camj.matrices, slots, rtj.tonemap_params, key))
+    assert ldr.shape == (RT_H, RT_W, 3) and ldr.std() > 0.05
+    diff = np.abs(world.numpy() - ldr)
+    assert diff.mean() <= 1e-3, diff.mean()
+    # and each tile bitwise a one-process trace of its window (world BVH,
+    # BatchTracer) with the folded key
+    batch, bvh = build_world_scene(
+        *args[:3], args[5], args[6],
+        max_meshes_per_lod=kw["max_meshes_per_lod"],
+        tri_capacity=kw["tri_capacity"])
+    params = TT.RTParams(shadow_samples=kw["shadow_samples"],
+                         reflection_samples=kw["reflection_samples"],
+                         ao_samples=kw["ao_samples"],
+                         ao_radius=kw["ao_radius"])
+    tw, th = RT_W // 2, RT_H // 2
+    for r in range(2):
+        for c in range(2):
+            hdr = TT.trace_frame(
+                TT.BatchTracer(batch, bvh, args[3]), args[3], args[4],
+                args[5], rnd.fold_in(rnd.prng_key(7), r * 2 + c), width=tw,
+                height=th, params=params, full_width=RT_W, full_height=RT_H,
+                origin=(c * tw, r * th))
+            assert torch.equal(world[r * th:(r + 1) * th, c * tw:(c + 1) * tw],
+                               tonemap(hdr, args[7])), (r, c)
 
 
 def _failing_rank(rank, world):

@@ -188,7 +188,13 @@ Phases, each reported as one JSON line:
            bands of, and bitwise against, the directly built scene's frame
            (else its first differing input), load seconds, frame ms; a
            400-node copy at 128x64 on the card against the CPU (mean
-           <= 1e-5); its launches join the kernels line;
+           <= 1e-5); the grid again with its images in the rarer forms
+           (GLTF_FORMS: arithmetic-coded progressive, lossless, CMYK and
+           YCCK, 4:1:1 and 4:4:0 JPEGs, a block-smoothed progressive one,
+           4-bit and 1-bit gray PNGs, written by numpy-only writers), its
+           four frames bitwise the scene built from read_image of the same
+           bytes, each form's decode seconds at its size beside the card's
+           name and power limit; its launches join the kernels line;
   viewer   Viewer over the example scene at 512x512 (raster, RT, hybrid;
            each rendered once first, so no build runs in its thread):
            over 127.0.0.1 each mode's /frame.png bitwise a direct render
@@ -2005,11 +2011,11 @@ def native_phase(reps=10, n=100_000, device="cuda"):
 def write_glb(path, meshes, materials, translations):
     """A .glb: `meshes` [(name, (pos, idx, nrm, uv), material index)],
     `materials` [dict(name, albedo, alpha, roughness, metallic, emissive,
-    blend, textures={glTF slot: u8 image})], one node per translation
-    (its mesh: the row's index modulo the mesh count) under one identity
-    root. Images are embedded PNGs (bufferViews); identical images are
-    written once. A writer for the smoke test only: glTF export is not part
-    of either package."""
+    blend, textures={glTF slot: u8 image, or an encoded PNG / JPEG})], one
+    node per translation (its mesh: the row's index modulo the mesh count)
+    under one identity root. Images are embedded (bufferViews), arrays as
+    PNGs; identical images are written once. A writer for the smoke test
+    only: glTF export is not part of either package."""
     import numpy as np
 
     from paperrenderer_tpu_torch.io.image import encode_png
@@ -2033,8 +2039,10 @@ def write_glb(path, meshes, materials, translations):
 
     def image(img):
         if id(img) not in image_ids:
-            images.append({"bufferView": view(encode_png(img)),
-                           "mimeType": "image/png"})
+            data = img if isinstance(img, bytes) else encode_png(img)
+            images.append({"bufferView": view(data), "mimeType":
+                           "image/jpeg" if data[:2] == b"\xff\xd8"
+                           else "image/png"})
             image_ids[id(img)] = len(images) - 1
         return {"index": image_ids[id(img)]}
 
@@ -2088,6 +2096,632 @@ def write_glb(path, meshes, materials, translations):
     return os.path.getsize(path)
 
 
+# -- image writers for the glTF image forms -----------------------------------------
+# numpy only (the card host has no imaging library): the forms of JPEG and
+# PNG that io.image.read_image decodes and that an imaging library reads
+# but does not write. Test support: glTF export and image encoding are
+# not part of either package.
+
+JPEG_HUFFMAN = {   # T.81 Annex K's tables, (class, id) -> (counts, symbols)
+    (0, 0): ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0),
+             "000102030405060708090a0b"),
+    (0, 1): ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0),
+             "000102030405060708090a0b"),
+    (1, 0): ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125),
+             "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+             "2433627282090a161718191a25262728292a3435363738393a434445464748"
+             "494a535455565758595a636465666768696a737475767778797a8384858687"
+             "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2"
+             "c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4"
+             "f5f6f7f8f9fa"),
+    (1, 1): ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119),
+             "000102031104052131061241510761711322328108144291a1b1c109233352"
+             "f0156272d10a162434e125f11718191a262728292a35363738393a43444546"
+             "4748494a535455565758595a636465666768696a737475767778797a828384"
+             "85868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8"
+             "b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3"
+             "f4f5f6f7f8f9fa"),
+}
+JPEG_QUANT = (   # Annex K's luminance and chrominance tables, natural order
+    (16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+     14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+     18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+     49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99),
+    (17, 18, 24, 47) + (99,) * 4 + (18, 21, 26, 66) + (99,) * 4
+    + (24, 26, 56) + (99,) * 5 + (47, 66) + (99,) * 38)
+def jpeg_segment(marker, body=b""):
+    return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+
+def rgb_to_ycc(img):
+    """u8 [H, W, 3] RGB -> u8 YCbCr planes (JFIF's transform, rounded)."""
+    import numpy as np
+
+    r, g, b = (img[..., k].astype(np.float64) for k in range(3))
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0
+    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128.0
+    return [np.clip(np.round(p), 0, 255).astype(np.uint8) for p in (y, cb, cr)]
+
+
+def jpeg_coefficients(planes, factors):
+    """Full-size u8 planes with (h, v) sampling factors -> (per component
+    i32[nby, nbx, 64] quantized DCT blocks in zigzag order over the MCU
+    grid, the two quantization tables in natural order, Annex K's scaled
+    as libjpeg's quality 85 scales them): a box-filtered downsample, edge
+    replication to the grid, a float DCT."""
+    import numpy as np
+
+    from paperrenderer_tpu_torch.io.jpeg import ZIGZAG
+
+    hgt, wid = planes[0].shape
+    hmax = max(h for h, _ in factors)
+    vmax = max(v for _, v in factors)
+    qtabs = [np.clip((np.array(t) * 30 + 50) // 100, 1, 255)   # 30%
+             for t in JPEG_QUANT]
+    k = np.arange(8)
+    basis = np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16)
+    basis *= np.where(k == 0, np.sqrt(0.125), 0.5)[:, None]
+    mcux, mcuy = -(-wid // (8 * hmax)), -(-hgt // (8 * vmax))
+    out = []
+    for ci, (plane, (h, v)) in enumerate(zip(planes, factors)):
+        fx, fy = hmax // h, vmax // v
+        p = plane.astype(np.float64)
+        if hmax % h or vmax % v:   # a ratio libjpeg refuses: nearest samples
+            p = p[(np.arange(-(-hgt * v // vmax)) * vmax // v)[:, None],
+                  np.arange(-(-wid * h // hmax)) * hmax // h]
+        else:
+            p = np.pad(p, ((0, -hgt % fy), (0, -wid % fx)), mode="edge")
+            p = p.reshape(p.shape[0] // fy, fy, p.shape[1] // fx,
+                          fx).mean((1, 3))
+        ny, nx = mcuy * v * 8, mcux * h * 8
+        p = np.pad(p, ((0, ny - p.shape[0]), (0, nx - p.shape[1])),
+                   mode="edge") - 128.0
+        blk = p.reshape(ny // 8, 8, nx // 8, 8).transpose(0, 2, 1, 3)
+        coef = basis @ blk @ basis.T
+        q = qtabs[min(ci, 1)].reshape(8, 8)
+        coef = np.round(coef / q).astype(np.int32).reshape(ny // 8, nx // 8, 64)
+        out.append(coef[..., ZIGZAG])
+    return out, qtabs
+
+
+class _BitWriter:
+    """MSB-first bits with JPEG's byte stuffing; ``flush`` pads with 1s."""
+
+    def __init__(self):
+        self.out, self.acc, self.n = bytearray(), 0, 0
+
+    def put(self, code, length):
+        self.acc = (self.acc << length) | code
+        self.n += length
+        while self.n >= 8:
+            self.n -= 8
+            byte = (self.acc >> self.n) & 0xFF
+            self.out.append(byte)
+            if byte == 0xFF:
+                self.out.append(0)
+        self.acc &= (1 << self.n) - 1
+
+    def flush(self):
+        if self.n:
+            self.put((1 << (8 - self.n)) - 1, 8 - self.n)
+        return bytes(self.out)
+
+
+def _huffman_codes(table):
+    """A (counts, symbols hex) table -> {symbol: (code, length)}."""
+    counts, hexsyms = table
+    symbols = bytes.fromhex(hexsyms)
+    codes, code, k = {}, 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            codes[symbols[k]] = (code, length)
+            code += 1
+            k += 1
+        code <<= 1
+    return codes
+
+
+def _category(v):
+    """A signed value -> (magnitude category, its extra bits)."""
+    s = abs(v).bit_length()
+    return s, (v if v >= 0 else v + (1 << s) - 1)
+
+
+class _QMEncoder:
+    """T.81's QM encoder (libjpeg's jcarith.c ``arith_encode`` and
+    ``finish_pass``), carries propagated into the bytes already out;
+    ``finish`` returns the interval's stuffed bytes."""
+
+    def __init__(self):
+        from paperrenderer_tpu_torch.io import jpeg as J
+
+        self.qe, self.nl, self.nm = J.QE, J.NEXT_LPS, J.NEXT_MPS
+        self.out, self.c, self.a, self.ct = bytearray(), 0, 0x10000, 11
+
+    def _byte(self):
+        temp = self.c >> 19
+        if temp > 0xFF:                      # carry into the bytes out
+            i = len(self.out) - 1
+            while self.out[i] == 0xFF:
+                self.out[i] = 0
+                i -= 1
+            self.out[i] += 1
+        self.out.append(temp & 0xFF)
+
+    def encode(self, st, i, val):
+        sv = st[i]
+        s = sv & 0x7F
+        q = self.qe[s]
+        self.a -= q
+        if val != sv >> 7:                   # the less probable symbol
+            if self.a >= q:
+                self.c += self.a
+                self.a = q
+            st[i] = (sv & 0x80) ^ self.nl[s]
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < q:
+                self.c += self.a
+                self.a = q
+            st[i] = (sv & 0x80) ^ self.nm[s]
+        while True:                          # renormalize (D.1.6)
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                self._byte()
+                self.c &= 0x7FFFF
+                self.ct = 8
+            if self.a >= 0x8000:
+                break
+
+    def finish(self):
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        self._byte()
+        self.out.append((self.c >> 11) & 0xFF)
+        return bytes(self.out).rstrip(b"\0").replace(b"\xff", b"\xff\x00")
+
+
+def _arith_dc(enc, st, ctx, v, cond):
+    """jcarith's DC difference ``v`` -> the next conditioning context."""
+    if v == 0:
+        enc.encode(st, ctx, 0)
+        return 0
+    enc.encode(st, ctx, 1)
+    sign = v < 0
+    v = abs(v)
+    enc.encode(st, ctx + 1, int(sign))
+    i, nxt = ctx + 2 + sign, 4 + 4 * sign
+    m, v = 0, v - 1
+    if v:
+        enc.encode(st, i, 1)
+        m, v2, i = 1, v >> 1, 20
+        while v2:
+            enc.encode(st, i, 1)
+            m, v2, i = m << 1, v2 >> 1, i + 1
+    enc.encode(st, i, 0)
+    lo, hi = cond
+    if m < (1 << lo) >> 1:
+        nxt = 0
+    elif m > (1 << hi) >> 1:
+        nxt += 8
+    i += 14
+    m >>= 1
+    while m:
+        enc.encode(st, i, int(bool(m & v)))
+        m >>= 1
+    return nxt
+
+
+def _arith_ac(enc, st, i, k, v, kx, fixed):
+    """jcarith's nonzero AC value ``v`` at zigzag index k whose S0 bin is
+    ``st[i + 2]`` (the sign and magnitude; the zero-run bins are the
+    caller's)."""
+    enc.encode(fixed, 0, int(v < 0))
+    v = abs(v) - 1
+    i += 2
+    m = 0
+    if v:
+        enc.encode(st, i, 1)
+        m, v2 = 1, v >> 1
+        if v2:
+            enc.encode(st, i, 1)
+            m, i = 2, (189 if k <= kx else 217)
+            v2 >>= 1
+            while v2:
+                enc.encode(st, i, 1)
+                m, v2, i = m << 1, v2 >> 1, i + 1
+    enc.encode(st, i, 0)
+    i += 14
+    m >>= 1
+    while m:
+        enc.encode(st, i, int(bool(m & v)))
+        m >>= 1
+
+
+def _scan_mcus(comps, sel, wid, hgt):
+    """A scan's MCU count, MCUs a row and block layout (as a decoder
+    walks it)."""
+    hmax = max(c["h"] for c in comps)
+    vmax = max(c["v"] for c in comps)
+    if len(sel) == 1:
+        c = comps[sel[0]]
+        bpr = -(-(-(-wid * c["h"] // hmax)) // 8)
+        rows = -(-(-(-hgt * c["v"] // vmax)) // 8)
+        return bpr * rows, bpr, [(sel[0], 0, 0)]
+    bpr = -(-wid // (8 * hmax))
+    layout = [(ci, y, x) for ci in sel for y in range(comps[ci]["v"])
+              for x in range(comps[ci]["h"])]
+    return bpr * -(-hgt // (8 * vmax)), bpr, layout
+
+
+def _scan_data(comps, coefs, sel, wid, hgt, restart, encode_mcu):
+    """A scan's entropy-coded data: ``encode_mcu(mcu blocks)`` per MCU in
+    restart intervals, each interval's bytes from ``encode_mcu.finish()``."""
+    n_mcus, bpr, layout = _scan_mcus(comps, sel, wid, hgt)
+    single = len(sel) == 1
+    per = restart or n_mcus
+    out = []
+    for k0 in range(0, n_mcus, per):
+        if k0:
+            out.append(bytes([0xFF, 0xD0 + (k0 // per - 1) % 8]))
+        coder = encode_mcu()
+        for mcu in range(k0, min(n_mcus, k0 + per)):
+            my, mx = divmod(mcu, bpr)
+            for ci, y, x in layout:
+                if single:
+                    by, bx = my, mx
+                else:
+                    by, bx = my * comps[ci]["v"] + y, mx * comps[ci]["h"] + x
+                coder.block(ci, coefs[ci][by][bx])
+        out.append(coder.finish())
+    return b"".join(out)
+
+
+class _HuffmanMCU:
+    """Sequential Huffman coding of blocks (zigzag lists) with Annex K's
+    tables (id 0 for component 0, 1 for the others)."""
+
+    def __init__(self):
+        self.bits, self.pred = _BitWriter(), {}
+        self.codes = {key: _huffman_codes(t) for key, t in JPEG_HUFFMAN.items()}
+
+    def block(self, ci, z):
+        put, t = self.bits.put, min(ci, 1)
+        dc, ac = self.codes[0, t], self.codes[1, t]
+        s, extra = _category(z[0] - self.pred.get(ci, 0))
+        self.pred[ci] = z[0]
+        put(*dc[s])
+        if s:
+            put(extra, s)
+        last = 63
+        while last and not z[last]:
+            last -= 1
+        run = 0
+        for k in range(1, last + 1):
+            if not z[k]:
+                run += 1
+                continue
+            while run > 15:
+                put(*ac[0xF0])
+                run -= 16
+            s, extra = _category(z[k])
+            put(*ac[run << 4 | s])
+            put(extra, s)
+            run = 0
+        if last < 63:
+            put(*ac[0])
+
+    def finish(self):
+        return self.bits.flush()
+
+
+class _ArithMCU:
+    """Arithmetic coding of blocks (zigzag lists, full precision) in one
+    scan's form (``jcarith.c``: ``encode_mcu`` or a progressive form with
+    its point transform), conditioning table id 0 for component 0, 1 for
+    the others; every statistics area starts at zero."""
+
+    def __init__(self, spectral, cond):
+        self.enc = _QMEncoder()
+        self.spectral, self.cond = spectral, cond
+        self.dc = {t: [0] * 64 for t in (0, 1)}
+        self.ac = {t: [0] * 256 for t in (0, 1)}
+        self.fixed = [113]
+        self.last, self.ctx = {}, {}
+
+    def block(self, ci, z):
+        enc, t, fixed = self.enc, min(ci, 1), self.fixed
+        ss, se, ah, al = self.spectral or (0, 63, 0, 0)
+        kx = self.cond[1].get(t, 5)
+        if ss == 0 and ah == 0:                  # DC (sequential or first)
+            m = z[0] >> al
+            self.ctx[ci] = _arith_dc(enc, self.dc[t], self.ctx.get(ci, 0),
+                                     m - self.last.get(ci, 0),
+                                     self.cond[0].get(t, (0, 1)))
+            self.last[ci] = m
+            if self.spectral is not None:
+                return
+        elif ss == 0:                            # DC refinement
+            enc.encode(fixed, 0, (z[0] >> al) & 1)
+            return
+        st = self.ac[t]
+        ss = max(ss, 1)
+
+        def shifted(k, shift):
+            v = z[k]
+            return (v >> shift) if v >= 0 else -((-v) >> shift)
+
+        ke = se
+        while ke >= ss and not shifted(ke, al):
+            ke -= 1
+        if ah == 0:                              # AC (sequential or first)
+            k = ss
+            while k <= ke:
+                i = 3 * (k - 1)
+                enc.encode(st, i, 0)             # not the end of block
+                while not shifted(k, al):
+                    enc.encode(st, i + 1, 0)
+                    i += 3
+                    k += 1
+                enc.encode(st, i + 1, 1)
+                _arith_ac(enc, st, i, k, shifted(k, al), kx, fixed)
+                k += 1
+            if k <= se:
+                enc.encode(st, 3 * (k - 1), 1)
+            return
+        kex = ke                                 # AC refinement
+        while kex > 0 and not shifted(kex, ah):
+            kex -= 1
+        k = ss
+        while k <= ke:
+            i = 3 * (k - 1)
+            if k > kex:
+                enc.encode(st, i, 0)
+            while True:
+                v = abs(shifted(k, al))
+                if v:
+                    if v >> 1:                   # a correction bit
+                        enc.encode(st, i + 2, v & 1)
+                    else:                        # newly nonzero
+                        enc.encode(st, i + 1, 1)
+                        enc.encode(fixed, 0, int(z[k] < 0))
+                    break
+                enc.encode(st, i + 1, 0)
+                i += 3
+                k += 1
+            k += 1
+        if k <= se:
+            enc.encode(st, 3 * (k - 1), 1)
+
+    def finish(self):
+        return self.enc.finish()
+
+
+def progressive_script(ncomps):
+    """libjpeg's ``jpeg_simple_progression`` scan script: (components, Ss,
+    Se, Ah, Al) per scan."""
+    every = tuple(range(ncomps))
+    if ncomps == 3:
+        return [(every, 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1),
+                ((1,), 1, 63, 0, 1), ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+                (every, 0, 0, 1, 0), ((2,), 1, 63, 1, 0), ((1,), 1, 63, 1, 0),
+                ((0,), 1, 63, 1, 0)]
+    out = [(every, 0, 0, 0, 1)]
+    for ss, se, ah, al in ((1, 5, 0, 2), (6, 63, 0, 2), (1, 63, 2, 1)):
+        out += [((c,), ss, se, ah, al) for c in every]
+    out.append((every, 0, 0, 1, 0))
+    return out + [((c,), 1, 63, 1, 0) for c in every]
+
+
+def write_jpeg(planes, factors=None, coding="huffman",
+               script=None, restart=0, adobe=None, jfif=True, ids=None,
+               dac=None):
+    """A DCT JPEG of u8 ``planes`` (one full-size plane a component,
+    written as the component's samples): ``factors`` (h, v) a component
+    (default 1x1), ``coding`` "huffman" (baseline, Annex K tables) or
+    "arithmetic" (sequential, or progressive by ``script``: (components,
+    Ss, Se, Ah, Al) a scan), a restart interval in MCUs, an Adobe APP14
+    transform flag, a JFIF APP0, component ``ids`` (default 1, 2, ...),
+    ``dac`` = ({table: (L, U)}, {table: Kx}) for arithmetic coding (a DAC
+    segment; None: the defaults, no segment)."""
+    from paperrenderer_tpu_torch.io.jpeg import ZIGZAG
+
+    nc = len(planes)
+    factors = factors or [(1, 1)] * nc
+    ids = ids or list(range(1, nc + 1))
+    hgt, wid = planes[0].shape
+    coefs, qtabs = jpeg_coefficients(planes, factors)
+    coefs = [c.tolist() for c in coefs]
+    comps = [dict(h=h, v=v) for h, v in factors]
+    progressive = script is not None
+    sof = {("huffman", False): 0xC0, ("arithmetic", False): 0xC9,
+           ("arithmetic", True): 0xCA}[coding, progressive]
+    head = [b"\xff\xd8"]
+    if jfif:
+        head.append(jpeg_segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01"
+                                 b"\x00\x00"))
+    if adobe is not None:
+        head.append(jpeg_segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00"
+                                 + bytes([adobe])))
+    head.append(jpeg_segment(0xDB, b"".join(
+        bytes([t]) + bytes(q[ZIGZAG].astype("u1")) for t, q in
+        enumerate(qtabs[:min(nc, 2)]))))
+    head.append(jpeg_segment(sof, struct.pack(">BHHB", 8, hgt, wid, nc)
+                             + b"".join(bytes([i, h << 4 | v, min(k, 1)])
+                                        for k, (i, (h, v)) in
+                                        enumerate(zip(ids, factors)))))
+    if coding == "huffman":
+        head.append(jpeg_segment(0xC4, b"".join(
+            bytes([tc << 4 | th]) + bytes(t[0]) + bytes.fromhex(t[1])
+            for (tc, th), t in sorted(JPEG_HUFFMAN.items()) if th < nc)))
+    elif dac is not None:
+        head.append(jpeg_segment(0xCC, b"".join(
+            [bytes([t, u << 4 | lo]) for t, (lo, u) in dac[0].items()]
+            + [bytes([16 + t, k]) for t, k in dac[1].items()])))
+    if restart:
+        head.append(jpeg_segment(0xDD, struct.pack(">H", restart)))
+    cond = dac or ({}, {})
+    scans = script or [(tuple(range(nc)), 0, 63, 0, 0)]
+    for sel, ss, se, ah, al in scans:
+        spectral = (ss, se, ah, al) if progressive else None
+        coder = (_HuffmanMCU if coding == "huffman" else
+                 functools.partial(_ArithMCU, spectral, cond))
+        head.append(jpeg_segment(0xDA, bytes([len(sel)]) + b"".join(
+            bytes([ids[c], min(c, 1) * 0x11]) for c in sel)
+            + bytes([ss, se, ah << 4 | al])))
+        head.append(_scan_data(comps, coefs, list(sel), wid, hgt, restart,
+                               coder))
+    return b"".join(head) + b"\xff\xd9"
+
+
+def write_lossless_jpeg(planes, predictor=1, pt=0, restart_rows=0, ids=None,
+                        interleave=True, factors=None):
+    """A lossless JPEG (SOF3) of u8 planes: ``predictor`` 1-7, point
+    transform ``pt``, a restart every ``restart_rows`` MCU rows, one
+    interleaved scan or a scan a component (1x1 sampling), (h, v)
+    ``factors`` a component (box-filtered down; the interleaved MCUs' dummy
+    samples coded as 0); Annex K's DC luminance table codes the
+    differences (|d| < 512 at 8 bits)."""
+    import numpy as np
+
+    nc = len(planes)
+    ids = ids or list(range(1, nc + 1))
+    factors = factors or [(1, 1)] * nc
+    hgt, wid = planes[0].shape
+    hmax = max(h for h, _ in factors)
+    vmax = max(v for _, v in factors)
+    codes = _huffman_codes(JPEG_HUFFMAN[0, 0])
+    diffs = []
+    for plane, (fh, fv) in zip(planes, factors):
+        fx, fy = hmax // fh, vmax // fv
+        p = np.pad(plane.astype(np.float64), ((0, -hgt % fy), (0, -wid % fx)),
+                   mode="edge")
+        p = np.round(p.reshape(p.shape[0] // fy, fy, p.shape[1] // fx,
+                               fx).mean((1, 3))).astype(np.int64)
+        ch, cw = -(-hgt * fv // vmax), -(-wid * fh // hmax)
+        x = (p[:ch, :cw] >> pt).tolist()
+        d = []     # the differences, rows restarting as the decoder's do
+        for y in range(ch):
+            first = y == 0 or (restart_rows and y % fv == 0
+                               and (y // fv) % restart_rows == 0)
+            row = []
+            for c in range(cw):
+                if first:
+                    p = (1 << (7 - pt)) if c == 0 else x[y][c - 1]
+                elif c == 0:
+                    p = x[y - 1][0]
+                else:
+                    ra, rb, rc = x[y][c - 1], x[y - 1][c], x[y - 1][c - 1]
+                    p = (ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1),
+                         rb + ((ra - rc) >> 1), (ra + rb) >> 1)[predictor - 1]
+                row.append(x[y][c] - p)
+            d.append(row)
+        diffs.append(d)
+    head = [b"\xff\xd8",
+            jpeg_segment(0xC3, struct.pack(">BHHB", 8, hgt, wid, nc)
+                         + b"".join(bytes([i, h << 4 | v, 0])
+                                    for i, (h, v) in zip(ids, factors)))]
+    t = JPEG_HUFFMAN[0, 0]
+    head.append(jpeg_segment(0xC4, b"\x00" + bytes(t[0])
+                             + bytes.fromhex(t[1])))
+    groups = [list(range(nc))] if interleave else [[c] for c in range(nc)]
+    mpr, mrows = -(-wid // hmax), -(-hgt // vmax)
+    if restart_rows:
+        head.append(jpeg_segment(0xDD, struct.pack(">H", restart_rows * mpr)))
+    for sel in groups:
+        head.append(jpeg_segment(0xDA, bytes([len(sel)]) + b"".join(
+            bytes([ids[c], 0]) for c in sel) + bytes([predictor, 0, pt])))
+        shape = [(1, 1)] * nc if len(sel) == 1 else factors
+        rows = restart_rows or mrows
+        for y0 in range(0, mrows, rows):
+            if y0:
+                head.append(bytes([0xFF, 0xD0 + (y0 // rows - 1) % 8]))
+            bits = _BitWriter()
+            for my in range(y0, min(mrows, y0 + rows)):
+                for mx in range(mpr):
+                    for ci in sel:
+                        fh, fv = shape[ci]
+                        for y in range(my * fv, my * fv + fv):
+                            for x in range(mx * fh, mx * fh + fh):
+                                d = diffs[ci]
+                                v = d[y][x] if y < len(d) and x < len(d[0]) \
+                                    else 0
+                                s, extra = _category(v)
+                                bits.put(*codes[s])
+                                if s:
+                                    bits.put(extra, s)
+            head.append(bits.flush())
+    return b"".join(head) + b"\xff\xd9"
+
+
+def drop_scans(data, drop):
+    """A JPEG with the scans for which ``drop(components, Ss, Se, Ah, Al)``
+    is true cut out (header and entropy-coded data)."""
+    out, pos = [data[:2]], 2
+    while pos < len(data):
+        marker = data[pos + 1]
+        if marker == 0xD9:
+            out.append(data[pos:])
+            break
+        (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
+        end = pos + 2 + length
+        if marker == 0xDA:
+            body = data[pos + 4:end]
+            ns = body[0]
+            sel = tuple(body[1 + 2 * i] for i in range(ns))
+            ss, se, ahl = body[1 + 2 * ns:4 + 2 * ns]
+            while True:         # the data runs to the next non-RST marker
+                end = data.index(b"\xff", end)
+                if data[end + 1] == 0 or 0xD0 <= data[end + 1] <= 0xD7:
+                    end += 2
+                    continue
+                break
+            if drop(sel, ss, se, ahl >> 4, ahl & 15):
+                pos = end
+                continue
+        out.append(data[pos:end])
+        pos = end
+    return b"".join(out)
+
+
+def write_png_gray(img, depth, trns=None, interlace=False):
+    """A gray PNG of ``img`` [H, W] holding values below 2^depth at depth
+    1, 2 or 4 (sub-byte samples, high bits first), a ``tRNS`` gray key,
+    Adam7-interlaced or not; filter type 0 on every row."""
+    import numpy as np
+    import zlib
+
+    from paperrenderer_tpu_torch.io.image import _ADAM7, _chunk
+
+    h, w = img.shape
+
+    def rows(a):
+        per = 8 // depth
+        a = np.pad(a, ((0, 0), (0, -a.shape[1] % per))).astype(np.uint8)
+        packed = np.zeros((a.shape[0], a.shape[1] // per), np.uint8)
+        for k in range(per):
+            packed |= a[:, k::per] << (8 - depth * (k + 1))
+        return np.concatenate([np.zeros((a.shape[0], 1), np.uint8), packed],
+                              axis=1).tobytes()
+
+    if interlace:
+        raw = b"".join(rows(img[y0::dy, x0::dx]) for x0, y0, dx, dy in _ADAM7
+                       if w > x0 and h > y0)
+    else:
+        raw = rows(img)
+    return b"".join([
+        b"\x89PNG\r\n\x1a\n",
+        _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, 0, 0, 0,
+                                    int(interlace))),
+        _chunk(b"tRNS", struct.pack(">H", trns)) if trns is not None else b"",
+        _chunk(b"IDAT", zlib.compress(raw, 6)), _chunk(b"IEND", b"")])
+
+
 def grid_gltf_source(n, width, height, device):
     """Config 2's textured grid (scenes.build_textured_grid's geometry,
     instances, camera and textures) as glTF carries it: the occlusion map
@@ -2096,27 +2730,40 @@ def grid_gltf_source(n, width, height, device):
     (engine, pass, camera, write_glb arguments)."""
     import numpy as np
 
-    from paperrenderer_tpu_torch.core import SHADE_TRANSLUCENT
-    from paperrenderer_tpu_torch.core.geometry import make_cube, make_icosphere
-    from paperrenderer_tpu_torch.scenes import _grid_textures, build_dynamic_scene
+    from paperrenderer_tpu_torch.scenes import _grid_textures
 
     tex = _grid_textures(0)
     occ = tex[1]["occlusion_texture"]
     tex[1]["occlusion_texture"] = (np.clip(occ, 0, 1) * 255 + 0.5).astype(
         np.uint8)
+    return grid_glb_spec(n, width, height, device, tex)
+
+
+def grid_glb_spec(n, width, height, device, tex, images=None):
+    """Config 2's grid built directly on `device` with the four materials'
+    textures `tex` (material "b" made a 50% BLEND glass, two translucent
+    layers), and its write_glb arguments: the materials' images are
+    `images` [{texture key: encoded bytes}] where given, else the arrays.
+    Returns (engine, pass, camera, write_glb arguments)."""
+    from paperrenderer_tpu_torch.core import SHADE_TRANSLUCENT
+    from paperrenderer_tpu_torch.core.geometry import make_cube, make_icosphere
+    from paperrenderer_tpu_torch.scenes import build_dynamic_scene
+
     tex[1].update(shading_model=SHADE_TRANSLUCENT, alpha=0.5)
     eng, rp, cam = build_dynamic_scene(n, width, height, device=device,
                                        textures=tex)
     rp.translucent_layers = 2
     rows = [v for v in rp.materials.rows()[1:5]]
     names = "abcd"
+    keys = ("base_texture", "mr_texture", "emissive_texture",
+            "occlusion_texture")
     mats = [dict(name=names[k], albedo=rows[k]["albedo"],
                  alpha=rows[k]["alpha"], roughness=rows[k]["roughness"],
                  metallic=rows[k]["metallic"], emissive=rows[k]["emissive"],
                  blend=rows[k]["shading_model"] == SHADE_TRANSLUCENT,
-                 textures={key: rows[k][key] for key in (
-                     "base_texture", "mr_texture", "emissive_texture",
-                     "occlusion_texture") if rows[k][key] is not None})
+                 textures=(images[k] if images else
+                           {key: rows[k][key] for key in keys
+                            if rows[k][key] is not None}))
             for k in range(4)]
     cube, ball = make_cube(size=0.5), make_icosphere(radius=0.3,
                                                      subdivisions=1)
@@ -2126,6 +2773,80 @@ def grid_gltf_source(n, width, height, device):
                cube if k % 2 == 0 else ball, k) for k in range(4)]
     translations = [i.position for i in rp.scene.instances]
     return eng, rp, cam, (meshes, mats, translations)
+
+
+# the grid's images in the JPEG and PNG forms an imaging library decodes
+# beyond baseline / progressive JPEG and 8/16-bit PNG: (material, texture
+# key, form); material "d" gains a second occlusion map
+GLTF_FORMS = ((0, "base_texture", "arithmetic progressive"),
+              (0, "mr_texture", "lossless"),
+              (1, "base_texture", "CMYK (Adobe)"),
+              (1, "occlusion_texture", "4-bit gray PNG"),
+              (2, "base_texture", "YCCK"),
+              (2, "mr_texture", "4:4:0"),
+              (3, "base_texture", "block-smoothed progressive"),
+              (3, "emissive_texture", "4:1:1"),
+              (3, "occlusion_texture", "1-bit gray PNG"))
+
+
+def encode_form(form, img):
+    """`img` (u8 [H, W, 3]; [H, W] for the gray PNGs) in a GLTF_FORMS
+    form, written so that it decodes to about the same picture."""
+    import numpy as np
+
+    ycc = rgb_to_ycc(img) if img.ndim == 3 else None
+    if form == "arithmetic progressive":    # DAC conditioning, restarts
+        return write_jpeg(ycc, [(2, 2), (1, 1), (1, 1)], coding="arithmetic",
+                          script=progressive_script(3), restart=64,
+                          dac=({0: (1, 4)}, {0: 8}))
+    if form == "lossless":                  # predictor 7, RGB ids
+        return write_lossless_jpeg([img[..., k] for k in range(3)], 7,
+                                   restart_rows=64, ids=[82, 71, 66])
+    no_black = np.full(img.shape[:2], 255, np.uint8)   # Adobe's inverted K
+    if form == "CMYK (Adobe)":              # C, M, Y read inverted: R, G, B
+        return write_jpeg([img[..., k] for k in range(3)] + [no_black],
+                          adobe=0, jfif=False)
+    if form == "YCCK":                      # YCbCr of the inverted RGB
+        return write_jpeg(rgb_to_ycc(255 - img) + [no_black],
+                          [(2, 2), (1, 1), (1, 1), (2, 2)], adobe=2,
+                          jfif=False)
+    if form in ("4:4:0", "4:1:1"):
+        return write_jpeg(ycc, [(1, 2) if form == "4:4:0" else (4, 1),
+                                (1, 1), (1, 1)], restart=16)
+    if form == "block-smoothed progressive":   # the refinement scans cut
+        return drop_scans(write_jpeg(ycc, [(2, 2), (1, 1), (1, 1)],
+                                     coding="arithmetic",
+                                     script=progressive_script(3)),
+                          lambda sel, ss, se, ah, al: ah > 0)
+    depth = 4 if form == "4-bit gray PNG" else 1
+    return write_png_gray(img >> (8 - depth), depth)
+
+
+def grid_forms_source(n, width, height, device):
+    """Config 2's textured grid with its images in GLTF_FORMS' forms, each
+    decoded by read_image (timed) for the directly built scene. Returns
+    (engine, pass, camera, write_glb arguments, {form: size, bytes,
+    decode seconds})."""
+    import numpy as np
+
+    from paperrenderer_tpu_torch.io.image import read_image
+    from paperrenderer_tpu_torch.scenes import _grid_textures
+
+    tex = _grid_textures(0)
+    occ = (np.clip(tex[1]["occlusion_texture"], 0, 1) * 255 + 0.5).astype(
+        np.uint8)
+    tex[1]["occlusion_texture"], tex[3]["occlusion_texture"] = occ, occ.T
+    images, decode = [{} for _ in tex], {}
+    for k, key, form in GLTF_FORMS:
+        t0 = time.perf_counter()
+        data = encode_form(form, tex[k][key])
+        t1 = time.perf_counter()
+        tex[k][key] = read_image(data)
+        decode[form] = dict(size="%dx%d" % tex[k][key].shape[1::-1],
+                            bytes=len(data), encode_seconds=t1 - t0,
+                            decode_seconds=time.perf_counter() - t1)
+        images[k][key] = data
+    return (*grid_glb_spec(n, width, height, device, tex, images), decode)
 
 
 def gltf_scene(path, lights, width, height, device):
@@ -2249,6 +2970,46 @@ def gltf_phase(work_dir, n=10_000, width=1920, height=1080,
                                ok=float(d.mean()) <= 1e-5)
         ok &= small_out[name]["ok"]
     out["card_vs_cpu_%d_%dx%d" % small] = small_out
+    del eng, rp, direct, loaded, eng_s, rp_s
+    forms = gltf_forms_case(work_dir, n, width, height)
+    out["forms"] = forms
+    return dict(ok=ok and forms.pop("ok"), **out)
+
+
+def gltf_forms_case(work_dir, n, width, height):
+    """The grid again with its images in GLTF_FORMS' forms (grid_forms_source)
+    written as a .glb, loaded with load_gltf + instantiate on the card and
+    rendered through the four frames, each held bitwise to the frame of the
+    scene built directly from read_image of the same bytes; the seconds to
+    encode and decode each form at its size, beside the card's name and
+    power limit."""
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    torch.cuda.empty_cache()
+    eng, rp, cam, spec, decode = grid_forms_source(n, width, height, "cuda")
+    path = os.path.join(work_dir, f"grid{n}_forms.glb")
+    out = dict(card=smi, decode=decode, glb_bytes=write_glb(path, *spec))
+    print(f"gltf forms, {smi}: " + "; ".join(
+        f"{form} {d['size']} {d['decode_seconds']:.3f} s"
+        for form, d in decode.items()), flush=True)
+    direct = mirrors(eng, rp, rp.lights, width, height)
+    loaded, out["load_seconds"], out["instantiate_seconds"] = gltf_scene(
+        path, rp.lights, width, height, "cuda")
+    ok = loaded["static"].scene.count == n
+    want, got = render_four(direct, cam), render_four(loaded, cam)
+    for name in want:
+        same = bool(torch.equal(got[name], want[name]))
+        finite = bool(torch.isfinite(got[name]).all())
+        out[name] = dict(bitwise=same, finite=finite)
+        if not same:
+            r = loaded[name]
+            out[name]["first_difference"] = first_difference(
+                r if name != "hybrid" else r._rp,
+                direct[name] if name != "hybrid" else direct[name]._rp)
+        ok &= same and finite
     return dict(ok=ok, **out)
 
 

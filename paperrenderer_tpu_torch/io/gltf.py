@@ -15,11 +15,15 @@ struct and numpy only:
     emissiveFactor, alphaMode BLEND -> SHADE_TRANSLUCENT;
   * textures: the base colour, emissive, metallic-roughness and occlusion
     images (an embedded bufferView, a ``data:`` URI or an external file),
-    decoded by ``io.image.read_image`` and attached to the Material; the
+    decoded by ``io.image.read_image`` (every PNG, and baseline,
+    progressive, lossless and arithmetic-coded 8-bit JPEGs in gray, YCbCr,
+    RGB, CMYK or YCCK at any integral sampling, as the JAX loader's imaging
+    library decodes them) and attached to the Material; the
     MaterialRegistry packs them into the atlas when its table is built.
-    An image in a form ``read_image`` does not decode (an
-    arithmetic-coded, lossless or 12-bit JPEG) raises NotImplementedError
-    naming the form and the glTF image index;
+    An image in a form ``read_image`` refuses, as that library does (a 12-
+    or 16-bit, hierarchical or arithmetic lossless JPEG, another container
+    format), raises NotImplementedError naming the form and the glTF image
+    index;
   * the node hierarchy with TRS or matrix transforms, flattened to world
     TRS (uniform-scale composition) in f32 on the CPU with the port's
     ``core.transforms``.

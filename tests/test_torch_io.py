@@ -33,14 +33,20 @@ tests/test_parallel_static.py, the tier-1 run's critical path):
    tests/test_torch_rt.py;
 5. every example CLI's ``main`` in-process on the CPU at 32x32;
 6. ``read_image`` against the JAX package's (PIL) on every PNG colour type
-   at 8 and 16 bits (palette at 1/2/4/8), interlaced and not, and on
-   baseline and progressive JPEGs at 4:4:4, 4:2:2, 4:2:0 and gray, with
-   and without restart intervals: bitwise; a progressive JPEG as a glTF
-   image, loaded by ``load_gltf`` bitwise as the JAX loader loads it.
+   at 8 and 16 bits (palette at 1/2/4/8, gray at 1/2/4 with and without
+   a tRNS key), interlaced and not, and on baseline and progressive JPEGs
+   at 4:4:4, 4:2:2, 4:2:0 and gray, with and without restart intervals;
+   on chip_smoke.py's numpy writers' JPEGs: other integral samplings,
+   CMYK/YCCK, unmarked component ids, lossless, arithmetic-coded, and
+   progressive files with scans cut (block smoothing): bitwise; a
+   progressive JPEG as a glTF image, loaded by ``load_gltf`` bitwise as
+   the JAX loader loads it (the tRNS keys of 16-bit gray and the refused
+   JPEGs: tests/test_torch_image.py).
 """
 
 import base64
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -834,6 +840,78 @@ def _smooth(rng, h, w, c):
                    255).astype(np.uint8)
 
 
+@functools.lru_cache(maxsize=1)
+def _writers():
+    """chip_smoke.py, whose numpy-only writers make the JPEG and PNG forms
+    that PIL reads but does not write."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the scans a dropped-scan case cuts from a progressive file: every
+# refinement (DC and AC unfinished), the AC or the DC ones, every AC scan
+# (no AC known: libjpeg interpolates the DC too)
+_DROPS = dict(norefine=lambda ss, ah: ah > 0,
+              noacref=lambda ss, ah: ah > 0 and ss > 0,
+              nodcref=lambda ss, ah: ah > 0 and ss == 0,
+              dconly=lambda ss, ah: ss > 0)
+
+
+def _writer_jpeg(kind, rest, img):
+    """One of the writer's JPEG forms of ``img`` (u8 [h, w, 4])."""
+    cs = _writers()
+    ycc = cs.rgb_to_ycc(img[..., :3])
+    if kind == "sampling":      # sampling_<factors>_<restart MCUs>
+        factors = dict(s411=[(4, 1), (1, 1), (1, 1)],
+                       s440=[(1, 2), (1, 1), (1, 1)],
+                       s42=[(4, 2), (1, 1), (1, 1)],
+                       mixed=[(2, 2), (1, 2), (2, 1)])[rest[0]]
+        return cs.write_jpeg(ycc, factors, restart=int(rest[1]))
+    if kind == "cmyk":          # cmyk_<adobe0|ycck|none>_<restart>
+        adobe = dict(adobe0=0, ycck=2, none=None)[rest[0]]
+        factors = [(2, 2), (1, 1), (1, 1), (2, 2)] if rest[1] != "0" else None
+        return cs.write_jpeg([img[..., k] for k in range(4)], factors,
+                             restart=int(rest[1]), adobe=adobe, jfif=False)
+    if kind == "ids":           # ids_<a>-<b>-<c>: no JFIF or Adobe marker
+        return cs.write_jpeg(ycc, jfif=False,
+                             ids=[int(v) for v in rest[0].split("-")])
+    if kind == "lossless":      # lossless_<predictor>_<Pt>_<restart rows>
+        pred, pt, rows = (int(v) for v in rest[:3])
+        nc = 1 if pt else 3
+        if rest[3:]:            # ..._<sampling>: subsampled, interleaved
+            factors = dict(s420=[(2, 2), (1, 1), (1, 1)],
+                           s411=[(4, 1), (1, 1), (1, 1)])[rest[3]]
+            return cs.write_lossless_jpeg([img[..., k] for k in range(3)],
+                                          pred, pt, rows, factors=factors)
+        return cs.write_lossless_jpeg([img[..., k] for k in range(nc)], pred,
+                                      pt, rows, interleave=pred % 2 == 1)
+    if kind == "arith":         # arith_<seq|prog>_<dac>_<restart>_<gray|420>
+        mode, dac, rst, form = rest
+        planes = ycc[:1] if form == "gray" else ycc
+        factors = None if form == "gray" else [(2, 2), (1, 1), (1, 1)]
+        cond = ({0: (1, 4), 1: (0, 0)}, {0: 2, 1: 12}) if dac == "1" else None
+        return cs.write_jpeg(planes, factors, coding="arithmetic",
+                             script=(cs.progressive_script(len(planes))
+                                     if mode == "prog" else None),
+                             restart=int(rst), dac=cond)
+    # dropped_<drop>_<gray|color|arith>: scans cut from a progressive file
+    drop, form = rest
+    if form == "arith":
+        data = cs.write_jpeg(ycc, [(2, 2), (1, 1), (1, 1)], coding="arithmetic",
+                             script=cs.progressive_script(3))
+    else:
+        gray = form == "gray"
+        data = _jpeg(img[..., 0] if gray else img[..., :3], progressive=True,
+                     quality=80, **({} if gray else {"subsampling": 2}))
+    return cs.drop_scans(data, lambda sel, ss, se, ah, al:
+                         _DROPS[drop](ss, ah))
+
+
 def _image_case(case, tmp):
     from paperrenderer_tpu.io.image import read_image as jax_read
     from paperrenderer_tpu_torch.io import gltf as TG
@@ -856,7 +934,14 @@ def _image_case(case, tmp):
         np.testing.assert_array_equal(got[0], want[0])
         return
     datas = []
-    for h, w in ((13, 11), (37, 53), (1, 1), (9, 5)):
+    sizes = ((13, 11), (37, 53), (1, 1), (9, 5))
+    if kind == "dropped":   # + 3 luma block rows at 4:2:0: the last iMCU
+        sizes += ((24, 20),)   # row's own neighbour rule in the smoothing
+    for h, w in sizes:
+        if kind in ("sampling", "cmyk", "ids", "lossless", "arith",
+                    "dropped"):
+            datas.append(_writer_jpeg(kind, rest, _smooth(rng, h, w, 4)))
+            continue
         if kind in ("jpeg", "progressive"):   # <kind>_<sampling>_<restarts>
             sub, rst = rest
             gray = sub == "gray"
@@ -867,8 +952,8 @@ def _image_case(case, tmp):
             if not gray:
                 kw["subsampling"] = {"444": 0, "422": 1, "420": 2}[sub]
             datas.append(_jpeg(img[..., 0] if gray else img, **kw))
-        else:                   # png_<colour type>_<depth>_<interlace>
-            color, depth, interlace = (int(v) for v in rest)
+        else:   # png_<colour type>_<depth>_<interlace>[_t: a tRNS key]
+            color, depth, interlace = (int(v) for v in rest[:3])
             c = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
             hi = 1 << depth
             img = rng.integers(0, hi, (h, w, c)).astype(
@@ -879,6 +964,8 @@ def _image_case(case, tmp):
             if color == 3:
                 palette = rng.integers(0, 256, (hi, 3), np.uint8)
                 trns = rng.integers(0, 256, (max(1, hi // 2),), np.uint8)
+            elif rest[3:] == ["t"]:   # a gray key that some pixels hold
+                trns = np.array([img.flat[-1]], ">u2")
             if depth == 8 and not interlace and color != 3:   # PIL writes it
                 mode = {0: "L", 2: "RGB", 4: "LA", 6: "RGBA"}[color]
                 datas.append(_png(img[..., 0] if c == 1 else img, mode))
@@ -896,17 +983,38 @@ def _image_case(case, tmp):
 
 def test_image_formats_match_jax(tmp_path):
     """``read_image`` bitwise the JAX package's (PIL's decode) on the PNG
-    forms (every colour type at 8 and 16 bits, palette at 1/2/4/8, each
-    interlaced and not; PIL writes the 8-bit non-interlaced and 16-bit gray
-    ones, the test's own writer the rest, with all five row filters) and
-    on PIL's baseline and progressive JPEGs at 4:4:4, 4:2:2, 4:2:0 and
-    gray, with and without a restart interval, at four sizes (odd ones
-    among them); a progressive JPEG as a glTF image, once refused, loads
-    as the JAX loader loads it."""
+    forms (every colour type at 8 and 16 bits, palette at 1/2/4/8, gray at
+    1/2/4 with and without a tRNS key, each interlaced and not; PIL writes
+    the 8-bit non-interlaced and 16-bit gray ones, the test's own writer
+    the rest, with all five row filters) and on PIL's baseline and
+    progressive JPEGs at 4:4:4, 4:2:2, 4:2:0 and gray, with and without a
+    restart interval, at four sizes (odd ones among them); on
+    chip_smoke.py's writer's JPEGs: 4:1:1, 4:4:0, 4x2 and mixed chroma
+    sampling, CMYK (Adobe transform 0), YCCK (2) and unmarked 4-component
+    files, 3-component files with unmarked ids, lossless with predictors
+    1-7 at Pt 0 (3 components, interleaved or not) and Pt 2 (gray, a
+    restart each row) and at 4:2:0 and 4:1:1 (replicated), arithmetic sequential and progressive with and
+    without DAC conditioning and restarts; progressive files with scans
+    cut (block smoothing: unfinished DC, unfinished AC, both, DC alone);
+    a progressive JPEG as a glTF image, once refused, loads as the JAX
+    loader loads it."""
     png = [f"png_{c}_{d}_{i}" for c in (0, 2, 4, 6) for d in (8, 16)
            for i in (0, 1)]
     png += [f"png_3_{d}_{i}" for d in (1, 2, 4, 8) for i in (0, 1)]
+    png += [f"png_0_{d}_{i}{t}" for d in (1, 2, 4) for i in (0, 1)
+            for t in ("", "_t")]
     jpeg = [f"{k}_{s}_{r}" for k in ("jpeg", "progressive")
             for s in ("444", "422", "420", "gray") for r in (0, 2)]
+    jpeg += [f"sampling_{f}_{r}" for f in ("s411", "s440", "s42", "mixed")
+             for r in (0, 2)]
+    jpeg += [f"cmyk_{a}_{r}" for a in ("adobe0", "ycck", "none")
+             for r in (0, 1)] + ["ids_5-6-7", "ids_1-2-3"]
+    jpeg += [f"lossless_{p}_{pt}" for p in range(1, 8)
+             for pt in ("0_0", "2_1")] + ["lossless_4_0_1_s420",
+                                          "lossless_6_1_0_s411"]
+    jpeg += [f"arith_{m}_{d}_{r}_420" for m in ("seq", "prog")
+             for d in (0, 1) for r in (0, 2)] + ["arith_prog_0_0_gray"]
+    jpeg += [f"dropped_{d}_{f}" for d in _DROPS for f in ("gray", "color")]
+    jpeg += ["dropped_norefine_arith"]
     _each(png + jpeg + ["gltf_progressive"],
           lambda c: _image_case(c, str(tmp_path)))

@@ -19,9 +19,13 @@ Phases, each reported as one JSON line:
            (8x128 cells), K2 on a two-layer depth-peel chain built from
            K3's own output, and K4's peel form on the chain's first window;
            on the translucent grid K2's four peel layers with the frame's
-           own bins and windows (ceiling: the opaque depth's key); kernel
-           and plain ms, candidates, the rejection's work as in compare,
-           the share of warps K2 skips (no open window), bound;
+           own bins and windows (ceiling: the opaque depth's key); K4 and
+           its peel form also on config 2's longest 1% of lists alone, the
+           ragged 200x150 image, config 2's 960x540 window at (960, 540),
+           a window with wholly closed quarters (peel) and synthetic lists
+           longer than K4's survivor buffer; kernel and plain ms,
+           candidates, the rejection's work as in compare, the share of
+           warps K2 skips (no open window), bound;
   compare_tiles  the tile kernels against their plain versions on the
            draw-list batches (bitwise): K5 at config 1, config 2 and a ragged
            image size; K6 at config 2 on the morton-sorted batch and on the
@@ -418,7 +422,9 @@ def raster_work(case, bins=None):
 
     b = case.bins if bins is None else bins
     fw, fh = RE.WARP_FOOT
-    n_bx, n_by = RE.grid_cells(case.width, case.height, b.cell_w)
+    x0, y0 = case.origin   # the cells are the viewport's: (ax, ay) inside
+    ax, ay = x0 % b.cell_w, y0 % RE.CELL_H
+    n_bx, n_by = RE.grid_cells(case.width, case.height, b.cell_w, (x0, y0))
     dev = b.coef.device
     hh, ww = n_by * RE.CELL_H, n_bx * b.cell_w
     if case.window is None:      # no window: every footprint whole
@@ -426,15 +432,16 @@ def raster_work(case, bins=None):
     else:                        # outside the image the window is (0, 0)
         open_ = torch.nn.functional.pad(
             RE.peel_window_open(*case.window),
-            (0, ww - case.width, 0, hh - case.height))
+            (ax, ww - case.width - ax, ay, hh - case.height - ay))
 
     def warps(img):   # [hh, ww] -> [cell, warp of the cell, 32 pixels]
         img = img.reshape(n_by, RE.CELL_H // fh, fh, n_bx, b.cell_w // fw, fw)
         return img.permute(0, 3, 1, 4, 2, 5).reshape(n_by * n_bx, -1, fh * fw)
 
-    op = warps(open_)
-    xs = warps(torch.arange(ww, device=dev).expand(hh, ww))
-    ys = warps(torch.arange(hh, device=dev)[:, None].expand(hh, ww))
+    op = warps(open_)   # the viewport's pixel coordinates
+    xs = warps(torch.arange(ww, device=dev).expand(hh, ww) + (x0 - ax))
+    ys = warps(torch.arange(hh, device=dev)[:, None].expand(hh, ww)
+               + (y0 - ay))
     box = [f(torch.where(op, v, fill), -1) for v in (xs, ys)
            for f, fill in ((torch.amin, 1 << 30), (torch.amax, -1))]
     live = op.any(-1)                                   # [cell, warp]
@@ -473,7 +480,10 @@ def compare_raster(case, needed=None, reps=20):
     a, kw = case.args()
     b, w, h = case.bins, case.width, case.height
     d_k, t_k = RE.rasterize_bins(*a, **kw)       # the wrapper: its kernel
-    (d_p, t_p), plain_ms = timed_once(lambda: RE.rasterize_bins_plain(*a, **kw))
+    plain_kw = {k: v for k, v in kw.items()
+                if k not in ("full_width", "full_height")}
+    (d_p, t_p), plain_ms = timed_once(
+        lambda: RE.rasterize_bins_plain(*a, **plain_kw))
     both = (t_k >= 0) & (t_p >= 0)
     work = raster_work(case, None if needed is None else needed.bins)
     per_candidate = (KEYED_OPS_PER_CANDIDATE if case.keyed
@@ -735,10 +745,16 @@ def compare_keyed(ins):
     starting from K3's depth; no ceiling) and K4's peel form on the 8x128
     bins in the chain's first window; on the translucent grid K2 on all
     four peel layers exactly as composite_translucency runs them, on the
-    non-opaque set's bins with the opaque depth's key as the ceiling.
+    non-opaque set's bins with the opaque depth's key as the ceiling; and
+    K4's further cases (walk_bench.classic_inputs): config 2's longest 1%
+    of lists alone, both forms on the ragged 200x150 image and on config
+    2's 960x540 window at (960, 540), the peel form with some quarters
+    wholly closed, and both forms on lists that outgrow the survivor
+    buffer.
 
-    Each case as compare_raster reports it; K4's bound counts the work of
-    the 8x32 bins, which the function needs (its 8x128 cells test more)."""
+    Each case as compare_raster reports it; K4's bound on config 2 counts
+    the work of the 8x32 bins, which the function needs (its 8x128 cells
+    test more); its other cases count their own 8x128 bins' work."""
     needed = dict(k4_config2=ins["k3_config2"],
                   k4_peel_config2=ins["k2_config2_layer1"])
     out = {name: compare_raster(case, needed.get(name))
@@ -4828,7 +4844,11 @@ def main():
                                     for i in range(1, 5)]
                        + ["k2_config2_layer1", "k2_config2_layer2"],
                        raster_keyed=["k3_config2"],
-                       raster_classic=["k4_config2", "k4_peel_config2"])
+                       raster_classic=[
+                           "k4_config2", "k4_peel_config2", "k4_config2_tail",
+                           "k4_ragged", "k4_peel_ragged", "k4_window",
+                           "k4_peel_window", "k4_peel_closed", "k4_long",
+                           "k4_peel_long"])
     ctl = results.get("compare_tiles", {})
     # the compare_tiles cases of each tile kernel; the first is timed
     tile_cases = dict(raster_tiles=["k5_config2", "k5_config1", "k5_ragged",

@@ -70,7 +70,7 @@ KEY_MASK = ~(128 - 1)
 
 # launches of each kernel wrapper, counted where the kernel is launched
 LAUNCHES = {"raster_exact": 0, "raster_peel": 0, "raster_keyed": 0,
-            "raster_classic": 0}
+            "raster_classic": 0, "raster_classic_probe": 0}
 
 
 def _round_up(n: int, m: int) -> int:
@@ -330,8 +330,10 @@ def _lib():
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.raster_exact_launch.argtypes = [P] * 3 + [I] * 6 + [P] * 3
         lib.raster_keyed_launch.argtypes = [P] * 3 + [I] * 7 + [P] * 5
-        lib.raster_exact_launch.restype = I
-        lib.raster_keyed_launch.restype = I
+        lib.raster_classic_probe_launch.argtypes = [P] * 3 + [I] * 6 + [P] * 6
+        for fn in (lib.raster_exact_launch, lib.raster_keyed_launch,
+                   lib.raster_classic_probe_launch):
+            fn.restype = I
         _LIB.append(lib)
     return _LIB[0]
 
@@ -352,7 +354,7 @@ def check_window(name: str, width: int, height: int, full_width=None,
 
 def _launch_kernel(cell_start, cell_groups, coef, width, height, cell_w,
                    keyed, window, full_width=None, full_height=None,
-                   origin=(0, 0)):
+                   origin=(0, 0), probe=False):
     name = _kernel_name(cell_w, keyed, window)
     x0, y0 = check_window(name, width, height, full_width, full_height,
                           origin)
@@ -383,9 +385,16 @@ def _launch_kernel(cell_start, cell_groups, coef, width, height, cell_w,
     stream = torch.cuda.current_stream(coef.device).cuda_stream
     head = (cell_start.data_ptr(), cell_groups.data_ptr(), coef.data_ptr(),
             width, height, n_bx, n_bx * n_by)
-    if keyed:
-        fl, ce = (None, None) if window is None else (
-            window[0].data_ptr(), window[1].data_ptr())
+    fl, ce = (None, None) if window is None else (
+        window[0].data_ptr(), window[1].data_ptr())
+    if probe:
+        name = "raster_classic_probe"
+        record = torch.zeros((n_bx * n_by * TILE_W // CELL_W, 8),
+                             dtype=torch.int64, device=coef.device)
+        rc = lib.raster_classic_probe_launch(
+            *head, x0, y0, fl, ce, depth.data_ptr(), tid.data_ptr(),
+            record.data_ptr(), stream)
+    elif keyed:
         rc = lib.raster_keyed_launch(*head, cell_w, x0, y0, fl, ce,
                                      depth.data_ptr(), tid.data_ptr(), stream)
     else:
@@ -394,7 +403,7 @@ def _launch_kernel(cell_start, cell_groups, coef, width, height, cell_w,
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
-    return depth, tid
+    return (depth, tid, record) if probe else (depth, tid)
 
 
 def rasterize_bins(cell_start, cell_groups, coef, width: int, height: int,
@@ -428,6 +437,22 @@ def rasterize_bins(cell_start, cell_groups, coef, width: int, height: int,
                                     height, cell_w=cell_w, keyed=keyed,
                                     window=window, origin=origin)
     raise ValueError(f"raster_exact: unsupported device {coef.device}")
+
+
+def classic_probe(cell_start, cell_groups, coef, width: int, height: int, *,
+                  window=None, full_width: Optional[int] = None,
+                  full_height: Optional[int] = None, origin=(0, 0)):
+    """K4 (``rasterize_bins(cell_w=TILE_W, keyed=True)``) in its probe form,
+    on the card only: (depth, tid, record i64[4 * n_cells, 8]), each 32 x 8
+    quarter block's SM id, ``%globaltimer`` at its start and end (ns), its
+    clock64 cycles in all, in the survivor prefilter and in the warps'
+    walks, its prefilter rounds and its survivors
+    (``csrc/raster_exact.cu`` ``raster_classic_kernel<PEEL, true>``)."""
+    if coef.device.type != "cuda":
+        raise ValueError("classic_probe: the probe form runs on the card only")
+    return _launch_kernel(cell_start, cell_groups, coef, width, height,
+                          TILE_W, True, window, full_width, full_height,
+                          origin, probe=True)
 
 
 class BinnedFrame(NamedTuple):

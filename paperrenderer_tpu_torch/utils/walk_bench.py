@@ -14,9 +14,10 @@ ragged 200x150 image; K6 on config 2's sorted and presorted setups, and on
 its longest lists alone; the inputs by ``tile_inputs``, which
 ``chip_smoke.py`` checks the kernels on) and of ``raster_cases`` (K1 on
 configs 1 and 2, config 2 at supersample 2 and the ragged image; K2 on the
-translucent grid's four peel layers and config 2's two-layer chain; K3, K4
-and K4's peel form on config 2; the inputs by ``raster_inputs``, which
-``chip_smoke.py``'s ``compare`` and ``compare_keyed`` check):
+translucent grid's four peel layers and config 2's two-layer chain; K3 on
+config 2; K4 and its peel form on config 2 and on ``classic_inputs``'
+cases; the inputs by ``raster_inputs``, which ``chip_smoke.py``'s
+``compare`` and ``compare_keyed`` check):
 ``rounds`` times each, ``profiling.device_time`` (CUDA events behind a
 sleep kernel), and the frames of config 3, hybrid config 4 (``frame_cases``:
 each launches K9 twice), the draw-list frames of configs 1 and 2 and the
@@ -36,7 +37,9 @@ Prints one JSON line per case ({case: [ms per round], "live": the share of
 its rays (K9: of its pixels) that are live (traversal), "host_ms": the
 host's ms to issue one call (tiles, raster, K9), "lists": the mean, p99
 and max of its tiles' chunk-list lengths (K6) or of its cells' group-list
-lengths (raster), "digest": sha256 of its outputs' bytes}),
+lengths (raster), "trace": K4's block records (``classic_trace``, where
+the checkout has the probe form), "digest": sha256 of its outputs'
+bytes}),
 one with the registers, spills, stack frame and shared memory of each
 kernel of the builds (ptxas), the card (nvidia-smi name and power limit),
 and last {"ok": ...}.
@@ -264,18 +267,25 @@ class RasterCase:
     """One launch of a binned raster kernel: ``rasterize_bins`` on ``bins``
     (a ``BinnedFrame``) at ``width`` x ``height``; K1 unless ``keyed``, and
     then K2 (or K4's peel form on 8x128 bins) inside ``window`` = (floor,
-    ceil) i32 key planes when it is given."""
+    ceil) i32 key planes when it is given; ``full`` = (full_width,
+    full_height) places the image as the window at ``origin`` of that
+    viewport."""
     bins: object
     width: int
     height: int
     keyed: bool = False
     window: object = None
+    full: tuple = None
+    origin: tuple = (0, 0)
 
     def args(self):
         b = self.bins
-        return ((b.cell_start, b.cell_groups, b.coef, self.width,
-                 self.height),
-                dict(cell_w=b.cell_w, keyed=self.keyed, window=self.window))
+        kw = dict(cell_w=b.cell_w, keyed=self.keyed, window=self.window)
+        if self.full is not None:
+            kw.update(full_width=self.full[0], full_height=self.full[1],
+                      origin=self.origin)
+        return (b.cell_start, b.cell_groups, b.coef, self.width,
+                self.height), kw
 
     def __call__(self):
         from paperrenderer_tpu_torch.ops.raster_exact import rasterize_bins
@@ -335,7 +345,8 @@ def raster_inputs(scenes: dict) -> dict:
     rp, cam = scenes["config2"]
     w, h = rp.width, rp.height
     bins = out["k1_config2"].bins
-    tiles = RE.bin_triangles(frame_batch(rp, cam), w, h, RE.TILE_W)
+    batch = frame_batch(rp, cam)
+    tiles = RE.bin_triangles(batch, w, h, RE.TILE_W)
     out["k3_config2"] = RasterCase(bins, w, h, keyed=True)
     out["k4_config2"] = RasterCase(tiles, w, h, keyed=True)
     depth = out["k3_config2"]()[0]
@@ -347,6 +358,7 @@ def raster_inputs(scenes: dict) -> dict:
         depth = out[f"k2_config2_layer{layer}"]()[0]
         if layer == 1:
             out["k4_peel_config2"] = RasterCase(tiles, w, h, True, window)
+    out.update(classic_inputs(out, tiles, batch, scenes))
 
     # the translucent frame's own K2 inputs, built as render_frame_static
     # and composite_translucency build them
@@ -366,6 +378,171 @@ def raster_inputs(scenes: dict) -> dict:
         out[f"k2_translucent_layer{layer}"] = case
         floor = RE.depth_to_key(case()[0])
     return out
+
+
+def behind(case) -> tuple:
+    """The depth window behind ``case``'s output: (its depth's key, no
+    ceiling)."""
+    import torch
+    from paperrenderer_tpu_torch.ops import raster_exact as RE
+
+    key = RE.depth_to_key(case()[0])
+    return key, torch.full_like(key, RE.SENTINEL)
+
+
+def closed_quarters(window) -> tuple:
+    """``window`` with some of its 32 x 8 quarters closed (ceil = floor):
+    every quarter whose column plus row is 0 mod 3 wholly, and the left
+    16 columns of those where it is 1 mod 3 (two warps of four a row)."""
+    import torch
+
+    floor, ceil = window
+    h, w = floor.shape
+    x = torch.arange(w, device=floor.device)
+    y = torch.arange(h, device=floor.device)[:, None]
+    turn = (x // 32 + y // 8) % 3
+    closed = (turn == 0) | ((turn == 1) & (x % 32 < 16))
+    return floor, torch.where(closed, floor, ceil)
+
+
+def long_list_bins(device, groups: int = 1024, width: int = 256,
+                   height: int = 16, seed: int = 5):
+    """A synthetic ``BinnedFrame`` of 8 x 128 cells whose every list holds
+    all ``groups`` groups: rows that cover the whole image and rows cut by
+    a vertical and a horizontal half plane, depth planes sloped or constant
+    at a few values (so keys tie across the list), made from ``seed``. Far
+    more of each quarter's triangles survive its prefilter than K4's
+    shared buffer holds."""
+    import numpy as np
+    import torch
+    from paperrenderer_tpu_torch.ops import raster_exact as RE
+
+    rng = np.random.default_rng(seed)
+    n = groups * RE.GROUP
+    rows = np.zeros((n, 16), np.float32)
+    rows[:, [2, 5, 8, 14]] = 1.0             # e0, e1, e2, wn constant 1
+    cut = rng.random(n) < 0.25
+    sx, sy = (rng.choice([-1.0, 1.0], n) for _ in range(2))
+    rows[cut, 0], rows[cut, 2] = sx[cut], -sx[cut] * rng.uniform(0, width, n)[cut]
+    rows[cut, 4], rows[cut, 5] = sy[cut], -sy[cut] * rng.uniform(0, height, n)[cut]
+    flat = rng.random(n) < 0.4
+    rows[:, 9:11] = np.where(flat[:, None], 0.0,
+                             rng.uniform(-1e-3, 1e-3, (n, 2)))
+    rows[:, 11] = np.where(flat, rng.choice([0.25, 0.5], n),
+                           rng.uniform(0.2, 0.9, n))
+    rows[:, 14] = np.where(rng.random(n) < 0.2, 2.0, 1.0)
+    n_bx, n_by = RE.grid_cells(width, height, RE.TILE_W)
+    cells = n_bx * n_by
+    coef = torch.from_numpy(rows).to(device)
+    return RE.BinnedFrame(
+        coef, coef,
+        torch.arange(cells + 1, dtype=torch.int32, device=device) * groups,
+        torch.arange(groups, dtype=torch.int32, device=device).repeat(cells),
+        groups * cells, RE.TILE_W)
+
+
+def classic_inputs(out: dict, tiles, batch, scenes) -> dict:
+    """K4's cases beside config 2's (``raster_inputs``): config 2's 8 x 128
+    lists with every list shorter than the longest 1% emptied (``tail``);
+    both forms on the ragged 200x150 image (its right and bottom cells
+    partial; the window behind K3's depth) and on config 2's 960x540 window
+    at (960, 540), whose origin lies inside a cell (the window behind K4's
+    depth there); the peel form in config 2's first window with some
+    quarters wholly closed; and both forms on ``long_list_bins``, whose
+    lists outgrow the survivor buffer."""
+    import torch
+    from paperrenderer_tpu_torch.ops import raster_exact as RE
+
+    new = {}
+    b = tiles
+    lens = b.cell_start[1:] - b.cell_start[:-1]
+    keep = lens >= torch.quantile(lens.double(), 0.99)
+    tail_start = torch.nn.functional.pad(
+        torch.cumsum(lens * keep, 0), (1, 0)).to(torch.int32)
+    tail = torch.repeat_interleave(keep, lens.long())
+    w, h = out["k4_config2"].width, out["k4_config2"].height
+    new["k4_config2_tail"] = RasterCase(
+        b._replace(cell_start=tail_start,
+                   cell_groups=b.cell_groups[tail].contiguous(),
+                   n_pairs=int(tail.sum())), w, h, keyed=True)
+    rp, cam = scenes["ragged"]
+    rw, rh = rp.width, rp.height
+    ragged = RE.bin_triangles(frame_batch(rp, cam), rw, rh, RE.TILE_W)
+    new["k4_ragged"] = RasterCase(ragged, rw, rh, keyed=True)
+    new["k4_peel_ragged"] = RasterCase(ragged, rw, rh, True, behind(
+        RasterCase(out["k1_ragged"].bins, rw, rh, keyed=True)))
+    win = dict(full=(w, h), origin=(w // 2, h // 2))
+    wbins = RE.bin_triangles(batch, w // 2, h // 2, RE.TILE_W,
+                             full_width=w, full_height=h,
+                             origin=win["origin"])
+    new["k4_window"] = RasterCase(wbins, w // 2, h // 2, keyed=True, **win)
+    new["k4_peel_window"] = RasterCase(wbins, w // 2, h // 2, True,
+                                       behind(new["k4_window"]), **win)
+    new["k4_peel_closed"] = RasterCase(
+        tiles, w, h, True, closed_quarters(out["k4_peel_config2"].window))
+    long = long_list_bins(b.coef.device)
+    new["k4_long"] = RasterCase(long, 256, 16, keyed=True)
+    new["k4_peel_long"] = RasterCase(long, 256, 16, True,
+                                     behind(new["k4_long"]))
+    return new
+
+
+def classic_trace(case) -> dict:
+    """What K4's probe form (``raster_exact.classic_probe``) records on
+    RasterCase ``case``, summed up: the launch's span on ``%globaltimer``
+    (us); its blocks and those that prefiltered a list (a nonempty list
+    and a live pixel); each block's time (us:
+    mean, p50, p99, max) and the longest one's share of the span; the
+    longest one's time, list length, rounds, survivors and the shares of
+    its cycles in the prefilter and the walks; the tail, from the 99th percentile of the blocks' ends to
+    the last; the blocks resident on an SM (mean over the span, and the
+    most at once); the shares of the blocks' clock64 cycles spent in the
+    survivor prefilter and in the warps' walks; the prefilter rounds (mean,
+    max) and the share of the tested triangles that survived."""
+    import numpy as np
+    import torch
+    from paperrenderer_tpu_torch.ops import raster_exact as RE
+
+    a, kw = case.args()
+    del kw["cell_w"], kw["keyed"]
+    RE.classic_probe(*a, **kw)
+    rec = RE.classic_probe(*a, **kw)[2]
+    torch.cuda.synchronize()
+    sm, t0, t1, cyc, pre, walk, rounds, surv = rec.cpu().numpy().T
+    b = case.bins
+    lens = np.repeat((b.cell_start[1:] - b.cell_start[:-1]).cpu().numpy(),
+                     RE.TILE_W // RE.CELL_W)
+    span = float(t1.max() - t0.min())
+    dur = (t1 - t0).astype(np.float64)
+    live = rounds > 0
+    # blocks resident on one SM at once: +1 at a start, -1 at an end
+    most = 0
+    for s in np.unique(sm):
+        ev = np.concatenate([np.stack([t0[sm == s], np.ones((sm == s).sum())], 1),
+                             np.stack([t1[sm == s], -np.ones((sm == s).sum())], 1)])
+        ev = ev[np.lexsort((ev[:, 1], ev[:, 0]))]
+        most = max(most, int(np.cumsum(ev[:, 1]).max()))
+    i = int(np.argmax(dur))
+    return dict(
+        longest=dict(us=float(dur[i]) / 1e3, list=int(lens[i]),
+                     rounds=int(rounds[i]), survivors=int(surv[i]),
+                     prefilter=float(pre[i] / cyc[i]),
+                     walk=float(walk[i] / cyc[i])),
+        span_us=span / 1e3, blocks=int(len(t0)), live_blocks=int(live.sum()),
+        block_us=dict(mean=float(dur.mean()) / 1e3,
+                      p50=float(np.percentile(dur, 50)) / 1e3,
+                      p99=float(np.percentile(dur, 99)) / 1e3,
+                      max=float(dur.max()) / 1e3),
+        longest_share=float(dur.max()) / span,
+        tail_us=float(t1.max() - np.percentile(t1, 99)) / 1e3,
+        resident=dict(mean=float(dur.sum()) / span / len(np.unique(sm)),
+                      most=most),
+        cycles=dict(prefilter=float(pre.sum() / cyc.sum()),
+                    walk=float(walk.sum() / cyc.sum())),
+        rounds=dict(mean=float(rounds[live].mean()) if live.any() else 0.0,
+                    max=int(rounds.max())),
+        survived=float(surv.sum()) / max(float(lens[live].sum()) * RE.GROUP,
+                                         1.0))
 
 
 def raster_cases(device) -> dict:
@@ -548,6 +725,8 @@ def main() -> int:
                     line["lists"] = fn.lists
             if hasattr(fn, "profile"):
                 line.update(fn.profile())
+            if case.startswith("k4_") and hasattr(RE, "classic_probe"):
+                line["trace"] = classic_trace(fn)
             same = want.get(case, digest.hexdigest()) == digest.hexdigest()
             ok &= same
             emit(dict(line, digest=digest.hexdigest(), same=same))

@@ -1506,9 +1506,9 @@ def _accepts(rows, xs, ys):
 @pytest.mark.parametrize("source,foot", [
     ("fixture", (32, 4)), ("fixture", (16, 8)), ("handmade", (32, 4)),
     ("handmade", (16, 8)), ("bins", (8, 4)), ("bins", (16, 2)),
-    ("bins", (32, 1))], ids=["fixture-32x4", "fixture-16x8", "handmade-32x4",
-                             "handmade-16x8", "bins-8x4", "bins-16x2",
-                             "bins-32x1"])
+    ("bins", (32, 1)), ("bins128", (32, 8))],
+    ids=["fixture-32x4", "fixture-16x8", "handmade-32x4", "handmade-16x8",
+         "bins-8x4", "bins-16x2", "bins-32x1", "bins128-32x8"])
 def test_tile_may_cover_is_exact(triangles, source, foot):
     """``tile_may_cover`` (the tile and binned raster kernels' per-warp
     triangle rejection) against every pixel of every footprint, evaluated
@@ -1520,20 +1520,22 @@ def test_tile_may_cover_is_exact(triangles, source, foot):
     binned kernels' warps: 8 x 4 is K1-K4's, 16 x 2 and 32 x 1 the
     shapes timed beside it) against the rows of the cell's groups, and
     more than half of those are rejected too (kept: 2.2% at 8 x 4, 3.2% at
-    16 x 2, 7.3% at 32 x 1); the handmade rows are tested against every
+    16 x 2, 7.3% at 32 x 1); on its 8 x 128 cells (K4's lists) each 32 x 8
+    quarter (the box of K4's block prefilter) against the rows of the
+    cell's groups (kept: 11.0%); the handmade rows are tested against every
     footprint of two 128 x 16 regions, one at the origin and one at the far
     corner of a 1920 x 1080 image."""
     fw, fh = foot
-    if source == "bins":
-        b = TRE.bin_triangles(_port("TriangleBatch", triangles), W, H)
+    if source in ("bins", "bins128"):
+        cw = TRE.CELL_W if source == "bins" else TRE.TILE_W
+        b = TRE.bin_triangles(_port("TriangleBatch", triangles), W, H, cw)
         rows = b.coef.reshape(-1, TRE.GROUP, 16)
-        n_bx = TRE.grid_cells(W, H)[0]
+        n_bx = TRE.grid_cells(W, H, cw)[0]
         work = []
         for c in range(b.cell_start.numel() - 1):
             gs = b.cell_groups[b.cell_start[c]:b.cell_start[c + 1]].long()
-            origin = ((c % n_bx) * TRE.CELL_W, (c // n_bx) * TRE.CELL_H)
-            work.append((origin, TRE.CELL_W, TRE.CELL_H,
-                         rows[gs].reshape(-1, 16)))
+            origin = ((c % n_bx) * cw, (c // n_bx) * TRE.CELL_H)
+            work.append((origin, cw, TRE.CELL_H, rows[gs].reshape(-1, 16)))
     elif source == "fixture":
         batch = _port("TriangleBatch", triangles)
         coeffs, ok, (lo, hi) = TR.triangle_coefficients(batch, W, H)

@@ -198,7 +198,12 @@ Phases, each reported as one JSON line:
            4-bit and 1-bit gray PNGs, written by numpy-only writers), its
            four frames bitwise the scene built from read_image of the same
            bytes, each form's decode seconds at its size beside the card's
-           name and power limit; its launches join the kernels line;
+           name and power limit; and again in the container formats
+           (GLTF_CONTAINERS: lossy WebP, lossy WebP with alpha and lossless
+           WebP from tests/data/webp/, BMP RLE8, 5-6-5 and V5 with an
+           alpha mask, 32-bit run-length and 8-bit gray TGA, an
+           interlaced GIF with a transparency index), the same way; its
+           launches join the kernels line;
   viewer   Viewer over the example scene at 512x512 (raster, RT, hybrid;
            each rendered once first, so no build runs in its thread):
            over 127.0.0.1 each mode's /frame.png bitwise a direct render
@@ -2738,6 +2743,292 @@ def write_png_gray(img, depth, trns=None, interlace=False):
         _chunk(b"IDAT", zlib.compress(raw, 6)), _chunk(b"IEND", b"")])
 
 
+# -- image writers for the glTF container forms (BMP, TGA, GIF) --------------
+# numpy only, as the JPEG and PNG writers above: the forms io.image decodes
+# beyond what an imaging library writes (RLE, bitfields, other headers and
+# depths, colour maps at an offset, offset GIF frames).
+
+
+def bmp_rle(idx, rle4=False, deltas=()):
+    """Encode indices [H, W] (rows bottom-up, as a BMP stores them) as
+    RLE8 / RLE4: runs of 3 or more equal pixels as encoded runs, the rest
+    as absolute runs (or encoded runs of 1-2), an end of line per row and
+    the end of bitmap; ``deltas`` (row, column, right, up) write a delta
+    escape there, its offsets as 2 bytes (RLE's own layout)."""
+    import numpy as np
+
+    out = bytearray()
+    h, w = idx.shape
+    cap = 254 if rle4 else 255
+    for y in range(h):
+        row = idx[h - 1 - y].tolist()
+        x = 0
+        while x < w:
+            for dy, dx, right, up in deltas:
+                if (dy, dx) == (y, x):
+                    out += bytes((0, 2, right, up))
+            run = 1
+            while x + run < w and run < cap and row[x + run] == row[x]:
+                run += 1
+            if run >= 3 or w - x < 3:
+                v = row[x]
+                out += bytes((run, (v << 4 | v) if rle4 else v))
+                x += run
+                continue
+            n = 3
+            while x + n < w and n < cap and not (
+                    x + n + 2 < w and row[x + n] == row[x + n + 1]
+                    == row[x + n + 2]):
+                n += 1
+            lit = row[x:x + n]
+            if rle4:
+                lit = lit + [0] * (n & 1)
+                body = bytes(a << 4 | b for a, b in zip(lit[::2], lit[1::2]))
+            else:
+                body = bytes(lit)
+            out += bytes((0, n)) + body + b"\x00" * (len(body) & 1)
+            x += n
+        out += b"\x00\x00"
+    out += b"\x00\x01"
+    return bytes(out)
+
+
+def write_bmp(pixels, bits, palette=None, header=40, compression=0,
+              masks=None, top_down=False, body=None, file_header=True):
+    """A BMP (a DIB without ``file_header``): ``pixels`` indices [H, W] at
+    1-8 bits, packed u16 / u32 values [H, W] at 16 / 32 bits, or RGB
+    [H, W, 3] at 24 bits; ``palette`` [n, 3] RGB; ``header`` 12 (OS/2
+    core: 3-byte entries), 40 or a V2-V5 size (52, 56, 108, 124) with
+    ``masks`` in it (40: after it); compression 0 (BI_RGB), 1 / 2 (RLE8 /
+    RLE4: ``body`` the stream, else bmp_rle of the pixels), 3
+    (BI_BITFIELDS) or another code with ``body`` as the pixel data."""
+    import numpy as np
+
+    h, w = pixels.shape[:2]
+    if body is None and compression in (1, 2):
+        body = bmp_rle(pixels, compression == 2)
+    if body is None:
+        rows = pixels[::-1] if not top_down else pixels
+        if bits < 8:
+            per = 8 // bits
+            a = np.pad(rows.astype(np.uint8), ((0, 0), (0, -w % per)))
+            packed = np.zeros((h, a.shape[1] // per), np.uint8)
+            for k in range(per):
+                packed |= a[:, k::per] << (8 - bits * (k + 1))
+            raw = packed
+        elif bits == 24:
+            raw = rows[..., ::-1].reshape(h, -1)
+        else:
+            raw = rows.astype({8: "u1", 16: "<u2", 32: "<u4"}[bits]).view(
+                np.uint8).reshape(h, -1)
+        stride = ((w * bits + 31) >> 3) & ~3
+        body = np.pad(raw, ((0, 0), (0, stride - raw.shape[1]))).tobytes()
+    pal = b""
+    if palette is not None:
+        p = np.asarray(palette, np.uint8)[:, ::-1]
+        if header != 12:
+            p = np.concatenate([p, np.zeros((len(p), 1), np.uint8)], 1)
+        pal = p.tobytes()
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h,
+                           1, bits, compression, len(body), 2835, 2835,
+                           len(pal) // 4, 0)
+        extra = b"".join(struct.pack("<I", m) for m in (masks or ()))
+        if header == 40:
+            info += extra
+        else:
+            info += (extra + bytes(header - 40))[:header - 40]
+    off = (14 if file_header else 0) + len(info) + len(pal)
+    head = (b"BM" + struct.pack("<IHHI", off + len(body), 0, 0, off)
+            if file_header else b"")
+    return head + info + pal + body
+
+
+def pack_rgb(rgb, bits=(5, 6, 5)):
+    """RGB [..., 3] -> 5-6-5 or 5-5-5 u16 values (high bits kept)."""
+    import numpy as np
+
+    v = np.zeros(rgb.shape[:-1], np.uint32)
+    for c, b in enumerate(bits):
+        v = (v << b) | (rgb[..., c].astype(np.uint32) >> (8 - b))
+    return v
+
+
+def pack_masks(rgba, masks):
+    """RGBA [H, W, 4] -> u32 values with each channel in its 8-bit mask
+    (masks r, g, b, a; a 0 mask drops the channel)."""
+    import numpy as np
+
+    v = np.zeros(rgba.shape[:2], np.uint32)
+    for c, m in enumerate(masks):
+        if m:
+            shift = (m & -m).bit_length() - 1
+            v |= rgba[..., c].astype(np.uint32) << shift
+    return v
+
+
+def tga_rle(pixels, width):
+    """Pixel rows [N, bytes per pixel] -> TGA run-length packets over one
+    stream: runs of 2+ equal pixels repeated (cut at each row's end, as
+    readers require), others literal (across rows); 128 at most."""
+    out = bytearray()
+    px = [bytes(p) for p in pixels]
+    i, n = 0, len(px)
+    while i < n:
+        run = 1
+        end = min(n, i - i % width + width, i + 128)
+        while i + run < end and px[i + run] == px[i]:
+            run += 1
+        if run >= 2:
+            out += bytes((0x80 | (run - 1),)) + px[i]
+            i += run
+            continue
+        j = i + 1
+        while j < n and j - i < 128 and not (
+                j + 1 < n and px[j] == px[j + 1] and (j + 1) % width):
+            j += 1
+        out += bytes((j - i - 1,)) + b"".join(px[i:j])
+        i = j
+    return bytes(out)
+
+
+def write_tga(pixels, image_type, depth, colormap=None, map_depth=0,
+              map_start=0, origin="bottom-left", alpha_bits=0, image_id=b""):
+    """A TGA of ``pixels``: gray or indices [H, W] (depth 8), gray + alpha
+    [H, W, 2] (16), RGB / RGBA [H, W, 3|4] (24 / 32), or packed 15/16-bit
+    values [H, W]; image types 1-3 or 9-11 (run-length packets over the
+    whole pixel stream, literal ones crossing rows); ``colormap`` [n, 3|4]
+    RGB(A) at ``map_depth`` 15, 16 (alpha below 128: the top bit), 24 or
+    32 bits with its first index ``map_start``;
+    ``origin`` one of the four corners."""
+    import numpy as np
+
+    h, w = pixels.shape[:2]
+    flip_x = origin.endswith("right")
+    top = origin.startswith("top")
+    rows = pixels[:, ::-1] if flip_x else pixels
+    rows = rows if top else rows[::-1]
+    if depth in (15, 16) and rows.ndim == 2 and image_type in (2, 10):
+        raw = rows.astype("<u2").view(np.uint8).reshape(h * w, 2)
+    elif rows.ndim == 3 and rows.shape[2] >= 3:
+        raw = rows[..., [2, 1, 0] + ([3] if rows.shape[2] == 4 else [])]
+        raw = raw.reshape(h * w, -1)
+    else:
+        raw = rows.reshape(h * w, -1).astype(np.uint8)
+    body = tga_rle(raw, w) if image_type & 8 else raw.tobytes()
+    cmap = b""
+    if colormap is not None:
+        c = np.asarray(colormap)
+        if map_depth in (15, 16):   # the top bit: alpha below 128
+            v = pack_rgb(c[:, :3], (5, 5, 5))
+            if c.shape[1] == 4:
+                v |= (c[:, 3] < 128).astype(np.uint32) << 15
+            cmap = v.astype("<u2").tobytes()
+        else:
+            cmap = c[:, [2, 1, 0] + ([3] if map_depth == 32 else [])].astype(
+                np.uint8).tobytes()
+    flags = alpha_bits | (0x20 if top else 0) | (0x10 if flip_x else 0)
+    head = struct.pack("<BBBHHBHHHHBB", len(image_id), int(colormap is not None),
+                       image_type, map_start,
+                       0 if colormap is None else len(colormap), map_depth,
+                       0, 0, w, h, depth, flags)
+    return head + image_id + cmap + body
+
+
+def gif_lzw(idx, min_size, clear_when_full=True, literal=False):
+    """GIF LZW (codes packed from the low bit) of the flat indices: a clear
+    code first; a full 4,096-entry table is cleared, or, with
+    ``clear_when_full=False``, kept (12-bit codes, no new entries);
+    ``literal``: one code a pixel (the table still grows: it fills after
+    about 3,840 pixels)."""
+    clear, end = 1 << min_size, (1 << min_size) + 1
+    out, acc, nbits = bytearray(), 0, 0
+
+    def emit(code, size):
+        nonlocal acc, nbits
+        acc |= code << nbits
+        nbits += size
+        while nbits >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nbits -= 8
+
+    table = {(k,): k for k in range(clear)}
+    size, nxt = min_size + 1, clear + 2
+    emit(clear, size)
+    cur = ()
+    for v in idx:
+        ext = cur + (v,)
+        if ext in table and not (literal and cur):
+            cur = ext
+            continue
+        emit(table[cur], size)
+        if nxt < 4096:
+            table[ext] = nxt
+            nxt += 1
+            if nxt > (1 << size) and size < 12:
+                size += 1
+        elif clear_when_full:
+            emit(clear, size)
+            table = {(k,): k for k in range(clear)}
+            size, nxt = min_size + 1, clear + 2
+        cur = (v,)
+    if cur:
+        emit(table[cur], size)
+    emit(end, size)
+    if nbits:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def write_gif(frames, palette=None, screen=None, transparency=None,
+              clear_when_full=True, literal=False):
+    """A GIF89a: ``frames`` [(indices [h, w], x0, y0, local palette or
+    None, interlace)], a global ``palette`` [n, 3] (n a power of two),
+    the logical ``screen`` (w, h; the first frame's extent by default),
+    a graphic-control transparency index on the first frame, and
+    gif_lzw's options."""
+    import numpy as np
+
+    def table(p):
+        p = np.asarray(p, np.uint8)
+        bits = max(1, int(len(p) - 1).bit_length())
+        return bits, np.pad(p, ((0, (1 << bits) - len(p)), (0, 0))).tobytes()
+
+    idx0 = frames[0][0]
+    sw, sh = screen or (idx0.shape[1] + frames[0][1], idx0.shape[0] + frames[0][2])
+    flags, gct = 0, b""
+    if palette is not None:
+        bits, gct = table(palette)
+        flags = 0x80 | (bits - 1) | ((bits - 1) << 4)
+    out = [b"GIF89a", struct.pack("<HHBBB", sw, sh, flags, 0, 0), gct]
+    for k, (idx, x0, y0, local, interlace) in enumerate(frames):
+        if k == 0 and transparency is not None:
+            out.append(b"\x21\xf9\x04" + struct.pack("<BHB", 1, 10, transparency)
+                       + b"\x00")
+        h, w = idx.shape
+        fflags, lct = 0x40 if interlace else 0, b""
+        if local is not None:
+            bits, lct = table(local)
+            fflags |= 0x80 | (bits - 1)
+        out.append(b"\x2c" + struct.pack("<HHHHB", x0, y0, w, h, fflags) + lct)
+        rows = idx
+        if interlace:
+            order = np.concatenate([np.arange(s, h, d) for s, d in
+                                    ((0, 8), (4, 8), (2, 4), (1, 2))])
+            rows = idx[order]
+        min_size = max(2, int(idx.max()).bit_length())
+        data = gif_lzw(rows.reshape(-1).tolist(), min_size, clear_when_full,
+                       literal)
+        out.append(bytes((min_size,)) + b"".join(
+            bytes((len(data[i:i + 255]),)) + data[i:i + 255]
+            for i in range(0, len(data), 255)) + b"\x00")
+    out.append(b"\x3b")
+    return b"".join(out)
+
+
 def grid_gltf_source(n, width, height, device):
     """Config 2's textured grid (scenes.build_textured_grid's geometry,
     instances, camera and textures) as glTF carries it: the occlusion map
@@ -2838,11 +3129,79 @@ def encode_form(form, img):
     return write_png_gray(img >> (8 - depth), depth)
 
 
-def grid_forms_source(n, width, height, device):
-    """Config 2's textured grid with its images in GLTF_FORMS' forms, each
-    decoded by read_image (timed) for the directly built scene. Returns
-    (engine, pass, camera, write_glb arguments, {form: size, bytes,
-    decode seconds})."""
+# the grid's images in the container formats: (material, texture key, form)
+GLTF_CONTAINERS = ((0, "base_texture", "WebP lossy"),
+                   (1, "base_texture", "WebP lossy with alpha"),
+                   (3, "emissive_texture", "WebP lossless"),
+                   (2, "mr_texture", "BMP RLE8"),
+                   (0, "mr_texture", "BMP 5-6-5"),
+                   (2, "base_texture", "TGA 32-bit run-length, top-left"),
+                   (1, "occlusion_texture", "TGA 8-bit gray"),
+                   (3, "occlusion_texture",
+                    "GIF interlaced, transparency index"),
+                   (3, "base_texture", "BMP V5 with an alpha mask"))
+# the WebP files, written by tests/data/webp/make_webp.py (libwebp 1.6.0)
+WEBP_FILES = {"WebP lossy": "base0_lossy.webp",
+              "WebP lossy with alpha": "base1_alpha.webp",
+              "WebP lossless": "emissive3_lossless.webp"}
+
+
+def alpha_pattern(h, w):
+    """A seeded alpha for the container forms: opaque, with translucent
+    discs and a transparent band."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32) / max(h, w)
+    a = np.full((h, w), 255, np.uint8)
+    for cy, cx, r in np.random.default_rng(7).uniform(0.1, 0.9, (6, 3)):
+        a[(yy - cy) ** 2 + (xx - cx) ** 2 < (0.15 * r) ** 2] = 160
+    a[(yy > 0.45) & (yy < 0.5)] = 0
+    return a
+
+
+def encode_container(form, img):
+    """`img` (u8 [H, W, 3]; [H, W] for the gray maps) in a GLTF_CONTAINERS
+    form: the WebP forms are the committed files (written from the same
+    textures), the others numpy-only writers' files."""
+    import numpy as np
+
+    if form in WEBP_FILES:
+        with open(os.path.join(HERE, "tests", "data", "webp",
+                               WEBP_FILES[form]), "rb") as f:
+            return f.read()
+    if form == "BMP RLE8":   # green and blue to 16 levels each: 256 colours
+        idx = ((img[..., 1] >> 4) << 4 | img[..., 2] >> 4).astype(np.uint8)
+        k = np.arange(256)
+        pal = np.stack([np.zeros(256), (k >> 4) * 17, (k & 15) * 17],
+                       -1).astype(np.uint8)
+        return write_bmp(idx, 8, pal, compression=1)
+    if form == "BMP 5-6-5":
+        return write_bmp(pack_rgb(img), 16, compression=3,
+                         masks=(0xF800, 0x7E0, 0x1F))
+    alpha = alpha_pattern(*img.shape[:2])
+    rgba = np.concatenate([img, alpha[..., None]], -1) if img.ndim == 3 \
+        else None
+    if form == "TGA 32-bit run-length, top-left":
+        return write_tga(rgba, 10, 32, origin="top-left", alpha_bits=8)
+    if form == "TGA 8-bit gray":
+        return write_tga(img, 3, 8)
+    if form == "GIF interlaced, transparency index":   # reversed gray table
+        k = np.arange(256, dtype=np.uint8)
+        pal = np.stack([255 - k] * 3, -1)
+        return write_gif([(255 - img, 0, 0, None, True)], pal,
+                         transparency=0)
+    masks = (0xFF0000, 0xFF00, 0xFF, 0xFF000000)    # BMP V5, alpha mask
+    return write_bmp(pack_masks(rgba, masks), 32, compression=3, masks=masks,
+                     header=124)
+
+
+def grid_forms_source(n, width, height, device, forms=GLTF_FORMS,
+                      encode=encode_form):
+    """Config 2's textured grid with its images in the `forms` (GLTF_FORMS
+    or GLTF_CONTAINERS) as `encode` writes them, each decoded by
+    read_image (timed) for the directly built scene. Returns (engine,
+    pass, camera, write_glb arguments, {form: size, bytes, decode
+    seconds})."""
     import numpy as np
 
     from paperrenderer_tpu_torch.io.image import read_image
@@ -2853,9 +3212,9 @@ def grid_forms_source(n, width, height, device):
         np.uint8)
     tex[1]["occlusion_texture"], tex[3]["occlusion_texture"] = occ, occ.T
     images, decode = [{} for _ in tex], {}
-    for k, key, form in GLTF_FORMS:
+    for k, key, form in forms:
         t0 = time.perf_counter()
-        data = encode_form(form, tex[k][key])
+        data = encode(form, tex[k][key])
         t1 = time.perf_counter()
         tex[k][key] = read_image(data)
         decode[form] = dict(size="%dx%d" % tex[k][key].shape[1::-1],
@@ -2989,11 +3348,15 @@ def gltf_phase(work_dir, n=10_000, width=1920, height=1080,
     del eng, rp, direct, loaded, eng_s, rp_s
     forms = gltf_forms_case(work_dir, n, width, height)
     out["forms"] = forms
-    return dict(ok=ok and forms.pop("ok"), **out)
+    containers = gltf_forms_case(work_dir, n, width, height, GLTF_CONTAINERS,
+                                 encode_container, "containers")
+    out["containers"] = containers
+    return dict(ok=ok and forms.pop("ok") and containers.pop("ok"), **out)
 
 
-def gltf_forms_case(work_dir, n, width, height):
-    """The grid again with its images in GLTF_FORMS' forms (grid_forms_source)
+def gltf_forms_case(work_dir, n, width, height, forms=GLTF_FORMS,
+                    encode=encode_form, tag="forms"):
+    """The grid again with its images in the `forms` (grid_forms_source)
     written as a .glb, loaded with load_gltf + instantiate on the card and
     rendered through the four frames, each held bitwise to the frame of the
     scene built directly from read_image of the same bytes; the seconds to
@@ -3005,10 +3368,11 @@ def gltf_forms_case(work_dir, n, width, height):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     torch.cuda.empty_cache()
-    eng, rp, cam, spec, decode = grid_forms_source(n, width, height, "cuda")
-    path = os.path.join(work_dir, f"grid{n}_forms.glb")
+    eng, rp, cam, spec, decode = grid_forms_source(n, width, height, "cuda",
+                                                   forms, encode)
+    path = os.path.join(work_dir, f"grid{n}_{tag}.glb")
     out = dict(card=smi, decode=decode, glb_bytes=write_glb(path, *spec))
-    print(f"gltf forms, {smi}: " + "; ".join(
+    print(f"gltf {tag}, {smi}: " + "; ".join(
         f"{form} {d['size']} {d['decode_seconds']:.3f} s"
         for form, d in decode.items()), flush=True)
     direct = mirrors(eng, rp, rp.lights, width, height)

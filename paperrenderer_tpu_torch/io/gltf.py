@@ -15,15 +15,18 @@ struct and numpy only:
     emissiveFactor, alphaMode BLEND -> SHADE_TRANSLUCENT;
   * textures: the base colour, emissive, metallic-roughness and occlusion
     images (an embedded bufferView, a ``data:`` URI or an external file),
-    decoded by ``io.image.read_image`` (every PNG, and baseline,
+    decoded by ``io.image.read_image`` (every PNG, baseline,
     progressive, lossless and arithmetic-coded 8-bit JPEGs in gray, YCbCr,
-    RGB, CMYK or YCCK at any integral sampling, as the JAX loader's imaging
-    library decodes them) and attached to the Material; the
-    MaterialRegistry packs them into the atlas when its table is built.
-    An image in a form ``read_image`` refuses, as that library does (a 12-
-    or 16-bit, hierarchical or arithmetic lossless JPEG, another container
-    format), raises NotImplementedError naming the form and the glTF image
-    index;
+    RGB, CMYK or YCCK at any integral sampling, BMP/DIB, TGA, GIF's first
+    frame and WebP (lossless, lossy, with alpha, animated), as the JAX
+    loader's imaging library decodes them) and attached to the Material;
+    the MaterialRegistry packs them into the atlas when its table is
+    built. Like the JAX loader it reads ``texture.source`` only (no
+    ``EXT_texture_webp``: a WebP is read where ``source`` names one). An
+    image in a form ``read_image`` refuses, as that library does (a 12-
+    or 16-bit, hierarchical or arithmetic lossless JPEG, a BMP bitfield
+    set outside Pillow's, a format not decoded yet such as DDS or TIFF),
+    raises NotImplementedError naming the form and the glTF image index;
   * the node hierarchy with TRS or matrix transforms, flattened to world
     TRS (uniform-scale composition) in f32 on the CPU with the port's
     ``core.transforms``.

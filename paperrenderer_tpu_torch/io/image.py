@@ -16,12 +16,27 @@ decodes what the JAX package's imaging library (PIL) turns into its arrays:
     progressive (block-smoothed where its scans leave coefficients
     unfinished), lossless and arithmetic-coded 8-bit files, gray, YCbCr,
     RGB, CMYK or YCCK (as RGBA), at any integral sampling, to the bit of
-    PIL's libjpeg-turbo.
+    PIL's libjpeg-turbo;
+  * BMP and DIB (``io.bmp``), TGA (``io.tga``) and GIF's first frame
+    (``io.gif``) in PIL's mode, turned into the JAX package's array by
+    ``pil_convert`` (PIL's ``convert("RGBA")`` of every mode but "L",
+    "RGB" and "RGBA"): 1/4/8-bit palettes (gray ramps as gray), 16, 24
+    and 32 bits, Pillow's bitfield sets, RLE4/RLE8, any BMP header;
+    colour-mapped, gray and truecolour TGAs, raw or run-length, any
+    origin; GIFs with global or local tables, interlaced, with a
+    transparency index or a frame offset in the screen;
+  * WebP (``io.webp``): lossless (``io.vp8l``), lossy (``io.vp8``, with
+    libwebp's fancy upsampling and integer YUV -> RGB), lossy with an
+    ALPH plane, and the first frame of an animation, as RGBA where the
+    file has alpha, else RGB, to the bit of PIL's libwebp.
 
-12- and 16-bit, hierarchical and arithmetic lossless JPEGs, PNGs of other
-bit depths and other formats (GIF, BMP, WebP, ...) raise
-``NotImplementedError`` naming the form. ``encode_png`` and ``write_png``
-write 8-bit gray / RGB / RGBA PNGs.
+``read_image`` dispatches by signature (PNG, JPEG, ``BM``, ``GIF87a`` /
+``GIF89a``, ``RIFF....WEBP``, a DIB's header size) and tries TGA, which
+has none, last. 12- and 16-bit, hierarchical and arithmetic lossless
+JPEGs, PNGs of other bit depths, the BMP, TGA, GIF and WebP forms PIL
+refuses, and the formats left (DDS, TIFF, PPM, QOI, ICO, ...; ``_describe``
+names them by signature) raise ``NotImplementedError`` naming the form.
+``encode_png`` and ``write_png`` write 8-bit gray / RGB / RGBA PNGs.
 """
 
 from __future__ import annotations
@@ -31,7 +46,11 @@ import zlib
 
 import numpy as np
 
+from .bmp import read_bmp
+from .gif import read_gif
 from .jpeg import read_jpeg
+from .tga import is_tga, read_tga
+from .webp import read_webp
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # colour type -> samples/pixel
@@ -131,19 +150,90 @@ def _samples(raw: bytes, pos: int, w: int, h: int, c: int, depth: int):
     return rows[:, :w * c].reshape(h, w, c), pos
 
 
+# the formats the imaging library opens and ``read_image`` does not decode
+# yet, by signature: (offset, the bytes there, name)
+_LEFT = ((0, b"DDS ", "DDS"), (0, b"II*\x00", "TIFF"), (0, b"MM\x00*", "TIFF"),
+         (0, b"II+\x00", "BigTIFF"), (0, b"MM\x00+", "BigTIFF"),
+         (0, b"qoif", "QOI"), (0, b"8BPS", "PSD"), (0, b"\x01\xda", "SGI"),
+         (0, b"icns", "ICNS"), (0, b"\xffO\xffQ", "JPEG 2000 codestream"),
+         (4, b"jP  \r\n\x87\n", "JPEG 2000"), (4, b"ftypavi", "AVIF"),
+         (0, b"BLP", "BLP"), (0, b"FTEX", "FTEX"),
+         (0, b"\x59\xa6\x6a\x95", "Sun raster"), (0, b"DanM", "MSP"),
+         (0, b"LinS", "MSP"), (0, b"\xb1\x68\xde\x3a", "DCX"),
+         (0, b"SIMPLE", "FITS"), (0, b"%!PS", "EPS"),
+         (0, b"\xc5\xd0\xd3\xc6", "EPS"), (0, b"\xd7\xcd\xc6\x9a", "WMF"),
+         (40, b" EMF", "EMF"), (0, b"\x00\x00\x01\xb3", "MPEG"),
+         (0, b"BUFR", "BUFR"), (0, b"GRIB", "GRIB"),
+         (0, b"\x89HDF\r\n\x1a\n", "HDF5"), (0, b"\x80\xe8\x00\x00", "PIXAR"),
+         (0, b"#define", "XBM"), (0, b"/* XPM */", "XPM"),
+         (0, b"P7 332", "XV thumbnail"), (0, b"Pf", "PFM"), (0, b"PF", "PFM"),
+         (0, b"P1", "PBM"), (0, b"P4", "PBM"), (0, b"P2", "PGM"),
+         (0, b"P5", "PGM"), (0, b"P3", "PPM"), (0, b"P6", "PPM"),
+         (0, b"P7", "PAM"))
+_DIB_SIZES = (12, 40, 52, 56, 64, 108, 124)   # a DIB starts with its header
+
+
 def _describe(data: bytes) -> str:
-    """A name for a format ``read_image`` does not decode."""
-    if data[:4] in (b"GIF8", b"RIFF") or data[:2] == b"BM":
-        return {b"GIF8": "GIF", b"RIFF": "WebP/RIFF"}.get(data[:4], "BMP")
-    return "unknown (not a PNG or JPEG)"
+    """A name for a format ``read_image`` does not decode, by signature."""
+    for off, sig, name in _LEFT:
+        if data[off:off + len(sig)] == sig:
+            return name
+    if data[:2] == b"\x00\x00" and data[2:4] in (b"\x01\x00", b"\x02\x00") \
+            and data[4:6] != b"\x00\x00":   # entries (else a TGA may start so)
+        return "ICO" if data[2] == 1 else "CUR"
+    if data[:1] == b"\x0a" and data[1:2] in (b"\x00", b"\x02", b"\x03",
+                                             b"\x05"):
+        return "PCX"
+    if data[:4] == b"RIFF":
+        return "RIFF (not a WebP of VP8, VP8L or VP8X)"
+    return "unknown (no signature read_image knows, and not a TGA)"
+
+
+def pil_convert(mode: str, px: np.ndarray, palette=None,
+                transparency=None) -> np.ndarray:
+    """PIL's mode step: an image in PIL's ``mode`` -> what the JAX
+    ``read_image`` returns, which keeps "L", "RGB" and "RGBA" and makes
+    every other mode ``convert("RGBA")``: "1" (0 / 255) and "LA" as gray
+    with alpha; "P" through its palette ([n, 3] or [n, 4]; an index past
+    it reads opaque black) with ``transparency`` an index (its alpha 0)
+    or bytes (the alphas of the first entries)."""
+    if mode in ("L", "RGB", "RGBA"):
+        return px
+    if mode == "1":
+        px = np.stack([px, np.full_like(px, 255)], -1)
+        mode = "LA"
+    if mode == "LA":
+        return px[..., [0, 0, 0, 1]]
+    lut = np.zeros((256, 4), np.uint8)
+    lut[:, 3] = 255
+    if palette is not None:
+        n = min(len(palette), 256)
+        lut[:n, :palette.shape[1]] = palette[:n]
+    if isinstance(transparency, int):
+        lut[transparency, 3] = 0
+    elif transparency is not None:
+        alpha = np.frombuffer(transparency, np.uint8)[:256]
+        lut[:alpha.size, 3] = alpha
+    return lut[px]
+
+
+def _decoded(name: str, decode, *args) -> np.ndarray:
+    """``decode(*args)``, a file cut short or inconsistent inside raising
+    NotImplementedError naming the format, as the others do."""
+    try:
+        return decode(*args)
+    except (struct.error, IndexError, ValueError) as exc:
+        raise NotImplementedError(f"{name}: a malformed file ({exc})") \
+            from exc
 
 
 def read_image(data_or_path) -> np.ndarray:
-    """Decode a PNG or a JPEG from bytes or a path -> u8 [H, W, C] ([H, W]
-    for gray), as the JAX package's ``read_image`` returns it: gray and RGB
-    as they are, RGBA for the other forms (module docstring). Raises
-    NotImplementedError naming the format for the other formats and
-    forms."""
+    """Decode an image from bytes or a path -> u8 [H, W, C] ([H, W] for
+    gray), as the JAX package's ``read_image`` returns it: gray, RGB and
+    RGBA as they are, RGBA for the other forms (module docstring).
+    Dispatches by signature (PNG, JPEG, BMP, GIF, WebP, a DIB's header
+    size), then tries TGA, which has none. Raises NotImplementedError
+    naming the format for the other formats and forms."""
     if isinstance(data_or_path, (bytes, bytearray, memoryview)):
         data = bytes(data_or_path)
     else:
@@ -151,10 +241,23 @@ def read_image(data_or_path) -> np.ndarray:
             data = f.read()
     if data[:3] == b"\xff\xd8\xff":
         return read_jpeg(data)
-    if data[:8] != _SIGNATURE:
-        raise NotImplementedError(
-            f"image format {_describe(data)}: only PNG and JPEG are decoded")
-    return _read_png(data)
+    if data[:8] == _SIGNATURE:
+        return _read_png(data)
+    if data[:2] == b"BM":
+        return pil_convert(*_decoded("BMP", read_bmp, data))
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return pil_convert(*_decoded("GIF", read_gif, data))
+    if (data[:4] == b"RIFF" and data[8:12] == b"WEBP"
+            and data[12:16] in (b"VP8 ", b"VP8L", b"VP8X")):
+        return _decoded("WebP", read_webp, data)
+    if len(data) >= 4 and struct.unpack_from("<I", data)[0] in _DIB_SIZES:
+        return pil_convert(*_decoded("DIB", read_bmp, data, True))
+    name = _describe(data)
+    if name.startswith("unknown") and is_tga(data):
+        return pil_convert(*_decoded("TGA", read_tga, data))
+    raise NotImplementedError(
+        f"image format {name}: PNG, JPEG, BMP/DIB, GIF, WebP and TGA are "
+        "decoded")
 
 
 def _read_png(data: bytes) -> np.ndarray:

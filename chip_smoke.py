@@ -202,8 +202,12 @@ Phases, each reported as one JSON line:
            (GLTF_CONTAINERS: lossy WebP, lossy WebP with alpha and lossless
            WebP from tests/data/webp/, BMP RLE8, 5-6-5 and V5 with an
            alpha mask, 32-bit run-length and 8-bit gray TGA, an
-           interlaced GIF with a transparency index), the same way; its
-           launches join the kernels line;
+           interlaced GIF with a transparency index), the same way; and
+           in the second part's (GLTF_CONTAINERS2: DDS BC1, BC3 with
+           alpha, BC7 mode 6 and BC4, an LZW TIFF with predictor 2, a
+           tiled deflate RGBA TIFF, a PackBits 16-bit gray BigTIFF, a
+           binary PPM and an RGBA QOI, by numpy-only writers), the same
+           way; its launches join the kernels line;
   viewer   Viewer over the example scene at 512x512 (raster, RT, hybrid;
            each rendered once first, so no build runs in its thread):
            over 127.0.0.1 each mode's /frame.png bitwise a direct render
@@ -3029,6 +3033,451 @@ def write_gif(frames, palette=None, screen=None, transparency=None,
     return b"".join(out)
 
 
+def bcn_blocks(img):
+    """An image [H, W] or [H, W, C] -> its 4x4 blocks [n, 16, C] (rows of
+    ceil(W / 4) blocks; the edges repeated to whole blocks)."""
+    import numpy as np
+
+    a = img[..., None] if img.ndim == 2 else img
+    h, w, c = a.shape
+    a = np.pad(a, ((0, -h % 4), (0, -w % 4), (0, 0)), mode="edge")
+    nby, nbx = a.shape[0] // 4, a.shape[1] // 4
+    return a.reshape(nby, 4, nbx, 4, c).transpose(0, 2, 1, 3, 4).reshape(
+        -1, 16, c).astype(np.int64)
+
+
+def _nearest(values, palette):
+    """Index of the nearest palette entry: values [n, 16, C], palette
+    [n, k, C] -> [n, 16]."""
+    d = ((values[:, :, None] - palette[:, None]) ** 2).sum(-1)
+    return d.argmin(-1)
+
+
+def _bc1_encode(px):
+    """BC1 colour blocks (four colours) of RGB blocks [n, 16, 3] -> [n, 8]
+    bytes: the per-channel extremes as 5-6-5 endpoints, the nearest of the
+    four colours the decoder makes."""
+    import numpy as np
+
+    hi, lo = px.max(1), px.min(1)
+
+    def pack(c):
+        return (c[:, 0] >> 3) << 11 | (c[:, 1] >> 2) << 5 | c[:, 2] >> 3
+
+    def unpack(v):
+        r, g, b = (v >> 11) << 3, ((v >> 5) & 63) << 2, (v & 31) << 3
+        return np.stack([r | r >> 5, g | g >> 6, b | b >> 5], -1)
+
+    c0, c1 = pack(hi), pack(lo)
+    p0, p1 = unpack(c0), unpack(c1)
+    pal = np.stack([p0, p1, (2 * p0 + p1) // 3, (p0 + 2 * p1) // 3], 1)
+    idx = np.where((c0 > c1)[:, None], _nearest(px, pal), 0)
+    lut = (idx << (2 * np.arange(16))).sum(1)
+    return np.stack([c0 & 255, c0 >> 8, c1 & 255, c1 >> 8] +
+                    [(lut >> (8 * k)) & 255 for k in range(4)], 1)
+
+
+def _alpha_encode(a):
+    """BC3 / BC4 alpha blocks of [n, 16] bytes -> [n, 8]: the extremes,
+    eight levels, nearest."""
+    import numpy as np
+
+    a0, a1 = a.max(1), a.min(1)
+    k = np.arange(1, 7)
+    levels = np.concatenate([a0[:, None], a1[:, None],
+                             ((7 - k) * a0[:, None] + k * a1[:, None]) // 7],
+                            1)
+    idx = np.where((a0 > a1)[:, None],
+                   np.abs(a[:, :, None] - levels[:, None]).argmin(-1), 0)
+    lut = (idx << (3 * np.arange(16))).sum(1)
+    return np.stack([a0, a1] + [(lut >> (8 * k)) & 255 for k in range(6)], 1)
+
+
+def _bc7_mode6(px):
+    """BC7 mode 6 of RGBA blocks [n, 16, 4] -> [n, 16]: 7-bit endpoints
+    with a p-bit each (the channels' extremes), 4-bit indices on the
+    decoder's weights, the first index's top bit cleared by swapping the
+    endpoints."""
+    import numpy as np
+
+    lo, hi = px.min(1), px.max(1)
+    e = np.stack([lo, hi], 1)                          # [n, 2, 4]
+    p = (e.sum(-1) > 510).astype(np.int64)             # one p-bit a side
+    q = np.clip((e - p[..., None]) >> 1, 0, 127)
+    ev = q << 1 | p[..., None]
+    weights = np.array([0, 4, 9, 13, 17, 21, 26, 30, 34, 38, 43, 47, 51, 55,
+                        60, 64])
+    pal = ((64 - weights)[None, :, None] * ev[:, :1] + weights[None, :, None]
+           * ev[:, 1:] + 32) >> 6
+    idx = _nearest(px, pal)
+    flip = idx[:, 0] >= 8
+    q = np.where(flip[:, None, None], q[:, ::-1], q)
+    p = np.where(flip[:, None], p[:, ::-1], p)
+    idx = np.where(flip[:, None], 15 - idx, idx)
+    vals, widths = [np.full(len(px), 64)], [7]         # mode 6: 1 << 6
+    for c in range(4):
+        for s in range(2):
+            vals.append(q[:, s, c])
+            widths.append(7)
+    vals += [p[:, 0], p[:, 1], idx[:, 0]] + [idx[:, i] for i in range(1, 16)]
+    widths += [1, 1, 3] + [4] * 15
+    bits = np.concatenate([(v[:, None] >> np.arange(w)) & 1
+                           for v, w in zip(vals, widths)], 1)
+    return np.packbits(bits.astype(np.uint8), axis=1, bitorder="little")
+
+
+def encode_bcn(img, kind):
+    """``img`` u8 ([H, W] for BC4, [H, W, 3|4] else) -> the BC``kind``
+    payload (1: BC1, 3: BC3, 4: BC4, 7: BC7 mode 6) as bytes."""
+    import numpy as np
+
+    px = bcn_blocks(img)
+    if len(px) > 16384:     # in slices: the nearest-colour search is wide
+        return b"".join(encode_bcn_blocks(px[k:k + 16384], kind)
+                        for k in range(0, len(px), 16384))
+    return encode_bcn_blocks(px, kind)
+
+
+def encode_bcn_blocks(px, kind):
+    """encode_bcn of blocks [n, 16, C] (bcn_blocks)."""
+    import numpy as np
+
+    if kind == 4:
+        out = _alpha_encode(px[..., 0])
+    elif kind == 7:
+        if px.shape[-1] == 3:
+            px = np.concatenate([px, np.full_like(px[..., :1], 255)], -1)
+        out = _bc7_mode6(px)
+    else:
+        out = _bc1_encode(px[..., :3])
+        if kind == 3:
+            alpha = px[..., 3] if px.shape[-1] == 4 else np.full(
+                px.shape[:2], 255)
+            out = np.concatenate([_alpha_encode(alpha), out], 1)
+    return np.asarray(out, np.uint8).tobytes()
+
+
+def write_dds(w, h, body, fourcc=None, dxgi=None, flags=0, bits=0,
+              masks=(0, 0, 0, 0), palette=b""):
+    """A DDS file: the 124-byte header with pixel-format ``flags`` (0x4
+    FourCC added when ``fourcc`` is given; 0x40 RGB, 0x20000 luminance,
+    0x20 palette, 0x1 alpha), ``bits`` a pixel and the four ``masks``; a
+    DX10 extension with ``dxgi`` when the FourCC is DX10; ``palette``
+    (1,024 bytes of RGBA) and ``body``, the first surface's data."""
+    fcc = 0
+    if fourcc is not None:
+        flags |= 0x4
+        (fcc,) = struct.unpack("<I", fourcc)
+    head = struct.pack("<7I", 124, 0x1007, h, w, 0, 0, 0) + bytes(44)
+    head += struct.pack("<4I", 32, flags, fcc, bits) + struct.pack("<4I",
+                                                                 *masks)
+    head += struct.pack("<5I", 0x1000, 0, 0, 0, 0)
+    ext = struct.pack("<5I", dxgi, 3, 0, 1, 0) if fourcc == b"DX10" else b""
+    return b"DDS " + head + ext + palette + body
+
+
+def tiff_lzw(data):
+    """TIFF LZW (codes from the high bit, one bit wider as the next free
+    code reaches 512, 1024, 2048; a clear at 4094 entries)."""
+    out, acc, nbits = bytearray(), 0, 0
+
+    def emit(code, size):
+        nonlocal acc, nbits
+        acc = acc << size | code
+        nbits += size
+        while nbits >= 8:
+            nbits -= 8
+            out.append((acc >> nbits) & 0xFF)
+        acc &= (1 << nbits) - 1
+
+    table = {bytes((k,)): k for k in range(256)}
+    size, nxt = 9, 258
+    emit(256, size)
+    cur = b""
+    for k in range(len(data)):
+        ext = data[k:k + 1] if not cur else cur + data[k:k + 1]
+        if ext in table:
+            cur = ext
+            continue
+        emit(table[cur], size)
+        table[ext] = nxt
+        nxt += 1
+        if nxt > (1 << size) - 1 and size < 12:
+            size += 1
+        if nxt == 4094:
+            emit(256, size)
+            table = {bytes((j,)): j for j in range(256)}
+            size, nxt = 9, 258
+        cur = data[k:k + 1]
+    if cur:
+        emit(table[cur], size)
+        nxt += 1
+        if nxt > (1 << size) - 1 and size < 12:
+            size += 1
+    emit(257, size)
+    if nbits:
+        out.append((acc << (8 - nbits)) & 0xFF)
+    return bytes(out)
+
+
+def packbits(data):
+    """PackBits: repeat packets for runs of 3 or more, literals else."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j + 1 < n and data[j + 1] == data[i] and j - i < 127:
+            j += 1
+        if j - i >= 2:
+            out += bytes((257 - (j - i + 1), data[i]))
+            i = j + 1
+            continue
+        j = i
+        while j < n and j - i < 128 and not (
+                j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes((j - i - 1,)) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+_BITREV = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+
+
+def write_tiff(samples, bits=8, photometric=None, sample_format=1,
+               compression=1, predictor=1, planar=1, tile=None,
+               rows_per_strip=None, big=False, order="<", fill_order=1,
+               extra=(), colormap=None, orientation=None):
+    """A TIFF (``big``: BigTIFF) of ``samples`` [H, W] or [H, W, S]: ints
+    below 2^bits (1, 2, 4, 8, 16 or 32 bits; ``sample_format`` 2 signed, 3
+    float32), ``photometric`` (by default 1 for one sample, 2 else),
+    ``extra`` the ExtraSamples, ``colormap`` [3 * 2^bits] u16 for a
+    palette; strips of ``rows_per_strip`` rows or tiles (``tile`` (w, h),
+    multiples of 16), chunky or ``planar`` 2; ``compression`` 1 (none),
+    32773 (PackBits), 5 (LZW), 8 or 32946 (deflate); ``predictor`` 2
+    (horizontal, 8/16/32 bits) or 3 (floating point); ``order`` "<" (II)
+    or ">" (MM); ``fill_order`` 2 reverses each stored byte's bits."""
+    import zlib
+
+    import numpy as np
+
+    s = samples[..., None] if samples.ndim == 2 else samples
+    h, w, spp = s.shape
+    if photometric is None:
+        photometric = 3 if colormap is not None else (1 if spp == 1 else 2)
+    tw, tl = tile or (w, rows_per_strip or h)
+    planes = spp if planar == 2 else 1
+    per = 1 if planar == 2 else spp
+    kind = {1: "u", 2: "i", 3: "f"}[sample_format]
+
+    def chunk_bytes(block):
+        """Rows [r, c, per] of samples -> their stored bytes."""
+        r, c, _ = block.shape
+        if bits < 8:
+            v = block.reshape(r, -1).astype(np.uint8)
+            k = 8 // bits
+            v = np.pad(v, ((0, 0), (0, -v.shape[1] % k)))
+            packed = np.zeros((r, v.shape[1] // k), np.uint8)
+            for j in range(k):
+                packed |= v[:, j::k] << (8 - bits * (j + 1))
+            return packed.tobytes()
+        dt = np.dtype(f"{kind}{bits // 8}")
+        v = block.astype(dt).reshape(r, -1)
+        if predictor == 2:
+            u = v.view(f"u{bits // 8}")
+            d = u.copy()
+            d[:, per:] = u[:, per:] - u[:, :-per]
+            v = d
+        if predictor == 3:
+            be = v.astype(dt.newbyteorder(">")).view(np.uint8).reshape(
+                r, -1, bits // 8)
+            planes_ = be.transpose(0, 2, 1).reshape(r, -1).astype(np.int64)
+            diff = planes_.copy()
+            diff[:, per:] = planes_[:, per:] - planes_[:, :-per]
+            return (diff & 255).astype(np.uint8).tobytes()
+        return v.astype(v.dtype.newbyteorder(order)).tobytes()
+
+    chunks = []
+    for plane in range(planes):
+        for y in range(0, h, tl):
+            for x in range(0, w, tw) if tile else (0,):
+                sl = slice(plane, plane + 1) if planar == 2 else slice(None)
+                block = s[y:y + tl, x:x + tw, sl]
+                if tile:
+                    block = np.pad(block, ((0, tl - block.shape[0]),
+                                           (0, tw - block.shape[1]), (0, 0)))
+                raw = chunk_bytes(block)
+                if compression == 32773:
+                    raw = packbits(raw)
+                elif compression == 5:
+                    raw = tiff_lzw(raw)
+                elif compression in (8, 32946):
+                    raw = zlib.compress(raw, 6)
+                if fill_order == 2:
+                    raw = raw.translate(_BITREV)
+                chunks.append(raw)
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp),
+            259: (3, [compression]), 262: (3, [photometric]),
+            277: (3, [spp]), 284: (3, [planar])}
+    if fill_order != 1:
+        tags[266] = (3, [fill_order])
+    if predictor != 1:
+        tags[317] = (3, [predictor])
+    if sample_format != 1:
+        tags[339] = (3, [sample_format] * spp)
+    if extra:
+        tags[338] = (3, list(extra))
+    if colormap is not None:
+        tags[320] = (3, list(colormap))
+    if orientation is not None:
+        tags[274] = (3, [orientation])
+    if tile:
+        tags[322], tags[323] = (4, [tw]), (4, [tl])
+    else:
+        tags[278] = (4, [tl])
+    off_tag, cnt_tag = (324, 325) if tile else (273, 279)
+    head = 16 if big else 8
+    body = b"".join(chunks)
+    offsets = np.cumsum([0] + [len(c) for c in chunks[:-1]]) + head
+    off_type = 16 if big else 4
+    tags[off_tag] = (off_type, [int(o) for o in offsets])
+    tags[cnt_tag] = (off_type, [len(c) for c in chunks])
+    codes = {3: "H", 4: "L", 16: "Q"}
+    ifd_pos = head + len(body) + (len(body) & 1)
+    inline = 8 if big else 4
+    entry = 20 if big else 12
+    n = len(tags)
+    extra_pos = ifd_pos + (8 if big else 2) + n * entry + (8 if big else 4)
+    entries, spill = b"", b""
+    for tag in sorted(tags):
+        typ, values = tags[tag]
+        payload = struct.pack(f"{order}{len(values)}{codes[typ]}", *values)
+        if len(payload) <= inline:
+            value = payload.ljust(inline, b"\x00")
+        else:
+            value = struct.pack(order + ("Q" if big else "L"),
+                                extra_pos + len(spill))
+            spill += payload + b"\x00" * (len(payload) & 1)
+        entries += struct.pack(order + ("HHQ" if big else "HHL"), tag, typ,
+                               len(values)) + value
+    bo = b"II" if order == "<" else b"MM"
+    if big:
+        header = bo + struct.pack(order + "HHHQ", 43, 8, 0, ifd_pos)
+        ifd = struct.pack(order + "Q", n) + entries + struct.pack(
+            order + "Q", 0)
+    else:
+        header = bo + struct.pack(order + "HL", 42, ifd_pos)
+        ifd = struct.pack(order + "H", n) + entries + struct.pack(
+            order + "L", 0)
+    return header + body + b"\x00" * (len(body) & 1) + ifd + spill
+
+
+def write_ppm(samples, magic="P6", maxval=255, plain_width=70):
+    """A Netpbm file: ``magic`` P1-P6 (P1 / P4 take 0 / 1 with 1 black),
+    P0CMYK / PyP / PyRGBA / PyCMYK (Pillow's own), with a comment in the
+    header; ``maxval`` above 255 stores two bytes big-endian; the plain
+    forms (P1-P3) wrap their lines at ``plain_width`` characters. "Pf":
+    ``samples`` f32 [H, W], written bottom-up, little-endian (scale -1)."""
+    import numpy as np
+
+    h, w = samples.shape[:2]
+    head = f"{magic}\n# written by chip_smoke.py\n{w} {h}\n".encode()
+    if magic == "Pf":
+        return head + b"-1.0\n" + samples[::-1].astype("<f4").tobytes()
+    if magic in ("P1", "P4"):
+        if magic == "P4":
+            return head + np.packbits(samples.astype(np.uint8), axis=1
+                                      ).tobytes()
+        text = " ".join(str(int(v)) for v in samples.reshape(-1))
+    else:
+        head += f"{maxval}\n".encode()
+        if magic in ("P2", "P3"):
+            text = " ".join(str(int(v)) for v in samples.reshape(-1))
+        else:
+            dt = ">u2" if maxval > 255 else "u1"
+            return head + samples.astype(dt).tobytes()
+    lines, line = [], ""
+    for tok in text.split(" "):
+        if len(line) + len(tok) + 1 > plain_width:
+            lines.append(line)
+            line = tok
+        else:
+            line = f"{line} {tok}" if line else tok
+    lines.append(line)
+    return head + ("\n".join(lines) + "\n").encode()
+
+
+def write_qoi(pixels):
+    """A QOI file of RGB [H, W, 3] or RGBA [H, W, 4] u8: the reference
+    encoder's ops (runs, the 64-entry index, small differences, luma,
+    full RGB / RGBA)."""
+    h, w, c = pixels.shape
+    px = pixels.reshape(-1, c).tolist()
+    out = bytearray(b"qoif" + struct.pack(">IIBB", w, h, c, 0))
+    index = [(0, 0, 0, 0)] * 64
+    prev, run = (0, 0, 0, 255), 0
+    for k, p in enumerate(px):
+        cur = tuple(p) + ((255,) if c == 3 else ())
+        if cur == prev:
+            run += 1
+            if run == 62 or k == len(px) - 1:
+                out.append(0xC0 | (run - 1))
+                run = 0
+            continue
+        if run:
+            out.append(0xC0 | (run - 1))
+            run = 0
+        r, g, b, a = cur
+        slot = (r * 3 + g * 5 + b * 7 + a * 11) % 64
+        if index[slot] == cur:
+            out.append(slot)
+        else:
+            index[slot] = cur
+            if a != prev[3]:
+                out += bytes((0xFF, r, g, b, a))
+            else:
+                dr, dg, db = ((r - prev[0] + 128) % 256 - 128,
+                              (g - prev[1] + 128) % 256 - 128,
+                              (b - prev[2] + 128) % 256 - 128)
+                if -2 <= dr < 2 and -2 <= dg < 2 and -2 <= db < 2:
+                    out.append(0x40 | (dr + 2) << 4 | (dg + 2) << 2
+                               | (db + 2))
+                elif -32 <= dg < 32 and -8 <= dr - dg < 8 \
+                        and -8 <= db - dg < 8:
+                    out += bytes((0x80 | (dg + 32),
+                                  (dr - dg + 8) << 4 | (db - dg + 8)))
+                else:
+                    out += bytes((0xFE, r, g, b))
+        prev = cur
+    return bytes(out + b"\x00" * 7 + b"\x01")
+
+
+def write_ico(entries, cursor=False):
+    """An ICO (``cursor``: CUR) of ``entries`` [(kind, data, (w, h),
+    bits)]: kind "png" with PNG bytes, or "bmp" with a DIB (write_bmp's
+    file_header=False) whose header height is doubled and an AND mask
+    (bool [h, w], True transparent) appended, 1 bit a pixel, rows of 32
+    bits, bottom-up; the directory's width, height and bit count as
+    given (256 written as 0)."""
+    import numpy as np
+
+    blobs = []
+    for kind, data, (w, h), bits, *mask in entries:
+        if kind == "bmp":
+            data = data[:8] + struct.pack("<i", 2 * h) + data[12:]
+            m = mask[0] if mask else np.zeros((h, w), bool)
+            m = np.pad(m[::-1].astype(np.uint8), ((0, 0), (0, -w % 32)))
+            data += np.packbits(m, axis=1).tobytes()
+        blobs.append(data)
+    out = struct.pack("<HHH", 0, 2 if cursor else 1, len(entries))
+    off = 6 + 16 * len(entries)
+    for (kind, data, (w, h), bits, *_), blob in zip(entries, blobs):
+        out += struct.pack("<BBBBHHII", w % 256, h % 256, 0, 0,
+                           0 if not cursor else 1, bits if not cursor else 1,
+                           len(blob), off)
+        off += len(blob)
+    return out + b"".join(blobs)
+
+
 def grid_gltf_source(n, width, height, device):
     """Config 2's textured grid (scenes.build_textured_grid's geometry,
     instances, camera and textures) as glTF carries it: the occlusion map
@@ -3140,6 +3589,16 @@ GLTF_CONTAINERS = ((0, "base_texture", "WebP lossy"),
                    (3, "occlusion_texture",
                     "GIF interlaced, transparency index"),
                    (3, "base_texture", "BMP V5 with an alpha mask"))
+# the grid's images in the second part's container formats
+GLTF_CONTAINERS2 = ((0, "base_texture", "DDS BC1"),
+                    (1, "base_texture", "DDS BC3 with alpha"),
+                    (2, "base_texture", "DDS BC7 mode 6"),
+                    (1, "occlusion_texture", "DDS BC4"),
+                    (0, "mr_texture", "TIFF LZW, predictor 2"),
+                    (3, "base_texture", "TIFF tiled deflate RGBA"),
+                    (3, "occlusion_texture", "BigTIFF PackBits 16-bit gray"),
+                    (2, "mr_texture", "PPM binary (P6)"),
+                    (3, "emissive_texture", "QOI RGBA"))
 # the WebP files, written by tests/data/webp/make_webp.py (libwebp 1.6.0)
 WEBP_FILES = {"WebP lossy": "base0_lossy.webp",
               "WebP lossy with alpha": "base1_alpha.webp",
@@ -3195,12 +3654,40 @@ def encode_container(form, img):
                      header=124)
 
 
+def encode_container2(form, img):
+    """`img` (u8 [H, W, 3]; [H, W] for the gray maps) in a GLTF_CONTAINERS2
+    form, by the numpy-only writers (write_dds, write_tiff, write_ppm,
+    write_qoi); alpha_pattern's alpha where the form has alpha."""
+    import numpy as np
+
+    h, w = img.shape[:2]
+    rgba = np.concatenate([img, alpha_pattern(h, w)[..., None]], -1) \
+        if img.ndim == 3 else None
+    if form.startswith("DDS"):
+        kind, fourcc, dxgi = {"DDS BC1": (1, b"DXT1", None),
+                              "DDS BC3 with alpha": (3, b"DXT5", None),
+                              "DDS BC7 mode 6": (7, b"DX10", 98),
+                              "DDS BC4": (4, b"ATI1", None)}[form]
+        return write_dds(w, h, encode_bcn(rgba if kind == 3 else img, kind),
+                         fourcc, dxgi)
+    if form == "TIFF LZW, predictor 2":
+        return write_tiff(img, compression=5, predictor=2, rows_per_strip=32)
+    if form == "TIFF tiled deflate RGBA":
+        return write_tiff(rgba, compression=8, tile=(256, 256), extra=(2,))
+    if form == "BigTIFF PackBits 16-bit gray":   # values 0-255: the same gray
+        return write_tiff(img.astype(np.uint16), bits=16, compression=32773,
+                          big=True, rows_per_strip=64)
+    if form == "PPM binary (P6)":
+        return write_ppm(img, "P6")
+    return write_qoi(rgba)
+
+
 def grid_forms_source(n, width, height, device, forms=GLTF_FORMS,
                       encode=encode_form):
-    """Config 2's textured grid with its images in the `forms` (GLTF_FORMS
-    or GLTF_CONTAINERS) as `encode` writes them, each decoded by
-    read_image (timed) for the directly built scene. Returns (engine,
-    pass, camera, write_glb arguments, {form: size, bytes, decode
+    """Config 2's textured grid with its images in the `forms` (GLTF_FORMS,
+    GLTF_CONTAINERS or GLTF_CONTAINERS2) as `encode` writes them, each
+    decoded by read_image (timed) for the directly built scene. Returns
+    (engine, pass, camera, write_glb arguments, {form: size, bytes, decode
     seconds})."""
     import numpy as np
 
@@ -3351,7 +3838,12 @@ def gltf_phase(work_dir, n=10_000, width=1920, height=1080,
     containers = gltf_forms_case(work_dir, n, width, height, GLTF_CONTAINERS,
                                  encode_container, "containers")
     out["containers"] = containers
-    return dict(ok=ok and forms.pop("ok") and containers.pop("ok"), **out)
+    containers2 = gltf_forms_case(work_dir, n, width, height,
+                                  GLTF_CONTAINERS2, encode_container2,
+                                  "containers2")
+    out["containers2"] = containers2
+    return dict(ok=ok and forms.pop("ok") and containers.pop("ok")
+                and containers2.pop("ok"), **out)
 
 
 def gltf_forms_case(work_dir, n, width, height, forms=GLTF_FORMS,

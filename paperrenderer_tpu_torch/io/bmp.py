@@ -155,10 +155,14 @@ def _rle(data: bytes, pos: int, w: int, h: int, rle4: bool) -> bytes:
     return bytes(out)
 
 
-def read_bmp(data: bytes, dib: bool = False):
+def read_bmp(data: bytes, dib: bool = False, half: bool = False,
+             with_start: bool = False):
     """A BMP file (a DIB without its file header) -> (Pillow's mode,
     pixels, palette [n, 3] or None): pixels as ``unpack_rows`` gives
-    them."""
+    them; ``half``: the first half of the rows (an ICO or CUR entry's
+    colour bitmap, whose header counts its AND mask too), as Pillow's
+    ``IcoFile`` and ``CurImageFile`` cut the size; ``with_start``: the
+    pixel data's offset too, last."""
     name = "DIB" if dib else "BMP"
     hpos, offset = (0, 0) if dib else (14,
                                        struct.unpack_from("<I", data, 10)[0])
@@ -189,6 +193,8 @@ def read_bmp(data: bytes, dib: bool = False):
     else:
         raise NotImplementedError(f"{name}: header size {hsize} (only 12, "
                                   "40, 52, 56, 64, 108 and 124 are read)")
+    if half:
+        h = h // 2
     colors = colors or (1 << bits)
     if offset == 14 + hsize and bits <= 8:
         offset += 4 * colors
@@ -238,4 +244,4 @@ def read_bmp(data: bytes, dib: bool = False):
     else:
         px = unpack_rows(data, start, w, h, raw,
                          ((w * bits + 31) >> 3) & ~3, direction, what)
-    return mode, px, palette
+    return (mode, px, palette) + ((start,) if with_start else ())

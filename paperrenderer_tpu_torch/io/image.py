@@ -28,14 +28,25 @@ decodes what the JAX package's imaging library (PIL) turns into its arrays:
   * WebP (``io.webp``): lossless (``io.vp8l``), lossy (``io.vp8``, with
     libwebp's fancy upsampling and integer YUV -> RGB), lossy with an
     ALPH plane, and the first frame of an animation, as RGBA where the
-    file has alpha, else RGB, to the bit of PIL's libwebp.
+    file has alpha, else RGB, to the bit of PIL's libwebp;
+  * DDS (``io.dds`` over ``io.bcn``: BC1-BC7, uncompressed masks,
+    luminance, palette), TIFF and BigTIFF (``io.tiff``: raw, PackBits,
+    LZW and deflate, strips and tiles, chunky and planar, predictors),
+    Netpbm (``io.netpbm``: P1-P6, Pf and Pillow's own headers), QOI
+    (``io.qoi``) and ICO / CUR (``io.ico``: the entry Pillow picks, PNG or
+    BMP with its mask), in PIL's modes, ``pil_convert`` adding the modes
+    they bring ("I;16", "I", "F", "CMYK", "RGBa", "PA").
 
 ``read_image`` dispatches by signature (PNG, JPEG, ``BM``, ``GIF87a`` /
-``GIF89a``, ``RIFF....WEBP``, a DIB's header size) and tries TGA, which
-has none, last. 12- and 16-bit, hierarchical and arithmetic lossless
-JPEGs, PNGs of other bit depths, the BMP, TGA, GIF and WebP forms PIL
-refuses, and the formats left (DDS, TIFF, PPM, QOI, ICO, ...; ``_describe``
-names them by signature) raise ``NotImplementedError`` naming the form.
+``GIF89a``, ``RIFF....WEBP``, a DIB's header size, ``P`` and a Netpbm
+letter, ``DDS ``, ICO / CUR with entries, ``qoif``, the TIFF and BigTIFF
+byte-order marks) and tries TGA, which has none, last. 12- and 16-bit,
+hierarchical and arithmetic lossless JPEGs, PNGs of other bit depths,
+the forms of each container PIL refuses, PAM and colour PFM (which PIL
+does not open), and the formats left (PSD, SGI, PCX, JPEG 2000, ...;
+``_describe`` names them by signature, "not yet ported"), with the forms
+of these formats left for later (JPEG and CCITT TIFFs, YCbCr and CIELab,
+...), raise ``NotImplementedError`` naming the form.
 ``encode_png`` and ``write_png`` write 8-bit gray / RGB / RGBA PNGs.
 """
 
@@ -47,9 +58,14 @@ import zlib
 import numpy as np
 
 from .bmp import read_bmp
+from .dds import read_dds
 from .gif import read_gif
-from .jpeg import read_jpeg
+from .ico import read_ico
+from .jpeg import _cmyk_rgba, read_jpeg
+from .netpbm import read_netpbm
+from .qoi import read_qoi
 from .tga import is_tga, read_tga
+from .tiff import read_tiff, unpremultiply
 from .webp import read_webp
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -152,9 +168,7 @@ def _samples(raw: bytes, pos: int, w: int, h: int, c: int, depth: int):
 
 # the formats the imaging library opens and ``read_image`` does not decode
 # yet, by signature: (offset, the bytes there, name)
-_LEFT = ((0, b"DDS ", "DDS"), (0, b"II*\x00", "TIFF"), (0, b"MM\x00*", "TIFF"),
-         (0, b"II+\x00", "BigTIFF"), (0, b"MM\x00+", "BigTIFF"),
-         (0, b"qoif", "QOI"), (0, b"8BPS", "PSD"), (0, b"\x01\xda", "SGI"),
+_LEFT = ((0, b"8BPS", "PSD"), (0, b"\x01\xda", "SGI"),
          (0, b"icns", "ICNS"), (0, b"\xffO\xffQ", "JPEG 2000 codestream"),
          (4, b"jP  \r\n\x87\n", "JPEG 2000"), (4, b"ftypavi", "AVIF"),
          (0, b"BLP", "BLP"), (0, b"FTEX", "FTEX"),
@@ -166,10 +180,11 @@ _LEFT = ((0, b"DDS ", "DDS"), (0, b"II*\x00", "TIFF"), (0, b"MM\x00*", "TIFF"),
          (0, b"BUFR", "BUFR"), (0, b"GRIB", "GRIB"),
          (0, b"\x89HDF\r\n\x1a\n", "HDF5"), (0, b"\x80\xe8\x00\x00", "PIXAR"),
          (0, b"#define", "XBM"), (0, b"/* XPM */", "XPM"),
-         (0, b"P7 332", "XV thumbnail"), (0, b"Pf", "PFM"), (0, b"PF", "PFM"),
-         (0, b"P1", "PBM"), (0, b"P4", "PBM"), (0, b"P2", "PGM"),
-         (0, b"P5", "PGM"), (0, b"P3", "PPM"), (0, b"P6", "PPM"),
-         (0, b"P7", "PAM"))
+         (0, b"P7 332", "XV thumbnail"))
+# the Netpbm relatives the imaging library does not open: refused by both
+_REFUSED = ((0, b"PF", "colour PFM (PF)"), (0, b"P7", "PAM (P7)"))
+_TIFF = (b"MM\x00*", b"II*\x00", b"MM*\x00", b"II\x00*", b"MM\x00+",
+         b"II+\x00")
 _DIB_SIZES = (12, 40, 52, 56, 64, 108, 124)   # a DIB starts with its header
 
 
@@ -177,15 +192,17 @@ def _describe(data: bytes) -> str:
     """A name for a format ``read_image`` does not decode, by signature."""
     for off, sig, name in _LEFT:
         if data[off:off + len(sig)] == sig:
-            return name
-    if data[:2] == b"\x00\x00" and data[2:4] in (b"\x01\x00", b"\x02\x00") \
-            and data[4:6] != b"\x00\x00":   # entries (else a TGA may start so)
-        return "ICO" if data[2] == 1 else "CUR"
+            return name + ", not yet ported"
+    for off, sig, name in _REFUSED:
+        if data[off:off + len(sig)] == sig:
+            return name + ", which the imaging library does not open"
     if data[:1] == b"\x0a" and data[1:2] in (b"\x00", b"\x02", b"\x03",
                                              b"\x05"):
         return "PCX"
     if data[:4] == b"RIFF":
         return "RIFF (not a WebP of VP8, VP8L or VP8X)"
+    if data[:4] == b"\x00\x00\x01\x00":
+        return "ICO without entries"
     return "unknown (no signature read_image knows, and not a TGA)"
 
 
@@ -194,12 +211,24 @@ def pil_convert(mode: str, px: np.ndarray, palette=None,
     """PIL's mode step: an image in PIL's ``mode`` -> what the JAX
     ``read_image`` returns, which keeps "L", "RGB" and "RGBA" and makes
     every other mode ``convert("RGBA")``: "1" (0 / 255) and "LA" as gray
-    with alpha; "P" through its palette ([n, 3] or [n, 4]; an index past
-    it reads opaque black) with ``transparency`` an index (its alpha 0)
-    or bytes (the alphas of the first entries)."""
+    with alpha; "I;16" / "I;16B" (u16) and "I" (i32) clipped to [0, 255],
+    "F" (f32) clipped and truncated (NaN 0); "CMYK" through Pillow's
+    ``cmyk2rgb``; "RGBa" unpremultiplied; "P" and "PA" through the
+    palette ([n, 3] or [n, 4]; an index past it reads opaque black) with
+    ``transparency`` an index (its alpha 0) or bytes (the alphas of the
+    first entries), "PA" with its own alpha band."""
     if mode in ("L", "RGB", "RGBA"):
         return px
-    if mode == "1":
+    if mode == "RGBa":
+        return unpremultiply(px)
+    if mode == "CMYK":
+        return _cmyk_rgba(*(255 - px[..., k] for k in range(4)))
+    if mode in ("I;16", "I;16B", "I", "F"):
+        if mode == "F":
+            px = np.where(np.isnan(px), 0, px)
+        px = np.clip(px, 0, 255).astype(np.uint8)
+        mode = "L"
+    if mode in ("1", "L"):
         px = np.stack([px, np.full_like(px, 255)], -1)
         mode = "LA"
     if mode == "LA":
@@ -214,6 +243,10 @@ def pil_convert(mode: str, px: np.ndarray, palette=None,
     elif transparency is not None:
         alpha = np.frombuffer(transparency, np.uint8)[:256]
         lut[:alpha.size, 3] = alpha
+    if mode == "PA":
+        out = lut[px[..., 0]]
+        out[..., 3] = px[..., 1]
+        return out
     return lut[px]
 
 
@@ -252,15 +285,46 @@ def read_image(data_or_path) -> np.ndarray:
         return _decoded("WebP", read_webp, data)
     if len(data) >= 4 and struct.unpack_from("<I", data)[0] in _DIB_SIZES:
         return pil_convert(*_decoded("DIB", read_bmp, data, True))
+    if data[:1] == b"P" and len(data) >= 2 and data[1] in b"0123456fy":
+        return pil_convert(*_decoded("Netpbm", read_netpbm, data))
+    if data[:4] == b"DDS ":
+        return pil_convert(*_decoded("DDS", read_dds, data))
+    if data[:4] in (b"\x00\x00\x01\x00", b"\x00\x00\x02\x00") \
+            and data[4:6] != b"\x00\x00":   # entries (else a TGA may start so)
+        return _icon(data, data[2] == 2)
+    if data[:4] == b"qoif":
+        return pil_convert(*_decoded("QOI", read_qoi, data))
+    if data[:4] in _TIFF:
+        name = "BigTIFF" if data[2] == 43 else "TIFF"
+        return pil_convert(*_decoded(name, read_tiff, data))
     name = _describe(data)
     if name.startswith("unknown") and is_tga(data):
         return pil_convert(*_decoded("TGA", read_tga, data))
     raise NotImplementedError(
-        f"image format {name}: PNG, JPEG, BMP/DIB, GIF, WebP and TGA are "
-        "decoded")
+        f"image format {name}: PNG, JPEG, BMP/DIB, GIF, WebP, TGA, DDS, "
+        "TIFF, Netpbm, QOI and ICO/CUR are decoded")
 
 
-def _read_png(data: bytes) -> np.ndarray:
+def _icon(data: bytes, cursor: bool) -> np.ndarray:
+    """An ICO or CUR file as the imaging library reads it (``io.ico``):
+    a PNG entry's PNG without its transparency; a BMP entry made RGBA with
+    its alpha (ICO), or in the DIB's mode (CUR)."""
+    name = "CUR" if cursor else "ICO"
+    kind, *rest = _decoded(name, read_ico, data, cursor)
+    if kind == "png":
+        return _decoded(f"{name} PNG entry", _read_png, rest[0], False)
+    mode, px, palette, alpha = rest
+    img = pil_convert(mode, px, palette)
+    if alpha is None:
+        return img
+    if img.ndim == 2:
+        img = img[..., None].repeat(3, -1)
+    return np.concatenate([img[..., :3], alpha[..., None]], -1)
+
+
+def _read_png(data: bytes, transparency: bool = True) -> np.ndarray:
+    """A PNG -> the JAX package's array; ``transparency=False`` ignores
+    its ``tRNS`` (an ICO's PNG entry, whose icon keeps no transparency)."""
     pos, idat, header, palette, trns = 8, [], None, None, None
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
@@ -271,7 +335,7 @@ def _read_png(data: bytes) -> np.ndarray:
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif kind == b"tRNS":
+        elif kind == b"tRNS" and transparency:
             trns = body
         elif kind == b"IDAT":
             idat.append(body)

@@ -1,9 +1,9 @@
 """The PyTorch port's ``read_image`` on what its imaging-library reference
 (the JAX package's ``read_image``, PIL) makes of PNG transparency keys,
-of the container formats BMP/DIB, TGA, GIF and WebP, and on the forms
-both packages refuse, on the CPU.
+of the container formats BMP/DIB, TGA, GIF, WebP, DDS, TIFF, Netpbm, QOI
+and ICO/CUR, and on the forms both packages refuse, on the CPU.
 
-Five tests (the PNG and JPEG forms both decode are
+Nine tests (the PNG and JPEG forms both decode are
 tests/test_torch_io.py::test_image_formats_match_jax):
 
 1. a gray PNG's ``tRNS`` key: 16-bit gray (PIL's "I;16" -> RGBA compares
@@ -26,10 +26,17 @@ tests/test_torch_io.py::test_image_formats_match_jax):
    re-encoded for the simple loop filter, for sharpness 3 and 6 and over
    2, 4 and 8 token partitions (options PIL does not offer);
 5. refusals: BMP bitfields outside Pillow's sets, BI_JPEG, BI_PNG, 2-bit
-   BMPs, 32-bit and 15-bit TGA colour maps, a TGA run past its row and
-   DDS, TIFF and QOI headers: the port names the form where PIL raises;
-   a .gltf with an external .webp image and one with an embedded BMP load
-   as the JAX loader loads them.
+   BMPs, 32-bit and 15-bit TGA colour maps, a TGA run past its row, DDS,
+   TIFF and QOI headers with no image, PAM and colour PFM, a TIFF with a
+   broken JPEG strip, a big-endian BigTIFF: the port names the form where
+   PIL raises; CCITT and YCbCr TIFFs, which PIL reads, are named "not yet
+   ported"; chip_smoke.py's GLTF_CONTAINERS2 forms decode bitwise; a
+   .gltf with an external .webp image and one with an embedded BMP load
+   as the JAX loader loads them;
+6-9. DDS, TIFF / BigTIFF, Netpbm + QOI and ICO / CUR, bitwise at the four
+   sizes of 3: PIL's writers' files, chip_smoke.py's numpy writers'
+   (``write_dds`` and ``encode_bcn``, ``write_tiff``, ``write_ppm``,
+   ``write_qoi``, ``write_ico``) and seeded random BC blocks.
 """
 
 import io
@@ -584,7 +591,13 @@ _REFUSED_CONTAINERS = (
     ("tga_cmap_9_15_0", "15-bit colour map"),
     ("tga_run", "past its row's end"), ("tga_15", "unknown"),
     ("bmp_cut", "BMP: truncated header"), ("gif_cut", "GIF"),
-    ("webp_cut", "WebP"), ("dds", "DDS"), ("tiff", "TIFF"), ("qoi", "QOI"))
+    ("webp_cut", "WebP"), ("dds", "DDS"), ("tiff", "TIFF"), ("qoi", "QOI"),
+    ("pam", "PAM"), ("pfm", "colour PFM"), ("tiff_jpeg", "TIFF .*JPEG"),
+    ("bigtiff_mm", "big-endian BigTIFF"), ("dds_bc4s", "DDS: FourCC"),
+    ("ppm_maxval", "Netpbm P3: a sample"))
+# (case, the form named): PIL reads these, the port leaves them for later
+_NOT_YET = (("tiff_ccitt", "CCITT group 3: not yet ported"),
+            ("tiff_ycbcr", "YCbCr.*not yet ported"))
 
 
 def _refused_container(case):
@@ -613,6 +626,23 @@ def _refused_container(case):
         return b"II*\x00" + struct.pack("<I", 8) + bytes(16)
     if case == "qoi":
         return b"qoif" + struct.pack(">IIBB", 9, 6, 3, 0) + bytes(8)
+    if case == "pam":              # PAM and colour PFM: no Pillow plugin
+        return (b"P7\nWIDTH 9\nHEIGHT 6\nDEPTH 3\nMAXVAL 255\n"
+                b"TUPLTYPE RGB\nENDHDR\n" + rgb.tobytes())
+    if case == "pfm":
+        return b"PF\n9 6\n-1.0\n" + rgb.astype("<f4").tobytes()
+    if case == "tiff_jpeg":        # JPEG compression over bytes not a JPEG
+        return cs.write_tiff(rgb, compression=7)
+    if case == "tiff_ccitt":       # CCITT group 3: PIL's libtiff reads it
+        return cs.write_tiff(rgb[..., 0] & 1, bits=1, compression=3)
+    if case == "tiff_ycbcr":       # uncompressed YCbCr: PIL reads it
+        return cs.write_tiff(rgb, photometric=6)
+    if case == "bigtiff_mm":       # Pillow reads it as a classic TIFF
+        return cs.write_tiff(rgb, big=True, order=">")
+    if case == "dds_bc4s":         # a FourCC Pillow does not map
+        return cs.write_dds(9, 6, bytes(48), b"BC4S")
+    if case == "ppm_maxval":       # a plain sample above the maxval
+        return b"P3\n1 1\n7\n1 9 2\n"
     return _container(case, 6, 9)
 
 
@@ -620,8 +650,15 @@ def test_refused_containers_and_gltf_match_jax(tmp_path):
     """Both packages refuse BMP bitfields outside Pillow's sets, BI_JPEG,
     BI_PNG, 2-bit BMPs, a 4-bit gray-ramp BMP (read as 8-bit "L"), 32 and
     15-bit TGA colour maps, a TGA repeat packet across a row's end, 15-bit
-    TGA pixels, BMP, GIF and WebP files cut after 20 bytes, and DDS, TIFF
-    and QOI headers: the port raises NotImplementedError naming the form. A .gltf whose image 2 is an
+    TGA pixels, BMP, GIF and WebP files cut after 20 bytes, DDS, TIFF and
+    QOI headers with no image, PAM (P7) and colour PFM (PF), which PIL
+    does not open, a TIFF whose JPEG strip is no JPEG, a big-endian
+    BigTIFF (PIL reads it as classic TIFF), DDS's BC4S FourCC and a plain
+    PPM sample above its maxval: the port raises NotImplementedError
+    naming the form. CCITT and YCbCr TIFFs, which PIL reads, raise it
+    naming the form and "not yet ported". chip_smoke.py's
+    GLTF_CONTAINERS2 forms (DDS, TIFF, BigTIFF, PPM and QOI) at 40x36
+    decode bitwise as the JAX package decodes them. A .gltf whose image 2 is an
     external .webp (lossy, with alpha) and one whose image 0 is an
     embedded 32-bit BMP with an alpha mask load as the JAX loader loads
     them."""
@@ -664,5 +701,317 @@ def test_refused_containers_and_gltf_match_jax(tmp_path):
         assert got[0].shape == want[0].shape and got[0].shape[2] == 4
         np.testing.assert_array_equal(got[0], want[0])
 
+    def not_yet(item):
+        case, form = item
+        data = _refused_container(case)
+        jax_read(data)
+        with pytest.raises(NotImplementedError, match=form):
+            read_image(data)
+
+    def containers2(form):     # the gltf phase's forms, at a small size
+        cs = IO._writers()
+        _, smooth, _ = _images(36, 40, form)
+        gray = "BC4" in form or "gray" in form
+        _same(cs.encode_container2(form, smooth[..., 1] if gray else smooth),
+              form)
+
     IO._each(list(_REFUSED_CONTAINERS), refused)
+    IO._each(list(_NOT_YET), not_yet)
     IO._each(["webp", "bmp"], loads)
+    IO._each([f for _, _, f in IO._writers().GLTF_CONTAINERS2], containers2)
+
+
+# -- 6-9: DDS, TIFF, Netpbm + QOI, ICO/CUR ----------------------------------
+
+def _images(h, w, case):
+    """Seeded test pictures at h x w: random bytes, a smooth RGB and an
+    RGBA with chip_smoke.py's alpha pattern."""
+    rng = np.random.default_rng([h, w, sum(map(ord, case))])
+    yy, xx = np.mgrid[0:h, 0:w]
+    smooth = np.stack([(xx * 9) % 256, (yy * 7) % 256, ((xx + yy) * 4) % 256],
+                      -1).astype(np.uint8)
+    return rng, smooth, rng.integers(0, 256, (h, w, 4)).astype(np.uint8)
+
+
+# DDS cases: PIL's writer ("pil_<pixel format or mode>"), chip_smoke.py's
+# block encoders ("enc_<BC kind>"), uncompressed layouts through bit masks
+# ("mask_<name>"), seeded random blocks ("rand_<FourCC or DXGI>")
+_DDS_MASKS = dict(
+    bgr565=(0x40, 16, (0xF800, 0x7E0, 0x1F, 0)),
+    argb1555=(0x41, 16, (0x7C00, 0x3E0, 0x1F, 0x8000)),
+    a2r10g10b10=(0x41, 32, (0x3FF00000, 0xFFC00, 0x3FF, 0xC0000000)),
+    bgrx=(0x40, 32, (0xFF0000, 0xFF00, 0xFF, 0)),
+    rgb24=(0x40, 24, (0xFF, 0xFF00, 0xFF0000, 0)),
+    l8=(0x20000, 8, (0xFF, 0, 0, 0)), la8=(0x20001, 16, (0xFF, 0, 0, 0xFF00)))
+_DDS_RANDOM = dict(DXT1=(b"DXT1", None, 8), DXT3=(b"DXT3", None, 16),
+                   DXT5=(b"DXT5", None, 16), ATI1=(b"ATI1", None, 8),
+                   BC4U=(b"BC4U", None, 8), ATI2=(b"ATI2", None, 16),
+                   BC5S=(b"BC5S", None, 16), dx84=(b"DX10", 84, 16),
+                   dx95=(b"DX10", 95, 16), dx96=(b"DX10", 96, 16),
+                   dx97=(b"DX10", 97, 16), dx99=(b"DX10", 99, 16),
+                   dx80=(b"DX10", 80, 8), dx71=(b"DX10", 71, 8))
+
+
+def _dds(case, h, w):
+    cs = IO._writers()
+    rng, smooth, rgba = _images(h, w, case)
+    kind, form = case.split("_", 1)
+    if kind == "pil":
+        from PIL import Image
+
+        if form in ("RGB", "RGBA", "L", "LA"):
+            img = Image.fromarray(rgba[..., :len(form)].copy(), form) \
+                if form != "L" else Image.fromarray(rgba[..., 0])
+            return _pil(img, "DDS")
+        img = Image.fromarray(smooth if form == "BC5" else np.concatenate(
+            [smooth, rgba[..., 3:]], -1))
+        return _pil(img, "DDS", pixel_format=form)
+    if kind == "enc":          # enc_<kind>: 1 BC1, 3 BC3, 4 BC4, 7 BC7
+        k = int(form)
+        img = {1: smooth, 3: np.concatenate([smooth, rgba[..., 3:]], -1),
+               4: smooth[..., 1], 7: np.concatenate([smooth, rgba[..., 3:]],
+                                                    -1)}[k]
+        fourcc, dxgi = {1: (b"DXT1", None), 3: (b"DXT5", None),
+                        4: (b"ATI1", None), 7: (b"DX10", 98)}[k]
+        return cs.write_dds(w, h, cs.encode_bcn(img, k), fourcc, dxgi)
+    if kind == "mask":
+        flags, bits, masks = _DDS_MASKS[form]
+        return cs.write_dds(w, h, rng.bytes(w * h * bits // 8), flags=flags,
+                            bits=bits, masks=masks)
+    if kind == "pal":          # 8-bit indices, a 256-entry RGBA palette
+        return cs.write_dds(w, h, rng.bytes(w * h), flags=0x20, bits=8,
+                            palette=rng.bytes(1024))
+    if kind == "rgba":         # DX10 R8G8B8A8
+        return cs.write_dds(w, h, rgba.tobytes(), b"DX10", 28)
+    fourcc, dxgi, size = _DDS_RANDOM[form]
+    n = ((w + 3) // 4) * ((h + 3) // 4)
+    return cs.write_dds(w, h, rng.bytes(n * size), fourcc, dxgi)
+
+
+def test_dds_matches_jax():
+    """DDS bitwise the JAX package's (PIL's decode) at four sizes: PIL's
+    own DXT1/3/5, BC2/3/5 and uncompressed RGB(A)/L/LA files;
+    chip_smoke.py's BC1, BC3 (alpha), BC4 and BC7 mode 6 encoders;
+    uncompressed layouts through bit masks (5-6-5, 1-5-5-5, 2-10-10-10,
+    BGRX, 24-bit, L, LA), an 8-bit palette with RGBA entries and DX10's
+    R8G8B8A8; seeded random blocks of every decoded format (BC1-BC3's
+    three-colour blocks, BC4, BC5 and BC5S, BC6H UF16 / SF16 over every
+    mode, the reserved ones included, BC7 over all eight modes and
+    reserved blocks)."""
+    cases = [f"pil_{f}" for f in ("DXT1", "DXT3", "DXT5", "BC2", "BC3",
+                                  "BC5", "RGB", "RGBA", "L", "LA")]
+    cases += [f"enc_{k}" for k in (1, 3, 4, 7)]
+    cases += [f"mask_{m}" for m in _DDS_MASKS] + ["pal_8", "rgba_dx10"]
+    cases += [f"rand_{r}" for r in _DDS_RANDOM]
+    IO._each(cases, lambda case: [_same(_dds(case, h, w), (case, h, w))
+                                  for h, w in _SIZES])
+
+
+def _tiff(case, h, w):
+    """``case``'s TIFF at h x w: PIL's writer ("pil_<compression>_<mode>")
+    or chip_smoke.py's write_tiff ("np_<form>_<compression>")."""
+    cs = IO._writers()
+    rng, smooth, rgba = _images(h, w, case)
+    kind, *rest = case.split("_")
+    if kind == "pil":
+        from PIL import Image
+
+        comp, mode = "_".join(rest[:-1]), rest[-1]
+        img = {"1": Image.fromarray(rgba[..., 0] > 127),
+               "P": Image.fromarray(smooth).quantize(13),
+               "CMYK": Image.fromarray(rgba, "RGBA").convert("CMYK"),
+               "I;16": Image.fromarray(rng.integers(0, 65536, (h, w)).astype(
+                   np.uint16)),
+               "I": Image.fromarray(rng.integers(-300, 600, (h, w)).astype(
+                   np.int32)),
+               "F": Image.fromarray(rng.uniform(-9, 300, (h, w)).astype(
+                   np.float32))}.get(mode)
+        if img is None:
+            img = Image.fromarray(rgba[..., 0] if mode == "L" else
+                                  rgba[..., :len(mode)].copy())
+        return _pil(img, "TIFF", compression=comp)
+    form, comp = rest[0], int(rest[1])
+    g16 = rng.integers(0, 65536, (h, w))
+    pal = rng.integers(0, 65536, 768)
+    forms = dict(
+        tiles=(rgba[..., :3], dict(tile=(16, 16))),
+        planar=(rgba, dict(planar=2, extra=(2,))),
+        planartiles=(rgba[..., :3], dict(planar=2, tile=(16, 32))),
+        big=(rgba, dict(big=True, extra=(2,), tile=(32, 16))),
+        mm=(g16, dict(bits=16, order=">", rows_per_strip=3)),
+        mmrgb16=(rng.integers(0, 65536, (h, w, 3)), dict(bits=16,
+                                                        order=">")),
+        pred2=(smooth, dict(predictor=2, rows_per_strip=5)),
+        pred2g16=(g16, dict(bits=16, predictor=2, order=">")),
+        pred3=(rng.uniform(-9, 300, (h, w)), dict(bits=32, sample_format=3,
+                                                   predictor=3)),
+        pred3mm=(rng.uniform(-9, 300, (h, w)), dict(
+            bits=32, sample_format=3, predictor=3, order=">")),
+        white1=(rgba[..., 0] & 1, dict(bits=1, photometric=0)),
+        white4=(rgba[..., 0] & 15, dict(bits=4, photometric=0)),
+        white8=(rgba[..., 0], dict(photometric=0)),
+        gray2=(rgba[..., 0] & 3, dict(bits=2)),
+        fill2=(rgba[..., 0] & 1, dict(bits=1, fill_order=2)),
+        fill2rgb=(smooth, dict(fill_order=2, rows_per_strip=2)),
+        extra0=(rgba, dict(extra=(0,))),
+        extra1=(rgba, dict(extra=(1,))),
+        extra1planar=(rgba, dict(extra=(1,), planar=2)),
+        extra2=(rgba, dict(extra=(2,))),
+        rgba16a=(rng.integers(0, 65536, (h, w, 4)), dict(bits=16,
+                                                         extra=(1,))),
+        pal4=(rgba[..., 0] & 15, dict(bits=4, colormap=pal[:48])),
+        pal8=(rgba[..., 0], dict(colormap=pal)),
+        pa=(rgba[..., :2], dict(extra=(2,), colormap=pal)),
+        la=(rgba[..., :2], dict(extra=(2,), photometric=1)),
+        cmyk16=(rng.integers(0, 65536, (h, w, 4)), dict(bits=16,
+                                                        photometric=5)),
+        int16=(rng.integers(-300, 600, (h, w)), dict(bits=16,
+                                                     sample_format=2)),
+        int32mm=(rng.integers(-300, 600, (h, w)), dict(
+            bits=32, sample_format=2, order=">")),
+        orient6=(rgba[..., :3], dict(orientation=6)),
+        orient7=(rgba[..., 0], dict(orientation=7, tile=(16, 16))))
+    samples, kw = forms[form]
+    return cs.write_tiff(np.asarray(samples), compression=comp, **kw)
+
+
+_TIFF_NP = ("tiles_5", "planar_8", "planartiles_32946", "big_32773",
+            "big_1", "mm_5", "mmrgb16_1", "pred2_5", "pred2g16_8",
+            "pred3_8", "pred3mm_5", "white1_32773", "white4_1", "white8_5",
+            "gray2_8", "fill2_1", "fill2_5", "fill2rgb_1", "fill2rgb_8",
+            "extra0_32773", "extra1_5", "extra1planar_8", "extra2_1",
+            "rgba16a_8", "pal4_5", "pal8_1", "pa_32773", "la_8",
+            "cmyk16_5", "int16_8", "int32mm_5", "orient6_8", "orient7_1",
+            "planar_1", "tiles_1")
+
+
+def test_tiff_matches_jax():
+    """TIFF and BigTIFF bitwise the JAX package's (PIL over libtiff) at four
+    sizes: PIL's raw, PackBits, LZW, deflate and Adobe deflate files in
+    modes 1, L, P, RGB, RGBA, CMYK, I;16, I and F; chip_smoke.py's
+    write_tiff: tiles, planar strips and tiles, BigTIFF, big-endian 16-bit
+    gray and RGB and 32-bit int, predictor 2 (8 and 16-bit) and 3
+    (both byte orders), min-is-white 1/4/8-bit, 2-bit gray, FillOrder 2
+    raw and LZW, ExtraSamples 0/1/2 (associated alpha unpremultiplied,
+    planar too, 16-bit), 4/8-bit palettes, palette and gray with alpha,
+    16-bit CMYK, signed 16-bit and the Orientation tag."""
+    cases = [f"pil_{c}_{m}" for c in ("raw", "packbits", "tiff_lzw",
+                                      "tiff_deflate", "tiff_adobe_deflate")
+             for m in ("1", "L", "P", "RGB", "RGBA", "CMYK", "I;16", "I",
+                       "F")]
+    cases += [f"np_{c}" for c in _TIFF_NP]
+    IO._each(cases, lambda case: [_same(_tiff(case, h, w), (case, h, w))
+                                  for h, w in _SIZES])
+
+
+def _netpbm_qoi(case, h, w):
+    cs = IO._writers()
+    rng, smooth, rgba = _images(h, w, case)
+    kind, *rest = case.split("_")
+    if kind == "pil":          # pil_<PPM|QOI>_<mode>
+        from PIL import Image
+
+        img = Image.fromarray(rgba[..., 0] > 127) if rest[1] == "1" else \
+            Image.fromarray(rgba[..., :{"L": 1, "RGB": 3, "RGBA": 4}[
+                rest[1]]].squeeze(-1) if rest[1] == "L" else
+                rgba[..., :len(rest[1])].copy())
+        return _pil(img, rest[0])
+    if kind == "qoi":          # qoi_<rgb|rgba>, the reference encoder's ops
+        px = np.where(rng.random((h, w, 1)) < 0.6, smooth[..., :1], smooth)
+        px = np.concatenate([px, rgba[..., 3:] | 0xF0], -1)
+        return cs.write_qoi(px[..., :3] if rest[0] == "rgb" else px)
+    if kind == "qoiquirk":     # a run first, then INDEX of its pixel
+        head = b"qoif" + struct.pack(">IIBB", w, h, 4, 0)
+        return head + bytes([0xC0 + min(61, w * h - 1)]) + bytes(
+            [53] * (w * h)) + b"\x00" * 7 + b"\x01"
+    magic, maxval = rest[0], int(rest[1]) if len(rest) > 1 else 255
+    bands = {"P1": 1, "P4": 1, "P2": 1, "P5": 1, "P3": 3, "P6": 3,
+             "P0CMYK": 4, "PyP": 1, "PyRGBA": 4, "PyCMYK": 4}.get(magic)
+    if magic == "Pf":
+        return cs.write_ppm(rng.uniform(-9, 300, (h, w)).astype(np.float32),
+                            "Pf")
+    if magic in ("P1", "P4"):
+        return cs.write_ppm(rgba[..., 0] & 1, magic)
+    v = rng.integers(0, maxval + 1, (h, w, bands))
+    return cs.write_ppm(v.squeeze(-1) if bands == 1 else v, magic, maxval)
+
+
+def test_netpbm_qoi_match_jax():
+    """Netpbm and QOI bitwise the JAX package's (PIL's decode) at four
+    sizes: P1-P6 plain and binary with a header comment, maxvals 1, 7,
+    100, 255, 1000 and 65535 (gray above 255 reads as "I": 500 of 1000
+    clips to 255; P5 of maxval 100 scales 50 -> 128, P2 of maxval 7
+    3 -> 109), a bottom-up little-endian Pf, Pillow's P0CMYK, PyP,
+    PyRGBA and PyCMYK; PIL's PPM writer; QOI from PIL's writer and the
+    reference encoder's ops, RGB and RGBA, and a file that opens with a
+    run (Pillow's index leaves its pixel out)."""
+    cases = [f"pnm_{m}" for m in ("P1", "P4", "Pf")]
+    cases += [f"pnm_{m}_{v}" for m in ("P2", "P5") for v in (1, 7, 100, 255,
+                                                            1000, 65535)]
+    cases += [f"pnm_{m}_{v}" for m in ("P3", "P6") for v in (7, 255, 1000)]
+    cases += [f"pnm_{m}_{v}" for m in ("P0CMYK", "PyP", "PyRGBA", "PyCMYK")
+              for v in (255, 100)]
+    cases += [f"pil_PPM_{m}" for m in ("1", "L", "RGB")]
+    cases += [f"pil_QOI_{m}" for m in ("RGB", "RGBA")]
+    cases += ["qoi_rgb", "qoi_rgba", "qoiquirk"]
+    IO._each(cases, lambda case: [_same(_netpbm_qoi(case, h, w),
+                                        (case, h, w)) for h, w in _SIZES])
+
+
+def _icon(case, h, w):
+    """``case``'s icon with h x w its largest entry: PIL's writer or
+    chip_smoke.py's write_ico over PNG and BMP entries."""
+    from PIL import Image
+
+    cs = IO._writers()
+    rng, smooth, rgba = _images(h, w, case)
+    kind, *rest = case.split("_")
+    if kind == "pil":          # pil_<png|bmp>
+        return _pil(Image.fromarray(rgba), "ICO", sizes=[(w, h), (1, 1)],
+                    bitmap_format=rest[0])
+    mask = rng.random((h, w)) < 0.3
+
+    def bmp(bits, hh=h, ww=w):
+        pal = rng.integers(0, 256, (256, 3)).astype(np.uint8)
+        if bits == 32:
+            return cs.write_bmp(cs.pack_masks(rgba[:hh, :ww], (
+                0xFF0000, 0xFF00, 0xFF, 0xFF000000)), 32, file_header=False)
+        if bits == 24:
+            return cs.write_bmp(rgba[:hh, :ww, :3], 24, file_header=False)
+        idx = (rgba[:hh, :ww, 0].astype(int) % (1 << bits)).astype(np.uint8)
+        return cs.write_bmp(idx, bits, pal[:1 << bits], file_header=False)
+
+    png = IO._png_raw(rgba[..., :3], 2, 8, 0)
+    ptrns = IO._png_raw(rgba[..., :1] % 4, 3, 2, 0, palette=rng.integers(
+        0, 256, (4, 3)).astype(np.uint8), trns=np.array([0, 90], np.uint8))
+    small = cs.write_bmp(rgba[:1, :1, :3], 24, file_header=False)
+    if kind == "ico":          # ico_<entries>: the largest is read
+        entries = dict(
+            bmp32=[("bmp", bmp(32), (w, h), 32)],
+            bmp8=[("bmp", small, (1, 1), 24),
+                  ("bmp", bmp(8), (w, h), 8, mask)],
+            bmp4=[("bmp", bmp(4), (w, h), 4, mask)],
+            bmp1=[("bmp", bmp(1), (w, h), 1, mask)],
+            bmp24=[("bmp", bmp(24), (w, h), 24, mask),
+                   ("png", png, (w, h), 32)],    # equal size: fewer bits
+            png=[("bmp", small, (1, 1), 24), ("png", png, (w, h), 32)],
+            pngtrns=[("png", ptrns, (w, h), 2)],
+            zero=[("bmp", bmp(32), (w, h), 0, mask)])[rest[0]]
+        return cs.write_ico(entries)
+    entries = [("bmp", small, (1, 1), 24), ("bmp", bmp(8), (w, h), 8, mask)]
+    return cs.write_ico(entries, cursor=True)
+
+
+def test_ico_cur_matches_jax():
+    """ICO and CUR bitwise the JAX package's (PIL's decode) at four sizes:
+    PIL's ICO writer (PNG and BMP entries); chip_smoke.py's write_ico
+    with several entries (the largest, then the fewest bits, is read):
+    32-bit BMPs (alpha from the fourth bytes), 1/4/8/24-bit BMPs with AND
+    masks, a directory bit count of 0 over a 32-bit DIB (the AND mask
+    then), PNG entries (a palette PNG's tRNS dropped as the icon drops
+    it); a CUR whose larger entry is an 8-bit BMP (no mask)."""
+    cases = ["pil_png", "pil_bmp"] + [f"ico_{e}" for e in (
+        "bmp32", "bmp8", "bmp4", "bmp1", "bmp24", "png", "pngtrns", "zero")]
+    cases += ["cur_8"]
+    IO._each(cases, lambda case: [_same(_icon(case, h, w), (case, h, w))
+                                  for h, w in _SIZES])

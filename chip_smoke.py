@@ -207,7 +207,11 @@ Phases, each reported as one JSON line:
            alpha, BC7 mode 6 and BC4, an LZW TIFF with predictor 2, a
            tiled deflate RGBA TIFF, a PackBits 16-bit gray BigTIFF, a
            binary PPM and an RGBA QOI, by numpy-only writers), the same
-           way; its launches join the kernels line;
+           way; and in the third part's (GLTF_CONTAINERS3: PSD RLE RGBA
+           and raw CMYK, a tiled 4:2:0 YCbCr JPEG TIFF, an LZMA TIFF with
+           predictor 2, BLP2 DXT5, BLP1 JPEG, FTEX DXT1, SGI RLE RGBA and
+           24-bit PCX, by numpy-only writers), the same way; its launches
+           join the kernels line;
   viewer   Viewer over the example scene at 512x512 (raster, RT, hybrid;
            each rendered once first, so no build runs in its thread):
            over 127.0.0.1 each mode's /frame.png bitwise a direct render
@@ -3176,13 +3180,24 @@ def write_dds(w, h, body, fourcc=None, dxgi=None, flags=0, bits=0,
     return b"DDS " + head + ext + palette + body
 
 
-def tiff_lzw(data):
+def tiff_lzw(data, old=False):
     """TIFF LZW (codes from the high bit, one bit wider as the next free
-    code reaches 512, 1024, 2048; a clear at 4094 entries)."""
+    code reaches 512, 1024, 2048; a clear at 4094 entries). ``old``: the
+    old-style codes libtiff's compat decoder reads (from the low bit, one
+    bit wider one code later)."""
     out, acc, nbits = bytearray(), 0, 0
+    late = 1 if old else 0
 
     def emit(code, size):
         nonlocal acc, nbits
+        if old:
+            acc |= code << nbits
+            nbits += size
+            while nbits >= 8:
+                out.append(acc & 0xFF)
+                acc >>= 8
+                nbits -= 8
+            return
         acc = acc << size | code
         nbits += size
         while nbits >= 8:
@@ -3202,7 +3217,7 @@ def tiff_lzw(data):
         emit(table[cur], size)
         table[ext] = nxt
         nxt += 1
-        if nxt > (1 << size) - 1 and size < 12:
+        if nxt > (1 << size) - 1 + late and size < 12:
             size += 1
         if nxt == 4094:
             emit(256, size)
@@ -3212,11 +3227,11 @@ def tiff_lzw(data):
     if cur:
         emit(table[cur], size)
         nxt += 1
-        if nxt > (1 << size) - 1 and size < 12:
+        if nxt > (1 << size) - 1 + late and size < 12:
             size += 1
     emit(257, size)
     if nbits:
-        out.append((acc << (8 - nbits)) & 0xFF)
+        out.append(acc & 0xFF if old else (acc << (8 - nbits)) & 0xFF)
     return bytes(out)
 
 
@@ -3246,16 +3261,24 @@ _BITREV = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
 def write_tiff(samples, bits=8, photometric=None, sample_format=1,
                compression=1, predictor=1, planar=1, tile=None,
                rows_per_strip=None, big=False, order="<", fill_order=1,
-               extra=(), colormap=None, orientation=None):
+               extra=(), colormap=None, orientation=None, subsampling=None,
+               coefficients=None, reference=None, old_lzw=False):
     """A TIFF (``big``: BigTIFF) of ``samples`` [H, W] or [H, W, S]: ints
-    below 2^bits (1, 2, 4, 8, 16 or 32 bits; ``sample_format`` 2 signed, 3
-    float32), ``photometric`` (by default 1 for one sample, 2 else),
-    ``extra`` the ExtraSamples, ``colormap`` [3 * 2^bits] u16 for a
-    palette; strips of ``rows_per_strip`` rows or tiles (``tile`` (w, h),
-    multiples of 16), chunky or ``planar`` 2; ``compression`` 1 (none),
-    32773 (PackBits), 5 (LZW), 8 or 32946 (deflate); ``predictor`` 2
-    (horizontal, 8/16/32 bits) or 3 (floating point); ``order`` "<" (II)
-    or ">" (MM); ``fill_order`` 2 reverses each stored byte's bits."""
+    below 2^bits (1, 2, 4, 8, 12, 16 or 32 bits; ``sample_format`` 2
+    signed, 3 float32), ``photometric`` (by default 1 for one sample, 2
+    else; 6 takes Y, Cb, Cr samples), ``extra`` the ExtraSamples,
+    ``colormap`` [3 * 2^bits] u16 for a palette; strips of
+    ``rows_per_strip`` rows or tiles (``tile`` (w, h), multiples of 16),
+    chunky or ``planar`` 2; ``compression`` 1 (none), 32773 (PackBits), 5
+    (LZW; ``old_lzw`` the old-style codes), 8 or 32946 (deflate), 34925
+    (LZMA, an .xz stream) or 7 (JPEG: a baseline stream a strip or tile,
+    its tables in JPEGTables); ``predictor`` 2 (horizontal, 8/16/32 bits)
+    or 3 (floating point); ``order`` "<" (II) or ">" (MM); ``fill_order``
+    2 reverses each stored byte's bits. YCbCr: ``subsampling`` (h, v)
+    packs blocks of h x v Y then Cb, Cr (the block's top-left chroma; a
+    JPEG's chroma sampled by the JPEG writer), ``coefficients`` and
+    ``reference`` the YCbCrCoefficients and ReferenceBlackWhite as
+    (numerator, denominator) pairs."""
     import zlib
 
     import numpy as np
@@ -3272,6 +3295,22 @@ def write_tiff(samples, bits=8, photometric=None, sample_format=1,
     def chunk_bytes(block):
         """Rows [r, c, per] of samples -> their stored bytes."""
         r, c, _ = block.shape
+        if subsampling and planar == 1:   # h x v blocks of Y, then Cb, Cr
+            sh, sv = subsampling
+            p = np.pad(block, ((0, -r % sv), (0, -c % sh), (0, 0)),
+                       mode="edge").astype(np.uint8)
+            rr, cc = p.shape[0] // sv, p.shape[1] // sh
+            ys = p[..., 0].reshape(rr, sv, cc, sh).transpose(0, 2, 1, 3)
+            return np.concatenate([ys.reshape(rr, cc, sv * sh),
+                                   p[::sv, ::sh, 1:]], -1).tobytes()
+        if bits == 12:                    # two samples in three bytes
+            v = block.reshape(r, -1).astype(np.uint16)
+            n = v.shape[1]
+            v = np.pad(v, ((0, 0), (0, n % 2)))
+            a, b = v[:, 0::2], v[:, 1::2]
+            packed = np.stack([a >> 4, (a & 15) << 4 | b >> 8, b & 255],
+                              -1).astype(np.uint8).reshape(r, -1)
+            return packed[:, :-(-n * 12 // 8)].tobytes()
         if bits < 8:
             v = block.reshape(r, -1).astype(np.uint8)
             k = 8 // bits
@@ -3296,7 +3335,7 @@ def write_tiff(samples, bits=8, photometric=None, sample_format=1,
             return (diff & 255).astype(np.uint8).tobytes()
         return v.astype(v.dtype.newbyteorder(order)).tobytes()
 
-    chunks = []
+    chunks, tables = [], None
     for plane in range(planes):
         for y in range(0, h, tl):
             for x in range(0, w, tw) if tile else (0,):
@@ -3305,11 +3344,24 @@ def write_tiff(samples, bits=8, photometric=None, sample_format=1,
                 if tile:
                     block = np.pad(block, ((0, tl - block.shape[0]),
                                            (0, tw - block.shape[1]), (0, 0)))
+                if compression == 7:
+                    bands = [block[..., k].astype(np.uint8)
+                             for k in range(block.shape[2])]
+                    factors = [subsampling] + [(1, 1)] * 2 if subsampling \
+                        else None
+                    tables, raw = jpeg_abbreviate(write_jpeg(
+                        bands, factors, jfif=False))
+                    chunks.append(raw)
+                    continue
                 raw = chunk_bytes(block)
                 if compression == 32773:
                     raw = packbits(raw)
                 elif compression == 5:
-                    raw = tiff_lzw(raw)
+                    raw = tiff_lzw(raw, old_lzw)
+                elif compression == 34925:
+                    import lzma
+
+                    raw = lzma.compress(raw, lzma.FORMAT_XZ)
                 elif compression in (8, 32946):
                     raw = zlib.compress(raw, 6)
                 if fill_order == 2:
@@ -3330,6 +3382,14 @@ def write_tiff(samples, bits=8, photometric=None, sample_format=1,
         tags[320] = (3, list(colormap))
     if orientation is not None:
         tags[274] = (3, [orientation])
+    if subsampling:
+        tags[530] = (3, list(subsampling))
+    if coefficients:
+        tags[529] = (5, [int(x) for pair in coefficients for x in pair])
+    if reference:
+        tags[532] = (5, [int(x) for pair in reference for x in pair])
+    if tables is not None:
+        tags[347] = (7, list(tables))
     if tile:
         tags[322], tags[323] = (4, [tw]), (4, [tl])
     else:
@@ -3341,7 +3401,7 @@ def write_tiff(samples, bits=8, photometric=None, sample_format=1,
     off_type = 16 if big else 4
     tags[off_tag] = (off_type, [int(o) for o in offsets])
     tags[cnt_tag] = (off_type, [len(c) for c in chunks])
-    codes = {3: "H", 4: "L", 16: "Q"}
+    codes = {3: "H", 4: "L", 5: "L", 7: "B", 16: "Q"}
     ifd_pos = head + len(body) + (len(body) & 1)
     inline = 8 if big else 4
     entry = 20 if big else 12
@@ -3357,8 +3417,9 @@ def write_tiff(samples, bits=8, photometric=None, sample_format=1,
             value = struct.pack(order + ("Q" if big else "L"),
                                 extra_pos + len(spill))
             spill += payload + b"\x00" * (len(payload) & 1)
+        count = len(values) // 2 if typ == 5 else len(values)
         entries += struct.pack(order + ("HHQ" if big else "HHL"), tag, typ,
-                               len(values)) + value
+                               count) + value
     bo = b"II" if order == "<" else b"MM"
     if big:
         header = bo + struct.pack(order + "HHHQ", 43, 8, 0, ifd_pos)
@@ -3369,6 +3430,27 @@ def write_tiff(samples, bits=8, photometric=None, sample_format=1,
         ifd = struct.pack(order + "H", n) + entries + struct.pack(
             order + "L", 0)
     return header + body + b"\x00" * (len(body) & 1) + ifd + spill
+
+
+def jpeg_split(data):
+    """A JPEG -> (SOI and each marker segment before the first SOS, the
+    bytes from that SOS on); joined, the first is a BLP1's shared JPEG
+    header and the second its first mip."""
+    segs, pos = [data[:2]], 2
+    while data[pos + 1] != 0xDA:
+        (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
+        segs.append(data[pos:pos + 2 + length])
+        pos += 2 + length
+    return segs, data[pos:]
+
+
+def jpeg_abbreviate(data):
+    """A JPEG -> (its tables as an abbreviated stream: SOI, DQT, DHT, EOI;
+    the stream without them), as JPEG-in-TIFF stores a strip or tile."""
+    segs, scan = jpeg_split(data)
+    tables = b"".join(s for s in segs if s[1] in (0xDB, 0xC4))
+    image = b"".join(s for s in segs if s[1] not in (0xDB, 0xC4))
+    return b"\xff\xd8" + tables + b"\xff\xd9", image + scan
 
 
 def write_ppm(samples, magic="P6", maxval=255, plain_width=70):
@@ -3476,6 +3558,189 @@ def write_ico(entries, cursor=False):
                            len(blob), off)
         off += len(blob)
     return out + b"".join(blobs)
+
+
+def write_psd(bands, psd_mode, bits=8, compression=0, color_data=b"",
+              resources=(), layers=b"", version=1):
+    """A PSD of ``bands`` (u8 [H, W] planes; 0 / 1 at ``bits`` 1; 16 bits
+    big-endian), ``psd_mode`` Photoshop's colour mode (0 bitmap, 1 gray,
+    2 indexed, 3 RGB, 4 CMYK, 7 multichannel, 8 duotone, 9 LAB),
+    ``color_data`` the colour-mode section (an indexed file's 768-byte
+    palette, a plane a colour), ``resources`` [(id, name, body)],
+    ``layers`` the layer and mask section's bytes (not parsed by
+    readers of the composite); ``compression`` 0 (raw planes) or 1
+    (PackBits rows behind their byte counts)."""
+    import numpy as np
+
+    h, w = bands[0].shape
+
+    def rows(b):
+        if bits == 1:
+            return np.packbits(b.astype(np.uint8) & 1, axis=1)
+        return b.astype(f">u{bits // 8}").view(np.uint8).reshape(h, -1)
+
+    out = b"8BPS" + struct.pack(">H6xHIIHH", version, len(bands), h, w,
+                                bits, psd_mode)
+    out += struct.pack(">I", len(color_data)) + color_data
+    res = b""
+    for rid, name, body in resources:
+        pascal = bytes([len(name)]) + name
+        pascal += b"\x00" * (len(pascal) % 2)
+        res += (b"8BIM" + struct.pack(">H", rid) + pascal
+                + struct.pack(">I", len(body)) + body
+                + b"\x00" * (len(body) % 2))
+    out += struct.pack(">I", len(res)) + res
+    out += struct.pack(">I", len(layers)) + layers
+    out += struct.pack(">H", compression)
+    planes = [rows(b) for b in bands]
+    if compression == 1:
+        packed = [packbits(r.tobytes()) for plane in planes for r in plane]
+        return (out + b"".join(struct.pack(">H", len(p)) for p in packed)
+                + b"".join(packed))
+    return out + b"".join(p.tobytes() for p in planes)
+
+
+def _sgi_rle(row, bpc):
+    """An SGI RLE row of atoms (``bpc`` bytes, big-endian): runs of 3 or
+    more repeated (count, atom), literals (0x80 | count, atoms), counts up
+    to 127, then a zero atom."""
+    c = "B" if bpc == 1 else "H"
+    out, i, n = b"", 0, len(row)
+    while i < n:
+        j = i
+        while j + 1 < n and row[j + 1] == row[i] and j - i < 126:
+            j += 1
+        if j - i >= 2:
+            out += struct.pack(">" + c * 2, j - i + 1, int(row[i]))
+            i = j + 1
+            continue
+        j = i
+        while j < n and j - i < 127 and not (
+                j + 2 < n and row[j] == row[j + 1] == row[j + 2]):
+            j += 1
+        out += struct.pack(f">{1 + j - i}{c}", 0x80 | (j - i),
+                           *(int(v) for v in row[i:j]))
+        i = j
+    return out + struct.pack(">" + c, 0)
+
+
+def write_sgi(samples, bpc=1, rle=False, dimension=None):
+    """An SGI image of ``samples`` [H, W] or [H, W, Z] (values below
+    2^(8 bpc)), stored bottom up, a plane a channel: verbatim or RLE
+    (the offset and length tables, then each row's runs)."""
+    import numpy as np
+
+    s = samples[..., None] if samples.ndim == 2 else samples
+    h, w, z = s.shape
+    dim = dimension or (3 if z > 1 else 2)
+    head = struct.pack(">hBBHHHHll4s80sl404s", 474, int(rle), bpc, dim, w,
+                       h, z, 0, (1 << 8 * bpc) - 1, b"", b"", 0, b"")
+    rows = s[::-1].transpose(2, 0, 1)            # [z, h, w], bottom row 1st
+    if not rle:
+        return head + rows.astype(f">u{bpc}").tobytes()
+    runs = [_sgi_rle(row, bpc) for plane in rows for row in plane]
+    off = 512 + 8 * len(runs)
+    starts = np.cumsum([0] + [len(r) for r in runs[:-1]]) + off
+    return (head + struct.pack(f">{len(runs)}I", *(int(v) for v in starts))
+            + struct.pack(f">{len(runs)}I", *(len(r) for r in runs))
+            + b"".join(runs))
+
+
+def write_blp(version, w, h, body, compression=1, encoding=1, alpha=0,
+              alpha_encoding=0, palette=None, jpeg_header=b""):
+    """A BLP1 or BLP2 (``version`` 1 / 2) of ``w`` x ``h`` with one mip,
+    ``body``: compression 0 (BLP1: a JPEG, ``jpeg_header`` its shared
+    header, ``body`` the mip's bytes after it) or 1 (``encoding`` 1 (BLP2)
+    or 4 / 5 (BLP1) palette indices with ``palette`` [256, 4] BGRA, or 2
+    (BLP2) DXT blocks by ``alpha_encoding`` 0 / 1 / 7); ``alpha`` the
+    alpha depth."""
+    import numpy as np
+
+    pal = b"" if palette is None else np.asarray(
+        palette, np.uint8).reshape(-1, 4)[:256].tobytes().ljust(1024,
+                                                                b"\x00")
+    if version == 1:
+        head = b"BLP1" + struct.pack("<iIIIii", compression, alpha, w, h,
+                                     encoding, 0)
+        extra = (struct.pack("<I", len(jpeg_header)) + jpeg_header
+                 if compression == 0 else pal)
+    else:
+        head = b"BLP2" + struct.pack("<ibbbbII", compression, encoding,
+                                     alpha, alpha_encoding, 1, w, h)
+        extra = pal or bytes(1024)
+    off = len(head) + 128 + len(extra)
+    return (head + struct.pack("<16I", off, *[0] * 15)
+            + struct.pack("<16I", len(body), *[0] * 15) + extra + body)
+
+
+def write_ftex(w, h, body, fmt=1):
+    """An FTEX texture of one mip and one format: ``fmt`` 0 (DXT1 blocks)
+    or 1 (raw RGB)."""
+    return (b"FTEX" + struct.pack("<iiiiiii", 1, w, h, 1, 1, fmt, 32)
+            + struct.pack("<i", len(body)) + body)
+
+
+def pcx_rle(data):
+    """PCX run-length coding of one row: runs of 2-63 (and any byte of
+    0xC0 or more) as (0xC0 | count, byte), single bytes as they are."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j + 1 < n and data[j + 1] == data[i] and j - i < 62:
+            j += 1
+        if j > i or data[i] >= 0xC0:
+            out += bytes((0xC0 | (j - i + 1), data[i]))
+        else:
+            out.append(data[i])
+        i = j + 1
+    return bytes(out)
+
+
+def write_pcx(samples, bits=8, planes=1, version=5, palette=None,
+              ega=None, stride=None):
+    """A PCX of ``samples``: [H, W] 0 / 1 (``bits`` 1, 1 plane), [H, W]
+    indices below 2^planes (``bits`` 1, ``planes`` 2 or 4: bit planes,
+    ``ega`` the header's 16-colour palette [16, 3]), [H, W] bytes (8 bits,
+    ``palette`` [256, 3] appended after 0x0C), [H, W, 3] (8 bits, 3
+    planes: a colour line each); each row's planes run-length coded
+    together, ``stride`` bytes a plane line (default even)."""
+    import numpy as np
+
+    h, w = samples.shape[:2]
+    need = (w * bits + 7) // 8
+    stride = stride or need + need % 2
+    if bits == 1:
+        lines = [np.packbits((samples >> k) & 1, axis=1)
+                 for k in range(planes)]
+    elif samples.ndim == 3:
+        lines = [samples[..., k] for k in range(planes)]
+    else:
+        lines = [samples]
+    lines = [np.pad(ln.astype(np.uint8), ((0, 0), (0, stride - ln.shape[1])))
+             for ln in lines]
+    rows = np.concatenate(lines, 1)
+    head = struct.pack("<BBBBHHHHHH", 10, version, 1, bits, 0, 0, w - 1,
+                       h - 1, 72, 72)
+    head += (np.zeros((16, 3), np.uint8) if ega is None else np.asarray(
+        ega, np.uint8)).tobytes()
+    head += struct.pack("<BBHHHH", 0, planes, stride, 1, 0, 0).ljust(64,
+                                                                      b"\x00")
+    body = b"".join(pcx_rle(r.tobytes()) for r in rows)
+    tail = b"" if palette is None else b"\x0c" + np.asarray(
+        palette, np.uint8).tobytes()
+    return head + body + tail
+
+
+def write_dcx(pages):
+    """A DCX of PCX ``pages``: the offset table (ended by 0), then the
+    pages."""
+    off = 4 + 4 * (len(pages) + 1)
+    table = []
+    for page in pages:
+        table.append(off)
+        off += len(page)
+    return (b"\xb1\x68\xde\x3a" + struct.pack(f"<{len(pages) + 1}I",
+                                              *table, 0) + b"".join(pages))
 
 
 def grid_gltf_source(n, width, height, device):
@@ -3599,6 +3864,16 @@ GLTF_CONTAINERS2 = ((0, "base_texture", "DDS BC1"),
                     (3, "occlusion_texture", "BigTIFF PackBits 16-bit gray"),
                     (2, "mr_texture", "PPM binary (P6)"),
                     (3, "emissive_texture", "QOI RGBA"))
+# the grid's images in the third part's container formats
+GLTF_CONTAINERS3 = ((0, "base_texture", "PSD RLE RGBA"),
+                    (1, "base_texture", "PSD raw CMYK"),
+                    (2, "base_texture", "TIFF JPEG YCbCr 4:2:0, tiled"),
+                    (3, "base_texture", "BLP2 DXT5"),
+                    (0, "mr_texture", "TIFF LZMA, predictor 2"),
+                    (2, "mr_texture", "BLP1 JPEG"),
+                    (3, "emissive_texture", "FTEX DXT1"),
+                    (1, "occlusion_texture", "SGI RLE RGBA"),
+                    (3, "occlusion_texture", "PCX 24-bit"))
 # the WebP files, written by tests/data/webp/make_webp.py (libwebp 1.6.0)
 WEBP_FILES = {"WebP lossy": "base0_lossy.webp",
               "WebP lossy with alpha": "base1_alpha.webp",
@@ -3680,6 +3955,44 @@ def encode_container2(form, img):
     if form == "PPM binary (P6)":
         return write_ppm(img, "P6")
     return write_qoi(rgba)
+
+
+def encode_container3(form, img):
+    """`img` (u8 [H, W, 3]; [H, W] for the gray maps, repeated to RGB) in a
+    GLTF_CONTAINERS3 form, by the numpy-only writers (write_psd,
+    write_tiff, write_blp, write_ftex, write_sgi, write_pcx);
+    alpha_pattern's alpha where the form has alpha."""
+    import numpy as np
+
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, -1)
+    h, w = img.shape[:2]
+    rgba = np.concatenate([img, alpha_pattern(h, w)[..., None]], -1)
+    if form == "PSD RLE RGBA":
+        return write_psd([rgba[..., k] for k in range(4)], 3, compression=1)
+    if form == "PSD raw CMYK":     # read inverted, no black: the RGB back
+        return write_psd([img[..., k] for k in range(3)]
+                         + [np.full((h, w), 255, np.uint8)], 4)
+    if form == "TIFF JPEG YCbCr 4:2:0, tiled":
+        return write_tiff(np.stack(rgb_to_ycc(img), -1), photometric=6,
+                          compression=7, subsampling=(2, 2),
+                          tile=(256, 256))
+    if form == "TIFF LZMA, predictor 2":
+        return write_tiff(img, compression=34925, predictor=2,
+                          rows_per_strip=64)
+    if form == "BLP2 DXT5":
+        return write_blp(2, w, h, encode_bcn(rgba, 3), encoding=2,
+                         alpha=8, alpha_encoding=7)
+    if form == "BLP1 JPEG":        # read back as BGR: written as B, G, R
+        head, body = jpeg_split(write_jpeg(rgb_to_ycc(img[..., ::-1]),
+                                           [(2, 2), (1, 1), (1, 1)]))
+        return write_blp(1, w, h, body, compression=0, encoding=0,
+                         jpeg_header=b"".join(head))
+    if form == "FTEX DXT1":
+        return write_ftex(w, h, encode_bcn(img, 1), 0)
+    if form == "SGI RLE RGBA":
+        return write_sgi(rgba, rle=True)
+    return write_pcx(img, 8, 3)
 
 
 def grid_forms_source(n, width, height, device, forms=GLTF_FORMS,
@@ -3842,8 +4155,12 @@ def gltf_phase(work_dir, n=10_000, width=1920, height=1080,
                                   GLTF_CONTAINERS2, encode_container2,
                                   "containers2")
     out["containers2"] = containers2
+    containers3 = gltf_forms_case(work_dir, n, width, height,
+                                  GLTF_CONTAINERS3, encode_container3,
+                                  "containers3")
+    out["containers3"] = containers3
     return dict(ok=ok and forms.pop("ok") and containers.pop("ok")
-                and containers2.pop("ok"), **out)
+                and containers2.pop("ok") and containers3.pop("ok"), **out)
 
 
 def gltf_forms_case(work_dir, n, width, height, forms=GLTF_FORMS,

@@ -147,9 +147,11 @@ def _alpha8(blocks: np.ndarray, signed: bool = False) -> np.ndarray:
     return np.take_along_axis(table, sel, 1).astype(np.uint8)
 
 
-def _bc1(blocks: np.ndarray, four: bool) -> np.ndarray:
+def _bc1(blocks: np.ndarray, four: bool, replicate: bool = True
+         ) -> np.ndarray:
     """BC1 colour blocks [n, 8] -> [n, 16, 4] RGBA; ``four``: always four
-    colours (BC2 / BC3)."""
+    colours (BC2 / BC3); ``replicate`` False: the 5-6-5 endpoints shifted
+    up without their high bits repeated below (BLP's decoders)."""
     b = blocks.astype(np.int64)
     c0, c1 = b[:, 0] | b[:, 1] << 8, b[:, 2] | b[:, 3] << 8
 
@@ -157,6 +159,8 @@ def _bc1(blocks: np.ndarray, four: bool) -> np.ndarray:
         r = (c & 0xF800) >> 8
         g = (c & 0x7E0) >> 3
         bl = (c & 0x1F) << 3
+        if not replicate:
+            return np.stack([r, g, bl], -1)
         return np.stack([r | r >> 5, g | g >> 6, bl | bl >> 5], -1)
 
     p0, p1 = rgb(c0), rgb(c1)
@@ -384,10 +388,12 @@ def _half_byte(v, signed):
     return byte.astype(np.uint8)
 
 
-def decode(kind: int, payload: bytes, w: int, h: int, signed: bool = False
-           ) -> np.ndarray:
+def decode(kind: int, payload: bytes, w: int, h: int, signed: bool = False,
+           replicate: bool = True) -> np.ndarray:
     """The BC``kind`` blocks in ``payload`` (rows of ceil(w / 4) blocks)
-    -> the w x h image; ``signed``: BC5S / BC6H SF16."""
+    -> the w x h image; ``signed``: BC5S / BC6H SF16; ``replicate=False``:
+    BC1-BC3's 5/6-bit endpoints widened by a shift alone, as BLP's Python
+    decoders widen them."""
     nbx, nby = (w + 3) // 4, (h + 3) // 4
     size = BLOCK_BYTES[kind]
     need = nbx * nby * size
@@ -397,13 +403,13 @@ def decode(kind: int, payload: bytes, w: int, h: int, signed: bool = False
             "bytes)")
     blocks = np.frombuffer(payload, np.uint8, need).reshape(-1, size)
     if kind == 1:
-        px = _bc1(blocks, False)
+        px = _bc1(blocks, False, replicate)
     elif kind == 2:
-        px = _bc1(blocks[:, 8:], True)
+        px = _bc1(blocks[:, 8:], True, replicate)
         a = blocks[:, :8, None] >> np.array([0, 4], np.uint8) & 15
         px[..., 3] = a.reshape(-1, 16) * 17
     elif kind == 3:
-        px = _bc1(blocks[:, 8:], True)
+        px = _bc1(blocks[:, 8:], True, replicate)
         px[..., 3] = _alpha8(blocks[:, :8])
     elif kind == 4:
         px = _alpha8(blocks)[..., None]

@@ -35,18 +35,26 @@ decodes what the JAX package's imaging library (PIL) turns into its arrays:
     Netpbm (``io.netpbm``: P1-P6, Pf and Pillow's own headers), QOI
     (``io.qoi``) and ICO / CUR (``io.ico``: the entry Pillow picks, PNG or
     BMP with its mask), in PIL's modes, ``pil_convert`` adding the modes
-    they bring ("I;16", "I", "F", "CMYK", "RGBa", "PA").
+    they bring ("I;16", "I", "F", "CMYK", "RGBa", "PA");
+  * the TIFF forms PIL reads through libtiff: JPEG (``io.jpeg`` behind
+    JPEGTables), YCbCr through libtiff's RGBA interface, LZMA, old-style
+    LZW, 12-bit gray; PSD's composite (``io.psd``), SGI (``io.sgi``),
+    BLP and FTEX (``io.blp``), PCX and DCX's first page (``io.pcx``), in
+    PIL's modes.
 
 ``read_image`` dispatches by signature (PNG, JPEG, ``BM``, ``GIF87a`` /
 ``GIF89a``, ``RIFF....WEBP``, a DIB's header size, ``P`` and a Netpbm
 letter, ``DDS ``, ICO / CUR with entries, ``qoif``, the TIFF and BigTIFF
-byte-order marks) and tries TGA, which has none, last. 12- and 16-bit,
-hierarchical and arithmetic lossless JPEGs, PNGs of other bit depths,
-the forms of each container PIL refuses, PAM and colour PFM (which PIL
-does not open), and the formats left (PSD, SGI, PCX, JPEG 2000, ...;
-``_describe`` names them by signature, "not yet ported"), with the forms
-of these formats left for later (JPEG and CCITT TIFFs, YCbCr and CIELab,
-...), raise ``NotImplementedError`` naming the form.
+byte-order marks, ``8BPS``, SGI's magic, ``BLP1`` / ``BLP2``, ``FTEX``,
+DCX's magic, a PCX header with a nonempty box) and tries TGA, which has
+none, last.
+12- and 16-bit, hierarchical and arithmetic lossless JPEGs, PNGs of other
+bit depths, the forms of each container PIL refuses, PAM and colour PFM
+(which PIL does not open), and the formats left (ICNS, JPEG 2000, AVIF,
+...; ``_describe`` names them by signature, "not yet ported"), with the
+forms of the ported formats left for later (CCITT, Zstandard and
+old-style JPEG TIFFs, CIELab TIFFs and LAB PSDs, ...), raise
+``NotImplementedError`` naming the form.
 ``encode_png`` and ``write_png`` write 8-bit gray / RGB / RGBA PNGs.
 """
 
@@ -57,13 +65,17 @@ import zlib
 
 import numpy as np
 
+from .blp import read_blp, read_ftex
 from .bmp import read_bmp
 from .dds import read_dds
 from .gif import read_gif
 from .ico import read_ico
 from .jpeg import _cmyk_rgba, read_jpeg
 from .netpbm import read_netpbm
+from .pcx import is_pcx, read_dcx, read_pcx
+from .psd import read_psd
 from .qoi import read_qoi
+from .sgi import read_sgi
 from .tga import is_tga, read_tga
 from .tiff import read_tiff, unpremultiply
 from .webp import read_webp
@@ -168,13 +180,10 @@ def _samples(raw: bytes, pos: int, w: int, h: int, c: int, depth: int):
 
 # the formats the imaging library opens and ``read_image`` does not decode
 # yet, by signature: (offset, the bytes there, name)
-_LEFT = ((0, b"8BPS", "PSD"), (0, b"\x01\xda", "SGI"),
-         (0, b"icns", "ICNS"), (0, b"\xffO\xffQ", "JPEG 2000 codestream"),
+_LEFT = ((0, b"icns", "ICNS"), (0, b"\xffO\xffQ", "JPEG 2000 codestream"),
          (4, b"jP  \r\n\x87\n", "JPEG 2000"), (4, b"ftypavi", "AVIF"),
-         (0, b"BLP", "BLP"), (0, b"FTEX", "FTEX"),
          (0, b"\x59\xa6\x6a\x95", "Sun raster"), (0, b"DanM", "MSP"),
-         (0, b"LinS", "MSP"), (0, b"\xb1\x68\xde\x3a", "DCX"),
-         (0, b"SIMPLE", "FITS"), (0, b"%!PS", "EPS"),
+         (0, b"LinS", "MSP"), (0, b"SIMPLE", "FITS"), (0, b"%!PS", "EPS"),
          (0, b"\xc5\xd0\xd3\xc6", "EPS"), (0, b"\xd7\xcd\xc6\x9a", "WMF"),
          (40, b" EMF", "EMF"), (0, b"\x00\x00\x01\xb3", "MPEG"),
          (0, b"BUFR", "BUFR"), (0, b"GRIB", "GRIB"),
@@ -196,9 +205,6 @@ def _describe(data: bytes) -> str:
     for off, sig, name in _REFUSED:
         if data[off:off + len(sig)] == sig:
             return name + ", which the imaging library does not open"
-    if data[:1] == b"\x0a" and data[1:2] in (b"\x00", b"\x02", b"\x03",
-                                             b"\x05"):
-        return "PCX"
     if data[:4] == b"RIFF":
         return "RIFF (not a WebP of VP8, VP8L or VP8X)"
     if data[:4] == b"\x00\x00\x01\x00":
@@ -297,12 +303,25 @@ def read_image(data_or_path) -> np.ndarray:
     if data[:4] in _TIFF:
         name = "BigTIFF" if data[2] == 43 else "TIFF"
         return pil_convert(*_decoded(name, read_tiff, data))
+    if data[:4] == b"8BPS":
+        return pil_convert(*_decoded("PSD", read_psd, data))
+    if data[:2] == b"\x01\xda":
+        return pil_convert(*_decoded("SGI", read_sgi, data))
+    if data[:4] in (b"BLP1", b"BLP2"):
+        return pil_convert(*_decoded("BLP", read_blp, data))
+    if data[:4] == b"FTEX":
+        return pil_convert(*_decoded("FTEX", read_ftex, data))
+    if data[:4] == b"\xb1\x68\xde\x3a":
+        return pil_convert(*_decoded("DCX", read_dcx, data))
+    if is_pcx(data):             # else Pillow tries TGA, as below
+        return pil_convert(*_decoded("PCX", read_pcx, data))
     name = _describe(data)
     if name.startswith("unknown") and is_tga(data):
         return pil_convert(*_decoded("TGA", read_tga, data))
     raise NotImplementedError(
         f"image format {name}: PNG, JPEG, BMP/DIB, GIF, WebP, TGA, DDS, "
-        "TIFF, Netpbm, QOI and ICO/CUR are decoded")
+        "TIFF, Netpbm, QOI, ICO/CUR, PSD, SGI, BLP, FTEX, PCX and DCX are "
+        "decoded")
 
 
 def _icon(data: bytes, cursor: bool) -> np.ndarray:

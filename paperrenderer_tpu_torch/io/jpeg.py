@@ -903,9 +903,14 @@ def _restart_segments(scan: bytes):
     return segs
 
 
-def read_jpeg(data: bytes) -> np.ndarray:
+def read_jpeg(data: bytes, colorspace: str | None = None) -> np.ndarray:
     """Decode a JPEG (module docstring) -> u8 [H, W] gray, [H, W, 3] RGB or
-    [H, W, 4] RGBA (CMYK / YCCK), PIL's arrays to the bit."""
+    [H, W, 4] RGBA (CMYK / YCCK), PIL's arrays to the bit. ``colorspace``
+    overrides libjpeg's guess as libtiff does for a JPEG-in-TIFF strip:
+    "ycbcr" converts three components to RGB, "none" returns the upsampled
+    components as they are, [H, W] or [H, W, components]; "cmyk" reads
+    four components as CMYK, Adobe's YCCK transform ignored (Pillow's
+    "CMYK" JPEG mode, as its BLP plugin sets it)."""
     qt, dc_tabs, ac_tabs = {}, {}, {}
     frame, restart, adobe, jfif, mode = None, 0, None, False, None
     dc_cond = {t: (0, 1) for t in range(16)}     # DAC defaults: L 0, U 1
@@ -1036,6 +1041,12 @@ def read_jpeg(data: bytes) -> np.ndarray:
     planes = [_upsample(p, hmax // c["h"], vmax // c["v"],
                         not lossless)[:hgt, :wid]
               for p, c in zip(planes, comps)]
+    if colorspace == "none":
+        return planes[0] if len(planes) == 1 else np.stack(planes, -1)
+    if colorspace == "ycbcr" and len(planes) == 3:
+        jfif = True
+    if colorspace == "cmyk" and len(planes) == 4:
+        adobe = 0
     return _color(planes, tuple(c["id"] for c in comps), adobe, jfif,
                   lossless)
 

@@ -18,22 +18,33 @@ reads it, to the bit, and returns the image in Pillow's mode
   * strips and tiles, chunky and planar layouts;
   * uncompressed files as Pillow's own raw decoder reads them (a tile or
     strip a call, the planar bands by the raw mode's letters, the
-    ``FillOrder`` 2 modes' bit reversal), and PackBits, LZW (the
-    early-change codes) and deflate (8 and 32946) as Pillow's libtiff
-    decoder does: the raw bytes bit-reversed for ``FillOrder`` 2, the
-    horizontal predictor (2) on 8, 16 and 32-bit samples and the
-    floating-point predictor (3), 16 and 32-bit samples in the host's
-    (little-endian) order, and Pillow's raw mode applied after, the one
-    it keeps for big-endian files included (its "F;32BF", "I;32BS" and
-    "I;16BS" then read the little-endian words as big-endian);
+    ``FillOrder`` 2 modes' bit reversal; YCbCr as its table's "RGBX",
+    12-bit gray as "I;12"), and PackBits, LZW (the early-change codes,
+    and the old-style codes of libtiff's compat decoder), deflate (8 and
+    32946) and LZMA (34925, an .xz stream) as Pillow's libtiff decoder
+    does: the raw bytes bit-reversed for ``FillOrder`` 2, the horizontal
+    predictor (2) on 8, 16 and 32-bit samples and the floating-point
+    predictor (3), 16 and 32-bit samples in the host's (little-endian)
+    order, and Pillow's raw mode applied after, the one it keeps for
+    big-endian files included (its "F;32BF", "I;32BS" and "I;16BS" then
+    read the little-endian words as big-endian);
+  * JPEG (7): each strip or tile an abbreviated stream after the
+    JPEGTables one, checked as libtiff checks it (size, components,
+    precision, sampling) and decoded by ``io.jpeg``: chunky YCbCr
+    converted to RGB by libjpeg (Pillow's JPEGCOLORMODE_RGB), the other
+    photometrics' components as they are;
+  * compressed YCbCr as Pillow reads it through libtiff's RGBA interface
+    (``_ycbcr_rgba``): the packed blocks of every subsampling libtiff
+    puts, its float and fixed-point tables (``tif_color.c``) with
+    YCbCrCoefficients and ReferenceBlackWhite, its buffers and skews;
   * the ``Orientation`` tag, applied after decoding as Pillow's
     ``exif_transpose`` does.
 
-JPEG (6 / 7), CCITT (2 / 3 / 4) and the other libtiff codecs, YCbCr and
-CIELab photometrics and 12-bit gray raise NotImplementedError naming the
-form and "not yet ported"; what Pillow refuses (modes outside its table,
-old-style LZW, truncated strips) raises NotImplementedError naming the
-form.
+Old-style JPEG (6), CCITT (2 / 3 / 4 / 32771), Zstandard, WebP, SGILog
+and ThunderScan compression and the CIELab photometric raise
+NotImplementedError naming the form and "not yet ported"; what Pillow
+refuses (modes outside its table, truncated strips, planar subsampled or
+one-sample YCbCr, ...) raises NotImplementedError naming the form.
 """
 
 from __future__ import annotations
@@ -42,6 +53,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from .jpeg import read_jpeg
 
 # Pillow's OPEN_INFO for both byte orders: (photometric, sample formats,
 # fill order, bits a sample, extra samples) -> (mode, raw mode); "MM" or
@@ -102,7 +115,7 @@ _COMPRESSIONS = {1: "raw", 2: "CCITT RLE", 3: "CCITT group 3",
                  32773: "PackBits", 32809: "ThunderScan", 32946: "deflate",
                  34676: "SGILog", 34677: "SGILog24", 34925: "LZMA",
                  50000: "Zstandard", 50001: "WebP"}
-_PORTED = (1, 5, 8, 32773, 32946)
+_PORTED = (1, 5, 7, 8, 32773, 32946, 34925)
 _PHOTOMETRICS = {0: "min-is-white", 1: "min-is-black", 2: "RGB",
                  3: "palette", 4: "transparency mask", 5: "CMYK",
                  6: "YCbCr", 8: "CIELab"}
@@ -111,6 +124,9 @@ _INT_TYPES = {1: (1, "B"), 3: (2, "H"), 4: (4, "L"), 6: (1, "b"),
               8: (2, "h"), 9: (4, "l"), 13: (4, "L"), 16: (8, "Q")}
 # tags whose Pillow length is 1 (one value, not a tuple)
 _SINGLE = (256, 257, 259, 262, 266, 274, 277, 278, 284, 317, 322, 323)
+# YCbCrCoefficients and ReferenceBlackWhite, which libtiff reads as floats
+_FLOAT_TAGS = (529, 532)
+_FLOAT_TYPES = {5: (8, "L"), 10: (8, "l"), 11: (4, "f"), 12: (8, "d")}
 _BITREV = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 
 
@@ -128,15 +144,30 @@ def _ifd(data: bytes, bo: str, big: bool, pos: int) -> dict:
         tag, typ, n = struct.unpack_from(e + ("HHQ" if big else "HHL"), data,
                                          pos + i * entry)
         vpos = pos + i * entry + (12 if big else 8)
-        if typ not in _INT_TYPES:
+        if typ in _INT_TYPES:
+            unit, code = _INT_TYPES[typ]
+        elif tag in _FLOAT_TAGS and typ in _FLOAT_TYPES:
+            unit, code = _FLOAT_TYPES[typ]
+        elif tag == 347 and typ in (1, 7):    # JPEGTables: bytes
+            unit, code = 1, "s"
+        else:
             continue
-        unit, code = _INT_TYPES[typ]
         size = unit * n
         if size > inline:
             (vpos,) = struct.unpack_from(e + ("Q" if big else "L"), data, vpos)
         if not size or vpos + size > len(data):
             continue                          # Pillow skips the tag
-        values = struct.unpack_from(f"{e}{n}{code}", data, vpos)
+        if code == "s":
+            tags[tag] = data[vpos:vpos + size]
+            continue
+        if typ in (5, 10):                    # libtiff: float(num / den)
+            pairs = np.asarray(struct.unpack_from(f"{e}{2 * n}{code}", data,
+                                                  vpos), np.float32)
+            num, den = pairs[0::2], pairs[1::2]
+            values = tuple(np.where(den == 0, np.float32(0),
+                                    num / np.where(den == 0, 1, den)))
+        else:
+            values = struct.unpack_from(f"{e}{n}{code}", data, vpos)
         tags[tag] = values[0] if tag in _SINGLE else values
     return tags
 
@@ -159,20 +190,25 @@ def _packbits(raw: bytes, need: int) -> bytes:
 
 
 def _lzw(raw: bytes, need: int) -> bytes:
-    """libtiff's LZW decoder (new style: codes high bits first, the width
-    growing one code early) -> up to ``need`` bytes."""
-    if len(raw) >= 2 and raw[0] == 0 and raw[1] & 1:
-        raise NotImplementedError("TIFF LZW: old-style (LSB-first) codes "
-                                  "not yet ported")
+    """libtiff's LZW decoder -> up to ``need`` bytes: new style (codes high
+    bits first, the width growing one code early) or, where the stream
+    opens with a clear code written low bits first, the old style of its
+    compat decoder (low bits first, the width growing at 512, 1024,
+    2048 entries)."""
+    old = len(raw) >= 2 and raw[0] == 0 and raw[1] & 1
+    late = 1 if old else 0
     table = [bytes((i,)) for i in range(256)] + [b"", b""]
     buf = raw + b"\x00\x00\x00"
     nbits, pos, end = 9, 0, 8 * len(raw)
     out, prev = bytearray(), None
     while len(out) < need and pos + nbits <= end:
         k = pos >> 3
-        code = (int.from_bytes(buf[k:k + 3], "big") >> (24 - (pos & 7)
-                                                        - nbits)) & (
-            (1 << nbits) - 1)
+        if old:
+            code = (int.from_bytes(buf[k:k + 3], "little") >> (pos & 7)) & (
+                (1 << nbits) - 1)
+        else:
+            code = (int.from_bytes(buf[k:k + 3], "big") >> (
+                24 - (pos & 7) - nbits)) & ((1 << nbits) - 1)
         pos += nbits
         if code == 256:                       # clear
             del table[258:]
@@ -194,7 +230,7 @@ def _lzw(raw: bytes, need: int) -> bytes:
             raise NotImplementedError("TIFF LZW: corrupted table")
         out += entry
         prev = entry
-        if len(table) + 1 >= 1 << nbits and nbits < 12:
+        if len(table) + 1 - late >= 1 << nbits and nbits < 12:
             nbits += 1
     return bytes(out)
 
@@ -206,12 +242,62 @@ def _inflate(raw: bytes, need: int) -> bytes:
         raise NotImplementedError(f"TIFF deflate: {exc}") from exc
 
 
+def _unlzma(raw: bytes, need: int) -> bytes:
+    """libtiff's LZMA codec: an .xz stream (``lzma`` is imported here, so
+    that the module imports where Python lacks it)."""
+    import lzma
+
+    try:
+        return lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(raw, need)
+    except lzma.LZMAError as exc:
+        raise NotImplementedError(f"TIFF LZMA: {exc}") from exc
+
+
+def _expand(comp: int, raw: bytes, need: int) -> bytes:
+    """A strip or tile's bytes through libtiff's codec ``comp`` (raw,
+    PackBits, LZW, deflate, LZMA) -> up to ``need`` bytes."""
+    if comp == 1:
+        return raw[:need]
+    if comp == 32773:
+        return _packbits(raw, need)
+    if comp == 5:
+        return _lzw(raw, need)
+    if comp == 34925:
+        return _unlzma(raw, need)
+    return _inflate(raw, need)
+
+
+def _chunk(lay, data: bytes, index: int) -> bytes:
+    """Strip or tile ``index``'s stored bytes, bit-reversed for FillOrder
+    2 (libtiff reverses them before its codec)."""
+    off, cnt = lay.offsets[index], lay.counts[index]
+    raw = data[off:off + cnt]
+    if lay.fill == 2:
+        raw = _BITREV[np.frombuffer(raw, np.uint8)].tobytes()
+    return raw
+
+
+def _read_on(lay, data: bytes, comp: int, index: int, size: int) -> bytes:
+    """Strip or tile ``index`` through its codec for libtiff's RGBA
+    interface, which goes on after a codec fails: what it decoded, or
+    nothing."""
+    try:
+        return _expand(comp, _chunk(lay, data, index), size)
+    except NotImplementedError:
+        return b""
+
+
 class _Layout:
     """What the decoders need of the directory."""
 
     def __init__(self, tags, bo, bits, spp, planar, fill, fmt):
         self.bo, self.bits, self.spp, self.fmt = bo, bits, spp, fmt
         self.planar, self.fill = planar, fill
+        self.photo = tags.get(262, 0)
+        self.tables = tags.get(347)
+        sub = tags.get(530, (2, 2))
+        self.sub = tuple(sub) if isinstance(sub, tuple) and len(sub) == 2 \
+            else (2, 2)
         self.w, self.h = tags[256], tags[257]
         self.bps = bits[0]
         self.tiled = 324 in tags and 273 not in tags
@@ -262,19 +348,11 @@ def _decoded(lay: _Layout, data: bytes, comp: int, predictor: int, index: int,
              rows: int, row_bytes: int, stride: int) -> np.ndarray:
     """Strip or tile ``index`` through libtiff's reading: [rows,
     row_bytes] bytes, the samples in the host's order."""
-    off, cnt = lay.offsets[index], lay.counts[index]
-    raw = data[off:off + cnt]
-    if lay.fill == 2:
-        raw = _BITREV[np.frombuffer(raw, np.uint8)].tobytes()
+    raw = _chunk(lay, data, index)
     need = rows * row_bytes
-    if comp == 1:
-        out = raw[:need]
-    elif comp == 32773:
-        out = _packbits(raw, need)
-    elif comp == 5:
-        out = _lzw(raw, need)
-    else:
-        out = _inflate(raw, need)
+    if comp == 7:
+        return _jpeg(lay, raw, index, rows).reshape(rows, row_bytes)
+    out = _expand(comp, raw, need)
     if len(out) < need:
         raise NotImplementedError(
             f"TIFF {_COMPRESSIONS[comp]}: not enough data in strip or tile "
@@ -291,6 +369,200 @@ def _decoded(lay: _Layout, data: bytes, comp: int, predictor: int, index: int,
             f"of format {lay.fmt}")
     return _predict(buf, rows, row_bytes, lay.bps, stride, predictor,
                     lay.bo == "MM")
+
+
+_SOF = set(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+
+
+def _jpeg_frame(stream: bytes):
+    """A JPEG stream's frame header -> (precision, height, width, [(h, v)
+    a component])."""
+    pos = 2
+    while pos + 4 <= len(stream):
+        marker = stream[pos + 1]
+        if stream[pos] != 0xFF or marker in (0xD9, 0xDA):
+            break
+        (length,) = struct.unpack_from(">H", stream, pos + 2)
+        if marker in _SOF:
+            prec, hgt, wid, nc = struct.unpack_from(">BHHB", stream, pos + 4)
+            samp = [stream[pos + 11 + 3 * k] for k in range(nc)]
+            return prec, hgt, wid, [(b >> 4, b & 15) for b in samp]
+        pos += 2 + length
+    raise NotImplementedError("TIFF JPEG: no frame header in a strip or tile")
+
+
+def _jpeg(lay, raw: bytes, index: int, rows: int) -> np.ndarray:
+    """Strip or tile ``index`` of a JPEG-compressed TIFF as libtiff's JPEG
+    codec hands it to Pillow: the stream after the JPEGTables stream,
+    checked as libtiff checks it, YCbCr (chunky) converted to RGB by
+    libjpeg (Pillow sets JPEGCOLORMODE_RGB), other photometrics'
+    components as they are -> u8 [rows, segment width * samples]."""
+    stream = raw
+    if lay.tables:
+        tables = lay.tables[:-2] if lay.tables.endswith(b"\xff\xd9") \
+            else lay.tables
+        stream = tables + raw[2:]
+    if raw[:2] != b"\xff\xd8":
+        raise NotImplementedError(
+            f"TIFF JPEG: strip or tile {index} is not a JPEG stream")
+    prec, jh, jw, samp = _jpeg_frame(stream)
+    width = lay.tw
+    height = rows if lay.tiled else min(lay.tl, lay.h - index * lay.tl)
+    if jw != width or jh < height or (jh > height and (
+            lay.tiled or index != len(lay.offsets) - 1)):
+        raise NotImplementedError(
+            f"TIFF JPEG: a {jw}x{jh} stream in a {width}x{height} strip or "
+            "tile")
+    want = lay.sub if lay.photo == 6 else (1, 1)
+    spp = 1 if lay.planar == 2 else lay.spp
+    if len(samp) != spp or prec != lay.bps or samp[0] != want or any(
+            s != (1, 1) for s in samp[1:]):
+        raise NotImplementedError(
+            f"TIFF JPEG: {len(samp)} components of {prec} bits sampled "
+            f"{samp} in a strip of {spp} samples of {lay.bps} bits "
+            f"sampled {want}")
+    try:
+        px = read_jpeg(stream, "ycbcr" if lay.photo == 6 else "none")
+    except (ValueError, IndexError, KeyError, StopIteration,
+            struct.error) as exc:
+        raise NotImplementedError(
+            f"TIFF JPEG: strip or tile {index}: {exc}") from exc
+    return np.ascontiguousarray(px[:rows]).reshape(rows, -1)
+
+
+def _ycbcr_tables(luma, ref):
+    """libtiff's ``TIFFYCbCrToRGBInit`` (``tif_color.c``) in its float
+    and 16-bit fixed-point steps -> (Y, Cr->R, Cb->B, Cr->G, Cb->G)
+    tables over the 256 codes."""
+    f32 = np.float32
+    lr, lg, lb = (f32(v) for v in luma)
+    ref = [f32(v) for v in ref]
+
+    def fix(x):
+        return int(np.float64(f32(x) * f32(65536)) + 0.5)
+
+    def clamp(x):
+        return min(max(x, f32(0)), f32(2))
+
+    f1 = f32(2) - f32(2) * lr
+    f3 = f32(2) - f32(2) * lb
+    d1, d3 = fix(clamp(f1)), fix(clamp(f3))
+    d2, d4 = -fix(clamp(lr * f1 / lg)), -fix(clamp(lb * f3 / lg))
+
+    def code2v(c, rb, rw, cr):
+        den = rw - rb
+        v = f32(c - np.trunc(rb).astype(np.int64)) * f32(cr) / (
+            den if den != 0 else f32(1))
+        return np.trunc(np.clip(v, f32(-4096), f32(4096))).astype(np.int64)
+
+    x = np.arange(256) - 128
+    cr = code2v(x, ref[4] - f32(128), ref[5] - f32(128), 127)
+    cb = code2v(x, ref[2] - f32(128), ref[3] - f32(128), 127)
+    y = code2v(x + 128, ref[0], ref[1], 255)
+    half = 1 << 15
+    return (y, (d1 * cr + half) >> 16, (d3 * cb + half) >> 16, d2 * cr,
+            d4 * cb + half)
+
+
+def _ycbcr_rgb(tabs, y, cb, cr) -> np.ndarray:
+    """libtiff's ``TIFFYCbCrtoRGB`` over u8 planes -> u8 [..., 3]."""
+    ty, cr_r, cb_b, cr_g, cb_g = tabs
+    yy = ty[y]
+    rgb = (yy + cr_r[cr], yy + ((cb_g[cb] + cr_g[cr]) >> 16), yy + cb_b[cb])
+    return np.clip(np.stack(rgb, -1), 0, 255).astype(np.uint8)
+
+
+def _ycbcr_planes(lay, data, comp, predictor) -> np.ndarray:
+    """A planar YCbCr file's three planes of bytes as libtiff's RGBA
+    interface reads them (no subsampling: its only planar put routine),
+    a codec's failure leaving the plane's buffer as it was."""
+    planes = np.zeros((3, lay.h, lay.w), np.uint8)
+    bufs = np.zeros((3, lay.tl * lay.tw), np.uint8)
+    index = 0
+    for plane in range(3):
+        for y in range(0, lay.h, lay.tl):
+            nrow = min(lay.tl, lay.h - y)
+            for x in range(0, lay.w, lay.tw) if lay.tiled else (0,):
+                size = (lay.tl if lay.tiled else nrow) * lay.tw
+                got = _read_on(lay, data, comp, index, size)
+                index += 1
+                buf = bufs[plane]
+                buf[:len(got)] = np.frombuffer(got, np.uint8)
+                if predictor == 2 and len(got) == size:
+                    buf[:size] = buf[:size].reshape(-1, lay.tw).cumsum(
+                        1, dtype=np.uint8).reshape(-1)
+                ew = min(lay.tw, lay.w - x)
+                planes[plane, y:y + nrow, x:x + ew] = buf[:size].reshape(
+                    -1, lay.tw)[:nrow, :ew]
+    return planes
+
+
+# libtiff's put routines for chunky YCbCr (h, v); other samplings refused
+_YCBCR_SAMPLINGS = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
+
+
+def _ycbcr_rgba(lay, data, comp, predictor, tags, form) -> np.ndarray:
+    """A compressed YCbCr file as Pillow reads it through libtiff's RGBA
+    image interface (``tif_getimage.c``), a strip or a row of tiles a call:
+    each strip or tile's packed blocks of h x v Y samples, then Cb and Cr,
+    into a buffer kept from one strip or tile to the next (a strip reads
+    only ``TIFFScanlineSize`` x its rows rounded to v, and a codec's
+    failure leaves the buffer as it is: the interface goes on); the
+    predictor over scanlines; the pixels through ``_ycbcr_tables`` ->
+    u8 [h, w, 3] (Pillow's "RGBX" of the RGBA raster)."""
+    hs, vs = lay.sub
+    if (hs, vs) not in (_YCBCR_SAMPLINGS if lay.planar == 1 else ((1, 1),)):
+        raise NotImplementedError(
+            f"{form}{', planar' if lay.planar == 2 else ''}: YCbCr "
+            f"subsampling {hs}x{vs}")
+    luma = tags.get(529, (0.299, 0.587, 0.114))
+    ref = tags.get(532, (0, 255, 128, 255, 128, 255))
+    if len(luma) != 3 or len(ref) != 6 or np.isnan(luma).any() or \
+            np.isnan(ref).any() or luma[1] == 0:
+        raise NotImplementedError(f"{form}: YCbCr coefficients {luma}, "
+                                  f"reference black and white {ref}")
+    tabs = _ycbcr_tables(luma, ref)
+    if lay.planar == 2:
+        return _ycbcr_rgb(tabs, *_ycbcr_planes(lay, data, comp, predictor))
+    blk = hs * vs + 2
+    across = -(-lay.tw // hs)                 # blocks a row of blocks
+    row_size = across * blk
+    scanline = row_size // vs
+    buf = np.zeros(row_size * -(-lay.tl // vs), np.uint8)
+    out = np.zeros((lay.h, lay.w, 3), np.uint8)
+    # the bytes a clipped tile's put routine skips after each row of blocks
+    # it reads: (w - visible) // h blocks, of 10 bytes for 4x4 (libtiff's)
+    skip = 10 if (hs, vs) == (4, 4) else blk
+    index = 0
+    for y in range(0, lay.h, lay.tl):
+        nrow = min(lay.tl, lay.h - y)
+        for x in range(0, lay.w, lay.tw) if lay.tiled else (0,):
+            rows = lay.tl if lay.tiled else nrow
+            size = row_size * -(-rows // vs)
+            if not lay.tiled:                 # TIFFScanlineSize x rows
+                size = min(size, -(-rows // vs) * vs * scanline)
+            got = _read_on(lay, data, comp, index, size)
+            index += 1
+            buf[:len(got)] = np.frombuffer(got, np.uint8)
+            prow = lay.tw * 3 if lay.tiled else scanline   # predictor rows
+            if predictor == 2 and len(got) == size and size % prow == 0 \
+                    and prow % 3 == 0:
+                buf[:size] = buf[:size].reshape(-1, prow // 3, 3).cumsum(
+                    1, dtype=np.uint8).reshape(-1)
+            nb = -(-nrow // vs)
+            ew = min(lay.tw, lay.w - x)
+            nx = -(-ew // hs)                 # blocks read a row of blocks
+            step = nx * blk + (lay.tw - ew) // hs * skip
+            at = (np.arange(nb)[:, None, None] * step
+                  + np.arange(nx)[None, :, None] * blk + np.arange(blk))
+            b = buf[at]
+            ys = b[..., :hs * vs].reshape(nb, nx, vs, hs).transpose(
+                0, 2, 1, 3).reshape(nb * vs, nx * hs)
+            cb = np.repeat(np.repeat(b[..., hs * vs], vs, 0), hs, 1)
+            cr = np.repeat(np.repeat(b[..., hs * vs + 1], vs, 0), hs, 1)
+            out[y:y + nrow, x:x + ew] = _ycbcr_rgb(tabs, ys, cb, cr)[
+                :nrow, :ew]
+    return out
 
 
 # raw-mode letters -> output channel
@@ -319,10 +591,32 @@ def _rawbits(rawmode: str) -> int:
 def unpack(rawmode: str, rows: np.ndarray, w: int) -> np.ndarray:
     """Pillow's unpacker ``rawmode`` over rows of bytes [h, n] -> [h, w]
     or [h, w, channels] in the raw mode's image mode: "1" 0 / 255, "L" /
-    "P" bytes, "I;16" u16, "I" i32, "F" f32, and RGB(A) / CMYK / LA / PA
-    bytes (associated alpha left premultiplied: ``unpremultiply``)."""
+    "P" bytes, "I;16" u16 ("I;12": 12-bit samples packed high bits first),
+    "I" i32, "F" f32, and RGB(A) / CMYK / LA / PA bytes (associated alpha
+    left premultiplied: ``unpremultiply``); "P;2L" / "P;4L" bit planes and
+    "RGB;L" colour lines, a line after another; the 16-bit forms ("L;16B",
+    "RGB;16B", ...) keep one byte of each sample."""
     h = rows.shape[0]
     base, _, suffix = rawmode.partition(";")
+    if suffix in ("2L", "4L") or rawmode == "RGB;L":
+        # planes (PCX): a line each, ceil(w / 8) bytes a bit plane or w
+        # bytes a colour line (not the file's padded stride)
+        n = int(suffix[0]) if base == "P" else 3
+        s = -(-w // 8) if base == "P" else w
+        lines = rows[:, :n * s].reshape(h, n, s)
+        if base != "P":
+            return lines.transpose(0, 2, 1).copy()
+        bits = (lines[..., None] >> np.arange(7, -1, -1, dtype=np.uint8)) & 1
+        bits = bits.reshape(h, n, -1)[..., :w].astype(np.uint8)
+        return sum(bits[:, k] << k for k in range(n)).astype(np.uint8)
+    if rawmode == "I;12":                     # two samples in three bytes
+        v = np.pad(rows[:, :-(-3 * w // 2)], ((0, 0), (0, 1))).astype(
+            np.uint16)
+        a = v[:, 0:-1:3] << 4 | v[:, 1::3] >> 4
+        b = (v[:, 1:-1:3] & 15) << 8 | v[:, 2::3]
+        return np.stack([a[:, :(w + 1) // 2], np.pad(
+            b, ((0, 0), (0, (w + 1) // 2 - b.shape[1])))], -1).reshape(
+            h, -1)[:, :w]
     if "R" in suffix:
         rows = _BITREV[rows]
     if base in ("1", "L", "P") and suffix[:1] in ("2", "4") or base == "1" \
@@ -531,9 +825,14 @@ def read_tiff(data: bytes):
             f"{form}: no mode (sample format {fmt}, fill order {fill}, "
             f"extra samples {extra})")
     mode, rawmode = OPEN_INFO[key]
-    if comp not in _PORTED or photo in (6, 8) or rawmode == "I;12":
-        raise NotImplementedError(f"{form}: not yet ported")
     planar = tags.get(284, 1)
+    if comp not in _PORTED or photo == 8 or photo == 6 and comp == 7 and \
+            planar != 1:
+        raise NotImplementedError(
+            f"{form}{', planar' if planar == 2 else ''}: not yet ported")
+    if photo == 6 and comp != 1 and mode != "RGB":
+        raise NotImplementedError(
+            f"{form}: libtiff reads YCbCr of three samples only")
     lay = _Layout(tags, bo, bits, spp, planar, fill, tuple(fmt))
     if lay.offsets is None:
         raise NotImplementedError(f"{form}: unknown data organization")
@@ -542,9 +841,13 @@ def read_tiff(data: bytes):
         if rawmode in _NO_UNPACKER:
             raise NotImplementedError(f"{form}: no unpacker for {rawmode}")
         _raw_tiles(lay, data, mode, rawmode, img, n_base + len(extra))
+    elif lay.counts is None:
+        raise NotImplementedError(f"{form}: no strip byte counts")
+    elif photo == 6 and comp != 7:
+        img = _ycbcr_rgba(lay, data, comp, tags.get(317, 1), tags, form)
     else:
-        if lay.counts is None:
-            raise NotImplementedError(f"{form}: no strip byte counts")
+        if photo == 6:                        # libjpeg's RGB
+            rawmode = "RGB"
         if fill == 2:
             mode, rawmode = OPEN_INFO[key[:3] + (1,) + key[4:]]
         if rawmode == "I;16":

@@ -1,9 +1,10 @@
 """The PyTorch port's ``read_image`` on what its imaging-library reference
 (the JAX package's ``read_image``, PIL) makes of PNG transparency keys,
-of the container formats BMP/DIB, TGA, GIF, WebP, DDS, TIFF, Netpbm, QOI
-and ICO/CUR, and on the forms both packages refuse, on the CPU.
+of the container formats BMP/DIB, TGA, GIF, WebP, DDS, TIFF, Netpbm, QOI,
+ICO/CUR, PSD, SGI, PCX/DCX, BLP and FTEX, and on the forms both packages
+refuse, on the CPU.
 
-Nine tests (the PNG and JPEG forms both decode are
+Thirteen tests (the PNG and JPEG forms both decode are
 tests/test_torch_io.py::test_image_formats_match_jax):
 
 1. a gray PNG's ``tRNS`` key: 16-bit gray (PIL's "I;16" -> RGBA compares
@@ -28,15 +29,25 @@ tests/test_torch_io.py::test_image_formats_match_jax):
 5. refusals: BMP bitfields outside Pillow's sets, BI_JPEG, BI_PNG, 2-bit
    BMPs, 32-bit and 15-bit TGA colour maps, a TGA run past its row, DDS,
    TIFF and QOI headers with no image, PAM and colour PFM, a TIFF with a
-   broken JPEG strip, a big-endian BigTIFF: the port names the form where
-   PIL raises; CCITT and YCbCr TIFFs, which PIL reads, are named "not yet
-   ported"; chip_smoke.py's GLTF_CONTAINERS2 forms decode bitwise; a
-   .gltf with an external .webp image and one with an embedded BMP load
-   as the JAX loader loads them;
+   broken JPEG strip, a big-endian BigTIFF, 16-bit / ZIP / PSB PSDs, BLP2
+   raw BGRA, ...: the port names the form where PIL raises; the forms PIL
+   reads and the port leaves for later (TIFF CCITT, CIELab, old-style
+   JPEG, Zstandard; PSD LAB) are named "not yet ported"; chip_smoke.py's
+   GLTF_CONTAINERS2 and GLTF_CONTAINERS3 forms decode bitwise; a .gltf
+   with an external .webp image and one with an embedded BMP load as the
+   JAX loader loads them;
 6-9. DDS, TIFF / BigTIFF, Netpbm + QOI and ICO / CUR, bitwise at the four
    sizes of 3: PIL's writers' files, chip_smoke.py's numpy writers'
    (``write_dds`` and ``encode_bcn``, ``write_tiff``, ``write_ppm``,
-   ``write_qoi``, ``write_ico``) and seeded random BC blocks.
+   ``write_qoi``, ``write_ico``) and seeded random BC blocks;
+10-13. PSD, the TIFF forms PIL reads through libtiff (JPEG, YCbCr, LZMA,
+   old-style LZW, 12-bit gray), SGI + PCX / DCX and BLP / FTEX, bitwise
+   (or refused by both where PIL refuses, each case compared bitwise at
+   one size at least) at 1x1, 7x5 and 33x17: PIL's
+   writers where it has one (SGI, PCX, BLP palettes, TIFF JPEG and LZMA)
+   and chip_smoke.py's numpy writers (``write_psd``, ``write_tiff``,
+   ``write_sgi``, ``write_pcx``, ``write_dcx``, ``write_blp``,
+   ``write_ftex``).
 """
 
 import io
@@ -594,10 +605,47 @@ _REFUSED_CONTAINERS = (
     ("webp_cut", "WebP"), ("dds", "DDS"), ("tiff", "TIFF"), ("qoi", "QOI"),
     ("pam", "PAM"), ("pfm", "colour PFM"), ("tiff_jpeg", "TIFF .*JPEG"),
     ("bigtiff_mm", "big-endian BigTIFF"), ("dds_bc4s", "DDS: FourCC"),
-    ("ppm_maxval", "Netpbm P3: a sample"))
+    ("ppm_maxval", "Netpbm P3: a sample"), ("psd_16", "PSD gray, 16-bit"),
+    ("psd_zip", "PSD .*compression 2"), ("psd_psb", "PSB"),
+    ("tiff_ycbcr_planar", "planar: YCbCr subsampling 2x2"),
+    ("tiff_ycbcr_gray", "YCbCr of three samples"),
+    ("sgi_la", "SGI 8-bit, dimension 3, 2 channels"),
+    ("sgi_comp2", "SGI 8-bit, dimension 3, 3 channels: compression 2"),
+    ("pcx_2planes", "unknown PCX mode"), ("dcx_empty", "DCX: no pages"),
+    ("blp_bgra", "BLP2 .*encoding 3"), ("blp2_jpeg", "BLP2 compression 0"),
+    ("ftex_formats", "FTEX with 2 formats"))
 # (case, the form named): PIL reads these, the port leaves them for later
 _NOT_YET = (("tiff_ccitt", "CCITT group 3: not yet ported"),
-            ("tiff_ycbcr", "YCbCr.*not yet ported"))
+            ("tiff_g4", "CCITT group 4: not yet ported"),
+            ("tiff_lab", "CIELab.*not yet ported"),
+            ("tiff_ojpeg", "old-style JPEG.*not yet ported"),
+            ("tiff_zstd", "Zstandard.*not yet ported"),
+            ("psd_lab", "PSD LAB, 8-bit: not yet ported"))
+
+
+def _ojpeg_tiff(rgb):
+    """An old-style JPEG TIFF (compression 6): one strip holding a whole
+    4:2:0 JPEG, which JPEGInterchangeFormat points at too."""
+    cs = IO._writers()
+    jpg = cs.write_jpeg(cs.rgb_to_ycc(rgb), [(2, 2), (1, 1), (1, 1)],
+                        jfif=False)
+    h, w = rgb.shape[:2]
+    n = len(jpg)
+    tags = [(256, 3, [w]), (257, 3, [h]), (258, 3, [8, 8, 8]),
+            (259, 3, [6]), (262, 3, [6]), (273, 4, [8]), (277, 3, [3]),
+            (278, 3, [h]), (279, 4, [n]), (513, 4, [8]), (514, 4, [n]),
+            (530, 3, [2, 2])]
+    pos = 8 + n + n % 2
+    spill = pos + 2 + 12 * len(tags) + 4     # BitsPerSample's three shorts
+    entries = b"".join(
+        struct.pack("<HHL", tag, typ, len(vals))
+        + (struct.pack("<L", spill) if len(vals) == 3 else struct.pack(
+            f"<{len(vals)}{'H' if typ == 3 else 'L'}", *vals).ljust(
+            4, b"\x00"))
+        for tag, typ, vals in tags)
+    return (b"II*\x00" + struct.pack("<L", pos) + jpg + bytes(n % 2)
+            + struct.pack("<H", len(tags)) + entries + bytes(4)
+            + struct.pack("<3H", 8, 8, 8))
 
 
 def _refused_container(case):
@@ -632,11 +680,50 @@ def _refused_container(case):
     if case == "pfm":
         return b"PF\n9 6\n-1.0\n" + rgb.astype("<f4").tobytes()
     if case == "tiff_jpeg":        # JPEG compression over bytes not a JPEG
-        return cs.write_tiff(rgb, compression=7)
+        return cs.write_tiff(rgb).replace(struct.pack("<HHLH", 259, 3, 1, 1),
+                                          struct.pack("<HHLH", 259, 3, 1, 7))
     if case == "tiff_ccitt":       # CCITT group 3: PIL's libtiff reads it
         return cs.write_tiff(rgb[..., 0] & 1, bits=1, compression=3)
-    if case == "tiff_ycbcr":       # uncompressed YCbCr: PIL reads it
-        return cs.write_tiff(rgb, photometric=6)
+    if case in ("tiff_g4", "tiff_zstd"):   # PIL's own writer
+        from PIL import Image
+
+        img = Image.fromarray(rgb[..., 0] > 127) if case == "tiff_g4" \
+            else Image.fromarray(rgb)
+        return _pil(img, "TIFF", compression=case[5:].replace(
+            "g4", "group4"))
+    if case == "tiff_lab":         # CIELab: PIL converts it with LittleCMS
+        return cs.write_tiff(rgb, photometric=8)
+    if case == "tiff_ojpeg":
+        return _ojpeg_tiff(rgb)
+    if case == "tiff_ycbcr_planar":    # planar YCbCr 2x2: no libtiff put
+        return cs.write_tiff(rgb, photometric=6, planar=2, compression=5)
+    if case == "tiff_ycbcr_gray":      # one YCbCr sample: libtiff refuses
+        return cs.write_tiff(rgb[..., 0], photometric=6, compression=5)
+    if case.startswith("psd_"):    # 16 bits, ZIP, PSB, LAB
+        bands = [rgb[..., 0].astype(np.uint16) * 257] if case == "psd_16" \
+            else [rgb[..., k] for k in range(3)]
+        return cs.write_psd(bands, 9 if case == "psd_lab" else 1 if len(
+            bands) == 1 else 3, 16 if case == "psd_16" else 8,
+            2 if case == "psd_zip" else 0,
+            version=2 if case == "psd_psb" else 1)
+    if case == "sgi_la":           # gray and alpha: no SGI mode in Pillow
+        return cs.write_sgi(rgb[..., :2], dimension=3)
+    if case == "sgi_comp2":        # neither verbatim nor RLE: no tile
+        data = bytearray(cs.write_sgi(rgb))
+        data[2] = 2
+        return bytes(data)
+    if case == "pcx_2planes":      # 8 bits in 2 planes: no PCX mode
+        return cs.write_pcx(rgb[..., :2], 8, 2)
+    if case == "dcx_empty":
+        return cs.write_dcx([])
+    if case == "blp_bgra":         # BLP2 raw BGRA: Pillow's decoder lacks it
+        return cs.write_blp(2, 9, 6, rgb.tobytes() * 2, encoding=3, alpha=8)
+    if case == "blp2_jpeg":        # JPEG in a BLP2: Pillow reads BLP1's only
+        return cs.write_blp(2, 9, 6, bytes(64), compression=0, encoding=1)
+    if case == "ftex_formats":     # Pillow reads single-format files only
+        data = bytearray(cs.write_ftex(9, 6, rgb.tobytes()))
+        data[20:24] = struct.pack("<i", 2)
+        return bytes(data)
     if case == "bigtiff_mm":       # Pillow reads it as a classic TIFF
         return cs.write_tiff(rgb, big=True, order=">")
     if case == "dds_bc4s":         # a FourCC Pillow does not map
@@ -653,12 +740,18 @@ def test_refused_containers_and_gltf_match_jax(tmp_path):
     TGA pixels, BMP, GIF and WebP files cut after 20 bytes, DDS, TIFF and
     QOI headers with no image, PAM (P7) and colour PFM (PF), which PIL
     does not open, a TIFF whose JPEG strip is no JPEG, a big-endian
-    BigTIFF (PIL reads it as classic TIFF), DDS's BC4S FourCC and a plain
-    PPM sample above its maxval: the port raises NotImplementedError
-    naming the form. CCITT and YCbCr TIFFs, which PIL reads, raise it
-    naming the form and "not yet ported". chip_smoke.py's
-    GLTF_CONTAINERS2 forms (DDS, TIFF, BigTIFF, PPM and QOI) at 40x36
-    decode bitwise as the JAX package decodes them. A .gltf whose image 2 is an
+    BigTIFF (PIL reads it as classic TIFF), DDS's BC4S FourCC, a plain
+    PPM sample above its maxval, 16-bit, ZIP-compressed and PSB PSDs,
+    planar YCbCr TIFFs subsampled and one-sample YCbCr TIFFs, an SGI of
+    gray and alpha, an SGI of compression 2, an 8-bit 2-plane PCX, a DCX without pages, BLP2 raw
+    BGRA and JPEG, and an FTEX of two formats: the port raises
+    NotImplementedError naming the form. The forms PIL reads and the port
+    leaves for later (TIFF CCITT group 3 and 4, CIELab, old-style JPEG
+    and Zstandard; PSD LAB) raise it naming the form and "not yet
+    ported". chip_smoke.py's GLTF_CONTAINERS2 and GLTF_CONTAINERS3 forms
+    (DDS, TIFF, BigTIFF, PPM, QOI; PSD, TIFF JPEG and LZMA, BLP, FTEX,
+    SGI, PCX) at 40x36 decode bitwise as the JAX package decodes them. A
+    .gltf whose image 2 is an
     external .webp (lossy, with alpha) and one whose image 0 is an
     embedded 32-bit BMP with an alpha mask load as the JAX loader loads
     them."""
@@ -708,17 +801,22 @@ def test_refused_containers_and_gltf_match_jax(tmp_path):
         with pytest.raises(NotImplementedError, match=form):
             read_image(data)
 
-    def containers2(form):     # the gltf phase's forms, at a small size
-        cs = IO._writers()
-        _, smooth, _ = _images(36, 40, form)
-        gray = "BC4" in form or "gray" in form
-        _same(cs.encode_container2(form, smooth[..., 1] if gray else smooth),
-              form)
+    cs = IO._writers()
 
+    def containers2(item):     # the gltf phase's forms, at a small size
+        key, form = item
+        _, smooth, _ = _images(36, 40, form)
+        gray = "BC4" in form or "gray" in form or key == "occlusion_texture"
+        encode = cs.encode_container2 if item in forms2 else \
+            cs.encode_container3
+        _same(encode(form, smooth[..., 1] if gray else smooth), form)
+
+    forms2 = [(k, f) for _, k, f in cs.GLTF_CONTAINERS2]
     IO._each(list(_REFUSED_CONTAINERS), refused)
     IO._each(list(_NOT_YET), not_yet)
     IO._each(["webp", "bmp"], loads)
-    IO._each([f for _, _, f in IO._writers().GLTF_CONTAINERS2], containers2)
+    IO._each(forms2 + [(k, f) for _, k, f in cs.GLTF_CONTAINERS3],
+             containers2)
 
 
 # -- 6-9: DDS, TIFF, Netpbm + QOI, ICO/CUR ----------------------------------
@@ -1015,3 +1113,289 @@ def test_ico_cur_matches_jax():
     cases += ["cur_8"]
     IO._each(cases, lambda case: [_same(_icon(case, h, w), (case, h, w))
                                   for h, w in _SIZES])
+
+
+# -- 10-13: PSD, the libtiff TIFF forms, SGI + PCX/DCX, BLP/FTEX ------------
+
+_SIZES3 = ((1, 1), (5, 7), (17, 33))                # (h, w)
+
+
+def _agree(data, case):
+    """The port's read_image bitwise the JAX package's, or both refusing
+    (the port with NotImplementedError) where PIL refuses -> whether the
+    images were compared."""
+    from paperrenderer_tpu.io.image import read_image as jax_read
+
+    try:
+        jax_read(data)
+    except Exception:   # noqa: BLE001 - PIL's OSError, ValueError, ...
+        with pytest.raises(NotImplementedError):
+            read_image(data)
+        return False
+    _same(data, case)
+    return True
+
+
+def _agree_sizes(make, case):
+    """``_agree`` on ``make(case, h, w)`` at each of _SIZES3, the images
+    compared bitwise at one size at least (PIL reads every case's file at
+    one size or more)."""
+    compared = [_agree(make(case, h, w), (case, h, w)) for h, w in _SIZES3]
+    assert any(compared), f"{case}: refused by PIL at every size"
+
+
+def _psd(cs, case, h, w):
+    """``case``'s PSD (<mode>_<compression>) at h x w by write_psd."""
+    rng, smooth, rgba = _images(h, w, case)
+    form, comp = case.rsplit("_", 1)
+    pal = rng.integers(0, 256, (3, 256)).astype(np.uint8).tobytes()
+    mode, bands, data = dict(
+        bitmap=(0, [rgba[..., 0] & 1], b""), gray=(1, [rgba[..., 0]], b""),
+        duotone=(8, [rgba[..., 0]], b"duotone data"),
+        multi=(7, [rgba[..., 0], rgba[..., 1]], b""),
+        indexed=(2, [rgba[..., 0]], pal), nopalette=(2, [rgba[..., 0]], b""),
+        rgb=(3, [smooth[..., k] for k in range(3)], b""),
+        rgba=(3, [rgba[..., k] for k in range(4)], b""),
+        rgb5=(3, [rgba[..., k] for k in range(4)] + [smooth[..., 0]], b""),
+        cmyk=(4, [rgba[..., k] for k in range(4)], b""),
+        grayalpha=(1, [rgba[..., 0], rgba[..., 3]], b""))[form]
+    return cs.write_psd(bands, mode, 1 if form == "bitmap" else 8, int(comp),
+                        data, resources=[(1039, b"icc", b"profile"),
+                                         (1005, b"", b"res")],
+                        layers=b"\x00\x00\x00\x04layr")
+
+
+def test_psd_matches_jax():
+    """PSD's merged composite bitwise the JAX package's (PIL's decode) at
+    1x1, 7x5 and 33x17, raw and PackBits, with image resources and a layer
+    section: bitmap ("1"), gray, duotone and multichannel ("L"), indexed
+    with and without its 768-byte palette ("P"), RGB, RGBA, RGB of five
+    channels (a PackBits file's counts read for three: PIL decodes the
+    rest of the table as data, or refuses), CMYK (inverted) and gray with
+    an alpha channel."""
+    cs = IO._writers()
+    forms = ("bitmap", "gray", "duotone", "multi", "indexed", "nopalette",
+             "rgb", "rgba", "rgb5", "cmyk", "grayalpha")
+    cases = [f"{f}_{c}" for f in forms for c in (0, 1)]
+    IO._each(cases, lambda case: _agree_sizes(
+        lambda *a: _psd(cs, *a), case))
+
+
+def _libtiff(cs, case, h, w):
+    """``case``'s TIFF at h x w: PIL's writer ("pil_<compression>_<mode>")
+    or write_tiff ("ycc_<h><v>_<compression>_<layout>", "jpeg_...",
+    ...)."""
+    rng, smooth, rgba = _images(h, w, case)
+    kind, *rest = case.split("_")
+    if kind == "pil":
+        from PIL import Image
+
+        img = Image.fromarray(np.concatenate([smooth, rgba[..., 3:]], -1))
+        return _pil(img.convert(rest[1]), "TIFF", compression=rest[0])
+    ycc = np.stack(cs.rgb_to_ycc(smooth), -1)
+    layouts = dict(strip={}, rows4=dict(rows_per_strip=4),
+                   rows8=dict(rows_per_strip=8), tile=dict(tile=(16, 16)),
+                   wide=dict(tile=(32, 16)))
+    if kind in ("ycc", "jpeg"):   # <kind>_<h><v>_<compression>_<layout>
+        sub = (int(rest[0][0]), int(rest[0][1]))
+        comp = 7 if kind == "jpeg" else int(rest[1])
+        samples = ycc if kind == "jpeg" else rgba[..., :3]
+        return cs.write_tiff(samples, photometric=6, compression=comp,
+                             subsampling=sub, **layouts[rest[-1]])
+    g12 = rng.integers(0, 4096, (h, w))
+    g12.flat[0] = 100                      # one sample below 255
+    forms = dict(
+        jpegrgb=(smooth, dict(compression=7, tile=(16, 16))),
+        jpeggray=(smooth[..., 0], dict(compression=7, rows_per_strip=3)),
+        ycoef=(rgba[..., :3], dict(
+            photometric=6, compression=5, subsampling=(2, 2),
+            coefficients=[(2990, 10000), (5870, 10000), (1140, 10000)],
+            reference=[(16, 1), (235, 1), (128, 1), (240, 1), (128, 1),
+                       (240, 1)])),
+        y709=(rgba[..., :3], dict(
+            photometric=6, compression=8, subsampling=(2, 1),
+            coefficients=[(2126, 10000), (7152, 10000), (722, 10000)],
+            reference=[(0, 1), (255, 1), (129, 2), (255, 1), (128, 1),
+                       (250, 1)])),
+        ypred=(rgba[..., :3], dict(photometric=6, compression=8,
+                                   subsampling=(2, 2), predictor=2)),
+        yplanar=(rgba[..., :3], dict(photometric=6, planar=2, compression=5,
+                                     subsampling=(1, 1), rows_per_strip=4)),
+        yraw=(rgba[..., :3], dict(photometric=6, subsampling=(2, 1))),
+        lzma=(smooth, dict(compression=34925, predictor=2,
+                           rows_per_strip=4)),
+        lzma16=(rgba[..., 0].astype(np.uint16) * 257, dict(
+            bits=16, compression=34925, predictor=2)),
+        oldlzw=(rgba[..., :3], dict(compression=5, old_lzw=True,
+                                    rows_per_strip=4)),
+        gray12=(g12, dict(bits=12, rows_per_strip=3)),
+        lzw12=(g12, dict(bits=12, compression=5)),
+        deflate12=(g12, dict(bits=12, compression=8, tile=(16, 16))))
+    samples, kw = forms[kind]
+    return cs.write_tiff(samples, **kw)
+
+
+def test_tiff_libtiff_forms_match_jax():
+    """The TIFF forms PIL reads through libtiff, bitwise the JAX package's
+    at 1x1, 7x5 and 33x17: PIL's JPEG (gray, RGB, RGBA, CMYK; photometric
+    RGB, the components as they are) and LZMA files; write_tiff's YCbCr
+    JPEGs (4:4:4, 4:2:2, 4:2:0; strips, a short last strip, tiles clipped
+    at the right and bottom; JPEGTables; libjpeg's upsampling and colour),
+    an RGB JPEG in tiles and a gray one in strips; compressed YCbCr
+    through libtiff's RGBA interface at every subsampling it puts (1x1,
+    1x2, 2x1, 2x2, 4x1, 4x2, 4x4 over LZW, deflate and PackBits, strips
+    and tiles, libtiff's 4x4 skew in clipped tiles), with
+    YCbCrCoefficients and ReferenceBlackWhite, predictor 2 and planar 1x1;
+    uncompressed YCbCr (Pillow's raw "RGBX", or its refusal); LZMA with
+    predictor 2 (8 and 16 bits); old-style LZW; 12-bit gray raw, LZW and
+    deflate."""
+    cs = IO._writers()
+    cases = [f"pil_{c}_{m}" for c in ("jpeg", "lzma")
+             for m in ("L", "RGB", "RGBA", "CMYK")]
+    cases += [f"jpeg_{s}_{lay}" for s, lay in (
+        ("11", "strip"), ("11", "wide"), ("21", "rows8"), ("21", "tile"),
+        ("22", "rows8"), ("22", "tile"), ("22", "wide"))]
+    subs = ("11", "12", "21", "22", "41", "42", "44")
+    cases += [f"ycc_{s}_{c}_{lay}" for i, s in enumerate(subs)
+              for c, lay in (((5, 8, 32773)[i % 3], "strip"),
+                             ((8, 32773, 5)[i % 3], "rows4"),
+                             ((32773, 5, 8)[i % 3], "tile"))]
+    cases += ["jpegrgb", "jpeggray", "ycoef", "y709", "ypred", "yplanar",
+              "yraw", "lzma", "lzma16", "oldlzw", "gray12", "lzw12",
+              "deflate12"]
+    IO._each(cases, lambda case: _agree_sizes(
+        lambda *a: _libtiff(cs, *a), case))
+
+
+def _sgi_pcx(cs, case, h, w):
+    """``case``'s SGI, PCX or DCX file at h x w: PIL's writers
+    ("pil_<format>_<mode>") or chip_smoke.py's numpy writers."""
+    rng, smooth, rgba = _images(h, w, case)
+    kind, *rest = case.split("_")
+    if kind == "pil":
+        from PIL import Image
+
+        fmt, mode = rest[0], rest[1]
+        img = {"1": Image.fromarray(rgba[..., 0] > 127),
+               "L": Image.fromarray(rgba[..., 0]),
+               "P": Image.fromarray(smooth).quantize(13),
+               "RGB": Image.fromarray(smooth),
+               "RGBA": Image.fromarray(rgba)}[mode]
+        kw = dict(bpc=2) if rest[2:] == ["16"] else {}
+        return _pil(img, fmt.upper(), **kw)
+    if kind == "tgapcx":       # a PCX header with an empty box: a TGA
+        data = bytearray(cs.write_tga(smooth, 2, 24, image_id=bytes(10)))
+        data[7] = 24                        # colour-map entry size, unused
+        return bytes(data)
+    if kind == "sgistop":      # a row's length field ends on a count
+        data = bytearray(cs.write_sgi(rgba[..., :3], 1, True))
+        r = h // 2                          # its channel 1: image stops
+        struct.pack_into(">I", data, 512 + 4 * 3 * h + 4 * (r + h), 1)
+        return bytes(data)
+    if kind == "sgi":          # sgi_<bytes a channel>_<raw|rle>_<channels>
+        bpc, z = int(rest[0]), int(rest[2])
+        v = rgba[..., :z].astype(np.uint32) * (257 if bpc == 2 else 1)
+        if bpc == 2:
+            v[..., 0] ^= np.arange(w, dtype=np.uint32) % 3   # low bytes vary
+        return cs.write_sgi(v[..., 0] if z == 1 else v, bpc,
+                            rest[1] == "rle")
+    pal = rng.integers(0, 256, (256, 3)).astype(np.uint8)
+    ramp = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+    pages = dict(
+        ega2=lambda: cs.write_pcx(rgba[..., 0] % 4, 1, 2, 2, ega=pal[:16]),
+        ega4=lambda: cs.write_pcx(rgba[..., 0] % 16, 1, 4, 2, ega=pal[:16]),
+        ega4packed=lambda: cs.write_pcx(rgba[..., 0] % 16, 1, 4, 2,
+                                        ega=pal[:16], stride=(w + 7) // 8),
+        rgb=lambda: cs.write_pcx(smooth, 8, 3),
+        rgbpacked=lambda: cs.write_pcx(smooth, 8, 3, stride=w),
+        pal=lambda: cs.write_pcx(rgba[..., 0], 8, 1, palette=pal),
+        ramp=lambda: cs.write_pcx(rgba[..., 0], 8, 1, palette=ramp,
+                                  stride=w),
+        bits=lambda: cs.write_pcx(rgba[..., 0] & 1, 1, 1, 3))
+    if kind == "dcx":          # dcx_<first page>_<second page>
+        return cs.write_dcx([pages[rest[0]](), pages[rest[1]]()])
+    return pages[rest[0]]()
+
+
+def test_sgi_pcx_dcx_match_jax():
+    """SGI, PCX and DCX bitwise the JAX package's (PIL's decode) at 1x1,
+    7x5 and 33x17: PIL's SGI (L, RGB, RGBA; 8 and 16 bits) and PCX (1, L,
+    P, RGB; Pillow's own 1x1 RGB file it then refuses) writers; write_sgi
+    verbatim and RLE, 8 and 16 bits, 1, 3 and 4 channels (16-bit samples
+    keep their high bytes), and an RLE row whose length field runs out on
+    a count (Pillow ends the image there); write_pcx's 2 and 4-plane EGA files (padded
+    and packed strides), 24-bit colour lines (padded: Pillow's fix-up, or
+    its misread at widths 1 and 3; packed), 8-bit palette and gray-ramp
+    files and a 1-bit one; DCX files whose first page is read, its
+    palette taken from the end of the file (the last page's); a TGA whose
+    header opens as a PCX with an empty box or, at 1x1, under 68 bytes
+    (PIL's PCX plugin turns it down and its TGA plugin reads it)."""
+    cs = IO._writers()
+    cases = [f"pil_sgi_{m}" for m in ("L", "RGB", "RGBA")]
+    cases += [f"pil_sgi_{m}_16" for m in ("L", "RGBA")]
+    cases += [f"pil_pcx_{m}" for m in ("1", "L", "P", "RGB")]
+    cases += [f"sgi_{b}_{r}_{z}" for b in (1, 2) for r in ("raw", "rle")
+              for z in (1, 3, 4)] + ["sgistop"]
+    cases += [f"pcx_{p}" for p in ("ega2", "ega4", "ega4packed", "rgb",
+                                   "rgbpacked", "pal", "ramp", "bits")]
+    cases += ["dcx_rgb_pal", "dcx_pal_rgb", "dcx_ega4_ramp"]
+    cases += ["tgapcx"]
+    IO._each(cases, lambda case: _agree_sizes(
+        lambda *a: _sgi_pcx(cs, *a), case))
+
+
+def _blp(cs, case, h, w):
+    """``case``'s BLP or FTEX file at h x w: PIL's BLP writer ("pil_<BLP1 |
+    BLP2>") or chip_smoke.py's write_blp / write_ftex."""
+    rng, smooth, rgba = _images(h, w, case)
+    kind, *rest = case.split("_")
+    if kind == "pil":
+        from PIL import Image
+
+        return _pil(Image.fromarray(smooth).quantize(13), "BLP",
+                    blp_version=rest[0])
+    if kind == "pal":          # pal_<version>_<alpha depth>
+        version, alpha = int(rest[0]), int(rest[1])
+        bgra = rng.integers(0, 256, (256, 4)).astype(np.uint8)
+        return cs.write_blp(version, w, h, rgba[..., 0].tobytes(), 1,
+                            1 if version == 2 else 4 + alpha % 2, alpha,
+                            palette=bgra)
+    if kind == "dxt":          # dxt_<alpha encoding>_<alpha depth>
+        enc, alpha = int(rest[0]), int(rest[1])
+        size = 8 if enc == 0 else 16
+        blocks = rng.bytes(((w + 3) // 4) * ((h + 3) // 4) * size)
+        return cs.write_blp(2, w, h, blocks, 1, 2, alpha, enc)
+    if kind == "jpeg":         # jpeg_<ycc | gray | ycck>_<alpha depth>
+        bgr = smooth[..., ::-1]
+        jpg = {"ycc": lambda: cs.write_jpeg(cs.rgb_to_ycc(bgr),
+                                            [(2, 2), (1, 1), (1, 1)]),
+               "gray": lambda: cs.write_jpeg([smooth[..., 0]]),
+               "ycck": lambda: cs.write_jpeg(
+                   [bgr[..., k] for k in range(3)] + [rgba[..., 0]],
+                   adobe=2, jfif=False)}[rest[0]]()
+        head, body = cs.jpeg_split(jpg)
+        return cs.write_blp(1, w, h, body, 0, 0, int(rest[1]),
+                            jpeg_header=b"".join(head))
+    if kind == "ftexraw":
+        return cs.write_ftex(w, h, smooth.tobytes(), 1)
+    return cs.write_ftex(w, h, cs.encode_bcn(smooth, 1), 0)
+
+
+def test_blp_ftex_match_jax():
+    """BLP and FTEX bitwise the JAX package's (PIL's decode) at 1x1, 7x5
+    and 33x17: PIL's BLP1 and BLP2 palette writers; write_blp's BLP1 and
+    BLP2 palettes at alpha depths 0, 1, 4 and 8 (the palette's alpha),
+    BLP2 DXT1 / DXT3 / DXT5 with and without alpha over seeded random
+    blocks (Pillow's Python decoders: unreplicated 5-6-5 endpoints, rows
+    of whole blocks re-read w pixels a row, RGB keeping three bytes of
+    four), BLP1 JPEGs (YCbCr, gray, YCCK read as CMYK; RGB and RGBA) re-read
+    as BGR; FTEX raw RGB and DXT1."""
+    cs = IO._writers()
+    cases = ["pil_BLP1", "pil_BLP2"]
+    cases += [f"pal_{v}_{a}" for v in (1, 2) for a in (0, 1, 4, 8)]
+    cases += [f"dxt_{e}_{a}" for e in (0, 1, 7) for a in (0, 8)]
+    cases += [f"jpeg_{k}_{a}" for k in ("ycc", "gray", "ycck")
+              for a in (0, 8)]
+    cases += ["ftexraw", "ftexdxt1"]
+    IO._each(cases, lambda case: _agree_sizes(
+        lambda *a: _blp(cs, *a), case))
